@@ -14,22 +14,42 @@ script then exits non-zero and prints no result):
 2. Builds the hand-written kernels from openpose_plus_tpu_torch/csrc/ with
    nvcc (openpose_plus_tpu_torch/ops/cuda/build.py).
 3. Kernel phases: each kernel against its plain PyTorch version on the
-   card and on a CPU copy, at the main-path shapes (batch 8; K=16 and K=32;
-   M=32) on random inputs with injected ties (tests/kernel_inputs.py).
-   Outputs must be bit-equal.
-4. Main path: Engine(default_config("mobilenet_thin"), seed=0,
+   card and on a CPU copy, on seeded random inputs (tests/kernel_inputs.py):
+   - greedy and merge at batch 8, K=16 and K=32, M=32, with injected ties:
+     bit-equal;
+   - fused_sepconv at the six (C, F) shapes of the fused model's 41 layers
+     (batch 8, 46x54) and one shape with ragged tiles: at most 2 units of
+     `kernel_inputs.bf16_mismatch` (one bf16 ulp before the last bias add)
+     and at least 98% identical elements;
+   - sample_paf at K=16 on the default 92x108 map and at K=32 on the
+     fidelity() 368x432 map (batch 8, edge coordinates): bit-equal;
+   - the depthwise probe (scripts/profile_pallas_dw.py's `run`) at
+     (8, 46, 82, C), C in {128, 256}: the DW body within 1 unit and 98%
+     identical, the copy body bit-equal. This is the probe's own path: its
+     counts are set to 0 before it and read after.
+4. Main paths: Engine(default_config("mobilenet_thin"), seed=0,
    device="cuda") at full width (368x432, width 0.75, 6 stages, bfloat16),
    its last stage's prediction kernels scaled so that random weights give
    maps the decoder groups, runs `infer` on an (8, 368, 432, 3) uint8
-   batch; both kernels' launch counts must rise during that call, every
-   image must decode to at least one human, and the outputs must have the
-   HumanBatch shapes and be finite. The float32 forward on the card must
-   match the float32 forward on the CPU, and a synthetic scene of three
-   standing people (tests/maputil.py) must decode to three full skeletons,
-   identically on the card (with TF32 allowed for matmuls) and on the CPU.
+   batch; the greedy, merge and sample_paf launch counts must rise during
+   that call, every image must decode to at least one human, and the
+   outputs must have the HumanBatch shapes and be finite. Then the same
+   with `fused_inference=True` on the same weights: fused_sepconv must
+   launch exactly 41 times in the call, the decoder's kernels must launch,
+   every image must decode to a human, and the final maps must lie within
+   2e-2 of the map scale of the unfused engine's. The float32 forward on
+   the card must match the float32 forward on the CPU, and a synthetic
+   scene of three standing people (tests/maputil.py) must decode to three
+   full skeletons, identically on the card (with TF32 allowed for matmuls)
+   and on the CPU.
 5. Timings (CUDA events, median of 20 after warm-up): `infer` at batch 8,
-   its CNN forward and decode parts alone, and each kernel beside its plain
-   version.
+   its CNN forward and decode parts alone, unfused and fused; each kernel
+   beside its plain version; per sepconv shape the kernel, its plain
+   version, the unfused layer (cuDNN depthwise + pointwise pair) and the
+   fused layer; the probe beside its traffic floor. For the new kernels'
+   shapes also the device time per call, replayed from a CUDA graph
+   (`device_ms`), which leaves out the host's dispatch that the event time
+   of one small call is made of.
 6. With --profile only: batch scaling (1, 8, 32; decode also at the
    fidelity() preset), the host's enqueue time per call, and the device's
    busy time per call from torch.profiler (see `profile`).
@@ -52,6 +72,24 @@ BATCH = 8
 TIMED_ITERS = 20
 WARMUP = 3
 PROFILED_CALLS = 5
+SEPCONV_MAX_UNITS = 2.0       # kernel_inputs.bf16_mismatch; see phase 3
+MIN_IDENTICAL = 0.98
+PROBE_HW = (46, 82)           # scripts/profile_pallas_dw.py B, H, W
+HBM_BYTES_PER_S = 3.35e12     # H100 SXM data sheet
+SOURCES = {   # kernel: (source, the TPU kernel it replaces)
+    "greedy_assign": ("openpose_plus_tpu_torch/csrc/greedy.cu",
+                      "openpose_plus_tpu/ops/pallas/greedy.py:53"),
+    "assemble": ("openpose_plus_tpu_torch/csrc/merge.cu",
+                 "openpose_plus_tpu/ops/pallas/merge.py:151"),
+    "fused_sepconv": ("openpose_plus_tpu_torch/csrc/sepconv.cu",
+                      "openpose_plus_tpu/ops/pallas/sepconv.py:59"),
+    "sample_paf": ("openpose_plus_tpu_torch/csrc/paf_sample.cu",
+                   "openpose_plus_tpu/ops/pallas/paf_sample.py:70"),
+    "dw3x3_relu": ("openpose_plus_tpu_torch/csrc/sepconv.cu",
+                   "scripts/profile_pallas_dw.py:49"),
+    "copy_bias": ("openpose_plus_tpu_torch/csrc/sepconv.cu",
+                  "scripts/profile_pallas_dw.py:49"),
+}
 
 
 def log(msg: str) -> None:
@@ -83,6 +121,30 @@ def median_ms(torch, fn) -> float:
     return statistics.median(times)
 
 
+def device_ms(torch, fn, calls: int = TIMED_ITERS) -> float:
+    """Device time per fn() call: `calls` calls captured in one CUDA graph
+    and replayed back to back, timed with CUDA events (median of 5 replays
+    after a warm-up one). No host dispatch runs between the kernels, so
+    unlike the event time around one eager call this is the device's own
+    time. Inputs stay in L2 where they fit (50 MB)."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        for _ in range(calls):
+            fn()
+    times = []
+    for _ in range(6):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / calls)
+    return statistics.median(times[1:])
+
+
 def max_abs_err(torch, outs, refs) -> float:
     err = 0.0
     for o, r in zip(outs, refs):
@@ -110,7 +172,7 @@ def load_test_helper(name: str):
     return module
 
 
-def scale_heads(torch, engine, images) -> dict:
+def scale_heads(torch, engine, images, gains=None) -> dict:
     """Scale the last stage's prediction kernels so the served decode finds
     humans on random weights and images.
 
@@ -118,16 +180,125 @@ def scale_heads(torch, engine, images) -> dict:
     threshold: the decoder would find no peaks and the kernels would group
     nothing. The heads' 1x1 convs have zero biases, so scaling their
     kernels scales the maps exactly; the gains bring max |conf| to 0.7 and
-    max |paf| to 5, as in tests/test_torch_engine.py."""
-    conf, paf = engine.forward(images)
+    max |paf| to 5, as in tests/test_torch_engine.py. Given `gains`, applies
+    those instead (the same weights in a second engine)."""
     stages = engine.model.stages
     n = engine.config.model.n_stages
-    gains = {}
-    for key, maps, target in (("conf", conf, 0.7), ("paf", paf, 5.0)):
-        gains[key] = target / float(maps.abs().max())
+    if gains is None:
+        conf, paf = engine.forward(images)
+        gains = {"conf": 0.7 / float(conf.abs().max()),
+                 "paf": 5.0 / float(paf.abs().max())}
+    for key in ("conf", "paf"):
         with torch.no_grad():
             getattr(stages, f"stage{n}_{key}").Conv_0.weight.mul_(gains[key])
     return gains
+
+
+def fused_shapes(common, model) -> dict:
+    """(C, F) -> number of the model's SepConvRelu layers that fuse."""
+    shapes: dict = {}
+    for m in model.modules():
+        if isinstance(m, common.SepConvRelu) and m.fused:
+            key = (m.dw_weight.shape[0], m.pw_weight.shape[0])
+            shapes[key] = shapes.get(key, 0) + 1
+    return shapes
+
+
+def sepconv_case(torch, inputs, rng, b, h, w, c, f) -> list:
+    """Seeded x (bf16) and float32 weights in the JAX layouts, on the CPU."""
+    x, *weights = inputs.sepconv_inputs(rng, b, h, w, c, f)
+    return [torch.from_numpy(x).to(torch.bfloat16),
+            *map(torch.from_numpy, weights)]
+
+
+def check_sepconv(torch, inputs, sepconv, args, dev) -> tuple:
+    """fused_sepconv on the card vs its plain version on the card and on
+    the CPU; returns (max_abs_err vs the CPU, worst units, least identical
+    share)."""
+    out = sepconv.fused_sepconv(*[t.to(dev) for t in args])
+    refs = (sepconv.fused_sepconv_plain(*[t.to(dev) for t in args]),
+            sepconv.fused_sepconv_plain(*args))
+    torch.cuda.synchronize()
+    floor = args[4].to(torch.bfloat16).float().abs().numpy()
+    worst, least = 0.0, 1.0
+    for where, ref in zip(("cuda", "cpu"), refs):
+        units, same = inputs.bf16_mismatch(out.float().cpu().numpy(),
+                                           ref.float().cpu().numpy(), floor)
+        if not (units <= SEPCONV_MAX_UNITS and same >= MIN_IDENTICAL):
+            raise AssertionError(
+                f"fused_sepconv {tuple(args[0].shape)} -> {out.shape[-1]} vs "
+                f"plain ({where}): {units} units, {same} identical")
+        worst, least = max(worst, units), min(least, same)
+    return max_abs_err(torch, [out], [refs[1]]), worst, least
+
+
+def time_sepconv(torch, common, sepconv, args, dev) -> dict:
+    """One sepconv shape: the kernel (weights already bf16), its plain
+    version, the unfused port layer (cuDNN depthwise + pointwise pair) and
+    the fused layer (weights cast per call, as in the model)."""
+    x = args[0].to(dev)
+    weights = [t.to(dev, torch.bfloat16) for t in args[1:]]
+    c, f = x.shape[-1], args[3].shape[-1]
+    layers = {}
+    for fused in (False, True):
+        layer = common.SepConvRelu(c, f, fused=fused)
+        for name, t in zip(("dw_weight", "dw_bias", "pw_weight", "pw_bias"),
+                           args[1:]):
+            getattr(layer, name).data = t.permute(3, 2, 0, 1).contiguous() \
+                if t.dim() == 4 else t
+        layers[fused] = layer.to(dev)
+    x_nchw = x.permute(0, 3, 1, 2)        # channels-last, as in the model
+    calls = {
+        "kernel": lambda: sepconv.fused_sepconv(x, *weights),
+        "plain": lambda: sepconv.fused_sepconv_plain(x, *weights),
+        "pair": lambda: layers[False](x_nchw),
+        "fused_layer": lambda: layers[True](x_nchw),
+    }
+    out = {f"{key}_ms": median_ms(torch, fn) for key, fn in calls.items()}
+    out.update({f"{key}_device_ms": device_ms(torch, fn)
+                for key, fn in calls.items()})
+    return out
+
+
+def check_sample_paf(torch, inputs, paf_sample, rng, dev, h, w, k) -> list:
+    """sample_paf bit-equal to its plain version on the card and the CPU;
+    returns the card's inputs."""
+    args = [torch.from_numpy(a) for a in inputs.paf_samples(rng, BATCH, h,
+                                                            w, k)]
+    args.append(paf_sample.limb_channels(torch.device("cpu")))
+    args_dev = [t.to(dev) for t in args]
+    out = paf_sample.sample_paf(*args_dev)
+    plain_dev = paf_sample.sample_paf_plain(*args_dev)
+    plain_cpu = paf_sample.sample_paf_plain(*args)
+    torch.cuda.synchronize()
+    assert_equal(torch, f"sample_paf K={k} {h}x{w} vs plain (cuda)", out,
+                 plain_dev)
+    assert_equal(torch, f"sample_paf K={k} {h}x{w} vs plain (cpu)", out,
+                 plain_cpu)
+    return args_dev
+
+
+def probe_case(torch, np, c) -> tuple:
+    """The probe's inputs, drawn as scripts/profile_pallas_dw.py's `run`
+    draws them: x (8, 46, 82, C) and dwk (9, C), bf16."""
+    rng = np.random.default_rng(0)
+    x = rng.standard_normal((BATCH, *PROBE_HW, c)).astype(np.float32)
+    dwk = (rng.standard_normal((9, c)) * 0.1).astype(np.float32)
+    return (torch.from_numpy(x).to(torch.bfloat16),
+            torch.from_numpy(dwk).to(torch.bfloat16))
+
+
+def check_map_scale(torch, what, outs, refs, rel_tol) -> list:
+    """max |out - ref| <= rel_tol * max |ref| per map; returns the ratios."""
+    ratios = []
+    for o, r in zip(outs, refs):
+        scale = float(r.abs().max())
+        err = float((o.float() - r.float()).abs().max())
+        if not err <= rel_tol * scale:
+            raise AssertionError(f"{what}: max_abs_err {err} > {rel_tol} x "
+                                 f"{scale}")
+        ratios.append(err / scale)
+    return ratios
 
 
 def profile(torch, np, rng, engine, images, gpu) -> None:
@@ -221,9 +392,12 @@ def main(argv: list[str]) -> int:
 
     import numpy as np
 
+    import dataclasses
+
     from openpose_plus_tpu_torch import Engine, default_config
-    from openpose_plus_tpu_torch.models import get_model
-    from openpose_plus_tpu_torch.ops.cuda import build, greedy, merge
+    from openpose_plus_tpu_torch.models import common, get_model
+    from openpose_plus_tpu_torch.ops.cuda import (build, dw_probe, greedy,
+                                                  merge, paf_sample, sepconv)
     from openpose_plus_tpu_torch.postproc import decode_maps
     maputil = load_test_helper("maputil")
     inputs = load_test_helper("kernel_inputs")
@@ -280,43 +454,140 @@ def main(argv: list[str]) -> int:
     log(f"kernels bit-equal to their plain versions at K=16, 32 (ties "
         f"included): max_abs_err {errs}")
 
-    # ---- 4. main path ----------------------------------------------------
-    engine = Engine(cfg, seed=0, device=dev)
+    # the phases below draw from their own generator, so the main path's
+    # images stay those of the runs before them
+    rng_new = np.random.default_rng(1)
     mc = cfg.model
+    cfg_fused = cfg.replace(model=dataclasses.replace(
+        mc, fused_inference=True))
+    # dw5-dw9 and three SepConvRelu per branch: 41 at the default 6 stages
+    n_fused = 5 + 2 * 3 * mc.n_stages
+    shapes = fused_shapes(common, get_model(cfg_fused.model))
+    if sum(shapes.values()) != n_fused:
+        raise AssertionError(f"fused model layers {shapes}: expected "
+                             f"{n_fused}")
+    cases = {cf: sepconv_case(torch, inputs, rng_new, BATCH, mc.hout,
+                              mc.wout, *cf) for cf in shapes}
+    ragged = sepconv_case(torch, inputs, rng_new, 3, 13, 21, 57, 40)
+    sep_stats = []
+    with torch.no_grad():
+        for case in [*cases.values(), ragged]:
+            sep_stats.append(check_sepconv(torch, inputs, sepconv, case,
+                                           dev))
+    errs["fused_sepconv"] = max(e for e, _, _ in sep_stats)
+    log(f"fused_sepconv vs plain at {sorted(shapes)} (batch {BATCH}, "
+        f"{mc.hout}x{mc.wout}) and (3, 13, 21) 57->40: worst "
+        f"{max(u for _, u, _ in sep_stats):.3g} units (limit "
+        f"{SEPCONV_MAX_UNITS}), least identical share "
+        f"{min(s for _, _, s in sep_stats):.5f}, max_abs_err "
+        f"{errs['fused_sepconv']:.3g}")
+
+    up = cfg.postproc.upsample_factor
+    fid = cfg.postproc.fidelity()
+    paf_args = check_sample_paf(torch, inputs, paf_sample, rng_new, dev,
+                                mc.hout * up, mc.wout * up,
+                                cfg.postproc.max_peaks)
+    check_sample_paf(torch, inputs, paf_sample, rng_new, dev,
+                     mc.hout * fid.upsample_factor,
+                     mc.wout * fid.upsample_factor, fid.max_peaks)
+    errs["sample_paf"] = 0.0
+    log(f"sample_paf bit-equal to its plain version at K="
+        f"{cfg.postproc.max_peaks} ({mc.hout * up}x{mc.wout * up}) and K="
+        f"{fid.max_peaks} ({mc.hout * fid.upsample_factor}x"
+        f"{mc.wout * fid.upsample_factor}), batch {BATCH}")
+
+    probes = {c: probe_case(torch, np, c) for c in (128, 256)}
+    torch.cuda.synchronize()
+    dw_probe.dw3x3_relu_launches = 0
+    dw_probe.copy_bias_launches = 0
+    probe_out = {c: (dw_probe.dw3x3_relu(x.to(dev), dwk.to(dev)),
+                     dw_probe.copy_bias(x.to(dev), dwk.to(dev)))
+                 for c, (x, dwk) in probes.items()}
+    torch.cuda.synchronize()
+    launches = {"dw3x3_relu": dw_probe.dw3x3_relu_launches,
+                "copy_bias": dw_probe.copy_bias_launches}
+    errs["dw3x3_relu"] = errs["copy_bias"] = 0.0
+    for c, (x, dwk) in probes.items():
+        dw, cp = probe_out[c]
+        for where, xs, ks in (("cuda", x.to(dev), dwk.to(dev)),
+                              ("cpu", x, dwk)):
+            units, same = inputs.bf16_mismatch(
+                dw.float().cpu().numpy(),
+                dw_probe.dw3x3_relu_plain(xs, ks).float().cpu().numpy())
+            if not (units <= 1.0 and same >= MIN_IDENTICAL):
+                raise AssertionError(f"dw3x3_relu C={c} vs plain ({where}):"
+                                     f" {units} units, {same} identical")
+            assert_equal(torch, f"copy_bias C={c} vs plain ({where})", [cp],
+                         [dw_probe.copy_bias_plain(xs, ks)])
+        errs["dw3x3_relu"] = max(errs["dw3x3_relu"], max_abs_err(
+            torch, [dw], [dw_probe.dw3x3_relu_plain(x, dwk)]))
+        log(f"probe C={c}: dw3x3_relu within {units:.3g} units, "
+            f"{same:.5f} identical; copy_bias bit-equal")
+    if launches != {"dw3x3_relu": 2, "copy_bias": 2}:
+        raise AssertionError(f"probe path launches {launches}")
+
+    # ---- 4. main paths ---------------------------------------------------
+    engine = Engine(cfg, seed=0, device=dev)
     images = torch.from_numpy(rng.integers(
         0, 256, (BATCH, mc.hin, mc.win, 3), dtype=np.uint8)).to(dev)
     gains = scale_heads(torch, engine, images)
-    engine.infer(images)                       # warm-up (cuDNN, allocator)
-    torch.cuda.synchronize()
-    greedy.launches = 0
-    merge.launches = 0
-    out = engine.infer(images)
-    torch.cuda.synchronize()
-    launches = {"greedy_assign": greedy.launches,
-                "assemble": merge.launches}
-    log(f"main path: Engine.infer {tuple(images.shape)} {mc.name} "
-        f"{mc.compute_dtype} {mc.n_stages} stages, head gains {gains}; "
-        f"kernel launches {launches}; humans per image "
-        f"{out.num_humans.tolist()}")
-    for name, n in launches.items():
-        if n < 1:
-            raise AssertionError(f"main path did not launch kernel {name}")
-    if not bool((out.num_humans > 0).all()):
-        raise AssertionError("main path decoded an image to no humans")
+    fused_engine = Engine(cfg_fused, seed=0, device=dev)
+    scale_heads(torch, fused_engine, images, gains)
+    for a, b in zip(engine.model.state_dict().values(),
+                    fused_engine.model.state_dict().values()):
+        if not torch.equal(a, b):
+            raise AssertionError("the two engines' weights differ")
     expect = {"coords": (BATCH, m, 18, 2), "part_scores": (BATCH, m, 18),
               "part_valid": (BATCH, m, 18), "score": (BATCH, m),
               "n_parts": (BATCH, m), "valid": (BATCH, m)}
-    for name, shape in expect.items():
-        t = getattr(out, name)
-        if tuple(t.shape) != shape or t.device != dev:
-            raise AssertionError(f"HumanBatch.{name}: {tuple(t.shape)} on "
-                                 f"{t.device}, expected {shape} on {dev}")
-        if t.dtype.is_floating_point and not bool(torch.isfinite(t).all()):
-            raise AssertionError(f"HumanBatch.{name} is not finite")
+    counted = {"greedy_assign": greedy, "assemble": merge,
+               "sample_paf": paf_sample, "fused_sepconv": sepconv}
+    path_launches = {}
+    for label, eng in (("default", engine), ("fused", fused_engine)):
+        eng.infer(images)                      # warm-up (cuDNN, allocator)
+        torch.cuda.synchronize()
+        for module in counted.values():
+            module.launches = 0
+        out = eng.infer(images)
+        torch.cuda.synchronize()
+        path_launches[label] = {name: module.launches
+                                for name, module in counted.items()}
+        log(f"main path ({label}): Engine.infer {tuple(images.shape)} "
+            f"{mc.name} {mc.compute_dtype} {mc.n_stages} stages, "
+            f"fused_inference={eng.config.model.fused_inference}, head gains "
+            f"{gains}; kernel launches {path_launches[label]}; humans per "
+            f"image {out.num_humans.tolist()}")
+        for name in ("greedy_assign", "assemble", "sample_paf"):
+            if path_launches[label][name] < 1:
+                raise AssertionError(f"{label} path did not launch {name}")
+        n = path_launches[label]["fused_sepconv"]
+        if n != (n_fused if label == "fused" else 0):
+            raise AssertionError(f"{label} path launched fused_sepconv {n} "
+                                 f"times, expected {n_fused} per fused call")
+        if not bool((out.num_humans > 0).all()):
+            raise AssertionError(f"{label} path decoded an image to no "
+                                 "humans")
+        for name, shape in expect.items():
+            t = getattr(out, name)
+            if tuple(t.shape) != shape or t.device != dev:
+                raise AssertionError(
+                    f"HumanBatch.{name}: {tuple(t.shape)} on {t.device}, "
+                    f"expected {shape} on {dev}")
+            if t.dtype.is_floating_point and not bool(
+                    torch.isfinite(t).all()):
+                raise AssertionError(f"HumanBatch.{name} is not finite")
+    launches.update(path_launches["default"])
+    launches["fused_sepconv"] = path_launches["fused"]["fused_sepconv"]
+    # the fused maps against the unfused ones: bf16 rounding
+    # (tests/test_torch_models.py REL_TOL["bfloat16"])
+    ratios = check_map_scale(torch, "fused vs unfused maps",
+                             fused_engine.forward(images),
+                             engine.forward(images), 2e-2)
+    log(f"fused vs unfused final maps: max_abs_err / scale conf "
+        f"{ratios[0]:.3g}, paf {ratios[1]:.3g} (limit 2e-2)")
 
     # float32 forward on the card vs on the CPU, full width, one image;
     # TF32 off for this comparison only
-    import dataclasses
     cfg32 = dataclasses.replace(mc, compute_dtype="float32")
     state = engine.model.state_dict()
     model_dev = get_model(cfg32).to(dev).eval()
@@ -374,15 +645,58 @@ def main(argv: list[str]) -> int:
         f"card == cpu")
 
     # ---- 5. timings -------------------------------------------------------
-    infer_ms = median_ms(torch, lambda: engine.infer(images))
-    forward_ms = median_ms(torch, lambda: engine.forward(images))
-    conf, paf = engine.forward(images)
-    decode_ms = median_ms(torch, lambda: decode_maps(conf, paf, cfg.postproc))
-    log(json.dumps({"infer": {
-        "model": mc.name, "batch": BATCH, "hw": [mc.hin, mc.win],
-        "dtype": mc.compute_dtype, "stages": mc.n_stages,
-        "ms": infer_ms, "fps": BATCH * 1000.0 / infer_ms,
-        "forward_ms": forward_ms, "decode_ms": decode_ms, "gpu": gpu}}))
+    for label, eng in (("default", engine), ("fused", fused_engine)):
+        infer_ms = median_ms(torch, lambda: eng.infer(images))
+        forward_ms = median_ms(torch, lambda: eng.forward(images))
+        conf, paf = eng.forward(images)
+        decode_ms = median_ms(torch, lambda: decode_maps(conf, paf,
+                                                         cfg.postproc))
+        log(json.dumps({"infer": {
+            "model": mc.name, "batch": BATCH, "hw": [mc.hin, mc.win],
+            "dtype": mc.compute_dtype, "stages": mc.n_stages,
+            "fused_inference": eng.config.model.fused_inference,
+            "ms": infer_ms, "fps": BATCH * 1000.0 / infer_ms,
+            "forward_ms": forward_ms, "decode_ms": decode_ms, "gpu": gpu}}))
+    sep_ms = {}
+    with torch.no_grad():
+        for (c, f), n in sorted(shapes.items()):
+            sep_ms[c, f] = time_sepconv(torch, common, sepconv, cases[c, f],
+                                        dev)
+            log(json.dumps({"sepconv": {
+                "batch": BATCH, "hw": [mc.hout, mc.wout], "c": c, "f": f,
+                "layers": n, **sep_ms[c, f], "gpu": gpu}}))
+    probe_ms = {}
+    for c, (x, dwk) in probes.items():
+        x, dwk = x.to(dev), dwk.to(dev)
+        probe_ms[c] = {
+            "dw3x3_relu": (
+                median_ms(torch, lambda: dw_probe.dw3x3_relu(x, dwk)),
+                median_ms(torch, lambda: dw_probe.dw3x3_relu_plain(x, dwk))),
+            "copy_bias": (
+                median_ms(torch, lambda: dw_probe.copy_bias(x, dwk)),
+                median_ms(torch, lambda: dw_probe.copy_bias_plain(x, dwk)))}
+        dw_dev = device_ms(torch, lambda: dw_probe.dw3x3_relu(x, dwk))
+        copy_dev = device_ms(torch, lambda: dw_probe.copy_bias(x, dwk))
+        # the traffic floor: bf16 in + out, at the copy kernel's own
+        # achieved rate (which makes it the copy's device time) and at the
+        # data sheet's
+        nbytes = x.numel() * 2 * 2
+        floor_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        log(json.dumps({"probe": {
+            "shape": list(x.shape), "dw_ms": probe_ms[c]["dw3x3_relu"][0],
+            "dw_plain_ms": probe_ms[c]["dw3x3_relu"][1],
+            "copy_ms": probe_ms[c]["copy_bias"][0],
+            "copy_plain_ms": probe_ms[c]["copy_bias"][1],
+            "dw_device_ms": dw_dev, "copy_device_ms": copy_dev,
+            "dw_plain_device_ms": device_ms(
+                torch, lambda: dw_probe.dw3x3_relu_plain(x, dwk)),
+            "copy_plain_device_ms": device_ms(
+                torch, lambda: dw_probe.copy_bias_plain(x, dwk)),
+            "bytes": nbytes, "copy_bytes_per_s": nbytes / (copy_dev * 1e-3),
+            "dw_over_copy_floor": dw_dev / copy_dev,
+            "datasheet_floor_ms": floor_ms,
+            "dw_over_datasheet_floor": dw_dev / floor_ms,
+            "floor_source": "H100 SXM data sheet, 3.35 TB/s", "gpu": gpu}}))
     k = cfg.postproc.max_peaks
     scores = torch.from_numpy(inputs.limb_scores(rng, BATCH, k)).to(dev)
     conns = [torch.from_numpy(x).to(dev)
@@ -397,25 +711,48 @@ def main(argv: list[str]) -> int:
                                                     m)),
             median_ms(torch, lambda: merge.assemble_plain(*conns, peak_score,
                                                           k, m))),
+        "sample_paf": (
+            median_ms(torch, lambda: paf_sample.sample_paf(*paf_args)),
+            median_ms(torch, lambda: paf_sample.sample_paf_plain(
+                *paf_args))),
+        # one forward's worth: every (C, F) shape times its layer count
+        "fused_sepconv": tuple(
+            sum(n * sep_ms[cf][key] for cf, n in shapes.items())
+            for key in ("kernel_ms", "plain_ms")),
+        # the probe path: one launch at each C
+        "dw3x3_relu": tuple(sum(p["dw3x3_relu"][i] for p in
+                                probe_ms.values()) for i in (0, 1)),
+        "copy_bias": tuple(sum(p["copy_bias"][i] for p in probe_ms.values())
+                           for i in (0, 1)),
     }
+    shape_of = {
+        "greedy_assign": f"batch {BATCH}, K={k}",
+        "assemble": f"batch {BATCH}, K={k}, M={m}",
+        "sample_paf": f"batch {BATCH}, K={k}, {tuple(paf_args[0].shape)} "
+                      "map",
+        "fused_sepconv": f"the {n_fused} layers of one batch-{BATCH} "
+                         "forward",
+        "dw3x3_relu": f"C=128 plus C=256 at ({BATCH}, *{PROBE_HW})",
+        "copy_bias": f"C=128 plus C=256 at ({BATCH}, *{PROBE_HW})"}
     for name, (ms, plain_ms) in timing.items():
         log(f"{name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms "
-            f"(batch {BATCH}, K={k}, M={m}; {gpu})")
+            f"({shape_of[name]}; {gpu})")
+    log(json.dumps({"sample_paf_device_ms": {
+        "kernel": device_ms(torch, lambda: paf_sample.sample_paf(
+            *paf_args)),
+        "plain": device_ms(torch, lambda: paf_sample.sample_paf_plain(
+            *paf_args)), "shape": shape_of["sample_paf"], "gpu": gpu}}))
     if args.profile:
         profile(torch, np, rng, engine, images, gpu)
 
     if "jax" in sys.modules or "flax" in sys.modules:
         raise AssertionError("the port pulled in jax/flax")
 
-    source = {"greedy_assign": ("openpose_plus_tpu_torch/csrc/greedy.cu",
-                                "openpose_plus_tpu/ops/pallas/greedy.py:53"),
-              "assemble": ("openpose_plus_tpu_torch/csrc/merge.cu",
-                           "openpose_plus_tpu/ops/pallas/merge.py:151")}
     log(json.dumps({"kernels": [
-        {"name": name, "route": "cuda", "source": source[name][0],
-         "replaces": source[name][1], "launches": launches[name],
-         "max_abs_err": errs[name], "ms": timing[name][0],
-         "plain_ms": timing[name][1]} for name in source]}))
+        {"name": name, "route": "cuda", "source": src, "replaces": replaces,
+         "launches": launches[name], "max_abs_err": errs[name],
+         "ms": timing[name][0], "plain_ms": timing[name][1]}
+        for name, (src, replaces) in SOURCES.items()]}))
     log(gpu)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,7 +1,7 @@
 """Shared building blocks of the pose models, in PyTorch.
 
-Port of `openpose_plus_tpu/models/common.py` (the plain lowering only: no
-space-to-depth rearrangements, no fused Pallas branch, no int8). Submodules
+Port of `openpose_plus_tpu/models/common.py` (the plain lowering and the
+fused separable branch; no space-to-depth rearrangements, no int8). Submodules
 and parameters carry the Flax scope names so the weight bridge
 (`openpose_plus_tpu_torch.checkpoint`) is a rename plus a transpose.
 
@@ -19,6 +19,8 @@ import math
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from openpose_plus_tpu_torch.ops.cuda import sepconv
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -87,13 +89,22 @@ class ConvRelu(nn.Module):
 
 class SepConvRelu(nn.Module):
     """Depthwise kxk + ReLU, pointwise 1x1 + ReLU
-    (`models/common.py::SepConvRelu`, plain branch)."""
+    (`models/common.py::SepConvRelu`, plain and fused branches).
+
+    With `fused` and a stride-1 3x3 bf16 layer (the shape/dtype part of the
+    JAX gate) the block runs as one `ops.cuda.sepconv.fused_sepconv` call;
+    the JAX gate's TPU VMEM budget (`fused_sepconv_fits`) is not ported, so
+    every such layer fuses. Inference only: the fused call has no
+    backward."""
 
     def __init__(self, in_features: int, features: int, kernel: int = 3,
-                 stride: int = 1, dtype: str = "bfloat16"):
+                 stride: int = 1, dtype: str = "bfloat16",
+                 fused: bool = False):
         super().__init__()
         self.stride = stride
         self.dtype = compute_dtype(dtype)
+        self.fused = (fused and stride == 1 and kernel == 3
+                      and self.dtype == torch.bfloat16)
         self.dw_weight = nn.Parameter(
             torch.empty(in_features, 1, kernel, kernel))
         self.dw_bias = nn.Parameter(torch.zeros(in_features))
@@ -103,6 +114,12 @@ class SepConvRelu(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.dtype
+        if self.fused:   # NCHW channels-last in, so NHWC-contiguous views
+            return sepconv.fused_sepconv(
+                x.to(dt).permute(0, 2, 3, 1),
+                self.dw_weight.permute(2, 3, 1, 0), self.dw_bias,
+                self.pw_weight.permute(2, 3, 1, 0), self.pw_bias,
+            ).permute(0, 3, 1, 2)
         y = conv2d_same(x.to(dt), self.dw_weight.to(dt), self.stride,
                         groups=self.dw_weight.shape[0])
         y = F.relu(_bias_add(y, self.dw_bias))
@@ -129,12 +146,13 @@ class StageBranch(nn.Module):
 
     def __init__(self, in_features: int, out_features: int,
                  n_convs: int, kernel: int, proj_features: int,
-                 mid_features: int = 128, dtype: str = "bfloat16"):
+                 mid_features: int = 128, dtype: str = "bfloat16",
+                 fused: bool = False):
         super().__init__()
         c = in_features
         for i in range(n_convs):
             self.add_module(f"SepConvRelu_{i}", SepConvRelu(
-                c, mid_features, kernel=kernel, dtype=dtype))
+                c, mid_features, kernel=kernel, dtype=dtype, fused=fused))
             c = mid_features
         self.ConvRelu_0 = ConvRelu(c, proj_features, kernel=1, dtype=dtype)
         self.Conv_0 = Conv1x1F32(proj_features, out_features)
@@ -154,7 +172,8 @@ class MultiStageHead(nn.Module):
                  n_pafs: int = 38, n_stages: int = 6, stage1_convs: int = 3,
                  stage1_kernel: int = 3, stage1_proj: int = 512,
                  refine_convs: int = 5, refine_kernel: int = 7,
-                 refine_mid: int = 128, dtype: str = "bfloat16"):
+                 refine_mid: int = 128, dtype: str = "bfloat16",
+                 fused: bool = False):
         super().__init__()
         self.n_stages = n_stages
         for s in range(n_stages):
@@ -167,10 +186,10 @@ class MultiStageHead(nn.Module):
                           kernel=refine_kernel, proj_features=refine_mid)
             self.add_module(f"stage{s + 1}_conf",
                             StageBranch(out_features=n_heatmaps, dtype=dtype,
-                                        **kw))
+                                        fused=fused, **kw))
             self.add_module(f"stage{s + 1}_paf",
                             StageBranch(out_features=n_pafs, dtype=dtype,
-                                        **kw))
+                                        fused=fused, **kw))
 
     def forward(self, feature: torch.Tensor
                 ) -> tuple[list[torch.Tensor], list[torch.Tensor]]:

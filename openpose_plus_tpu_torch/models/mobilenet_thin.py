@@ -1,5 +1,6 @@
 """MobileNet-thin in PyTorch (`openpose_plus_tpu/models/mobilenet_thin.py`,
-plain lowering).
+plain lowering; `fused_inference` fuses dw5-dw9 and every stage
+`SepConvRelu`, as the JAX model marks them).
 
 MobileNet v1 at width 0.75: a 3x3 stride-2 stem, nine depthwise-separable
 blocks (stride 8 overall), the stride-4 tap max-pooled onto the stride-8
@@ -33,6 +34,7 @@ class MobileNetThinPose(nn.Module):
         super().__init__()
         w = cfg.width_multiplier
         d = cfg.compute_dtype
+        fz = cfg.fused_inference   # dw5-dw9 and the stage head, as in JAX
         self.dtype = common.compute_dtype(d)
         c32, c64, c128, c256, c512 = (_w(w, c) for c in (32, 64, 128, 256,
                                                         512))
@@ -41,16 +43,16 @@ class MobileNetThinPose(nn.Module):
         self.dw2 = common.SepConvRelu(c64, c128, stride=2, dtype=d)
         self.dw3 = common.SepConvRelu(c128, c128, dtype=d)
         self.dw4 = common.SepConvRelu(c128, c256, stride=2, dtype=d)
-        self.dw5 = common.SepConvRelu(c256, c256, dtype=d)
-        self.dw6 = common.SepConvRelu(c256, c512, dtype=d)
-        self.dw7 = common.SepConvRelu(c512, c512, dtype=d)
-        self.dw8 = common.SepConvRelu(c512, c512, dtype=d)
-        self.dw9 = common.SepConvRelu(c512, c512, dtype=d)
+        self.dw5 = common.SepConvRelu(c256, c256, dtype=d, fused=fz)
+        self.dw6 = common.SepConvRelu(c256, c512, dtype=d, fused=fz)
+        self.dw7 = common.SepConvRelu(c512, c512, dtype=d, fused=fz)
+        self.dw8 = common.SepConvRelu(c512, c512, dtype=d, fused=fz)
+        self.dw9 = common.SepConvRelu(c512, c512, dtype=d, fused=fz)
         self.stages = common.MultiStageHead(
             c128 + c512, n_heatmaps=cfg.n_heatmaps, n_pafs=cfg.n_pafs,
             n_stages=cfg.n_stages, stage1_convs=3, stage1_kernel=3,
             stage1_proj=256, refine_convs=3, refine_kernel=3, refine_mid=128,
-            dtype=d)
+            dtype=d, fused=fz)
 
     def forward(self, x: torch.Tensor) -> dict:
         if x.shape[-1] != 3:

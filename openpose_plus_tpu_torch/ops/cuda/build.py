@@ -10,7 +10,8 @@ Each C entry point takes raw device pointers, sizes, the device index and
 the CUDA stream, launches on that stream without synchronising, and returns
 `cudaGetLastError()`; the Python wrappers raise when it is not 0.
 `--use_fast_math` is never passed: the merge kernel's float additions must
-keep their association.
+keep their association, and the separable conv's bf16 roundings their
+place.
 """
 
 from __future__ import annotations
@@ -38,6 +39,16 @@ _SIGNATURES = {
     # max_humans, n_create, parts, subset_score, count, device, stream
     "assemble_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                         _P, _P, _P, _I, _P],
+    # x, dw_kernel, dw_bias, pw_kernel, pw_bias, y, batch, h, w, c, f,
+    # device, stream
+    "fused_sepconv_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                             _I, _P],
+    # x, dw_kernel, y, batch, h, w, c, device, stream (both probe bodies)
+    "dw3x3_relu_launch": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "copy_bias_launch": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # paf, sy, sx, chans, px, py, batch, h, w, c, n_limbs, n, device, stream
+    "sample_paf_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                          _I, _P],
 }
 
 _lib: ctypes.CDLL | None = None

@@ -2,8 +2,9 @@
 
 Port of `openpose_plus_tpu/postproc/paf.py` (the gather lowering) with the
 batch dimension written out: scores are (B, n_limbs, K, K), connection
-fields (B, n_limbs, K). `greedy_assign` goes through the dispatching wrapper
-of the CUDA greedy kernel (`ops/cuda/greedy.py`).
+fields (B, n_limbs, K). The PAF samples and `greedy_assign` go through the
+dispatching wrappers of the CUDA sampling and greedy kernels
+(`ops/cuda/paf_sample.py`, `ops/cuda/greedy.py`).
 """
 
 from __future__ import annotations
@@ -14,8 +15,7 @@ import functools
 import numpy as np
 import torch
 
-from openpose_plus_tpu import skeleton
-from openpose_plus_tpu_torch.ops.cuda import greedy, merge
+from openpose_plus_tpu_torch.ops.cuda import greedy, merge, paf_sample
 from openpose_plus_tpu_torch.postproc import common, nms
 from openpose_plus_tpu_torch.postproc.nms import PeakSet
 
@@ -48,23 +48,9 @@ def _tables(device: torch.device, n_samples: int
     """Limb endpoint pairs ((L, 2) int32, the merge kernel's table), PAF
     channel pairs ((L, 2) int64) and the sample fractions, cached per device
     (no host copy per call)."""
-    return (merge.limb_pairs(device),
-            torch.as_tensor(skeleton.paf_channels_array(),
-                            device=device).long(),
+    return (merge.limb_pairs(device), paf_sample.limb_channels(device),
             torch.as_tensor(common.line_sample_fracs(n_samples),
                             device=device))
-
-
-def _sample_paf(paf: torch.Tensor, sy: torch.Tensor, sx: torch.Tensor,
-                chans: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """Nearest-neighbour samples of both PAF channels of every limb at
-    (B, L, S, K, K) integer coords (an exact gather)."""
-    b, h, w, c = paf.shape
-    flat = paf.reshape(b, h * w, c)
-    idx = (sy.long() * w + sx.long()).reshape(b, sy.shape[1], -1)  # (B,L,N)
-    px = flat[:, :, chans[:, 0]].transpose(1, 2).gather(2, idx)
-    py = flat[:, :, chans[:, 1]].transpose(1, 2).gather(2, idx)
-    return px.reshape(sy.shape), py.reshape(sy.shape)
 
 
 def score_candidates(paf: torch.Tensor, peaks: PeakSet, n_samples: int,
@@ -94,7 +80,8 @@ def score_candidates(paf: torch.Tensor, peaks: PeakSet, n_samples: int,
     ux, uy = dx / dist, dy / dist
 
     sy, sx = sample_coords(ax, ay, dx, dy, fracs)
-    px, py = _sample_paf(nms.upsample(paf, lowres_factor), sy, sx, chans)
+    px, py = paf_sample.sample_paf(
+        nms.upsample(paf, lowres_factor).contiguous(), sy, sx, chans)
 
     dots = px * ux[:, :, None] + py * uy[:, :, None]     # (B, L, S, K, K)
     mean_dot = dots.mean(dim=2)

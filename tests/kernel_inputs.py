@@ -1,5 +1,6 @@
-"""Random inputs for the decoder's two serial kernels (greedy assignment and
-subset merge), numpy only.
+"""Random inputs for the port's kernels (greedy assignment, subset merge,
+PAF sampling, fused separable conv and the depthwise probe), and the bf16
+agreement measure of the separable kernels; numpy only.
 
 Shared by the port's CPU tests, its `cuda`-marked tests and chip_smoke.py,
 which loads this file by path.
@@ -47,3 +48,50 @@ def connections(rng: np.random.Generator, b: int, k: int
 def peak_scores(rng: np.random.Generator, b: int, k: int) -> np.ndarray:
     """(b, 18, k) float32 peak scores."""
     return rng.uniform(0.1, 1.0, (b, N_PARTS, k)).astype(np.float32)
+
+
+def paf_samples(rng: np.random.Generator, b: int, h: int, w: int, k: int,
+                s: int = 10) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """paf (b, h, w, 38) float32 and in-bounds sample coordinates sy, sx
+    (b, 19, s, k, k) int32, with the map's corners and edges among them."""
+    paf = (rng.random((b, h, w, 2 * N_LIMBS), np.float32) - 0.5)
+    sy = rng.integers(0, h, (b, N_LIMBS, s, k, k)).astype(np.int32)
+    sx = rng.integers(0, w, (b, N_LIMBS, s, k, k)).astype(np.int32)
+    sy[:, :, 0], sx[:, :, 0] = 0, 0
+    sy[:, :, -1], sx[:, :, -1] = h - 1, w - 1
+    sy[:, 0, :, 0], sx[:, 1, :, 0] = h - 1, w - 1
+    return paf.astype(np.float32), sy, sx
+
+
+def sepconv_inputs(rng: np.random.Generator, b: int, h: int, w: int,
+                   c: int, f: int) -> tuple[np.ndarray, ...]:
+    """float32 x (b, h, w, c), dw_kernel (3, 3, 1, c), dw_bias (c,),
+    pw_kernel (1, 1, c, f), pw_bias (f,) in the JAX layouts: unit-variance
+    x, kernels scaled as the lecun-normal init (1 / sqrt(fan_in)), small
+    nonzero biases."""
+    return (rng.standard_normal((b, h, w, c)).astype(np.float32),
+            (rng.standard_normal((3, 3, 1, c)) / 3.0).astype(np.float32),
+            (0.1 * rng.standard_normal(c)).astype(np.float32),
+            (rng.standard_normal((1, 1, c, f)) / np.sqrt(c)).astype(
+                np.float32),
+            (0.1 * rng.standard_normal(f)).astype(np.float32))
+
+
+def bf16_mismatch(out, ref, floor=0.0) -> tuple[float, float]:
+    """Agreement of two bf16 results (given as float32 arrays): the worst
+    |out - ref| in units of 2**-7 * (max(|out|, |ref|) + floor), and the
+    share of identical elements.
+
+    One unit is at least one bf16 ulp of the larger value. `floor` is the
+    magnitude of the last bf16 add's other operand (the bias), where a 1-ulp
+    difference before that add can cancel down to a small result."""
+    out = np.asarray(out, np.float32)
+    ref = np.asarray(ref, np.float32)
+    if out.size == 0:
+        return 0.0, 1.0
+    d = np.abs(out - ref)
+    unit = 2.0 ** -7 * (np.maximum(np.abs(out), np.abs(ref)) + floor)
+    units = np.divide(d, unit, out=np.where(d > 0, np.inf, 0.0),
+                      where=unit > 0)
+    units = np.where(np.isnan(d), np.inf, units)
+    return float(units.max()), float(np.mean(out == ref))

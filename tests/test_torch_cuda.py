@@ -10,7 +10,13 @@ has no JAX:
 
 It covers what chip_smoke.py's main-path shapes do not: every register
 tiling of the greedy kernel (K from 1 to 32), merge tables with fewer than
-32 rows, an empty batch, and the wrappers' refusals on the card.
+32 rows, the separable conv at odd channel counts and ragged tiles, the PAF
+sampler at K = 1...32 with corner coordinates, the depthwise probe, empty
+batches, and the wrappers' refusals on the card.
+
+The separable kernels are held to their plain versions as
+tests/test_torch_sepconv.py states: `kernel_inputs.bf16_mismatch` at most 2
+units (1 for the probe's depthwise) and at least 98% identical elements.
 """
 
 import numpy as np
@@ -20,7 +26,8 @@ import torch
 # pytest puts this directory on sys.path; `from tests import ...` would
 # break where an installed package named `tests` shadows it
 import kernel_inputs
-from openpose_plus_tpu_torch.ops.cuda import greedy, merge
+from openpose_plus_tpu_torch.ops.cuda import (dw_probe, greedy, merge,
+                                              paf_sample, sepconv)
 
 pytestmark = pytest.mark.cuda
 
@@ -114,3 +121,141 @@ def test_empty_batch_launches_nothing(cuda):
     assert (greedy.launches, merge.launches) == before
     assert [tuple(t.shape) for t in out] == [
         (0, 19, 16)] * 4 + [(0, 32, 18), (0, 32), (0, 32)]
+
+
+def _sepconv_args(rng, b, h, w, c, f):
+    x, *weights = kernel_inputs.sepconv_inputs(rng, b, h, w, c, f)
+    return [torch.from_numpy(x).to(torch.bfloat16),
+            *map(torch.from_numpy, weights)]
+
+
+def _assert_bf16_close(out, ref, floor=0.0, max_units=2.0):
+    units, same = kernel_inputs.bf16_mismatch(
+        out.float().cpu().numpy(), ref.float().cpu().numpy(), floor)
+    assert units <= max_units and same >= 0.98, (units, same)
+
+
+# H, W = 11, 13: neither is a multiple of the 8x8 tile
+@pytest.mark.parametrize("c", [1, 8, 57, 537])
+@pytest.mark.parametrize("f", [1, 40, 384])
+def test_sepconv_kernel_matches_plain(cuda, c, f):
+    args = _sepconv_args(np.random.default_rng(c * f), 2, 11, 13, c, f)
+    before = sepconv.launches
+    with torch.no_grad():
+        out = sepconv.fused_sepconv(*[t.to(cuda) for t in args])
+        torch.cuda.synchronize()
+        assert sepconv.launches == before + 1
+        assert out.device.type == "cuda" and out.shape == (2, 11, 13, f)
+        floor = args[4].to(torch.bfloat16).float().abs().numpy()
+        _assert_bf16_close(out, sepconv.fused_sepconv_plain(*args), floor)
+        _assert_bf16_close(out, sepconv.fused_sepconv_plain(
+            *[t.to(cuda) for t in args]), floor)
+
+
+def test_fused_module_on_channels_last_activations(cuda):
+    """SepConvRelu(fused) reads the model's NCHW channels-last tensors as
+    NHWC; an NCHW-contiguous tensor is refused, never copied silently."""
+    from openpose_plus_tpu_torch.models.common import SepConvRelu, init_params
+
+    fused = SepConvRelu(48, 24, fused=True)
+    plain = SepConvRelu(48, 24)
+    init_params(fused, torch.Generator().manual_seed(0))
+    plain.load_state_dict(fused.state_dict())
+    x = torch.randn(2, 48, 10, 12, generator=torch.Generator().manual_seed(1))
+    x = x.to(torch.bfloat16)
+    with torch.no_grad():
+        ref = plain(x)
+        out = fused.to(cuda)(x.to(cuda).contiguous(
+            memory_format=torch.channels_last))
+        _assert_bf16_close(out, ref)
+        with pytest.raises(ValueError, match="channels-last"):
+            fused(x.to(cuda).contiguous())
+
+
+@pytest.mark.parametrize("k", [1, 2, 5, 16, 23, 32])
+def test_sample_paf_kernel_equals_plain(cuda, k):
+    paf, sy, sx = kernel_inputs.paf_samples(np.random.default_rng(k), 3, 23,
+                                            29, k)
+    chans = torch.as_tensor(np.asarray(
+        [[2 * i, 2 * i + 1] for i in range(19)])[::-1].copy())
+    args = [torch.from_numpy(a) for a in (paf, sy, sx)] + [chans]
+    before = paf_sample.launches
+    out = paf_sample.sample_paf(*[t.to(cuda) for t in args])
+    torch.cuda.synchronize()
+    assert paf_sample.launches == before + 1
+    for o, r in zip(out, paf_sample.sample_paf_plain(*args)):
+        assert o.device.type == "cuda" and torch.equal(o.cpu(), r)
+
+
+@pytest.mark.parametrize("c", [128, 20])
+def test_probe_kernels_match_plain(cuda, c):
+    rng = np.random.default_rng(c)
+    x = torch.from_numpy(rng.standard_normal((2, 46, 82, c)).astype(
+        np.float32)).to(torch.bfloat16)
+    dwk = torch.from_numpy((rng.standard_normal((9, c)) * 0.1).astype(
+        np.float32)).to(torch.bfloat16)
+    before = (dw_probe.dw3x3_relu_launches, dw_probe.copy_bias_launches)
+    dw = dw_probe.dw3x3_relu(x.to(cuda), dwk.to(cuda))
+    cp = dw_probe.copy_bias(x.to(cuda), dwk.to(cuda))
+    torch.cuda.synchronize()
+    assert (dw_probe.dw3x3_relu_launches,
+            dw_probe.copy_bias_launches) == (before[0] + 1, before[1] + 1)
+    _assert_bf16_close(dw, dw_probe.dw3x3_relu_plain(x, dwk), max_units=1.0)
+    assert torch.equal(cp.cpu(), dw_probe.copy_bias_plain(x, dwk))
+
+
+def test_new_wrappers_refuse_what_the_kernels_do_not_take(cuda):
+    args = [t.to(cuda) for t in _sepconv_args(np.random.default_rng(5), 1, 9,
+                                              10, 16, 8)]
+    with torch.no_grad():
+        with pytest.raises(ValueError, match="stride 1"):
+            sepconv.fused_sepconv(*args, stride=2)
+        with pytest.raises(ValueError, match="bf16"):
+            sepconv.fused_sepconv(args[0].float(), *args[1:])
+        nchw = args[0].permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1)
+        with pytest.raises(ValueError, match="contiguous"):
+            sepconv.fused_sepconv(nchw, *args[1:])
+        with pytest.raises(ValueError, match="one device"):
+            sepconv.fused_sepconv(args[0], args[1].cpu(), *args[2:])
+    w = args[1].clone().requires_grad_()
+    with pytest.raises(RuntimeError, match="backward"):
+        sepconv.fused_sepconv(args[0], w, *args[2:])
+    dwk = args[1].reshape(9, 16).to(torch.bfloat16)
+    with pytest.raises(ValueError, match="bf16"):
+        dw_probe.dw3x3_relu(args[0].float(), dwk)
+    with pytest.raises(ValueError, match="bf16"):
+        dw_probe.copy_bias(nchw, dwk)
+    paf, sy, sx = (torch.from_numpy(a).to(cuda) for a in
+                   kernel_inputs.paf_samples(np.random.default_rng(6), 1, 8,
+                                             9, 4))
+    chans = torch.arange(38, device=cuda).reshape(19, 2)
+    with pytest.raises(ValueError, match="int32"):
+        paf_sample.sample_paf(paf, sy.long(), sx, chans)
+    with pytest.raises(ValueError, match="contiguous"):
+        paf_sample.sample_paf(paf.transpose(1, 2).contiguous().transpose(
+            1, 2), sy, sx, chans)
+    with pytest.raises(ValueError):
+        paf_sample.sample_paf(paf, sy[:, :18], sx[:, :18], chans)
+
+
+def test_new_kernels_launch_nothing_on_an_empty_batch(cuda):
+    args = [t.to(cuda) for t in _sepconv_args(np.random.default_rng(7), 0, 9,
+                                              10, 16, 8)]
+    paf, sy, sx = (torch.from_numpy(a).to(cuda) for a in
+                   kernel_inputs.paf_samples(np.random.default_rng(8), 0, 8,
+                                             9, 4))
+    chans = torch.arange(38, device=cuda).reshape(19, 2)
+    dwk = torch.zeros((9, 16), dtype=torch.bfloat16, device=cuda)
+    before = (sepconv.launches, paf_sample.launches,
+              dw_probe.dw3x3_relu_launches, dw_probe.copy_bias_launches)
+    with torch.no_grad():
+        y = sepconv.fused_sepconv(*args)
+    px, py = paf_sample.sample_paf(paf, sy, sx, chans)
+    dw = dw_probe.dw3x3_relu(args[0], dwk)
+    cp = dw_probe.copy_bias(args[0], dwk)
+    assert (sepconv.launches, paf_sample.launches,
+            dw_probe.dw3x3_relu_launches,
+            dw_probe.copy_bias_launches) == before
+    assert [tuple(t.shape) for t in (y, px, py, dw, cp)] == [
+        (0, 9, 10, 8), (0, 19, 10, 4, 4), (0, 19, 10, 4, 4),
+        (0, 9, 10, 16), (0, 9, 10, 16)]

@@ -132,3 +132,44 @@ def test_random_init_statistics_follow_flax():
     sigma = (1.0 / w[0].numel()) ** 0.5 / 0.87962566103423978
     assert float(w.abs().max()) <= 2 * sigma
     assert abs(float(w.std()) / (1.0 / w[0].numel()) ** 0.5 - 1) < 0.02
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_fused_inference_routes_the_marked_layers(dtype, monkeypatch):
+    """`fused_inference=True` sends exactly the layers the JAX model marks
+    `fused` (dw5-dw9 and every stage SepConvRelu) through
+    `ops.cuda.sepconv.fused_sepconv`, never dw1-dw4; in float32 the flag
+    changes nothing, as in JAX. (The port used to ignore the flag.)"""
+    from openpose_plus_tpu_torch.ops.cuda import sepconv
+
+    cfg = dataclasses.replace(
+        default_config("mobilenet_thin").model, hin=64, win=64, n_stages=2,
+        compute_dtype=dtype, fused_inference=True)
+    model = torch_model(cfg)
+    common.init_params(model, torch.Generator().manual_seed(0))
+    current, calls = [None], []
+    for name, module in model.named_modules():
+        if isinstance(module, common.SepConvRelu):
+            module.register_forward_pre_hook(
+                lambda m, args, name=name: current.__setitem__(0, name))
+    real = sepconv.fused_sepconv
+
+    def spy(*args, **kwargs):
+        calls.append(current[0])
+        return real(*args, **kwargs)
+
+    monkeypatch.setattr(sepconv, "fused_sepconv", spy)
+    x = np.random.default_rng(0).uniform(-0.5, 0.5, (1, 64, 64, 3))
+    with torch.no_grad():
+        model(torch.from_numpy(x.astype(np.float32)))
+    marked = [f"dw{i}" for i in range(5, 10)] + [
+        f"stages.stage{s}_{branch}.SepConvRelu_{i}" for s in (1, 2)
+        for branch in ("conf", "paf") for i in range(3)]
+    assert calls == (marked if dtype == "bfloat16" else [])
+
+    full = torch_model(dataclasses.replace(
+        default_config("mobilenet_thin").model, compute_dtype=dtype,
+        fused_inference=True))
+    n_fused = sum(m.fused for m in full.modules()
+                  if isinstance(m, common.SepConvRelu))
+    assert n_fused == (41 if dtype == "bfloat16" else 0)

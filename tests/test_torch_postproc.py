@@ -2,9 +2,10 @@
 
 Each stage is fed the reference's own floats (as test_postproc_parity.py
 does for the numpy oracle), so exact stages compare exactly: peak sets,
-sample coordinates, greedy order and merge tables bit for bit. The plain
-PyTorch versions of the two CUDA kernels (greedy assignment, subset merge)
-must equal both the XLA twins and the Pallas kernels in interpret mode.
+sample coordinates, PAF samples, greedy order and merge tables bit for bit.
+The plain PyTorch versions of the decoder's three CUDA kernels (PAF
+sampling, greedy assignment, subset merge) must equal the Pallas kernels in
+interpret mode (and the XLA twins, where the reference has them).
 """
 
 import dataclasses
@@ -25,6 +26,7 @@ from openpose_plus_tpu.postproc import (
     paf as jpaf)
 from openpose_plus_tpu_torch.ops.cuda import greedy as tgreedy
 from openpose_plus_tpu_torch.ops.cuda import merge as tmerge
+from openpose_plus_tpu_torch.ops.cuda import paf_sample as tpaf_sample
 from openpose_plus_tpu_torch.postproc import decode_maps
 from openpose_plus_tpu_torch.postproc import nms as tnms, paf as tpaf
 
@@ -179,6 +181,49 @@ def test_score_candidates_matches_jax(kind, cfg):
         torch.from_numpy(jcommon.line_sample_fracs(cfg.paf_n_samples)))
     np.testing.assert_array_equal(tsy[0].numpy(), np.asarray(sy))
     np.testing.assert_array_equal(tsx[0].numpy(), np.asarray(sx))
+
+
+# ------------------------------------------------- PAF sampler (kernel 4) ---
+
+@pytest.mark.parametrize("seed", [0, 1])
+@pytest.mark.parametrize("h,w", [(46, 54), (92, 164)])
+def test_plain_sample_paf_matches_pallas(seed, h, w):
+    """The plain gather against `sample_paf_pallas` in interpret mode (as
+    tests/test_lowering_equiv.py:174-196 runs it): bit-exact."""
+    import unittest.mock
+
+    from jax.experimental import pallas as pl
+
+    from openpose_plus_tpu.ops.pallas.paf_sample import sample_paf_pallas
+
+    paf, sy, sx = kernel_inputs.paf_samples(np.random.default_rng(seed), 1,
+                                            h, w, 16)
+    with unittest.mock.patch.object(
+            pl, "pallas_call", functools.partial(pl.pallas_call,
+                                                 interpret=True)):
+        ref = sample_paf_pallas(jnp.asarray(paf[0]), jnp.asarray(sy[0]),
+                                jnp.asarray(sx[0]))
+    chans = tpaf_sample.limb_channels(torch.device("cpu"))
+    out = tpaf_sample.sample_paf_plain(_t(paf), _t(sy), _t(sx), chans)
+    for o, r in zip(out, ref):
+        assert o.shape == (1, 19, 10, 16, 16) and o.dtype == torch.float32
+        np.testing.assert_array_equal(o[0].numpy(), np.asarray(r))
+
+
+def test_sample_paf_wrapper_dispatch():
+    """score_candidates samples through the wrapper: a CPU tensor takes the
+    plain version (no launch); another device is refused."""
+    paf, sy, sx = kernel_inputs.paf_samples(np.random.default_rng(2), 2, 9,
+                                            11, 4, s=3)
+    chans = tpaf_sample.limb_channels(torch.device("cpu"))
+    args = (_t(paf), _t(sy), _t(sx), chans)
+    before = tpaf_sample.launches
+    out = tpaf_sample.sample_paf(*args)
+    assert tpaf_sample.launches == before
+    for o, r in zip(out, tpaf_sample.sample_paf_plain(*args)):
+        assert torch.equal(o, r)
+    with pytest.raises(ValueError, match="device"):
+        tpaf_sample.sample_paf(*[t.to("meta") for t in args])
 
 
 # ------------------------------------------------------ greedy (kernel 1) ---

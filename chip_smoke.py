@@ -42,15 +42,32 @@ script then exits non-zero and prints no result):
    scene of three standing people (tests/maputil.py) must decode to three
    full skeletons, identically on the card (with TF32 allowed for matmuls)
    and on the CPU.
-5. Timings (CUDA events, median of 20 after warm-up): `infer` at batch 8,
+5. Accuracy paths, on both engines of phase 4 and its images (see
+   `accuracy_paths`): the s2d and s2d^2 forms of the images give HumanBatches
+   equal to the plain call's, with and without flip-TTA; `infer(flip_tta=
+   True)` launches the decoder's kernels (and fused_sepconv 41 x 2 times on
+   the fused engine) and finds a human in every image; `mirror_maps` twice
+   is the identity; the three-person scene decoded from its mirrored maps
+   is the scene mirrored, card == CPU; `infer_multiscale` at scales (0.5,
+   1.0, 1.5) with flip, "avg" and "dedup", launches the kernels on every
+   decode (fused_sepconv 41 x 6), gives sorted finite HumanBatches of 32
+   and 96 rows, and the fused maps lie within 2e-2 of the unfused ones at
+   each scale's grid (23x27, 46x54, 69x81); the `quality()` decoder on a
+   scene of truncated people agrees card vs CPU and merges fragments
+   (fewer, fuller skeletons than `fidelity()`); `merge_dedup` on the card
+   equals the CPU's.
+6. Timings (CUDA events, median of 20 after warm-up): `infer` at batch 8,
    its CNN forward and decode parts alone, unfused and fused; each kernel
    beside its plain version; per sepconv shape the kernel, its plain
    version, the unfused layer (cuDNN depthwise + pointwise pair) and the
    fused layer; the probe beside its traffic floor. For the new kernels'
    shapes also the device time per call, replayed from a CUDA graph
    (`device_ms`), which leaves out the host's dispatch that the event time
-   of one small call is made of.
-6. With --profile only: batch scaling (1, 8, 32; decode also at the
+   of one small call is made of. The accuracy paths (`accuracy_timings`):
+   `infer` on plain, s2d and s2d^2 input, flip-TTA, scale search avg and
+   dedup, the quality decode and its fragment merge alone, `merge_dedup`
+   alone, and batch 32 with and without `chunk=8`.
+7. With --profile only: batch scaling (1, 8, 32; decode also at the
    fidelity() preset), the host's enqueue time per call, and the device's
    busy time per call from torch.profiler (see `profile`).
 
@@ -61,6 +78,7 @@ before it the per-kernel JSON record; the last line is
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import statistics
@@ -76,6 +94,7 @@ SEPCONV_MAX_UNITS = 2.0       # kernel_inputs.bf16_mismatch; see phase 3
 MIN_IDENTICAL = 0.98
 PROBE_HW = (46, 82)           # scripts/profile_pallas_dw.py B, H, W
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM data sheet
+SCALES = (0.5, 1.0, 1.5)      # infer_multiscale's default scale search
 SOURCES = {   # kernel: (source, the TPU kernel it replaces)
     "greedy_assign": ("openpose_plus_tpu_torch/csrc/greedy.cu",
                       "openpose_plus_tpu/ops/pallas/greedy.py:53"),
@@ -301,6 +320,311 @@ def check_map_scale(torch, what, outs, refs, rel_tol) -> list:
     return ratios
 
 
+def launches_during(torch, counted, fn):
+    """fn() with every kernel count set to 0 just before it; returns
+    (fn's result, {kernel: launches in the call})."""
+    torch.cuda.synchronize()
+    for module in counted.values():
+        module.launches = 0
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {name: module.launches for name, module in counted.items()}
+
+
+def check_launches(what, launches, at_least, fused_sepconv) -> None:
+    for name in ("greedy_assign", "assemble", "sample_paf"):
+        if launches[name] < at_least:
+            raise AssertionError(f"{what}: {name} launched {launches[name]}"
+                                 f" times, expected >= {at_least}")
+    if launches["fused_sepconv"] != fused_sepconv:
+        raise AssertionError(f"{what}: fused_sepconv launched "
+                             f"{launches['fused_sepconv']} times, expected "
+                             f"{fused_sepconv}")
+
+
+def assert_batches_equal(torch, what, a, b) -> None:
+    for f in dataclasses.fields(a):
+        if not torch.equal(getattr(a, f.name), getattr(b, f.name)):
+            raise AssertionError(f"{what}: HumanBatch.{f.name} differs")
+
+
+def check_humans(torch, what, out, rows, dev) -> None:
+    """HumanBatch of (BATCH, rows) on dev, finite, valid rows first by
+    descending score."""
+    for f in dataclasses.fields(out):
+        t = getattr(out, f.name)
+        if tuple(t.shape[:2]) != (BATCH, rows) or t.device != dev:
+            raise AssertionError(f"{what}: HumanBatch.{f.name} "
+                                 f"{tuple(t.shape)} on {t.device}")
+        if t.dtype.is_floating_point and not bool(torch.isfinite(t).all()):
+            raise AssertionError(f"{what}: HumanBatch.{f.name} not finite")
+    first = (torch.arange(rows, device=dev)[None]
+             < out.num_humans[:, None])
+    both = out.valid[:, 1:] & out.valid[:, :-1]
+    if not (torch.equal(out.valid, first) and bool(
+            (out.score[:, :-1] >= out.score[:, 1:])[both].all())):
+        raise AssertionError(f"{what}: rows not compacted by score")
+
+
+def compare_decodes(torch, what, on_dev, on_cpu, score_tol) -> None:
+    """Masks equal; coords and part scores within 1e-5; mean scores within
+    score_tol (float64 contractions in another order: ~1 ulp, which at
+    fidelity()'s flat peak tops can move a PAF sample)."""
+    for name in ("valid", "n_parts", "part_valid"):
+        assert_equal(torch, f"{what} {name} card vs cpu",
+                     [getattr(on_dev, name)], [getattr(on_cpu, name)])
+    for name, tol in (("coords", 1e-5), ("part_scores", 1e-5),
+                      ("score", score_tol)):
+        err = float((getattr(on_dev, name).cpu()
+                     - getattr(on_cpu, name)).abs().max())
+        if not err <= tol:
+            raise AssertionError(f"{what} {name} card vs cpu: {err} > {tol}")
+
+
+def three_people(torch, np, maputil, mc):
+    """phase 4's scene: three standing people, BATCH copies (CPU)."""
+    people = [maputil.standing_person(11.37 + 15.61 * i, 21.43 - 0.7 * i,
+                                      0.93 + 0.1 * i) for i in range(3)]
+    conf, paf = maputil.make_maps(people, mc.hout, mc.wout)
+    return (torch.from_numpy(np.stack([conf] * BATCH)),
+            torch.from_numpy(np.stack([paf] * BATCH)))
+
+
+def truncated_people(torch, np, maputil, mc):
+    """Two standing people without the neck and ears, BATCH copies (CPU):
+    head, arms and legs are five disjoint fragments for the limb graph
+    (tests/test_torch_quality.py's scene)."""
+    people = []
+    for cx, cy, s in ((13.37, 21.43, 1.0), (39.61, 22.1, 1.1)):
+        person = maputil.standing_person(cx, cy, s)
+        people.append({p: xy for p, xy in person.items()
+                       if p not in (1, 16, 17)})
+    conf, paf = maputil.make_maps(people, mc.hout, mc.wout)
+    return (torch.from_numpy(np.stack([conf] * BATCH)),
+            torch.from_numpy(np.stack([paf] * BATCH)))
+
+
+def check_mirrored_scene(torch, np, maputil, flip, decode_maps, postproc,
+                         mc, dev) -> None:
+    """The three-person scene decoded from `mirror_maps` of its maps: card
+    == CPU, and the same people with x -> 1 - x and left/right parts
+    swapped within 1e-5 of the scene's own decode."""
+    conf, paf = three_people(torch, np, maputil, mc)
+    on_dev = decode_maps(*flip.mirror_maps(conf.to(dev), paf.to(dev)),
+                         postproc)
+    mirrored = decode_maps(*flip.mirror_maps(conf, paf), postproc)
+    compare_decodes(torch, "mirrored scene", on_dev, mirrored, 1e-5)
+    scene = decode_maps(conf, paf, postproc)
+    swap = torch.as_tensor(flip._PART_SWAP[:18])
+    for b in range(BATCH):
+        n = int(scene.num_humans[b])
+        if n != 3 or int(mirrored.num_humans[b]) != 3 or not bool(
+                (mirrored.n_parts[b, :3] == 18).all()):
+            raise AssertionError(
+                f"mirrored scene: {int(mirrored.num_humans[b])} humans, "
+                f"parts {mirrored.n_parts[b, :4].tolist()}")
+        mean_x = mirrored.coords[b, :n, :, 0].mean(-1)
+        for i in range(n):
+            ref = scene.coords[b, i][swap]
+            j = int((mean_x - (1 - ref[:, 0].mean())).abs().argmin())
+            err = max(float((mirrored.coords[b, j, :, 0]
+                             - (1 - ref[:, 0])).abs().max()),
+                      float((mirrored.coords[b, j, :, 1]
+                             - ref[:, 1]).abs().max()))
+            if not err <= 1e-5:
+                raise AssertionError(f"mirrored scene person {i}: {err}")
+
+
+def accuracy_paths(torch, np, maputil, engines, images, counted, n_fused,
+                   dev) -> dict:
+    """Phase 5 (module docstring). Returns what the timings reuse."""
+    from openpose_plus_tpu_torch import engine as engine_mod
+    from openpose_plus_tpu_torch.models import common
+    from openpose_plus_tpu_torch.postproc import decode, flip
+
+    engine = engines["default"]
+    cfg = engine.config
+    mc, m = cfg.model, cfg.postproc.max_humans
+    s2d = common.space_to_depth(images)
+    layouts = {"s2d": s2d, "s2d2": common.space_to_depth(s2d)}
+    for label, eng in engines.items():
+        for tta in (False, True):
+            ref = eng.infer(images, flip_tta=tta)
+            for name, x in layouts.items():
+                assert_batches_equal(torch, f"{label} {name} flip_tta={tta}",
+                                     eng.infer(x, flip_tta=tta), ref)
+        out, n = launches_during(
+            torch, counted, lambda: eng.infer(images, flip_tta=True))
+        check_launches(f"{label} flip-TTA", n, 1,
+                       2 * n_fused if label == "fused" else 0)
+        check_humans(torch, f"{label} flip-TTA", out, m, dev)
+        if not bool((out.num_humans > 0).all()):
+            raise AssertionError(f"{label} flip-TTA decoded an image to no "
+                                 "humans")
+        log(f"accuracy ({label}): s2d and s2d^2 inputs equal to plain, with "
+            f"and without flip-TTA; flip-TTA launches {n}, humans per image "
+            f"{out.num_humans.tolist()}")
+    conf, paf = engine.forward(images)
+    twice = flip.mirror_maps(*flip.mirror_maps(conf, paf))
+    if not (torch.equal(twice[0], conf) and torch.equal(twice[1], paf)):
+        raise AssertionError("mirror_maps twice is not the identity")
+    check_mirrored_scene(torch, np, maputil, flip, decode.decode_maps,
+                         cfg.postproc, mc, dev)
+    log("mirror_maps twice == identity on the card; mirrored scene decodes "
+        "as the scene mirrored (x -> 1 - x, L/R swapped), card == cpu")
+
+    # scale search, both combiners, both engines
+    for label, eng in engines.items():
+        for combine, rows, at_least in (("avg", m, 1),
+                                        ("dedup", m * len(SCALES), 3)):
+            out, n = launches_during(torch, counted, lambda: (
+                eng.infer_multiscale(images, SCALES, flip_tta=True,
+                                     combine=combine)))
+            check_launches(f"{label} scale search {combine}", n, at_least,
+                           6 * n_fused if label == "fused" else 0)
+            check_humans(torch, f"{label} scale search {combine}", out, rows,
+                         dev)
+            log(f"scale search ({label}, {combine}, scales {SCALES} + "
+                f"flip): launches {n}, humans per image "
+                f"{out.num_humans.tolist()}")
+        # one scale with the flip is flip-TTA, operation for operation
+        assert_batches_equal(
+            torch, f"{label} scale search at (1.0,) + flip vs flip-TTA",
+            eng.infer_multiscale(images, (1.0,), flip_tta=True),
+            eng.infer(images, flip_tta=True))
+        log(f"scale search ({label}) at scales (1.0,) + flip == "
+            "infer(flip_tta=True)")
+    x0 = engine_mod.preprocess_images(images)
+    with torch.inference_mode():
+        for s in SCALES:
+            size = (engine_mod.scaled_size(mc.hin, s, mc.stride),
+                    engine_mod.scaled_size(mc.win, s, mc.stride))
+            xi = engine_mod.resize_linear(x0, size)
+            maps = {}
+            for label, eng in engines.items():
+                out = eng.model(xi)
+                maps[label] = (out["conf"][-1], out["paf"][-1])
+            grid = tuple(maps["fused"][0].shape[1:3])
+            if grid != (size[0] // mc.stride, size[1] // mc.stride):
+                raise AssertionError(f"scale {s}: output grid {grid}")
+            ratios = check_map_scale(torch, f"scale {s} fused vs unfused",
+                                     maps["fused"], maps["default"], 2e-2)
+            log(f"scale {s} ({grid[0]}x{grid[1]} grid): fused vs unfused "
+                f"max_abs_err / scale conf {ratios[0]:.3g}, paf "
+                f"{ratios[1]:.3g} (limit 2e-2)")
+
+    # the quality decoder on truncated people: card vs cpu, merge fired
+    quality = cfg.postproc.quality()
+    fidelity = dataclasses.replace(quality, fragment_merge_rel=0.0)
+    conf, paf = truncated_people(torch, np, maputil, mc)
+    conf_dev, paf_dev = conf.to(dev), paf.to(dev)
+    q_dev, n = launches_during(torch, counted, lambda: decode.decode_maps(
+        conf_dev, paf_dev, quality))
+    check_launches("quality decode", n, 1, 0)
+    q_cpu = decode.decode_maps(conf, paf, quality)
+    compare_decodes(torch, "quality decode", q_dev, q_cpu, 5e-3)
+    f_dev = decode.decode_maps(conf_dev, paf_dev, fidelity)
+    if not (bool((q_dev.num_humans < f_dev.num_humans).all())
+            and int(q_dev.n_parts.max()) > int(f_dev.n_parts.max())):
+        raise AssertionError(
+            f"fragment merge did not fire: quality {q_dev.num_humans[0]} "
+            f"humans of {q_dev.n_parts[0, :4].tolist()} parts, fidelity "
+            f"{f_dev.num_humans[0]} of {f_dev.n_parts[0, :4].tolist()}")
+    merged = decode.merge_dedup([q_dev, f_dev])
+    assert_batches_equal(
+        torch, "merge_dedup card vs cpu",
+        decode.HumanBatch(**{f.name: getattr(merged, f.name).cpu()
+                             for f in dataclasses.fields(merged)}),
+        decode.merge_dedup([decode.HumanBatch(**{
+            f.name: getattr(x, f.name).cpu()
+            for f in dataclasses.fields(x)}) for x in (q_dev, f_dev)]))
+    log(f"quality decode (K={quality.max_peaks}, {quality.upsample_factor}x,"
+        f" fragment merge {quality.fragment_merge_rel}) on truncated people:"
+        f" card == cpu, launches {n}; {int(q_dev.num_humans[0])} humans of "
+        f"{q_dev.n_parts[0, :2].tolist()} parts vs fidelity() "
+        f"{int(f_dev.num_humans[0])} of {f_dev.n_parts[0, :3].tolist()}...; "
+        "merge_dedup card == cpu")
+    return {"layouts": layouts, "quality": quality,
+            "truncated": (conf_dev, paf_dev)}
+
+
+def accuracy_timings(torch, np, rng, engines, images, acc, gpu) -> None:
+    """Phase 6's timings of the accuracy paths, one JSON line each."""
+    from openpose_plus_tpu_torch import Engine
+    from openpose_plus_tpu_torch import engine as engine_mod
+    from openpose_plus_tpu_torch.postproc import decode
+
+    def record(module, name, fn):
+        """fn() with module.<name> recording its calls' arguments."""
+        calls, original = [], getattr(module, name)
+
+        def recorder(*args, **kwargs):
+            calls.append((args, kwargs))
+            return original(*args, **kwargs)
+        setattr(module, name, recorder)
+        try:
+            fn()
+        finally:
+            setattr(module, name, original)
+        return calls
+
+    for label, eng in engines.items():
+        calls = {"plain": lambda: eng.infer(images),
+                 **{name: (lambda x=x: eng.infer(x))
+                    for name, x in acc["layouts"].items()},
+                 "flip_tta": lambda: eng.infer(images, flip_tta=True)}
+        for combine in ("avg", "dedup"):
+            calls[f"multiscale_{combine}"] = (
+                lambda c=combine: eng.infer_multiscale(
+                    images, SCALES, flip_tta=True, combine=c))
+        # plain once more: the spread of one program between the calls
+        calls["plain_again"] = calls["plain"]
+        log(json.dumps({"accuracy_infer": {
+            "engine": label, "batch": BATCH, "scales": SCALES,
+            **{f"{key}_ms": median_ms(torch, fn)
+               for key, fn in calls.items()}, "gpu": gpu}}))
+
+    quality = acc["quality"]
+    conf, paf = acc["truncated"]
+    # the arguments of the calls to time alone, as the paths pass them
+    (merge_args, merge_kwargs), = record(
+        decode, "merge_fragments",
+        lambda: decode.decode_maps(conf, paf, quality))
+    (dedup_args, _), = record(
+        engine_mod, "merge_dedup", lambda: engines["default"]
+        .infer_multiscale(images, SCALES, flip_tta=True, combine="dedup"))
+    log(json.dumps({"accuracy_decode": {
+        "batch": BATCH, "max_peaks": quality.max_peaks,
+        "upsample": quality.upsample_factor,
+        "rounds": quality.fragment_merge_rounds,
+        "quality_decode_ms": median_ms(
+            torch, lambda: decode.decode_maps(conf, paf, quality)),
+        "fragment_merge_ms": median_ms(torch, lambda: decode.merge_fragments(
+            *merge_args, **merge_kwargs)),
+        "fragment_merge_device_ms": device_ms(
+            torch, lambda: decode.merge_fragments(*merge_args,
+                                                  **merge_kwargs)),
+        "merge_dedup_rows": sum(b.valid.shape[1] for b in dedup_args[0]),
+        "merge_dedup_ms": median_ms(
+            torch, lambda: decode.merge_dedup(*dedup_args)),
+        "merge_dedup_device_ms": device_ms(
+            torch, lambda: decode.merge_dedup(*dedup_args)),
+        "gpu": gpu}}))
+
+    mc = engines["default"].config.model
+    big = torch.from_numpy(rng.integers(
+        0, 256, (32, mc.hin, mc.win, 3), dtype=np.uint8)).to(images.device)
+    state = engines["default"].model.state_dict()
+    chunked = Engine(engines["default"].config, params=state,
+                     device=images.device, chunk=BATCH)
+    log(json.dumps({"chunk": {
+        "batch": 32, "chunk": BATCH,
+        "unchunked_ms": median_ms(torch,
+                                  lambda: engines["default"].infer(big)),
+        "chunked_ms": median_ms(torch, lambda: chunked.infer(big)),
+        "gpu": gpu}}))
+
+
 def profile(torch, np, rng, engine, images, gpu) -> None:
     """--profile: where the time of the served call goes.
 
@@ -392,9 +716,8 @@ def main(argv: list[str]) -> int:
 
     import numpy as np
 
-    import dataclasses
-
     from openpose_plus_tpu_torch import Engine, default_config
+    from openpose_plus_tpu_torch.engine import scaled_size
     from openpose_plus_tpu_torch.models import common, get_model
     from openpose_plus_tpu_torch.ops.cuda import (build, dw_probe, greedy,
                                                   merge, paf_sample, sepconv)
@@ -481,6 +804,23 @@ def main(argv: list[str]) -> int:
         f"{SEPCONV_MAX_UNITS}), least identical share "
         f"{min(s for _, _, s in sep_stats):.5f}, max_abs_err "
         f"{errs['fused_sepconv']:.3g}")
+    # the scale search's other output grids (scales 0.5 and 1.5: 23x27 and
+    # 69x81, ragged 8x8 tiles at both), drawn from their own generator
+    rng_grid = np.random.default_rng(2)
+    grids = [(scaled_size(mc.hin, s, mc.stride) // mc.stride,
+              scaled_size(mc.win, s, mc.stride) // mc.stride)
+             for s in SCALES if s != 1.0]
+    grid_cases = {(hw, cf): sepconv_case(torch, inputs, rng_grid, BATCH,
+                                         *hw, *cf)
+                  for hw in grids for cf in sorted(shapes)}
+    with torch.no_grad():
+        grid_stats = [check_sepconv(torch, inputs, sepconv, case, dev)
+                      for case in grid_cases.values()]
+    errs["fused_sepconv"] = max(errs["fused_sepconv"],
+                                max(e for e, _, _ in grid_stats))
+    log(f"fused_sepconv vs plain at the same shapes on the {grids} grids: "
+        f"worst {max(u for _, u, _ in grid_stats):.3g} units, least "
+        f"identical share {min(s for _, _, s in grid_stats):.5f}")
 
     up = cfg.postproc.upsample_factor
     fid = cfg.postproc.fidelity()
@@ -613,11 +953,7 @@ def main(argv: list[str]) -> int:
             raise AssertionError(f"float32 forward {key} differs: {err32}")
 
     # synthetic scene: three standing people, card (kernels) vs CPU (plain)
-    people = [maputil.standing_person(11.37 + 15.61 * i, 21.43 - 0.7 * i,
-                                      0.93 + 0.1 * i) for i in range(3)]
-    conf, paf = maputil.make_maps(people, mc.hout, mc.wout)
-    conf = torch.from_numpy(np.stack([conf] * BATCH))
-    paf = torch.from_numpy(np.stack([paf] * BATCH))
+    conf, paf = three_people(torch, np, maputil, mc)
     # with TF32 allowed for matmuls: the decoder's contractions must not
     # take it (they run in float64)
     tf32 = torch.backends.cuda.matmul.allow_tf32
@@ -626,16 +962,9 @@ def main(argv: list[str]) -> int:
         on_dev = decode_maps(conf.to(dev), paf.to(dev), cfg.postproc)
     finally:
         torch.backends.cuda.matmul.allow_tf32 = tf32
-    on_cpu = decode_maps(conf, paf, cfg.postproc)
-    for name in ("valid", "n_parts", "part_valid"):
-        assert_equal(torch, f"scene {name} card vs cpu",
-                     [getattr(on_dev, name)], [getattr(on_cpu, name)])
-    for name in ("coords", "part_scores", "score"):
-        # float64 contractions summed in another order: ~1 ulp
-        err = float((getattr(on_dev, name).cpu()
-                     - getattr(on_cpu, name)).abs().max())
-        if not err <= 1e-5:
-            raise AssertionError(f"scene {name} card vs cpu: {err}")
+    # float64 contractions summed in another order: ~1 ulp
+    compare_decodes(torch, "scene", on_dev,
+                    decode_maps(conf, paf, cfg.postproc), 1e-5)
     n_humans = on_dev.num_humans.tolist()
     if n_humans != [3] * BATCH or not bool(
             (on_dev.n_parts[:, :3] == 18).all()):
@@ -644,7 +973,12 @@ def main(argv: list[str]) -> int:
     log(f"scene: 3 standing people -> {n_humans[0]} humans x 18 parts, "
         f"card == cpu")
 
-    # ---- 5. timings -------------------------------------------------------
+    # ---- 5. accuracy paths ------------------------------------------------
+    engines = {"default": engine, "fused": fused_engine}
+    acc = accuracy_paths(torch, np, maputil, engines, images, counted,
+                         n_fused, dev)
+
+    # ---- 6. timings -------------------------------------------------------
     for label, eng in (("default", engine), ("fused", fused_engine)):
         infer_ms = median_ms(torch, lambda: eng.infer(images))
         forward_ms = median_ms(torch, lambda: eng.forward(images))
@@ -665,6 +999,12 @@ def main(argv: list[str]) -> int:
             log(json.dumps({"sepconv": {
                 "batch": BATCH, "hw": [mc.hout, mc.wout], "c": c, "f": f,
                 "layers": n, **sep_ms[c, f], "gpu": gpu}}))
+        for (hw, (c, f)), case in grid_cases.items():
+            log(json.dumps({"sepconv": {
+                "batch": BATCH, "hw": list(hw), "c": c, "f": f,
+                "layers": shapes[c, f],
+                **time_sepconv(torch, common, sepconv, case, dev),
+                "gpu": gpu}}))
     probe_ms = {}
     for c, (x, dwk) in probes.items():
         x, dwk = x.to(dev), dwk.to(dev)
@@ -742,6 +1082,7 @@ def main(argv: list[str]) -> int:
             *paf_args)),
         "plain": device_ms(torch, lambda: paf_sample.sample_paf_plain(
             *paf_args)), "shape": shape_of["sample_paf"], "gpu": gpu}}))
+    accuracy_timings(torch, np, rng, engines, images, acc, gpu)
     if args.profile:
         profile(torch, np, rng, engine, images, gpu)
 

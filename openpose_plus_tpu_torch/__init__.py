@@ -1,13 +1,16 @@
 """openpose_plus_tpu_torch — the PyTorch/CUDA port of openpose_plus_tpu.
 
-Runs the served MobileNet-thin inference path on an NVIDIA GPU (uint8
-frames in, `HumanBatch` out) with the decoder's serial tail in hand-written
+Runs MobileNet-thin inference on an NVIDIA GPU (uint8 frames in, plain or
+space-to-depth layouts, `HumanBatch` out), with flip-TTA, scale search and
+the `quality()` decoder, and the decoder's serial tail in hand-written
 Hopper kernels. Imports `torch`, never `jax`; reuses the JAX package's
 jax-free `config` and `skeleton` modules.
 
     from openpose_plus_tpu_torch import Engine, default_config
     engine = Engine(default_config("mobilenet_thin"), device="cuda")
     humans = engine.infer(images_uint8)
+    humans = engine.infer(images_uint8, flip_tta=True)
+    humans = engine.infer_multiscale(images_uint8, combine="dedup")
 """
 
 __version__ = "0.1.0"

@@ -1,9 +1,11 @@
 """Inference engine: preprocess -> CNN forward -> grouping, on one device.
 
-Port of `openpose_plus_tpu/engine.py` (the served `Engine.infer` path). The
-whole pipeline runs on the engine's device — uint8 frames in, `HumanBatch`
-out — with the decoder's serial tail in the hand-written CUDA kernels on a
-GPU. Nothing is compiled ahead of time: PyTorch runs eagerly.
+Port of `openpose_plus_tpu/engine.py`: the served `Engine.infer` path, flip
+test-time augmentation, scale search (`infer_multiscale`, "avg" and "dedup")
+and the space-to-depth input layouts. The whole pipeline runs on the
+engine's device — uint8 frames in, `HumanBatch` out — with the decoder's
+serial tail in the hand-written CUDA kernels on a GPU. Nothing is compiled
+ahead of time: PyTorch runs eagerly.
 """
 
 from __future__ import annotations
@@ -12,22 +14,73 @@ from typing import Mapping, Optional
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from openpose_plus_tpu.config import Config, PostprocConfig, default_config
 from openpose_plus_tpu_torch.checkpoint import from_flax
 from openpose_plus_tpu_torch.models import common, get_model
-from openpose_plus_tpu_torch.postproc import HumanBatch, decode_maps
+from openpose_plus_tpu_torch.postproc import (
+    HumanBatch, decode_maps, merge_dedup)
+from openpose_plus_tpu_torch.postproc.flip import mirror_maps
+
+INPUT_LAYOUTS = ("plain", "s2d", "s2d2")
+_CHANNELS = (3, 12, 48)          # per INPUT_LAYOUTS level
+
+
+def check_input_layout(model_cfg, input_layout: str) -> int:
+    """Validate a named input layout against the model's geometry and
+    supported lowerings; returns the s2d level (`openpose_plus_tpu.engine.
+    check_input_layout`, the same errors)."""
+    try:
+        level = INPUT_LAYOUTS.index(input_layout)
+    except ValueError:
+        raise ValueError(f"input_layout must be one of {INPUT_LAYOUTS}, "
+                         f"got {input_layout!r}") from None
+    if level > model_cfg.preferred_input_layout():
+        raise ValueError(
+            f"input_layout {input_layout!r} is not supported by model "
+            f"{model_cfg.name!r} at {model_cfg.hin}x{model_cfg.win} "
+            f"({model_cfg.compute_dtype}); max supported level is "
+            f"{INPUT_LAYOUTS[model_cfg.preferred_input_layout()]!r}")
+    return level
 
 
 def preprocess_images(images: torch.Tensor) -> torch.Tensor:
-    """uint8 (B, H, W, 3) RGB -> float32 in [-0.5, 0.5] (/255 - 0.5)."""
+    """uint8 (B, H, W, 3) RGB -> float32 in [-0.5, 0.5] (/255 - 0.5); the
+    s2d layouts are the same bytes permuted, and normalize the same."""
     return images.to(torch.float32) / 255.0 - 0.5
+
+
+def resize_linear(x: torch.Tensor, size: tuple[int, int]) -> torch.Tensor:
+    """NHWC float resize to (h, w), matching `jax.image.resize(...,
+    method="linear")`: half-pixel centers, and a triangle filter widened by
+    the scale factor along an axis that shrinks (antialiasing).
+
+    torch's `antialias=True` matches it where the output is smaller than
+    the input, `antialias=False` where it is larger: the two differ in how
+    they round the float32 sample positions of an upscale (368x432 ->
+    552x648: 4.8e-7 without antialiasing, 3.8e-5 with it; 69x81 -> 46x54:
+    2.4e-7 with it, 1.18 without). tests/test_torch_tta.py pins the sizes
+    of the scale search."""
+    h_in, w_in = x.shape[1], x.shape[2]
+    h, w = size
+    if (h, w) == (h_in, w_in):
+        return x
+    y = F.interpolate(x.permute(0, 3, 1, 2), size=(h, w), mode="bilinear",
+                      align_corners=False, antialias=h < h_in or w < w_in)
+    return y.permute(0, 2, 3, 1).contiguous()   # laid out as a plain input
+
+
+def _final_maps(model: torch.nn.Module, x: torch.Tensor
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """x (a preprocessed float image) -> its final (conf, paf), float32."""
+    out = model(x)
+    return out["conf"][-1].float(), out["paf"][-1].float()
 
 
 def _forward(model: torch.nn.Module, images: torch.Tensor
              ) -> tuple[torch.Tensor, torch.Tensor]:
-    out = model(preprocess_images(images))
-    return out["conf"][-1], out["paf"][-1]
+    return _final_maps(model, preprocess_images(images))
 
 
 def infer_step(model: torch.nn.Module, images: torch.Tensor,
@@ -43,6 +96,80 @@ def infer_step(model: torch.nn.Module, images: torch.Tensor,
     return decode_maps(*_forward(model, images), postproc_cfg)
 
 
+def _flip_average(model: torch.nn.Module, x: torch.Tensor
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Maps of x averaged with the mirrored-back maps of its W-flip."""
+    conf, paf = _final_maps(model, x)
+    conf_m, paf_m = mirror_maps(*_final_maps(model, x.flip(2)))
+    return (conf + conf_m) * 0.5, (paf + paf_m) * 0.5
+
+
+def infer_tta(model: torch.nn.Module, images: torch.Tensor,
+              postproc_cfg: PostprocConfig) -> HumanBatch:
+    """Flip test-time augmentation (`_infer_tta_impl`): two forwards, the
+    image and its W-flip (of the plain image, for the s2d layouts), the
+    second mirrored back, averaged in float32, decoded once."""
+    return decode_maps(*_flip_average(
+        model, preprocess_images(common.to_plain(images))), postproc_cfg)
+
+
+def scaled_size(base: int, scale: float, stride: int) -> int:
+    """A scaled input side snapped to the stride, Python's round as in the
+    reference (`engine.py:327-328`)."""
+    return max(stride, int(round(base * scale / stride)) * stride)
+
+
+def _scaled_inputs(x0: torch.Tensor, scales: tuple[float, ...],
+                   stride: int) -> list[torch.Tensor]:
+    """The preprocessed float32 plain image resized to each scale (the
+    float image, not the uint8 one, as the reference)."""
+    base_h, base_w = x0.shape[1], x0.shape[2]
+    return [resize_linear(x0, (scaled_size(base_h, s, stride),
+                               scaled_size(base_w, s, stride)))
+            for s in scales]
+
+
+def infer_multiscale_avg(model: torch.nn.Module, images: torch.Tensor,
+                         postproc_cfg: PostprocConfig,
+                         scales: tuple[float, ...], flip: bool, stride: int
+                         ) -> HumanBatch:
+    """Scale search, combine="avg" (`_infer_multiscale_impl`): float32 maps
+    of every scale (and flip), resized back to the base output grid,
+    averaged, decoded once."""
+    x0 = preprocess_images(common.to_plain(images))
+    hout, wout = x0.shape[1] // stride, x0.shape[2] // stride
+    conf_acc = paf_acc = None
+    n = 0
+    for xi in _scaled_inputs(x0, scales, stride):
+        variants = [_final_maps(model, xi)]
+        if flip:
+            variants.append(mirror_maps(*_final_maps(model, xi.flip(2))))
+        for conf, paf in variants:
+            conf = resize_linear(conf, (hout, wout))
+            paf = resize_linear(paf, (hout, wout))
+            conf_acc = conf if conf_acc is None else conf_acc + conf
+            paf_acc = paf if paf_acc is None else paf_acc + paf
+            n += 1
+    inv = 1.0 / n
+    return decode_maps(conf_acc * inv, paf_acc * inv, postproc_cfg)
+
+
+def infer_multiscale_dedup(model: torch.nn.Module, images: torch.Tensor,
+                           postproc_cfg: PostprocConfig,
+                           scales: tuple[float, ...], flip: bool,
+                           stride: int, oks_threshold: float = 0.5
+                           ) -> HumanBatch:
+    """Scale search, combine="dedup" (`_infer_multiscale_dedup_impl`):
+    each scale decoded at its own resolution (a within-scale flip average
+    first), then the per-scale skeletons merged by `merge_dedup`."""
+    batches = []
+    for xi in _scaled_inputs(preprocess_images(common.to_plain(images)),
+                             scales, stride):
+        maps = _flip_average(model, xi) if flip else _final_maps(model, xi)
+        batches.append(decode_maps(*maps, postproc_cfg))
+    return merge_dedup(batches, oks_threshold)
+
+
 class Engine:
     """End-to-end pose estimator on one torch device.
 
@@ -52,7 +179,12 @@ class Engine:
         which goes through the weight bridge; random init from `seed`
         otherwise.
     device: where the model, the decoder and the results live.
-    chunk: serve batches larger than `chunk` as a loop of sub-batches.
+    chunk: serve batches larger than `chunk` as a loop of sub-batches
+        (`infer` without flip-TTA, as in the reference).
+
+    Images are uint8 RGB in one of INPUT_LAYOUTS: plain (B, hin, win, 3),
+    s2d (B, hin/2, win/2, 12) or s2d^2 (B, hin/4, win/4, 48), as far as
+    `ModelConfig.preferred_input_layout()` allows.
     """
 
     def __init__(self, config: Optional[Config] = None,
@@ -78,13 +210,15 @@ class Engine:
     def _images(self, images) -> torch.Tensor:
         images = torch.as_tensor(images, device=self.device)
         m = self.config.model
-        if images.dim() == 4 and images.shape[-1] in (12, 48):
-            raise NotImplementedError(
-                "space-to-depth input layouts are ROADMAP.md item 'Engine "
-                "main path'; feed plain (B, hin, win, 3) uint8 images")
-        if images.dim() != 4 or tuple(images.shape[1:]) != (m.hin, m.win, 3):
-            raise ValueError(f"expected (B, {m.hin}, {m.win}, 3) images, "
-                             f"got {tuple(images.shape)}")
+        channels = images.shape[-1] if images.dim() == 4 else None
+        if channels not in _CHANNELS:
+            raise ValueError(f"expected (B, H, W, C) images with C in "
+                             f"{_CHANNELS}, got {tuple(images.shape)}")
+        level = check_input_layout(m, INPUT_LAYOUTS[_CHANNELS.index(channels)])
+        expect = m.input_shape(images.shape[0], level)
+        if tuple(images.shape) != expect:
+            raise ValueError(f"expected {INPUT_LAYOUTS[level]} images of "
+                             f"shape {expect}, got {tuple(images.shape)}")
         if images.dtype != torch.uint8:
             raise ValueError(f"expected uint8 images, got {images.dtype}")
         return images
@@ -92,24 +226,39 @@ class Engine:
     @torch.inference_mode()
     def infer(self, images: np.ndarray | torch.Tensor,
               flip_tta: bool = False) -> HumanBatch:
-        """images: (B, hin, win, 3) uint8 RGB -> skeletons (on `device`)."""
+        """images (uint8, any of INPUT_LAYOUTS) -> skeletons (on `device`).
+        flip_tta averages the maps with those of the horizontally flipped
+        image, mirrored back (2 forwards, 1 decode)."""
+        images = self._images(images)
         if flip_tta:
-            raise NotImplementedError(
-                "flip_tta is ROADMAP.md item 'Flip-TTA and the quality "
-                "decoder'")
-        return infer_step(self.model, self._images(images),
-                          self.config.postproc, self.chunk)
+            return infer_tta(self.model, images, self.config.postproc)
+        return infer_step(self.model, images, self.config.postproc,
+                          self.chunk)
+
+    @torch.inference_mode()
+    def infer_multiscale(self, images: np.ndarray | torch.Tensor,
+                         scales: tuple[float, ...] = (0.5, 1.0, 1.5),
+                         flip_tta: bool = False,
+                         combine: str = "avg") -> HumanBatch:
+        """Scale search: run the CNN at several input scales (each side
+        snapped to the stride), with the flip as well if `flip_tta`.
+        combine="avg" resizes every map stack to the base output grid,
+        averages and decodes once; "dedup" decodes each scale at its own
+        resolution and merges the skeletons by OKS-NMS (`merge_dedup`;
+        (B, M * len(scales), ...) rows)."""
+        if combine not in ("avg", "dedup"):
+            raise ValueError(f"combine must be 'avg' or 'dedup', "
+                             f"got {combine!r}")
+        impl = (infer_multiscale_avg if combine == "avg"
+                else infer_multiscale_dedup)
+        return impl(self.model, self._images(images), self.config.postproc,
+                    tuple(scales), bool(flip_tta), self.config.model.stride)
 
     @torch.inference_mode()
     def forward(self, images: np.ndarray | torch.Tensor
                 ) -> tuple[torch.Tensor, torch.Tensor]:
         """images -> (conf, paf) final-stage maps, NHWC float32."""
         return _forward(self.model, self._images(images))
-
-    def infer_multiscale(self, *args, **kwargs) -> HumanBatch:
-        raise NotImplementedError(
-            "infer_multiscale is ROADMAP.md item 'Flip-TTA and the quality "
-            "decoder'")
 
     def calibrate(self, *args, **kwargs) -> None:
         raise NotImplementedError(

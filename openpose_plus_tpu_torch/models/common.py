@@ -1,7 +1,8 @@
 """Shared building blocks of the pose models, in PyTorch.
 
-Port of `openpose_plus_tpu/models/common.py` (the plain lowering and the
-fused separable branch; no space-to-depth rearrangements, no int8). Submodules
+Port of `openpose_plus_tpu/models/common.py` (the plain lowering, the fused
+separable branch and the space-to-depth data movement of the input layouts;
+no block-grid conv rearrangements, no int8). Submodules
 and parameters carry the Flax scope names so the weight bridge
 (`openpose_plus_tpu_torch.checkpoint`) is a rename plus a transpose.
 
@@ -53,6 +54,34 @@ def conv2d_same(x: torch.Tensor, weight: torch.Tensor, stride: int = 1,
         return F.conv2d(x, weight, None, stride, (top, left), 1, groups)
     x = F.pad(x, (left, right, top, bottom))
     return F.conv2d(x, weight, None, stride, 0, 1, groups)
+
+
+def space_to_depth(x: torch.Tensor) -> torch.Tensor:
+    """NHWC (B, H, W, C) -> (B, H/2, W/2, 4C); channel = (wy*2+wx)*C + c.
+    Applied twice it gives the s2d^2 layout (nested position-major
+    channels, as `openpose_plus_tpu.native.s2d2_u8` emits it)."""
+    b, h, w, c = x.shape
+    x = x.reshape(b, h // 2, 2, w // 2, 2, c).permute(0, 1, 3, 2, 4, 5)
+    return x.reshape(b, h // 2, w // 2, 4 * c)
+
+
+def depth_to_space(x: torch.Tensor, c: int) -> torch.Tensor:
+    """Inverse of space_to_depth: (B, H, W, 4C) -> (B, 2H, 2W, C),
+    contiguous."""
+    b, h, w, _ = x.shape
+    x = x.reshape(b, h, w, 2, 2, c).permute(0, 1, 3, 2, 4, 5)
+    return x.reshape(b, 2 * h, 2 * w, c).contiguous()
+
+
+def to_plain(x: torch.Tensor) -> torch.Tensor:
+    """An s2d (12-channel) or s2d^2 (48-channel) NHWC image -> the plain
+    (B, H, W, 3) one, laid out as a plain input (exact data movement);
+    a 3-channel image is returned as it is."""
+    if x.shape[-1] == 48:
+        x = depth_to_space(x, 12)
+    if x.shape[-1] == 12:
+        x = depth_to_space(x, 3)
+    return x
 
 
 def lecun_normal_(weight: torch.Tensor, generator: torch.Generator) -> None:

@@ -6,7 +6,9 @@ MobileNet v1 at width 0.75: a 3x3 stride-2 stem, nine depthwise-separable
 blocks (stride 8 overall), the stride-4 tap max-pooled onto the stride-8
 grid and concatenated in front, then the separable multi-stage head. The
 JAX model lowers the stem region through space-to-depth on mod-4 inputs;
-that is the same math (exactly so in float32) and is not ported.
+that is the same math (exactly so in float32) and is not ported. The s2d
+input layouts (12 and 48 channels) are taken as the JAX model takes them:
+here they are turned back into the plain image first (`common.to_plain`).
 """
 
 from __future__ import annotations
@@ -55,10 +57,10 @@ class MobileNetThinPose(nn.Module):
             dtype=d, fused=fz)
 
     def forward(self, x: torch.Tensor) -> dict:
-        if x.shape[-1] != 3:
-            raise NotImplementedError(
-                "space-to-depth input layouts (12/48 channels) are ROADMAP.md "
-                "item 'Engine main path'; feed plain (B, H, W, 3) images")
+        if x.shape[-1] not in (3, 12, 48):
+            raise ValueError(f"expected a 3-channel image or its s2d (12) / "
+                             f"s2d^2 (48) layout, got {tuple(x.shape)}")
+        x = common.to_plain(x)        # s2d layouts: exact data movement
         x = x.to(self.dtype).permute(0, 3, 1, 2)     # NCHW, channels-last
         x = self.conv1(x)                              # stride 2
         x = self.dw1(x)

@@ -1,19 +1,23 @@
 """End-to-end decoding: (conf, paf) maps -> fixed-size skeletons.
 
-Port of `openpose_plus_tpu/postproc/decode.py :: decode_maps` with the
-batch dimension written out (no vmap): upsample + smooth, peaks, PAF
-candidate scores, greedy assignment (CUDA kernel), subset merge (CUDA
-kernel), peak lookup, validity filter and a stable score-sorted compaction.
-Everything stays on the maps' device; nothing synchronises with the host.
+Port of `openpose_plus_tpu/postproc/decode.py` with the batch dimension
+written out (no vmap): upsample + smooth, peaks, PAF candidate scores,
+greedy assignment (CUDA kernel), subset merge (CUDA kernel), peak lookup,
+the optional fragment-merge pass, validity filter and a stable
+score-sorted compaction; and `merge_dedup`, the OKS-NMS combiner of
+per-scale results. Everything stays on the maps' device; nothing
+synchronises with the host.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
 
+from openpose_plus_tpu import skeleton
 from openpose_plus_tpu.config import PostprocConfig
 from openpose_plus_tpu_torch.postproc import group, nms, paf
 
@@ -69,11 +73,8 @@ def decode_maps(conf: torch.Tensor, paf_map: torch.Tensor,
     """Batched decode: (B, H, W, 19) + (B, H, W, 38) -> HumanBatch.
 
     Maps are upcast to float32 first (bfloat16 model outputs would change
-    the peak ordering)."""
-    if cfg.fragment_merge_rel > 0:
-        raise NotImplementedError(
-            "fragment_merge_rel > 0 (PostprocConfig.quality()) is ROADMAP.md "
-            "item 'Flip-TTA and the quality decoder'")
+    the peak ordering). With `cfg.fragment_merge_rel > 0` (the `quality()`
+    preset) the fragment-merge pass runs before the validity filter."""
     conf = conf.float()
     paf_map = paf_map.float()
     b = conf.shape[0]
@@ -107,27 +108,187 @@ def decode_maps(conf: torch.Tensor, paf_map: torch.Tensor,
     mean_score = torch.where(count > 0,
                              subsets.score / count.clamp_min(1),
                              torch.zeros_like(subsets.score))
+    if cfg.fragment_merge_rel > 0:
+        # before the min-parts filter, so sub-threshold fragments can
+        # combine into a valid person
+        coords, part_scores, part_valid, mean_score, count = \
+            merge_fragments(coords, part_scores, part_valid, mean_score,
+                            count, w=w, h=h,
+                            rel_threshold=cfg.fragment_merge_rel,
+                            rounds=cfg.fragment_merge_rounds)
     valid = ((count >= cfg.min_parts_per_human)
              & (mean_score > cfg.min_human_score))
 
     # Compact: valid humans first, by descending mean score; ties keep row
     # order (a STABLE sort, as jnp.argsort).
-    key = -torch.where(valid, mean_score,
-                       torch.full_like(mean_score, -torch.inf))
-    order = torch.argsort(key, dim=1, stable=True)            # (B, M)
-
-    def take(x: torch.Tensor) -> torch.Tensor:
-        idx = order.reshape(b, m, *([1] * (x.dim() - 2)))
-        return x.gather(1, idx.expand_as(x))
-
-    valid_o = take(valid)
+    order = _score_order(valid, mean_score)
+    valid_o = _take(valid, order)
     return HumanBatch(
-        coords=take(coords), part_scores=take(part_scores),
-        part_valid=take(part_valid) & valid_o[..., None],
-        score=take(mean_score), n_parts=take(count).to(torch.int32),
-        valid=valid_o)
+        coords=_take(coords, order), part_scores=_take(part_scores, order),
+        part_valid=_take(part_valid, order) & valid_o[..., None],
+        score=_take(mean_score, order),
+        n_parts=_take(count, order).to(torch.int32), valid=valid_o)
 
 
-def merge_dedup(batches, oks_threshold: float = 0.5) -> HumanBatch:
-    raise NotImplementedError(
-        "merge_dedup is ROADMAP.md item 'Flip-TTA and the quality decoder'")
+def _score_order(valid: torch.Tensor, score: torch.Tensor) -> torch.Tensor:
+    """(B, M) row order: valid rows first, by descending score; ties keep
+    row order (a STABLE sort, as jnp.argsort)."""
+    key = -torch.where(valid, score, torch.full_like(score, -torch.inf))
+    return torch.argsort(key, dim=1, stable=True)
+
+
+def _take(x: torch.Tensor, order: torch.Tensor) -> torch.Tensor:
+    """x (B, M, ...) with its rows in `order` (B, M)."""
+    idx = order.reshape(*order.shape, *([1] * (x.dim() - 2)))
+    return x.gather(1, idx.expand_as(x))
+
+
+# ----------------------------------------------------- fragment merge ---
+
+def merge_fragments(coords: torch.Tensor, part_scores: torch.Tensor,
+                    part_valid: torch.Tensor, score: torch.Tensor,
+                    count: torch.Tensor, *, w: int, h: int,
+                    rel_threshold: float, rounds: int
+                    ) -> tuple[torch.Tensor, ...]:
+    """Greedy fragment merge over each image's assembled skeletons
+    (`openpose_plus_tpu/postproc/decode.py :: _merge_fragments_single`,
+    the batch written out).
+
+    Bottom-up assembly fragments truncated or occluded people into
+    disjoint-part skeletons. Up to `rounds` times per image, merge the
+    closest pair of live skeletons whose part sets are disjoint and whose
+    minimum part-to-part distance is <= rel_threshold x the larger one's
+    bbox diagonal (pixels of the (w, h) grid): j into i, i < j, ties to the
+    lowest flat (i, j) index. Each round is masked tensor updates: no host
+    sync, an image with nothing eligible is left as it is.
+
+    coords (B, M, 18, 2) normalized, part_scores / part_valid (B, M, 18),
+    score (B, M) mean score, count (B, M) int -> the same five, merged."""
+    b, m = coords.shape[:2]
+    dev = coords.device
+    wh = _grid_size(w, h, dev)
+    px, psc, pvd, sc, cnt = coords * wh, part_scores, part_valid, score, count
+    rows = torch.arange(m, device=dev)
+    upper = rows[:, None] < rows[None, :]                     # i < j
+    bi = torch.arange(b, device=dev)
+    for _ in range(rounds):
+        # min part distance over valid part pairs (sqrt is monotonic, so
+        # the min of the squares, rooted, is the min of the distances)
+        diff = px[:, :, None, :, None] - px[:, None, :, None, :]
+        d2 = (diff * diff).sum(-1)                         # (B, M, M, 18, 18)
+        pair_ok = pvd[:, :, None, :, None] & pvd[:, None, :, None, :]
+        mind = torch.sqrt(torch.where(pair_ok, d2, torch.inf).amin(
+            dim=(3, 4)))
+        big = torch.where(pvd[..., None], px, -torch.inf)
+        small = torch.where(pvd[..., None], px, torch.inf)
+        ext = big.amax(dim=2) - small.amin(dim=2)            # (B, M, 2)
+        ext = torch.where(cnt[..., None] > 0, ext, torch.zeros_like(ext))
+        diag = torch.sqrt((ext * ext).sum(-1).clamp_min(1e-6))
+        rel = mind / torch.maximum(diag[:, :, None],
+                                   diag[:, None, :]).clamp_min(1e-3)
+        shared = (pvd[:, :, None] & pvd[:, None]).any(-1)     # (B, M, M)
+        live = cnt > 0
+        elig = (upper & ~shared & live[:, :, None] & live[:, None, :]
+                & (rel <= rel_threshold))
+        rel = torch.where(elig, rel, torch.inf).reshape(b, m * m)
+        flat = rel.argmin(dim=1)              # first index on ties
+        do = torch.isfinite(rel[bi, flat])                    # (B,)
+        i, j = flat // m, flat % m
+        oi = (rows == i[:, None]) & do[:, None]               # (B, M)
+        oj = (rows == j[:, None]) & do[:, None]
+        # merge j into i: take j's parts, then empty j
+        upd = oi[:, :, None] & pvd[bi, j][:, None, :]        # (B, M, 18)
+        px = torch.where(upd[..., None], px[bi, j][:, None], px)
+        psc = torch.where(upd, psc[bi, j][:, None], psc)
+        pvd = pvd | upd
+        cnt_i, cnt_j = cnt[bi, i], cnt[bi, j]
+        tot = cnt_i + cnt_j
+        sc_i = (sc[bi, i] * cnt_i + sc[bi, j] * cnt_j) / tot.clamp_min(1)
+        sc = torch.where(oi, sc_i[:, None], sc)
+        cnt = torch.where(oi, tot[:, None],
+                          torch.where(oj, torch.zeros_like(cnt), cnt))
+        pvd = pvd & ~oj[..., None]
+    coords = torch.where(pvd[..., None], px / wh, torch.zeros_like(px))
+    part_scores = torch.where(pvd, psc, torch.zeros_like(psc))
+    return coords, part_scores, pvd, sc, cnt
+
+
+@functools.lru_cache(maxsize=None)
+def _grid_size(w: int, h: int, device: torch.device) -> torch.Tensor:
+    """float32 (w, h) on `device`, cached: a tensor, so the division by it
+    is a true division on every device (a Python scalar divisor may become
+    a reciprocal multiply)."""
+    return torch.tensor([w, h], dtype=torch.float32, device=device)
+
+
+# --------------------------------------------------------------- dedup ---
+
+def _oks_sigmas_18() -> np.ndarray:
+    """Per-part OKS falloff in OPENPOSE-18 order: the COCO-17 sigmas routed
+    through skeleton.COCO_FROM_OPENPOSE; the neck, absent from COCO, gets
+    the shoulder-class sigma (`decode.py :: _oks_sigmas_18`)."""
+    sig = np.full(18, 0.079, np.float32)          # neck default
+    for c17, part in enumerate(skeleton.COCO_FROM_OPENPOSE):
+        sig[part] = skeleton.COCO_OKS_SIGMAS[c17]
+    return sig
+
+
+@functools.lru_cache(maxsize=None)
+def _oks_var(device: torch.device) -> torch.Tensor:
+    """(2 sigma)^2 per part on `device`, cached."""
+    sig = torch.as_tensor(_oks_sigmas_18(), device=device)
+    return (2.0 * sig) ** 2
+
+
+def merge_dedup(batches: list[HumanBatch], oks_threshold: float = 0.5
+                ) -> HumanBatch:
+    """Merge HumanBatches (e.g. one per scale) by greedy OKS-NMS
+    (`openpose_plus_tpu/postproc/decode.py :: merge_dedup`, the batch
+    written out).
+
+    The rows of all batches are concatenated (N = the sum of their M) and
+    re-sorted by descending score, valid first (stable). A row is
+    suppressed when a higher-ranked kept row overlaps it with skeleton-OKS
+    > oks_threshold; OKS uses the keeper's valid-part bbox area as the
+    scale and averages over the parts both rows carry (rows sharing no
+    part never suppress each other). The suppression runs over the N rows
+    as masked updates, with no host sync. Output: (B, N, ...) rows, kept
+    rows first by descending score."""
+    cat = HumanBatch(**{f.name: torch.cat([getattr(x, f.name)
+                                           for x in batches], dim=1)
+                        for f in dataclasses.fields(HumanBatch)})
+    pre = _score_order(cat.valid, cat.score)
+    coords, part_scores, part_valid, score, n_parts, valid = (
+        _take(getattr(cat, f.name), pre)
+        for f in dataclasses.fields(HumanBatch))
+    n = coords.shape[1]
+    var = _oks_var(coords.device)                             # (18,)
+
+    diff = coords[:, :, None] - coords[:, None]               # (B,N,N,18,2)
+    d2 = (diff * diff).sum(-1)                                # (B,N,N,18)
+    big = torch.where(part_valid[..., None], coords, -torch.inf)
+    small = torch.where(part_valid[..., None], coords, torch.inf)
+    ext = big.amax(dim=2) - small.amin(dim=2)                 # (B, N, 2)
+    area = torch.where(n_parts > 0, ext[..., 0] * ext[..., 1],
+                       torch.zeros_like(ext[..., 0])).clamp_min(1e-4)
+    both = part_valid[:, :, None] & part_valid[:, None]       # (B,N,N,18)
+    e = d2 / (2.0 * area[:, :, None, None] * var + 1e-12)
+    oks = ((torch.exp(-e) * both).sum(-1)
+           / both.sum(-1).clamp_min(1))                       # (B, N, N)
+
+    later = torch.arange(n, device=coords.device)
+    supp = torch.zeros_like(valid)
+    for i in range(n):
+        keep_i = valid[:, i] & ~supp[:, i]                    # (B,)
+        row = (oks[:, i] > oks_threshold) & (later > i)
+        supp = supp | (row & keep_i[:, None])
+    keep = valid & ~supp
+    order = _score_order(keep, score)
+    keep_o = _take(keep, order)
+    return HumanBatch(
+        coords=_take(coords, order), part_scores=_take(part_scores, order),
+        part_valid=_take(part_valid, order) & keep_o[..., None],
+        score=_take(torch.where(keep, score, torch.zeros_like(score)), order),
+        n_parts=_take(torch.where(keep, n_parts, torch.zeros_like(n_parts)),
+                      order),
+        valid=keep_o)

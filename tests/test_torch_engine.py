@@ -127,8 +127,7 @@ def test_seeded_init_is_reproducible():
     assert a.infer(images).coords.shape == (1, 32, 18, 2)
 
 
-@pytest.mark.parametrize("call", ["flip_tta", "multiscale", "calibrate",
-                                  "s2d", "mesh"])
+@pytest.mark.parametrize("call", ["calibrate", "mesh"])
 def test_unported_paths_raise(call):
     cfg = _tiny()
     if call == "mesh":
@@ -138,14 +137,7 @@ def test_unported_paths_raise(call):
     engine = Engine(cfg)
     images = np.zeros((1, 64, 64, 3), np.uint8)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        if call == "flip_tta":
-            engine.infer(images, flip_tta=True)
-        elif call == "multiscale":
-            engine.infer_multiscale(images)
-        elif call == "calibrate":
-            engine.calibrate(images)
-        else:
-            engine.infer(np.zeros((1, 32, 32, 12), np.uint8))
+        engine.calibrate(images)
 
 
 def test_bad_input_raises():
@@ -164,8 +156,20 @@ import dataclasses
 cfg = default_config("mobilenet_thin")
 cfg = cfg.replace(model=dataclasses.replace(
     cfg.model, hin=64, win=64, n_stages=2))
-out = Engine(cfg, seed=0).infer(np.zeros((2, 64, 64, 3), np.uint8))
+images = np.random.default_rng(0).integers(0, 256, (2, 64, 64, 3),
+                                           dtype=np.uint8)
+engine = Engine(cfg, seed=0)
+out = engine.infer(images)
 assert out.coords.shape == (2, 32, 18, 2)
+assert engine.infer(images, flip_tta=True).coords.shape == (2, 32, 18, 2)
+out = engine.infer_multiscale(images, (0.5, 1.0), flip_tta=True,
+                              combine="dedup")
+assert out.coords.shape == (2, 64, 18, 2)
+from openpose_plus_tpu_torch.models.common import space_to_depth
+import torch
+s2d2 = space_to_depth(space_to_depth(torch.from_numpy(images)))
+quality = Engine(cfg.replace(postproc=cfg.postproc.quality()), seed=0)
+assert quality.infer(s2d2).coords.shape == (2, 32, 18, 2)
 import openpose_plus_tpu_torch.ops.cuda.build  # noqa: F401  (no build)
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax"))

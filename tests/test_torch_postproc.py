@@ -365,5 +365,6 @@ def test_empty_maps_and_unported_options():
     out = decode_maps(conf, paf, CFG)
     assert not out.valid.any()
     assert out.coords.shape == (2, CFG.max_humans, 18, 2)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        decode_maps(conf, paf, CFG.quality())
+    quality = decode_maps(conf, paf, CFG.quality())    # fragment merge on
+    assert not quality.valid.any()
+    assert quality.coords.shape == (2, CFG.max_humans, 18, 2)

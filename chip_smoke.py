@@ -6,8 +6,11 @@ Hopper, sm_90a):
 
     python3 chip_smoke.py
 
-It imports nothing of JAX. Phases, any of which raises on failure (the
-script then exits non-zero and prints no result):
+It imports nothing of JAX and nothing of the JAX package
+(`openpose_plus_tpu`): the port keeps its own `config` and `skeleton`, and
+the synthetic scenes come from tests/kernel_inputs.py; the end of the run
+checks `sys.modules` for both (`foreign_modules`). Phases, any of which
+raises on failure (the script then exits non-zero and prints no result):
 
 1. Requires a CUDA device; prints the card's name and power limit
    (nvidia-smi).
@@ -18,9 +21,10 @@ script then exits non-zero and prints no result):
    - greedy and merge at batch 8, K=16 and K=32, M=32, with injected ties:
      bit-equal;
    - fused_sepconv at the six (C, F) shapes of the fused model's 41 layers
-     (batch 8, 46x54) and one shape with ragged tiles: at most 2 units of
-     `kernel_inputs.bf16_mismatch` (one bf16 ulp before the last bias add)
-     and at least 98% identical elements;
+     (batch 8, 46x54, and the scale search's 23x27 and 69x81) and one shape
+     with ragged tiles: at most 2 units of `kernel_inputs.bf16_mismatch`
+     (one bf16 ulp before the last bias add) and at least 98% identical
+     elements;
    - sample_paf at K=16 on the default 92x108 map and at K=32 on the
      fidelity() 368x432 map (batch 8, edge coordinates): bit-equal;
    - the depthwise probe (scripts/profile_pallas_dw.py's `run`) at
@@ -39,9 +43,9 @@ script then exits non-zero and prints no result):
    every image must decode to a human, and the final maps must lie within
    2e-2 of the map scale of the unfused engine's. The float32 forward on
    the card must match the float32 forward on the CPU, and a synthetic
-   scene of three standing people (tests/maputil.py) must decode to three
-   full skeletons, identically on the card (with TF32 allowed for matmuls)
-   and on the CPU.
+   scene of three standing people (tests/kernel_inputs.py) must decode to
+   three full skeletons, identically on the card (with TF32 allowed for
+   matmuls) and on the CPU.
 5. Accuracy paths, on both engines of phase 4 and its images (see
    `accuracy_paths`): the s2d and s2d^2 forms of the images give HumanBatches
    equal to the plain call's, with and without flip-TTA; `infer(flip_tta=
@@ -56,14 +60,20 @@ script then exits non-zero and prints no result):
    scene of truncated people agrees card vs CPU and merges fragments
    (fewer, fuller skeletons than `fidelity()`); `merge_dedup` on the card
    equals the CPU's.
-6. Timings (CUDA events, median of 20 after warm-up): `infer` at batch 8,
-   its CNN forward and decode parts alone, unfused and fused; each kernel
-   beside its plain version; per sepconv shape the kernel, its plain
-   version, the unfused layer (cuDNN depthwise + pointwise pair) and the
-   fused layer; the probe beside its traffic floor. For the new kernels'
-   shapes also the device time per call, replayed from a CUDA graph
-   (`device_ms`), which leaves out the host's dispatch that the event time
-   of one small call is made of. The accuracy paths (`accuracy_timings`):
+6. Timings (CUDA events, median of 20 after warm-up; device times from a
+   CUDA-graph replay, `device_ms`, which leave out the host's dispatch that
+   the event time of one small call is made of): `infer` at batch 8, its
+   CNN forward (also as device time) and decode parts alone, unfused and
+   fused; every kernel beside its plain version, its bound (`bound`: bytes
+   over the HBM rate against operations over the peak of their type) and
+   the one PyTorch call that computes the same function where there is one
+   (`library_ms`; never called by the port): the advanced-index gather for
+   sample_paf, cuDNN's depthwise + ReLU for dw3x3_relu, `x + b` for
+   copy_bias, and for fused_sepconv, which no one call computes, the cuDNN
+   depthwise + pointwise pair; per sepconv shape and grid the kernel, its
+   plain version, the pair and the fused layer, with the kernel's and the
+   pair's share of the bound; the 41 layers of one fused forward summed
+   (`fused_forward_layers`). The accuracy paths (`accuracy_timings`):
    `infer` on plain, s2d and s2d^2 input, flip-TTA, scale search avg and
    dedup, the quality decode and its fragment merge alone, `merge_dedup`
    alone, and batch 32 with and without `chunk=8`.
@@ -90,11 +100,16 @@ BATCH = 8
 TIMED_ITERS = 20
 WARMUP = 3
 PROFILED_CALLS = 5
+FORWARD_REPLAYS = 5           # forwards captured in one CUDA graph
 SEPCONV_MAX_UNITS = 2.0       # kernel_inputs.bf16_mismatch; see phase 3
 MIN_IDENTICAL = 0.98
 PROBE_HW = (46, 82)           # scripts/profile_pallas_dw.py B, H, W
-HBM_BYTES_PER_S = 3.35e12     # H100 SXM data sheet
+HBM_BYTES_PER_S = 3.35e12     # H100 SXM data sheet: HBM3
+BF16_OPS_PER_S = 989e12       # dense bf16 tensor-core peak
+F32_OPS_PER_S = 67e12         # f32 outside the tensor cores
 SCALES = (0.5, 1.0, 1.5)      # infer_multiscale's default scale search
+# top-level packages the port must never load: JAX and the JAX package
+FOREIGN_PACKAGES = ("jax", "jaxlib", "flax", "openpose_plus_tpu")
 SOURCES = {   # kernel: (source, the TPU kernel it replaces)
     "greedy_assign": ("openpose_plus_tpu_torch/csrc/greedy.cu",
                       "openpose_plus_tpu/ops/pallas/greedy.py:53"),
@@ -113,6 +128,14 @@ SOURCES = {   # kernel: (source, the TPU kernel it replaces)
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def foreign_modules(modules=None) -> list[str]:
+    """The loaded modules (`sys.modules` unless given) of JAX or of the JAX
+    package `openpose_plus_tpu`; the port's own `openpose_plus_tpu_torch`
+    is not one of them."""
+    names = sys.modules if modules is None else modules
+    return sorted(m for m in names if m.split(".")[0] in FOREIGN_PACKAGES)
 
 
 def gpu_line() -> str:
@@ -251,10 +274,32 @@ def check_sepconv(torch, inputs, sepconv, args, dev) -> tuple:
     return max_abs_err(torch, [out], [refs[1]]), worst, least
 
 
+def bound(nbytes, op_seconds) -> tuple[float, str]:
+    """The least time (ms) the card could take for a function and what
+    bounds it: the bytes it must move (each input read once, each output
+    written once) over the HBM rate, against `op_seconds`, the time of its
+    operations at the peak rate of their type (H100 SXM data sheet)."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = op_seconds * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def sepconv_bound(b, h, w, c, f) -> tuple[float, str]:
+    """fused_sepconv's bound: bf16 x and y, the four weight arrays; the
+    depthwise's 9 products and 9 adds a channel-pixel in f32 on the CUDA
+    cores, the pointwise's 2 * C * F flops a pixel on the bf16 tensor
+    cores."""
+    px = b * h * w
+    nbytes = 2 * (px * (c + f) + 10 * c + c * f + f)
+    return bound(nbytes, px * 18 * c / F32_OPS_PER_S
+                 + px * 2 * c * f / BF16_OPS_PER_S)
+
+
 def time_sepconv(torch, common, sepconv, args, dev) -> dict:
     """One sepconv shape: the kernel (weights already bf16), its plain
     version, the unfused port layer (cuDNN depthwise + pointwise pair) and
-    the fused layer (weights cast per call, as in the model)."""
+    the fused layer (weights cast per call, as in the model); the bound and
+    the kernel's and the pair's device time as a share of it."""
     x = args[0].to(dev)
     weights = [t.to(dev, torch.bfloat16) for t in args[1:]]
     c, f = x.shape[-1], args[3].shape[-1]
@@ -276,7 +321,71 @@ def time_sepconv(torch, common, sepconv, args, dev) -> dict:
     out = {f"{key}_ms": median_ms(torch, fn) for key, fn in calls.items()}
     out.update({f"{key}_device_ms": device_ms(torch, fn)
                 for key, fn in calls.items()})
+    out["bound_ms"], out["bound_by"] = sepconv_bound(*x.shape, f)
+    out["pct_of_bound"] = 100.0 * out["bound_ms"] / out["kernel_device_ms"]
+    out["pair_pct_of_bound"] = (100.0 * out["bound_ms"]
+                                / out["pair_device_ms"])
     return out
+
+
+def io_bytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def time_probe(torch, dw_probe, x, dwk) -> dict:
+    """The probe at one C: its two kernels, their plain versions and the
+    library call computing the same function (never called by the port):
+    cuDNN's depthwise conv (channels-last bf16) + ReLU for dw3x3_relu, `x +
+    b` for copy_bias. Event and device ms, the bounds, shares."""
+    import torch.nn.functional as F
+    c = x.shape[-1]
+    w_dw = dwk.t().reshape(c, 1, 3, 3).contiguous()
+    x_nchw = x.permute(0, 3, 1, 2)        # NCHW channels-last view
+    calls = {
+        "dw": lambda: dw_probe.dw3x3_relu(x, dwk),
+        "dw_plain": lambda: dw_probe.dw3x3_relu_plain(x, dwk),
+        "dw_library": lambda: torch.relu(F.conv2d(x_nchw, w_dw, padding=1,
+                                                  groups=c)),
+        "copy": lambda: dw_probe.copy_bias(x, dwk),
+        "copy_plain": lambda: dw_probe.copy_bias_plain(x, dwk),
+        "copy_library": lambda: x + dwk[0],
+    }
+    out = {"shape": list(x.shape)}
+    for key, fn in calls.items():
+        out[f"{key}_ms"] = median_ms(torch, fn)
+        out[f"{key}_device_ms"] = device_ms(torch, fn)
+    out["dw_bound_ms"], out["dw_bound_by"] = bound(
+        io_bytes(x, dwk, x), 18 * x.numel() / F32_OPS_PER_S)
+    out["copy_bound_ms"], out["copy_bound_by"] = bound(
+        io_bytes(x, dwk[0], x), x.numel() / F32_OPS_PER_S)
+    for key in ("dw", "copy"):
+        out[f"{key}_pct_of_bound"] = (100.0 * out[f"{key}_bound_ms"]
+                                      / out[f"{key}_device_ms"])
+    out["dw_over_copy"] = out["dw_device_ms"] / out["copy_device_ms"]
+    return out
+
+
+def one_call_gather(torch, paf, sy, sx, chans):
+    """sample_paf as one advanced-index gather (the library call it is
+    timed against; never called by the port): (B, L, S, K, K, 2)."""
+    b = paf.shape[0]
+    bi = torch.arange(b, device=paf.device).view(b, 1, 1, 1, 1, 1)
+    ys, xs = sy.long()[..., None], sx.long()[..., None]
+    ch = chans.view(1, -1, 1, 1, 1, 2)
+    return lambda: paf[bi, ys, xs, ch]
+
+
+def sample_paf_bytes(torch, paf, sy, sx, chans) -> int:
+    """The bytes sample_paf must move on these inputs: the distinct PAF
+    elements the samples touch (a gather reads no other), the coordinates,
+    the two outputs."""
+    b, h, w, _ = paf.shape
+    n_limbs = sy.shape[1]
+    limb = torch.arange(n_limbs, device=sy.device).view(1, -1, 1, 1, 1)
+    img = torch.arange(b, device=sy.device).view(-1, 1, 1, 1, 1)
+    key = ((img * h + sy.long()) * w + sx.long()) * n_limbs + limb
+    touched = int(torch.unique(key).numel()) * 2 * paf.element_size()
+    return touched + io_bytes(sy, sx) + 2 * sy.numel() * paf.element_size()
 
 
 def check_sample_paf(torch, inputs, paf_sample, rng, dev, h, w, k) -> list:
@@ -381,35 +490,35 @@ def compare_decodes(torch, what, on_dev, on_cpu, score_tol) -> None:
             raise AssertionError(f"{what} {name} card vs cpu: {err} > {tol}")
 
 
-def three_people(torch, np, maputil, mc):
+def three_people(torch, np, scenes, mc):
     """phase 4's scene: three standing people, BATCH copies (CPU)."""
-    people = [maputil.standing_person(11.37 + 15.61 * i, 21.43 - 0.7 * i,
-                                      0.93 + 0.1 * i) for i in range(3)]
-    conf, paf = maputil.make_maps(people, mc.hout, mc.wout)
+    people = [scenes.standing_person(11.37 + 15.61 * i, 21.43 - 0.7 * i,
+                                     0.93 + 0.1 * i) for i in range(3)]
+    conf, paf = scenes.make_maps(people, mc.hout, mc.wout)
     return (torch.from_numpy(np.stack([conf] * BATCH)),
             torch.from_numpy(np.stack([paf] * BATCH)))
 
 
-def truncated_people(torch, np, maputil, mc):
+def truncated_people(torch, np, scenes, mc):
     """Two standing people without the neck and ears, BATCH copies (CPU):
     head, arms and legs are five disjoint fragments for the limb graph
     (tests/test_torch_quality.py's scene)."""
     people = []
     for cx, cy, s in ((13.37, 21.43, 1.0), (39.61, 22.1, 1.1)):
-        person = maputil.standing_person(cx, cy, s)
+        person = scenes.standing_person(cx, cy, s)
         people.append({p: xy for p, xy in person.items()
                        if p not in (1, 16, 17)})
-    conf, paf = maputil.make_maps(people, mc.hout, mc.wout)
+    conf, paf = scenes.make_maps(people, mc.hout, mc.wout)
     return (torch.from_numpy(np.stack([conf] * BATCH)),
             torch.from_numpy(np.stack([paf] * BATCH)))
 
 
-def check_mirrored_scene(torch, np, maputil, flip, decode_maps, postproc,
+def check_mirrored_scene(torch, np, scenes, flip, decode_maps, postproc,
                          mc, dev) -> None:
     """The three-person scene decoded from `mirror_maps` of its maps: card
     == CPU, and the same people with x -> 1 - x and left/right parts
     swapped within 1e-5 of the scene's own decode."""
-    conf, paf = three_people(torch, np, maputil, mc)
+    conf, paf = three_people(torch, np, scenes, mc)
     on_dev = decode_maps(*flip.mirror_maps(conf.to(dev), paf.to(dev)),
                          postproc)
     mirrored = decode_maps(*flip.mirror_maps(conf, paf), postproc)
@@ -435,7 +544,7 @@ def check_mirrored_scene(torch, np, maputil, flip, decode_maps, postproc,
                 raise AssertionError(f"mirrored scene person {i}: {err}")
 
 
-def accuracy_paths(torch, np, maputil, engines, images, counted, n_fused,
+def accuracy_paths(torch, np, scenes, engines, images, counted, n_fused,
                    dev) -> dict:
     """Phase 5 (module docstring). Returns what the timings reuse."""
     from openpose_plus_tpu_torch import engine as engine_mod
@@ -468,7 +577,7 @@ def accuracy_paths(torch, np, maputil, engines, images, counted, n_fused,
     twice = flip.mirror_maps(*flip.mirror_maps(conf, paf))
     if not (torch.equal(twice[0], conf) and torch.equal(twice[1], paf)):
         raise AssertionError("mirror_maps twice is not the identity")
-    check_mirrored_scene(torch, np, maputil, flip, decode.decode_maps,
+    check_mirrored_scene(torch, np, scenes, flip, decode.decode_maps,
                          cfg.postproc, mc, dev)
     log("mirror_maps twice == identity on the card; mirrored scene decodes "
         "as the scene mirrored (x -> 1 - x, L/R swapped), card == cpu")
@@ -516,7 +625,7 @@ def accuracy_paths(torch, np, maputil, engines, images, counted, n_fused,
     # the quality decoder on truncated people: card vs cpu, merge fired
     quality = cfg.postproc.quality()
     fidelity = dataclasses.replace(quality, fragment_merge_rel=0.0)
-    conf, paf = truncated_people(torch, np, maputil, mc)
+    conf, paf = truncated_people(torch, np, scenes, mc)
     conf_dev, paf_dev = conf.to(dev), paf.to(dev)
     q_dev, n = launches_during(torch, counted, lambda: decode.decode_maps(
         conf_dev, paf_dev, quality))
@@ -722,7 +831,6 @@ def main(argv: list[str]) -> int:
     from openpose_plus_tpu_torch.ops.cuda import (build, dw_probe, greedy,
                                                   merge, paf_sample, sepconv)
     from openpose_plus_tpu_torch.postproc import decode_maps
-    maputil = load_test_helper("maputil")
     inputs = load_test_helper("kernel_inputs")
 
     dev = torch.device("cuda", 0)
@@ -953,7 +1061,7 @@ def main(argv: list[str]) -> int:
             raise AssertionError(f"float32 forward {key} differs: {err32}")
 
     # synthetic scene: three standing people, card (kernels) vs CPU (plain)
-    conf, paf = three_people(torch, np, maputil, mc)
+    conf, paf = three_people(torch, np, inputs, mc)
     # with TF32 allowed for matmuls: the decoder's contractions must not
     # take it (they run in float64)
     tf32 = torch.backends.cuda.matmul.allow_tf32
@@ -975,7 +1083,7 @@ def main(argv: list[str]) -> int:
 
     # ---- 5. accuracy paths ------------------------------------------------
     engines = {"default": engine, "fused": fused_engine}
-    acc = accuracy_paths(torch, np, maputil, engines, images, counted,
+    acc = accuracy_paths(torch, np, inputs, engines, images, counted,
                          n_fused, dev)
 
     # ---- 6. timings -------------------------------------------------------
@@ -990,7 +1098,10 @@ def main(argv: list[str]) -> int:
             "dtype": mc.compute_dtype, "stages": mc.n_stages,
             "fused_inference": eng.config.model.fused_inference,
             "ms": infer_ms, "fps": BATCH * 1000.0 / infer_ms,
-            "forward_ms": forward_ms, "decode_ms": decode_ms, "gpu": gpu}}))
+            "forward_ms": forward_ms, "decode_ms": decode_ms,
+            "forward_device_ms": device_ms(
+                torch, lambda: eng.forward(images), calls=FORWARD_REPLAYS),
+            "gpu": gpu}}))
     sep_ms = {}
     with torch.no_grad():
         for (c, f), n in sorted(shapes.items()):
@@ -1005,66 +1116,70 @@ def main(argv: list[str]) -> int:
                 "layers": shapes[c, f],
                 **time_sepconv(torch, common, sepconv, case, dev),
                 "gpu": gpu}}))
-    probe_ms = {}
+    probe_t = {}
     for c, (x, dwk) in probes.items():
-        x, dwk = x.to(dev), dwk.to(dev)
-        probe_ms[c] = {
-            "dw3x3_relu": (
-                median_ms(torch, lambda: dw_probe.dw3x3_relu(x, dwk)),
-                median_ms(torch, lambda: dw_probe.dw3x3_relu_plain(x, dwk))),
-            "copy_bias": (
-                median_ms(torch, lambda: dw_probe.copy_bias(x, dwk)),
-                median_ms(torch, lambda: dw_probe.copy_bias_plain(x, dwk)))}
-        dw_dev = device_ms(torch, lambda: dw_probe.dw3x3_relu(x, dwk))
-        copy_dev = device_ms(torch, lambda: dw_probe.copy_bias(x, dwk))
-        # the traffic floor: bf16 in + out, at the copy kernel's own
-        # achieved rate (which makes it the copy's device time) and at the
-        # data sheet's
-        nbytes = x.numel() * 2 * 2
-        floor_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        log(json.dumps({"probe": {
-            "shape": list(x.shape), "dw_ms": probe_ms[c]["dw3x3_relu"][0],
-            "dw_plain_ms": probe_ms[c]["dw3x3_relu"][1],
-            "copy_ms": probe_ms[c]["copy_bias"][0],
-            "copy_plain_ms": probe_ms[c]["copy_bias"][1],
-            "dw_device_ms": dw_dev, "copy_device_ms": copy_dev,
-            "dw_plain_device_ms": device_ms(
-                torch, lambda: dw_probe.dw3x3_relu_plain(x, dwk)),
-            "copy_plain_device_ms": device_ms(
-                torch, lambda: dw_probe.copy_bias_plain(x, dwk)),
-            "bytes": nbytes, "copy_bytes_per_s": nbytes / (copy_dev * 1e-3),
-            "dw_over_copy_floor": dw_dev / copy_dev,
-            "datasheet_floor_ms": floor_ms,
-            "dw_over_datasheet_floor": dw_dev / floor_ms,
-            "floor_source": "H100 SXM data sheet, 3.35 TB/s", "gpu": gpu}}))
+        probe_t[c] = time_probe(torch, dw_probe, x.to(dev), dwk.to(dev))
+        log(json.dumps({"probe": {**probe_t[c], "gpu": gpu}}))
     k = cfg.postproc.max_peaks
     scores = torch.from_numpy(inputs.limb_scores(rng, BATCH, k)).to(dev)
     conns = [torch.from_numpy(x).to(dev)
              for x in inputs.connections(rng, BATCH, k)]
     peak_score = torch.from_numpy(inputs.peak_scores(rng, BATCH, k)).to(dev)
-    timing = {
-        "greedy_assign": (
-            median_ms(torch, lambda: greedy.greedy_assign(scores, k)),
-            median_ms(torch, lambda: greedy.greedy_assign_plain(scores, k))),
-        "assemble": (
-            median_ms(torch, lambda: merge.assemble(*conns, peak_score, k,
-                                                    m)),
-            median_ms(torch, lambda: merge.assemble_plain(*conns, peak_score,
-                                                          k, m))),
-        "sample_paf": (
-            median_ms(torch, lambda: paf_sample.sample_paf(*paf_args)),
-            median_ms(torch, lambda: paf_sample.sample_paf_plain(
-                *paf_args))),
-        # one forward's worth: every (C, F) shape times its layer count
-        "fused_sepconv": tuple(
-            sum(n * sep_ms[cf][key] for cf, n in shapes.items())
-            for key in ("kernel_ms", "plain_ms")),
-        # the probe path: one launch at each C
-        "dw3x3_relu": tuple(sum(p["dw3x3_relu"][i] for p in
-                                probe_ms.values()) for i in (0, 1)),
-        "copy_bias": tuple(sum(p["copy_bias"][i] for p in probe_ms.values())
-                           for i in (0, 1)),
+    paf_gather = one_call_gather(torch, *paf_args)
+    calls = {
+        "greedy_assign": (lambda: greedy.greedy_assign(scores, k),
+                          lambda: greedy.greedy_assign_plain(scores, k)),
+        "assemble": (lambda: merge.assemble(*conns, peak_score, k, m),
+                     lambda: merge.assemble_plain(*conns, peak_score, k, m)),
+        "sample_paf": (lambda: paf_sample.sample_paf(*paf_args),
+                       lambda: paf_sample.sample_paf_plain(*paf_args)),
     }
+    timing = {name: {"ms": median_ms(torch, fn), "plain_ms": median_ms(
+        torch, plain), "device_ms": device_ms(torch, fn),
+        "plain_device_ms": device_ms(torch, plain)}
+        for name, (fn, plain) in calls.items()}
+    timing["greedy_assign"].update(zip(("bound_ms", "bound_by"), bound(
+        io_bytes(scores, *greedy.greedy_assign(scores, k)),
+        scores.numel() * k / F32_OPS_PER_S), strict=True), library_ms=None)
+    timing["assemble"].update(zip(("bound_ms", "bound_by"), bound(
+        io_bytes(*conns, peak_score, *merge.assemble(*conns, peak_score, k,
+                                                     m)),
+        int(conns[3].sum()) * m * 2 / F32_OPS_PER_S), strict=True),
+        library_ms=None)
+    timing["sample_paf"].update(zip(("bound_ms", "bound_by"), bound(
+        sample_paf_bytes(torch, *paf_args), 0.0), strict=True),
+        library_ms=median_ms(torch, paf_gather),
+        library_device_ms=device_ms(torch, paf_gather))
+    # one forward's worth: every (C, F) shape times its layer count; the
+    # cuDNN pair stands in for the library call (no one call fuses them)
+    timing["fused_sepconv"] = {
+        key: sum(n * sep_ms[cf][src] for cf, n in shapes.items())
+        for key, src in (("ms", "kernel_ms"), ("plain_ms", "plain_ms"),
+                         ("device_ms", "kernel_device_ms"),
+                         ("plain_device_ms", "plain_device_ms"),
+                         ("library_ms", "pair_ms"),
+                         ("library_device_ms", "pair_device_ms"),
+                         ("bound_ms", "bound_ms"))}
+    timing["fused_sepconv"]["bound_by"] = "bytes" if all(
+        t["bound_by"] == "bytes" for t in sep_ms.values()) else "operations"
+    # the probe path: one launch at each C
+    for name, key in (("dw3x3_relu", "dw"), ("copy_bias", "copy")):
+        timing[name] = {
+            out: sum(p[f"{key}{src}"] for p in probe_t.values())
+            for out, src in (("ms", "_ms"), ("plain_ms", "_plain_ms"),
+                             ("device_ms", "_device_ms"),
+                             ("plain_device_ms", "_plain_device_ms"),
+                             ("library_ms", "_library_ms"),
+                             ("library_device_ms", "_library_device_ms"),
+                             ("bound_ms", "_bound_ms"))}
+        timing[name]["bound_by"] = probe_t[128][f"{key}_bound_by"]
+    log(json.dumps({"fused_forward_layers": {
+        "layers": n_fused, "hw": [mc.hout, mc.wout], "batch": BATCH,
+        "kernel_device_ms": timing["fused_sepconv"]["device_ms"],
+        "pair_device_ms": timing["fused_sepconv"]["library_device_ms"],
+        "bound_ms": timing["fused_sepconv"]["bound_ms"],
+        "pct_of_bound": 100.0 * timing["fused_sepconv"]["bound_ms"]
+        / timing["fused_sepconv"]["device_ms"], "gpu": gpu}}))
     shape_of = {
         "greedy_assign": f"batch {BATCH}, K={k}",
         "assemble": f"batch {BATCH}, K={k}, M={m}",
@@ -1074,25 +1189,22 @@ def main(argv: list[str]) -> int:
                          "forward",
         "dw3x3_relu": f"C=128 plus C=256 at ({BATCH}, *{PROBE_HW})",
         "copy_bias": f"C=128 plus C=256 at ({BATCH}, *{PROBE_HW})"}
-    for name, (ms, plain_ms) in timing.items():
-        log(f"{name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms "
-            f"({shape_of[name]}; {gpu})")
-    log(json.dumps({"sample_paf_device_ms": {
-        "kernel": device_ms(torch, lambda: paf_sample.sample_paf(
-            *paf_args)),
-        "plain": device_ms(torch, lambda: paf_sample.sample_paf_plain(
-            *paf_args)), "shape": shape_of["sample_paf"], "gpu": gpu}}))
+    for name, t in timing.items():
+        log(json.dumps({"kernel_times": {"name": name, **t,
+                                         "shape": shape_of[name],
+                                         "gpu": gpu}}))
     accuracy_timings(torch, np, rng, engines, images, acc, gpu)
     if args.profile:
         profile(torch, np, rng, engine, images, gpu)
 
-    if "jax" in sys.modules or "flax" in sys.modules:
-        raise AssertionError("the port pulled in jax/flax")
+    if foreign_modules():
+        raise AssertionError(f"the port pulled in {foreign_modules()}")
 
     log(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": replaces,
          "launches": launches[name], "max_abs_err": errs[name],
-         "ms": timing[name][0], "plain_ms": timing[name][1]}
+         **{key: timing[name][key] for key in (
+             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}}
         for name, (src, replaces) in SOURCES.items()]}))
     log(gpu)
     log(json.dumps({"ok": True, "device": {

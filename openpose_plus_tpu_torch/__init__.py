@@ -3,8 +3,10 @@
 Runs MobileNet-thin inference on an NVIDIA GPU (uint8 frames in, plain or
 space-to-depth layouts, `HumanBatch` out), with flip-TTA, scale search and
 the `quality()` decoder, and the decoder's serial tail in hand-written
-Hopper kernels. Imports `torch`, never `jax`; reuses the JAX package's
-jax-free `config` and `skeleton` modules.
+Hopper kernels. Imports `torch`, never `jax`, and nothing of the JAX
+package: `config` and `skeleton` are the port's own copies, pinned equal to
+the originals by the tests. `Engine` runs on the card unless it is given
+`device="cpu"`.
 
     from openpose_plus_tpu_torch import Engine, default_config
     engine = Engine(default_config("mobilenet_thin"), device="cuda")
@@ -22,7 +24,7 @@ def __getattr__(name):
         from openpose_plus_tpu_torch.engine import Engine
         return Engine
     if name in ("Config", "default_config"):
-        from openpose_plus_tpu import config as _c
+        from openpose_plus_tpu_torch import config as _c
         return getattr(_c, name)
     if name == "get_model":
         from openpose_plus_tpu_torch.models import get_model

@@ -1,0 +1,114 @@
+"""The port's configuration: the model and post-processing sections of
+`openpose_plus_tpu/config.py`, copied so that the port imports nothing of
+the JAX package. Field names, defaults and the `fidelity()` / `quality()`
+presets are the JAX package's; `tests/test_torch_config.py` pins them
+equal to the originals. The data, training and mesh sections belong to
+parts of the system not yet ported (ROADMAP.md §1).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    """Network architecture and map geometry."""
+
+    name: str = "mobilenet_thin"
+    n_heatmaps: int = 19
+    n_pafs: int = 38
+    hin: int = 368
+    win: int = 432
+    stride: int = 8            # backbone output stride
+    n_stages: int = 6          # refinement stages
+    compute_dtype: str = "bfloat16"   # "bfloat16", "float32" or "int8"
+    width_multiplier: float = 0.75
+    # Kept for the s2d input layouts' gate (`preferred_input_layout`); the
+    # port turns an s2d input back into the plain image before conv1.
+    stem_s2d: bool = True
+    remat_stages: bool = False
+    # Route the marked stride-1 3x3 bf16 separable layers through the
+    # hand-written `fused_sepconv` kernel (inference only).
+    fused_inference: bool = False
+
+    def preferred_input_layout(self) -> int:
+        """Space-to-depth level of the largest uint8 input layout the model
+        takes: 0 = plain (B,hin,win,3), 1 = (B,hin/2,win/2,12),
+        2 = (B,hin/4,win/4,48)."""
+        if not self.stem_s2d or self.compute_dtype == "int8":
+            return 0
+        if (self.name in ("mobilenet_thin", "mobilenet")
+                and self.hin % 4 == 0 and self.win % 4 == 0):
+            return 2
+        if self.hin % 2 == 0 and self.win % 2 == 0:
+            return 1
+        return 0
+
+    def input_shape(self, batch: int, level: int | None = None
+                    ) -> tuple[int, int, int, int]:
+        """uint8 input shape for a space-to-depth level (default: the
+        model's preferred layout)."""
+        if level is None:
+            level = self.preferred_input_layout()
+        return {0: (batch, self.hin, self.win, 3),
+                1: (batch, self.hin // 2, self.win // 2, 12),
+                2: (batch, self.hin // 4, self.win // 4, 48)}[level]
+
+    @property
+    def hout(self) -> int:
+        return self.hin // self.stride
+
+    @property
+    def wout(self) -> int:
+        return self.win // self.stride
+
+
+@dataclasses.dataclass(frozen=True)
+class PostprocConfig:
+    """Grouping parameters: static capacities (top-K peaks per part, M
+    skeleton slots) and the reference PAF pipeline's thresholds."""
+
+    max_peaks: int = 16          # top-K peak cap per part channel
+    max_humans: int = 32         # skeleton slots per image
+    peak_threshold: float = 0.05
+    paf_n_samples: int = 10      # points sampled along each candidate limb
+    paf_sample_threshold: float = 0.05
+    paf_inlier_ratio: float = 0.8
+    min_parts_per_human: int = 3
+    min_human_score: float = 0.0
+    upsample_factor: int = 2     # map upsampling before peak finding
+    smooth_sigma: float = 1.25   # Gaussian smoothing before NMS (pixels)
+    # Fragment-merge repair pass (`decode.merge_fragments`); 0 disables.
+    fragment_merge_rel: float = 0.0
+    fragment_merge_rounds: int = 8
+
+    def fidelity(self, upsample: int = 8) -> "PostprocConfig":
+        """High-fidelity settings: input-resolution maps, K=32, sigma 5."""
+        return dataclasses.replace(self, max_peaks=32,
+                                   upsample_factor=upsample,
+                                   smooth_sigma=5.0)
+
+    def quality(self, upsample: int = 8) -> "PostprocConfig":
+        """`fidelity()` plus the fragment-merge pass at rel 0.5."""
+        return dataclasses.replace(self.fidelity(upsample),
+                                   fragment_merge_rel=0.5)
+
+
+@dataclasses.dataclass(frozen=True)
+class Config:
+    model: ModelConfig = dataclasses.field(default_factory=ModelConfig)
+    postproc: PostprocConfig = dataclasses.field(
+        default_factory=PostprocConfig)
+
+    def replace(self, **kw) -> "Config":
+        return dataclasses.replace(self, **kw)
+
+
+def default_config(model_name: Optional[str] = None) -> Config:
+    cfg = Config()
+    if model_name is not None:
+        cfg = cfg.replace(model=dataclasses.replace(cfg.model,
+                                                    name=model_name))
+    return cfg

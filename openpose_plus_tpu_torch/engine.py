@@ -16,8 +16,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from openpose_plus_tpu.config import Config, PostprocConfig, default_config
 from openpose_plus_tpu_torch.checkpoint import from_flax
+from openpose_plus_tpu_torch.config import Config, PostprocConfig, default_config
 from openpose_plus_tpu_torch.models import common, get_model
 from openpose_plus_tpu_torch.postproc import (
     HumanBatch, decode_maps, merge_dedup)
@@ -178,7 +178,9 @@ class Engine:
         ('params/conv1/kernel' -> array, as `checkpoint.load_npz` returns)
         which goes through the weight bridge; random init from `seed`
         otherwise.
-    device: where the model, the decoder and the results live.
+    device: where the model, the decoder and the results live; the card
+        by default. A CPU run asks for it (`device="cpu"`): without a CUDA
+        device the default raises rather than falling back to the CPU.
     chunk: serve batches larger than `chunk` as a loop of sub-batches
         (`infer` without flip-TTA, as in the reference).
 
@@ -189,13 +191,17 @@ class Engine:
 
     def __init__(self, config: Optional[Config] = None,
                  params: Optional[Mapping] = None, seed: int = 0,
-                 device: str | torch.device = "cpu", chunk: int = 0,
+                 device: str | torch.device = "cuda", chunk: int = 0,
                  mesh=None):
         if mesh is not None:
             raise NotImplementedError(
                 "multi-device serving is ROADMAP.md item 'Distributed'")
         self.config = config or default_config()
         self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(
+                f"Engine: device {self.device}, but no CUDA device is "
+                "available; pass device=\"cpu\" to run on the CPU")
         self.chunk = chunk
         self.model = get_model(self.config.model)
         if params is None:

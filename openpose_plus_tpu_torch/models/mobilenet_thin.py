@@ -17,7 +17,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from openpose_plus_tpu.config import ModelConfig
+from openpose_plus_tpu_torch.config import ModelConfig
 from openpose_plus_tpu_torch.models import common
 
 

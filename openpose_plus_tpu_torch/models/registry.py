@@ -5,7 +5,7 @@ from __future__ import annotations
 
 from torch import nn
 
-from openpose_plus_tpu.config import ModelConfig
+from openpose_plus_tpu_torch.config import ModelConfig
 from openpose_plus_tpu_torch.models.mobilenet_thin import MobileNetThinPose
 
 _REGISTRY = {

@@ -1,6 +1,7 @@
 """Build and load the port's hand-written CUDA kernels.
 
-All of `openpose_plus_tpu_torch/csrc/*.cu` compile with one `nvcc` call into
+Each of `openpose_plus_tpu_torch/csrc/*.cu` compiles with its own `nvcc`
+process, all started together, and one more `nvcc` links the objects into
 one shared library with a plain C interface, loaded with ctypes (no PyTorch
 headers: a build takes seconds, not minutes). The library lands in
 `openpose_plus_tpu_torch/_build/<hash>/`, keyed by a hash of the sources and
@@ -28,7 +29,7 @@ _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # C signatures: (name, argtypes). Every entry returns a cudaError_t as int.
@@ -88,14 +89,32 @@ def build() -> Path:
     if lib.exists():
         return lib
     out_dir.mkdir(parents=True, exist_ok=True)
-    tmp = out_dir / f".tmp-{os.getpid()}.so"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    (out_dir / "nvcc.log").write_text(
-        " ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{proc.stdout}{proc.stderr}")
+    tag = f".tmp-{os.getpid()}"
+    nvcc = _nvcc()
+    objs = [out_dir / f"{src.stem}{tag}.o" for src in sources()]
+    cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+            for src, obj in zip(sources(), objs)]
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for cmd in cmds]
+    tmp = out_dir / f"{tag}.so"
+    link = [nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)]
+    log, failed = [], []
+    for cmd, proc in zip(cmds, procs):
+        out, _ = proc.communicate()
+        log.append(" ".join(cmd) + "\n" + out)
+        if proc.returncode != 0:
+            failed.append(out)
+    if not failed:
+        proc = subprocess.run(link, capture_output=True, text=True)
+        log.append(" ".join(link) + "\n" + proc.stdout + proc.stderr)
+        if proc.returncode != 0:
+            failed.append(proc.stdout + proc.stderr)
+    (out_dir / "nvcc.log").write_text("".join(log))
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
     os.replace(tmp, lib)   # atomic: a concurrent build sees all or nothing
     return lib
 

@@ -1,8 +1,10 @@
 """The depthwise probe: two CUDA kernels + their plain PyTorch versions.
 
 Replaces the TPU probe `scripts/profile_pallas_dw.py :: run` and its two
-bodies; kernel source `openpose_plus_tpu_torch/csrc/sepconv.cu`, sharing
-the fused separable conv's depthwise device code.
+bodies; kernel source `openpose_plus_tpu_torch/csrc/sepconv.cu`. The DW
+body runs the fused separable conv's loader and depthwise stage (the bf16
+haloed tile by double-buffered TMA loads, or cp.async where C % 8 != 0; f32
+taps; 16-byte stores), so its time is that stage's own on the card.
 
 - `dw3x3_relu` (`dw_kernel`): the 9-tap depthwise of (B, H, W, C) bf16 x
   with SAME zero padding, f32 taps, f32 ReLU, one bf16 rounding, no bias.
@@ -19,7 +21,7 @@ from __future__ import annotations
 
 import torch
 
-from openpose_plus_tpu_torch.ops.cuda.sepconv import dw_taps
+from openpose_plus_tpu_torch.ops.cuda.sepconv import _aligned, dw_taps
 
 dw3x3_relu_launches = 0   # kernel launches in this process
 copy_bias_launches = 0
@@ -52,6 +54,7 @@ def _launch(name: str, x: torch.Tensor, dwk: torch.Tensor,
 
     lib = build.load()
     b, h, w, c = x.shape
+    x, dwk = _aligned(x, 16), _aligned(dwk, 16)
     err = getattr(lib, f"{name}_launch")(
         x.data_ptr(), dwk.data_ptr(), y.data_ptr(), b, h, w, c,
         x.device.index, torch.cuda.current_stream(x.device).cuda_stream)

@@ -21,7 +21,7 @@ import functools
 
 import torch
 
-from openpose_plus_tpu import skeleton
+from openpose_plus_tpu_torch import skeleton
 
 N_PARTS = skeleton.N_PARTS
 MAX_HUMANS = 32        # one warp lane per human row

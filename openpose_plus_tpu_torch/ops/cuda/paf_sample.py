@@ -18,7 +18,7 @@ import functools
 
 import torch
 
-from openpose_plus_tpu import skeleton
+from openpose_plus_tpu_torch import skeleton
 
 launches = 0   # kernel launches in this process (see module docstring)
 

@@ -2,10 +2,16 @@
 
 Replaces the TPU kernel `openpose_plus_tpu/ops/pallas/sepconv.py ::
 fused_sepconv` (body `_sepconv_kernel`); kernel source
-`openpose_plus_tpu_torch/csrc/sepconv.cu`. On the H100 the kernel is bound
-by its pointwise product on the CUDA cores; it keeps the depthwise result
-in shared memory instead of a round trip through device memory (design
-notes in the source).
+`openpose_plus_tpu_torch/csrc/sepconv.cu`. The kernel keeps the depthwise
+result in shared memory instead of a round trip through device memory. A
+block owns an 8x8 pixel tile and all of F up to 192 (F = 384: three
+128-wide tiles on 128-pixel tiles); it streams the input channels in chunks
+of 32 through an asynchronous pipeline (TMA boxes for the haloed tile, the
+taps and the weight rows; where C % 8 != 0 the tile comes by 16-byte
+cp.async and each pixel's span is shifted into place; the tile stays bf16
+in shared memory), runs the depthwise taps in f32 on the CUDA cores and the
+pointwise product on the tensor cores (mma.sync bf16 -> f32), and stores 16
+bytes a thread. Design notes and H100 numbers in the source and PERF.md.
 
     y = relu(bf16(pw1x1(relu(bf16(dw3x3(x)) + b_dw))) + b_pw)
 
@@ -84,6 +90,12 @@ def fused_sepconv_plain(x: torch.Tensor, dw_kernel: torch.Tensor,
     return y.reshape(b, h, w, pwk.shape[1])
 
 
+def _aligned(t: torch.Tensor, nbytes: int) -> torch.Tensor:
+    """t, or a copy of it where its data does not start on an `nbytes`
+    boundary (a view at an odd offset): the kernels' copies need it."""
+    return t if t.data_ptr() % nbytes == 0 else t.clone()
+
+
 def fused_sepconv(x: torch.Tensor, dw_kernel: torch.Tensor,
                   dw_bias: torch.Tensor, pw_kernel: torch.Tensor,
                   pw_bias: torch.Tensor, stride: int = 1) -> torch.Tensor:
@@ -107,10 +119,11 @@ def fused_sepconv(x: torch.Tensor, dw_kernel: torch.Tensor,
         raise ValueError("fused_sepconv: all tensors must be on one device")
     if x.dtype != torch.bfloat16:
         raise ValueError(f"fused_sepconv kernel takes bf16 x, got {x.dtype}")
-    dwk, dwb, pwk, pwb = _bf16_weights(*args)
+    dwk, dwb, pwk, pwb = (_aligned(t, 16) for t in _bf16_weights(*args))
     if not x.is_contiguous():
         raise ValueError("fused_sepconv: x must be contiguous (B, H, W, C); "
                          "an NCHW activation must be channels-last")
+    x = _aligned(x, 16)
     from openpose_plus_tpu_torch.ops.cuda import build
 
     global launches

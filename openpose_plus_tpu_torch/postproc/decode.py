@@ -17,8 +17,8 @@ import functools
 import numpy as np
 import torch
 
-from openpose_plus_tpu import skeleton
-from openpose_plus_tpu.config import PostprocConfig
+from openpose_plus_tpu_torch import skeleton
+from openpose_plus_tpu_torch.config import PostprocConfig
 from openpose_plus_tpu_torch.postproc import group, nms, paf
 
 

@@ -20,7 +20,7 @@ import functools
 import numpy as np
 import torch
 
-from openpose_plus_tpu import skeleton
+from openpose_plus_tpu_torch import skeleton
 
 
 def _part_swap() -> np.ndarray:

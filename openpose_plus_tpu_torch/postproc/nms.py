@@ -19,7 +19,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from openpose_plus_tpu import skeleton
+from openpose_plus_tpu_torch import skeleton
 from openpose_plus_tpu_torch.postproc import common
 
 

@@ -10,7 +10,8 @@ has no JAX:
 
 It covers what chip_smoke.py's main-path shapes do not: every register
 tiling of the greedy kernel (K from 1 to 32), merge tables with fewer than
-32 rows, the separable conv at odd channel counts and ragged tiles, the PAF
+32 rows, the separable conv at odd channel counts, every pixel and F tiling,
+ragged tiles and unaligned views (both load paths), the PAF
 sampler at K = 1...32 with corner coordinates, the depthwise probe, empty
 batches, and the wrappers' refusals on the card.
 
@@ -135,7 +136,7 @@ def _assert_bf16_close(out, ref, floor=0.0, max_units=2.0):
     assert units <= max_units and same >= 0.98, (units, same)
 
 
-# H, W = 11, 13: neither is a multiple of the 8x8 tile
+# H, W = 11, 13: neither is a multiple of a tile side
 @pytest.mark.parametrize("c", [1, 8, 57, 537])
 @pytest.mark.parametrize("f", [1, 40, 384])
 def test_sepconv_kernel_matches_plain(cuda, c, f):
@@ -185,6 +186,62 @@ def test_sample_paf_kernel_equals_plain(cuda, k):
     assert paf_sample.launches == before + 1
     for o, r in zip(out, paf_sample.sample_paf_plain(*args)):
         assert o.device.type == "cuda" and torch.equal(o.cpu(), r)
+
+
+# The redesigned kernel's tilings: a block owns 128 pixels (8x16 or 16x8,
+# whichever pads the image least) and an F tile of 64, 128 or 192; the
+# input channels stream in chunks of 32 by 16-byte copies, each pixel's
+# chunk at a shift of 0..7 elements where C % 8 != 0.
+@pytest.mark.parametrize("b,h,w,c,f", [
+    (2, 46, 54, 537, 128),    # the model's grids at one shape each:
+    (2, 23, 27, 192, 384),    # 16x8 tiles at 46x54, 8x16 at 23x27 and
+    (1, 69, 81, 128, 128),    # 69x81
+    (2, 9, 17, 64, 100),      # F not a multiple of the F tile (128)
+    (1, 17, 9, 40, 200),      # F = 200: two F tiles of 128
+    (1, 12, 20, 33, 257),     # F = 257: two of 192; C odd: shifted
+    (1, 1, 1, 96, 64),        # one pixel: all halo is padding
+    (3, 33, 7, 24, 8),        # ragged against both tile sides
+    (1, 16, 16, 480, 192),    # tiles exactly filled, C % 32 == 0
+])
+def test_sepconv_kernel_tilings(cuda, b, h, w, c, f):
+    args = _sepconv_args(np.random.default_rng(h * w + c), b, h, w, c, f)
+    floor = args[4].to(torch.bfloat16).float().abs().numpy()
+    with torch.no_grad():
+        out = sepconv.fused_sepconv(*[t.to(cuda) for t in args])
+        torch.cuda.synchronize()
+        assert out.shape == (b, h, w, f)
+        _assert_bf16_close(out, sepconv.fused_sepconv_plain(*args), floor)
+
+
+@pytest.mark.parametrize("offset", [1, 2])
+def test_sepconv_kernel_on_unaligned_views(cuda, offset):
+    """x as a view 2 or 4 bytes into its storage: the 16-byte copies need
+    16-byte aligned data, so the wrappers copy such an x first."""
+    args = _sepconv_args(np.random.default_rng(offset), 2, 13, 21, 128, 128)
+    flat = torch.cat([torch.zeros(offset, dtype=torch.bfloat16),
+                      args[0].flatten()]).to(cuda)
+    x = flat[offset:].view(args[0].shape)
+    assert x.data_ptr() % 16 != 0
+    floor = args[4].to(torch.bfloat16).float().abs().numpy()
+    with torch.no_grad():
+        out = sepconv.fused_sepconv(x, *[t.to(cuda) for t in args[1:]])
+        _assert_bf16_close(out, sepconv.fused_sepconv_plain(*args), floor)
+        dwk = args[1].reshape(9, 128).to(torch.bfloat16)
+        _assert_bf16_close(dw_probe.dw3x3_relu(x, dwk.to(cuda)),
+                           dw_probe.dw3x3_relu_plain(args[0], dwk),
+                           max_units=1.0)
+
+
+@pytest.mark.parametrize("shape", [(2, 46, 82, 256), (1, 23, 27, 537),
+                                   (2, 9, 17, 40)])
+def test_probe_dw_kernel_shapes(cuda, shape):
+    rng = np.random.default_rng(shape[-1])
+    x = torch.from_numpy(rng.standard_normal(shape).astype(
+        np.float32)).to(torch.bfloat16)
+    dwk = torch.from_numpy((rng.standard_normal((9, shape[-1])) * 0.1)
+                           .astype(np.float32)).to(torch.bfloat16)
+    dw = dw_probe.dw3x3_relu(x.to(cuda), dwk.to(cuda))
+    _assert_bf16_close(dw, dw_probe.dw3x3_relu_plain(x, dwk), max_units=1.0)
 
 
 @pytest.mark.parametrize("c", [128, 20])

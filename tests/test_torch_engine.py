@@ -2,7 +2,8 @@
 
 - The port's `Engine.infer` on the same uint8 images with bridged params
   (tiny float32 MobileNet-thin) gives the JAX engine's skeletons.
-- The port (and a tiny CPU infer through it) never imports jax or flax.
+- The port (and a tiny CPU infer through it) never imports jax, flax or
+  the JAX package; `Engine` defaults to the card.
 - `chip_smoke.py` without a GPU exits non-zero and prints no result.
 """
 
@@ -19,8 +20,9 @@ import torch
 from flax import traverse_util
 
 from openpose_plus_tpu.checkpoint import _flatten
-from openpose_plus_tpu.config import default_config
+from openpose_plus_tpu import config as jconfig
 from openpose_plus_tpu.engine import Engine as JaxEngine
+from openpose_plus_tpu_torch import config as tconfig
 from openpose_plus_tpu_torch.engine import Engine, preprocess_images
 
 torch.set_num_threads(2)
@@ -28,8 +30,10 @@ torch.set_num_threads(2)
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-def _tiny(dtype="float32"):
-    cfg = default_config("mobilenet_thin")
+def _tiny(dtype="float32", config=tconfig):
+    """The tiny Config, the port's own or (config=jconfig) the JAX
+    package's, from the same arguments."""
+    cfg = config.default_config("mobilenet_thin")
     return cfg.replace(model=dataclasses.replace(
         cfg.model, hin=64, win=64, n_stages=2, compute_dtype=dtype))
 
@@ -45,14 +49,15 @@ def _engines():
     comparison then covers grouping too."""
     if not _PAIR:
         cfg = _tiny()
-        flat = _flatten(jax.device_get(JaxEngine(cfg, seed=3).params))
+        flat = _flatten(jax.device_get(JaxEngine(_tiny(config=jconfig),
+                                                 seed=3).params))
         for branch, gain in (("conf", 400.0), ("paf", 1000.0)):
             key = f"params/stages/stage2_{branch}/Conv_0/kernel"
             flat[key] = np.asarray(flat[key]) * gain
         nested = traverse_util.unflatten_dict(
             {tuple(k.split("/")): v for k, v in flat.items()})
-        _PAIR["jax"] = JaxEngine(cfg, params=nested)
-        _PAIR["torch"] = Engine(cfg, params=flat)
+        _PAIR["jax"] = JaxEngine(_tiny(config=jconfig), params=nested)
+        _PAIR["torch"] = Engine(cfg, params=flat, device="cpu")
         _PAIR["cfg"] = cfg
     return _PAIR["jax"], _PAIR["torch"], _PAIR["cfg"]
 
@@ -99,7 +104,8 @@ def test_infer_finds_humans():
 
 def test_chunked_infer_matches_unchunked():
     _, engine, cfg = _engines()
-    chunked = Engine(cfg, params=engine.model.state_dict(), chunk=2)
+    chunked = Engine(cfg, params=engine.model.state_dict(), chunk=2,
+                     device="cpu")
     images = np.random.default_rng(4).integers(
         0, 256, (4, 64, 64, 3), dtype=np.uint8)
     a, b = engine.infer(images), chunked.infer(images)
@@ -119,7 +125,8 @@ def test_preprocess_matches_jax():
 
 def test_seeded_init_is_reproducible():
     cfg = _tiny("bfloat16")
-    a, b = Engine(cfg, seed=5), Engine(cfg, seed=5)
+    a, b = Engine(cfg, seed=5, device="cpu"), Engine(cfg, seed=5,
+                                                     device="cpu")
     for (name, p), q in zip(a.model.state_dict().items(),
                             b.model.state_dict().values()):
         assert torch.equal(p, q), name
@@ -132,16 +139,16 @@ def test_unported_paths_raise(call):
     cfg = _tiny()
     if call == "mesh":
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            Engine(cfg, mesh=object())
+            Engine(cfg, mesh=object(), device="cpu")
         return
-    engine = Engine(cfg)
+    engine = Engine(cfg, device="cpu")
     images = np.zeros((1, 64, 64, 3), np.uint8)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         engine.calibrate(images)
 
 
 def test_bad_input_raises():
-    engine = Engine(_tiny())
+    engine = Engine(_tiny(), device="cpu")
     with pytest.raises(ValueError):
         engine.infer(np.zeros((1, 32, 32, 3), np.uint8))
     with pytest.raises(ValueError):
@@ -149,44 +156,94 @@ def test_bad_input_raises():
 
 
 _NO_JAX = """
-import sys
-import numpy as np
-from openpose_plus_tpu_torch import Engine, default_config
 import dataclasses
+import importlib
+import pkgutil
+import sys
+
+import numpy as np
+import torch
+
+import chip_smoke
+import openpose_plus_tpu_torch
+from openpose_plus_tpu_torch import Engine, default_config
+from openpose_plus_tpu_torch import engine, models, postproc  # noqa: F401
+from openpose_plus_tpu_torch.models.common import space_to_depth
+from openpose_plus_tpu_torch.ops import cuda
+
+for mod in pkgutil.iter_modules(cuda.__path__):   # no kernel is built
+    importlib.import_module(f"openpose_plus_tpu_torch.ops.cuda.{mod.name}")
 cfg = default_config("mobilenet_thin")
 cfg = cfg.replace(model=dataclasses.replace(
     cfg.model, hin=64, win=64, n_stages=2))
 images = np.random.default_rng(0).integers(0, 256, (2, 64, 64, 3),
                                            dtype=np.uint8)
-engine = Engine(cfg, seed=0)
+engine = Engine(cfg, seed=0, device="cpu")
 out = engine.infer(images)
 assert out.coords.shape == (2, 32, 18, 2)
 assert engine.infer(images, flip_tta=True).coords.shape == (2, 32, 18, 2)
 out = engine.infer_multiscale(images, (0.5, 1.0), flip_tta=True,
                               combine="dedup")
 assert out.coords.shape == (2, 64, 18, 2)
-from openpose_plus_tpu_torch.models.common import space_to_depth
-import torch
 s2d2 = space_to_depth(space_to_depth(torch.from_numpy(images)))
-quality = Engine(cfg.replace(postproc=cfg.postproc.quality()), seed=0)
+quality = Engine(cfg.replace(postproc=cfg.postproc.quality()), seed=0,
+                 device="cpu")
 assert quality.infer(s2d2).coords.shape == (2, 32, 18, 2)
-import openpose_plus_tpu_torch.ops.cuda.build  # noqa: F401  (no build)
-bad = sorted(m for m in sys.modules
-             if m.split(".")[0] in ("jax", "jaxlib", "flax"))
-print("JAX_MODULES", bad)
+cuda_modules = "openpose_plus_tpu_torch.ops.cuda."
+print("CUDA_MODULES", sorted(m for m in sys.modules
+                             if m.startswith(cuda_modules)))
+bad = chip_smoke.foreign_modules()
+print("FOREIGN_MODULES", bad)
 sys.exit(1 if bad else 0)
 """
 
 
 def test_port_never_imports_jax():
-    """The card machine has no JAX: the port and a CPU infer through it
-    must not import jax or flax."""
+    """The card machine has no JAX, and the port keeps its own copies of
+    what it needs: importing the port (engine, models, postproc, every
+    ops.cuda module) and running CPU engines through it loads no module of
+    jax, flax or the JAX package `openpose_plus_tpu`, by chip_smoke.py's own
+    end-of-run check."""
     env = dict(os.environ, PYTHONPATH=REPO)
     proc = subprocess.run([sys.executable, "-c", _NO_JAX], cwd=REPO,
                           env=env, capture_output=True, text=True,
                           timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
-    assert "JAX_MODULES []" in proc.stdout
+    assert "FOREIGN_MODULES []" in proc.stdout
+    for name in ("build", "dw_probe", "greedy", "merge", "paf_sample",
+                 "sepconv"):
+        assert f"openpose_plus_tpu_torch.ops.cuda.{name}'" in proc.stdout
+
+
+def test_foreign_module_check_sees_the_jax_package():
+    """chip_smoke's check names jax, flax and any `openpose_plus_tpu`
+    module, and never the port's own."""
+    sys.path.insert(0, REPO)
+    try:
+        import chip_smoke
+    finally:
+        sys.path.remove(REPO)
+    assert chip_smoke.foreign_modules(
+        ["openpose_plus_tpu", "openpose_plus_tpu.skeleton", "jax.numpy",
+         "flax", "openpose_plus_tpu_torch", "openpose_plus_tpu_torch.config",
+         "numpy"]) == ["flax", "jax.numpy", "openpose_plus_tpu",
+                       "openpose_plus_tpu.skeleton"]
+
+
+def test_engine_defaults_to_the_card():
+    """Engine runs on the card unless asked for the CPU; without a CUDA
+    device the default raises instead of carrying on on the CPU."""
+    import inspect
+
+    assert inspect.signature(Engine).parameters["device"].default == "cuda"
+    if torch.cuda.is_available():
+        assert Engine(_tiny()).device.type == "cuda"
+        return
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Engine(_tiny())
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Engine(_tiny(), device="cuda:0")
+    assert Engine(_tiny(), device="cpu").device == torch.device("cpu")
 
 
 @pytest.mark.parametrize("where", ["repo", "alone"])

@@ -18,6 +18,7 @@ from openpose_plus_tpu.checkpoint import _flatten
 from openpose_plus_tpu.config import default_config
 from openpose_plus_tpu.models import get_model as jax_model
 from openpose_plus_tpu_torch.checkpoint import from_flax
+from openpose_plus_tpu_torch.config import default_config as tdefault_config
 from openpose_plus_tpu_torch.models import common, get_model as torch_model
 
 torch.set_num_threads(2)
@@ -35,16 +36,18 @@ _OUT_CACHE = {}
 def _outputs(dtype, stem_s2d):
     key = (dtype, stem_s2d)
     if key not in _OUT_CACHE:
-        cfg = dataclasses.replace(
-            default_config("mobilenet_thin").model, hin=64, win=64,
-            n_stages=2, compute_dtype=dtype, stem_s2d=stem_s2d)
+        kw = dict(hin=64, win=64, n_stages=2, compute_dtype=dtype,
+                  stem_s2d=stem_s2d)
+        cfg = dataclasses.replace(default_config("mobilenet_thin").model,
+                                  **kw)
         x = np.random.default_rng(0).uniform(
             -0.5, 0.5, (2, 64, 64, 3)).astype(np.float32)
         jm = jax_model(cfg)
         params = jm.init(jax.random.PRNGKey(1), jnp.asarray(x))
         ref = jax.tree.map(lambda a: np.asarray(a, np.float32),
                            jm.apply(params, jnp.asarray(x)))
-        tm = torch_model(cfg)
+        tm = torch_model(dataclasses.replace(
+            tdefault_config("mobilenet_thin").model, **kw))
         tm.load_state_dict(from_flax(_flatten(jax.device_get(params))),
                            strict=True)
         with torch.no_grad():
@@ -108,11 +111,11 @@ def test_conv2d_same_matches_xla(size, kernel, stride, depthwise):
                                   "hao28_experimental", "nonexistent"])
 def test_unported_models_raise(name):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        torch_model(dataclasses.replace(default_config().model, name=name))
+        torch_model(dataclasses.replace(tdefault_config().model, name=name))
 
 
 def test_int8_compute_raises():
-    cfg = dataclasses.replace(default_config().model, compute_dtype="int8")
+    cfg = dataclasses.replace(tdefault_config().model, compute_dtype="int8")
     with pytest.raises(NotImplementedError, match="int8"):
         torch_model(cfg)
 
@@ -120,7 +123,7 @@ def test_int8_compute_raises():
 def test_random_init_statistics_follow_flax():
     """Seeded init: lecun-normal kernels (std 1/sqrt(fan_in) after the
     truncation correction, |w| <= 2 sigma), zero biases, reproducible."""
-    cfg = default_config("mobilenet_thin").model
+    cfg = tdefault_config("mobilenet_thin").model
     a, b = torch_model(cfg), torch_model(cfg)
     common.init_params(a, torch.Generator().manual_seed(0))
     common.init_params(b, torch.Generator().manual_seed(0))
@@ -143,7 +146,7 @@ def test_fused_inference_routes_the_marked_layers(dtype, monkeypatch):
     from openpose_plus_tpu_torch.ops.cuda import sepconv
 
     cfg = dataclasses.replace(
-        default_config("mobilenet_thin").model, hin=64, win=64, n_stages=2,
+        tdefault_config("mobilenet_thin").model, hin=64, win=64, n_stages=2,
         compute_dtype=dtype, fused_inference=True)
     model = torch_model(cfg)
     common.init_params(model, torch.Generator().manual_seed(0))
@@ -168,7 +171,7 @@ def test_fused_inference_routes_the_marked_layers(dtype, monkeypatch):
     assert calls == (marked if dtype == "bfloat16" else [])
 
     full = torch_model(dataclasses.replace(
-        default_config("mobilenet_thin").model, compute_dtype=dtype,
+        tdefault_config("mobilenet_thin").model, compute_dtype=dtype,
         fused_inference=True))
     n_fused = sum(m.fused for m in full.modules()
                   if isinstance(m, common.SepConvRelu))

@@ -24,6 +24,7 @@ from openpose_plus_tpu.ops.pallas.merge import assemble_pallas
 from openpose_plus_tpu.postproc import (
     common as jcommon, decode as jdecode, group as jgroup, nms as jnms,
     paf as jpaf)
+from openpose_plus_tpu_torch import config as tconfig
 from openpose_plus_tpu_torch.ops.cuda import greedy as tgreedy
 from openpose_plus_tpu_torch.ops.cuda import merge as tmerge
 from openpose_plus_tpu_torch.ops.cuda import paf_sample as tpaf_sample
@@ -36,6 +37,12 @@ torch.set_num_threads(2)
 
 CFG = PostprocConfig()                   # served default: K=16, M=32, f=2
 FIDELITY = PostprocConfig().fidelity()   # K=32, f=8, sigma 5
+
+
+def _port(cfg):
+    """The JAX package's PostprocConfig as the port's own, field for
+    field."""
+    return tconfig.PostprocConfig(**dataclasses.asdict(cfg))
 
 
 def _scene(n_people, noise=0.0, seed=0, h=46, w=54):
@@ -318,7 +325,7 @@ def _decode_both(kinds, cfg):
     if cfg not in _DECODERS:
         _DECODERS[cfg] = jdecode.build_decoder(cfg)
     ref = _DECODERS[cfg](conf, paf)
-    out = decode_maps(_t(conf), _t(paf), cfg)
+    out = decode_maps(_t(conf), _t(paf), _port(cfg))
     return ref, out
 
 
@@ -351,7 +358,7 @@ def test_decode_maps_matches_jax(cfg, atol_coord, atol_score):
 @pytest.mark.parametrize("n_people", [1, 2, 3])
 def test_decode_finds_standing_people(n_people):
     conf, paf = _scene(n_people)
-    out = decode_maps(_t(conf)[None], _t(paf)[None], CFG)
+    out = decode_maps(_t(conf)[None], _t(paf)[None], _port(CFG))
     assert int(out.num_humans[0]) == n_people
     assert (out.n_parts[0, :n_people] == skeleton.N_PARTS).all()
     humans = out.to_list(0)
@@ -362,9 +369,9 @@ def test_decode_finds_standing_people(n_people):
 def test_empty_maps_and_unported_options():
     conf = torch.zeros((2, 46, 54, 19))
     paf = torch.zeros((2, 46, 54, 38))
-    out = decode_maps(conf, paf, CFG)
+    out = decode_maps(conf, paf, _port(CFG))
     assert not out.valid.any()
     assert out.coords.shape == (2, CFG.max_humans, 18, 2)
-    quality = decode_maps(conf, paf, CFG.quality())    # fragment merge on
+    quality = decode_maps(conf, paf, _port(CFG).quality())  # merge on
     assert not quality.valid.any()
     assert quality.coords.shape == (2, CFG.max_humans, 18, 2)

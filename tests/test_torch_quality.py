@@ -23,6 +23,7 @@ from openpose_plus_tpu import skeleton
 from openpose_plus_tpu.config import PostprocConfig
 from openpose_plus_tpu.postproc import HumanBatch as JaxHumanBatch
 from openpose_plus_tpu.postproc import decode as jdecode
+from openpose_plus_tpu_torch import config as tconfig
 from openpose_plus_tpu_torch.postproc import HumanBatch, decode_maps
 from openpose_plus_tpu_torch.postproc import decode as tdecode
 
@@ -33,6 +34,7 @@ torch.set_num_threads(2)
 W, H = 432, 368
 M = 8
 QUALITY = PostprocConfig().quality()
+TQUALITY = tconfig.PostprocConfig().quality()    # the port's own preset
 
 
 # ----------------------------------------------------- fragment merge ---
@@ -329,7 +331,8 @@ def _decode_both(kinds, cfg):
     if cfg not in _DECODERS:
         _DECODERS[cfg] = jdecode.build_decoder(cfg)
     ref = _DECODERS[cfg](conf, paf)
-    out = decode_maps(torch.from_numpy(conf), torch.from_numpy(paf), cfg)
+    out = decode_maps(torch.from_numpy(conf), torch.from_numpy(paf),
+                      tconfig.PostprocConfig(**dataclasses.asdict(cfg)))
     return ref, out
 
 
@@ -353,9 +356,9 @@ def test_quality_merges_truncated_people():
     """On truncated people quality() gives fewer, fuller skeletons than
     the same preset without the merge (fidelity())."""
     conf, paf = (torch.from_numpy(a)[None] for a in _maps("truncated"))
-    merged = decode_maps(conf, paf, QUALITY)
+    merged = decode_maps(conf, paf, TQUALITY)
     plain = decode_maps(conf, paf, dataclasses.replace(
-        QUALITY, fragment_merge_rel=0.0))
+        TQUALITY, fragment_merge_rel=0.0))
     assert plain.n_parts[0].tolist()[:11] == [3] * 10 + [0]
     assert merged.n_parts[0].tolist()[:3] == [15, 15, 0]
     assert merged.num_humans.tolist() == [2]
@@ -364,9 +367,9 @@ def test_quality_merges_truncated_people():
 
 def test_quality_decode_of_empty_maps():
     out = decode_maps(torch.zeros((2, 46, 54, 19)),
-                      torch.zeros((2, 46, 54, 38)), QUALITY)
+                      torch.zeros((2, 46, 54, 38)), TQUALITY)
     assert not out.valid.any()
-    assert out.coords.shape == (2, QUALITY.max_humans, 18, 2)
+    assert out.coords.shape == (2, TQUALITY.max_humans, 18, 2)
 
 
 def test_quality_scene_is_mirror_consistent():
@@ -375,8 +378,8 @@ def test_quality_scene_is_mirror_consistent():
     from openpose_plus_tpu_torch.postproc.flip import mirror_maps
 
     conf, paf = (torch.from_numpy(a)[None] for a in _maps("truncated"))
-    out = decode_maps(conf, paf, QUALITY)
-    mir = decode_maps(*mirror_maps(conf, paf), QUALITY)
+    out = decode_maps(conf, paf, TQUALITY)
+    mir = decode_maps(*mirror_maps(conf, paf), TQUALITY)
     n = int(out.num_humans[0])
     assert int(mir.num_humans[0]) == n
     swap = torch.as_tensor(np.asarray(

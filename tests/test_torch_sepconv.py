@@ -31,9 +31,10 @@ import torch
 from jax.experimental import pallas as pl
 
 from openpose_plus_tpu.checkpoint import _flatten
-from openpose_plus_tpu.config import default_config
+from openpose_plus_tpu import config as jconfig
 from openpose_plus_tpu.models import get_model as jax_model
 from openpose_plus_tpu.ops.pallas import sepconv as jsepconv
+from openpose_plus_tpu_torch import config as tconfig
 from openpose_plus_tpu_torch.engine import Engine
 from openpose_plus_tpu_torch.ops.cuda import dw_probe, sepconv
 
@@ -156,10 +157,12 @@ def test_wrappers_take_the_plain_version_on_the_cpu():
 
 # ------------------------------------------------- the slice as a whole ---
 
-def _tiny_cfg(fused=True):
+def _tiny_cfg(fused=True, config=tconfig):
+    """The tiny fused model's ModelConfig, the port's own or (with
+    config=the JAX package's config module) the JAX one, same fields."""
     return dataclasses.replace(
-        default_config("mobilenet_thin").model, hin=64, win=64, n_stages=2,
-        compute_dtype="bfloat16", fused_inference=fused)
+        config.default_config("mobilenet_thin").model, hin=64, win=64,
+        n_stages=2, compute_dtype="bfloat16", fused_inference=fused)
 
 
 _SLICE = {}
@@ -169,7 +172,7 @@ def _slice():
     """JAX fused model (Pallas in interpret mode) and its flat params, the
     port's fused model on them, one seeded batch."""
     if not _SLICE:
-        cfg = _tiny_cfg()
+        cfg = _tiny_cfg(config=jconfig)
         x = np.random.default_rng(0).uniform(
             -0.5, 0.5, (2, 64, 64, 3)).astype(np.float32)
         # the flag is not a parameter: the unfused model's init gives the
@@ -212,10 +215,11 @@ def test_fused_engine_matches_unfused_engine():
     s = _slice()
     images = np.random.default_rng(4).integers(0, 256, (2, 64, 64, 3),
                                                dtype=np.uint8)
-    fused = Engine(default_config("mobilenet_thin").replace(
-        model=_tiny_cfg(True)), params=s["flat"])
-    plain = Engine(default_config("mobilenet_thin").replace(
-        model=_tiny_cfg(False)), params=s["flat"])
+    cfg = tconfig.default_config("mobilenet_thin")
+    fused = Engine(cfg.replace(model=_tiny_cfg(True)), params=s["flat"],
+                   device="cpu")
+    plain = Engine(cfg.replace(model=_tiny_cfg(False)), params=s["flat"],
+                   device="cpu")
     before = sepconv.launches
     for a, b in zip(plain.forward(images), fused.forward(images)):
         assert a.shape == b.shape

@@ -23,10 +23,10 @@ from flax import traverse_util
 from openpose_plus_tpu import engine as jengine, native
 from openpose_plus_tpu.engine import Engine as JaxEngine
 from openpose_plus_tpu.checkpoint import _flatten
-from openpose_plus_tpu.config import default_config
+from openpose_plus_tpu import config as jconfig
 from openpose_plus_tpu.models import common as jcommon
 from openpose_plus_tpu.postproc import flip as jflip
-from openpose_plus_tpu_torch import engine as tengine
+from openpose_plus_tpu_torch import config as tconfig, engine as tengine
 from openpose_plus_tpu_torch.engine import Engine
 from openpose_plus_tpu_torch.models import common as tcommon
 from openpose_plus_tpu_torch.postproc import flip as tflip
@@ -36,8 +36,10 @@ torch.set_num_threads(2)
 SCALES = (0.5, 1.0, 1.5)
 
 
-def _tiny(hin=64, win=64):
-    cfg = default_config("mobilenet_thin")
+def _tiny(hin=64, win=64, config=tconfig):
+    """The tiny float32 Config, the port's own or (config=jconfig) the JAX
+    package's, from the same arguments."""
+    cfg = config.default_config("mobilenet_thin")
     return cfg.replace(model=dataclasses.replace(
         cfg.model, hin=hin, win=win, n_stages=2, compute_dtype="float32"))
 
@@ -50,7 +52,7 @@ def _engines():
     stage's prediction kernels scaled until the decoder groups humans (as
     tests/test_torch_engine.py does)."""
     if not _PAIR:
-        cfg = _tiny()
+        cfg = _tiny(config=jconfig)
         flat = _flatten(jax.device_get(JaxEngine(cfg, seed=3).params))
         for branch, gain in (("conf", 400.0), ("paf", 1000.0)):
             key = f"params/stages/stage2_{branch}/Conv_0/kernel"
@@ -58,7 +60,7 @@ def _engines():
         nested = traverse_util.unflatten_dict(
             {tuple(k.split("/")): v for k, v in flat.items()})
         _PAIR["jax"] = JaxEngine(cfg, params=nested)
-        _PAIR["torch"] = Engine(cfg, params=flat)
+        _PAIR["torch"] = Engine(_tiny(), params=flat, device="cpu")
     return _PAIR["jax"], _PAIR["torch"]
 
 
@@ -166,19 +168,22 @@ _GEOMETRIES = {
 @pytest.mark.parametrize("layout", ["plain", "s2d", "s2d2", "nchw"])
 @pytest.mark.parametrize("geometry", sorted(_GEOMETRIES))
 def test_check_input_layout_matches_jax(geometry, layout):
-    m = dataclasses.replace(default_config().model, **_GEOMETRIES[geometry])
+    m = dataclasses.replace(jconfig.default_config().model,
+                            **_GEOMETRIES[geometry])
+    tm = dataclasses.replace(tconfig.default_config().model,
+                             **_GEOMETRIES[geometry])
     try:
         ref = jengine.check_input_layout(m, layout)
     except ValueError as e:
         with pytest.raises(ValueError) as out:
-            tengine.check_input_layout(m, layout)
+            tengine.check_input_layout(tm, layout)
         assert str(out.value) == str(e)
     else:
-        assert tengine.check_input_layout(m, layout) == ref
+        assert tengine.check_input_layout(tm, layout) == ref
 
 
 def test_engine_rejects_bad_layouts():
-    engine = Engine(_tiny())
+    engine = Engine(_tiny(), device="cpu")
     for bad in [np.zeros((1, 16, 16, 12), np.uint8),     # s2d, wrong size
                 np.zeros((1, 32, 32, 48), np.uint8),     # s2d^2, wrong size
                 np.zeros((1, 32, 32, 5), np.uint8),      # no such layout
@@ -188,7 +193,7 @@ def test_engine_rejects_bad_layouts():
             engine.infer(bad)
     # the layout's level is checked before the shape: 66x70 takes s2d, not
     # s2d^2
-    even = Engine(_tiny(hin=66, win=70))
+    even = Engine(_tiny(hin=66, win=70), device="cpu")
     with pytest.raises(ValueError, match="max supported level is 's2d'"):
         even.infer(np.zeros((1, 16, 17, 48), np.uint8))
 

@@ -16,9 +16,10 @@ import torch
 from flax import traverse_util
 
 from openpose_plus_tpu.checkpoint import _flatten, save_npz
-from openpose_plus_tpu.config import default_config
+from openpose_plus_tpu import config as jconfig
 from openpose_plus_tpu.models import get_model as jax_model
 from openpose_plus_tpu.postproc import common as jcommon, nms as jnms
+from openpose_plus_tpu_torch import config as tconfig
 from openpose_plus_tpu_torch.checkpoint import from_flax, load_npz, to_flax
 from openpose_plus_tpu_torch.models import get_model as torch_model
 from openpose_plus_tpu_torch.postproc import common as tcommon, nms as tnms
@@ -26,8 +27,10 @@ from openpose_plus_tpu_torch.postproc import common as tcommon, nms as tnms
 torch.set_num_threads(2)
 
 
-def _tiny_cfg():
-    cfg = default_config("mobilenet_thin").model
+def _tiny_cfg(config=jconfig):
+    """The tiny float32 ModelConfig, the JAX package's or (config=tconfig)
+    the port's own, from the same arguments."""
+    cfg = config.default_config("mobilenet_thin").model
     return dataclasses.replace(cfg, hin=64, win=64, n_stages=2,
                                compute_dtype="float32")
 
@@ -41,9 +44,8 @@ def _flax_init(model_cfg):
 def test_round_trip_on_jax_init():
     """from_flax -> load into the port -> state_dict -> to_flax gives back
     the JAX model's own init, bit for bit."""
-    cfg = _tiny_cfg()
-    flat = _flax_init(cfg)
-    model = torch_model(cfg)
+    flat = _flax_init(_tiny_cfg())
+    model = torch_model(_tiny_cfg(tconfig))
     model.load_state_dict(from_flax(flat), strict=True)
     back = to_flax(model.state_dict())
     assert back.keys() == flat.keys()
@@ -55,7 +57,7 @@ def test_full_width_keys_map_one_to_one():
     """Every Flax key of full-width MobileNet-thin (default config: 368x432,
     width 0.75, 6 stages) is consumed exactly once: the strict load fails on
     a missing, extra or mis-shaped key."""
-    cfg = default_config("mobilenet_thin").model
+    cfg = jconfig.default_config("mobilenet_thin").model
     shapes = jax.eval_shape(
         lambda: jax_model(cfg).init(
             jax.random.PRNGKey(0),
@@ -70,7 +72,7 @@ def test_full_width_keys_map_one_to_one():
     assert "params/stages/stage1_conf/Conv_0/kernel" in flat
     state = from_flax(flat)
     assert len(state) == 230
-    model = torch_model(cfg)
+    model = torch_model(tconfig.default_config("mobilenet_thin").model)
     model.load_state_dict(state, strict=True)
     dw = state["stages.stage2_paf.SepConvRelu_1.dw_weight"]
     c = dw.shape[0]

@@ -19,7 +19,11 @@ raises on failure (the script then exits non-zero and prints no result):
 3. Kernel phases: each kernel against its plain PyTorch version on the
    card and on a CPU copy, on seeded random inputs (tests/kernel_inputs.py):
    - greedy and merge at batch 8, K=16 and K=32, M=32, with injected ties:
-     bit-equal;
+     bit-equal; greedy also where -0.0 and +0.0 tie, merge also on the
+     connection sets that drive each of its branches
+     (`kernel_inputs.merge_connections`: merge-heavy, table-filling at
+     M=4, every slot valid, none valid). ptxas must report 0 bytes of
+     stack for every instance of both (`ptxas_frames`);
    - fused_sepconv at the six (C, F) shapes of the fused model's 41 layers
      (batch 8, 46x54, and the scale search's 23x27 and 69x81) and one shape
      with ragged tiles: at most 2 units of `kernel_inputs.bf16_mismatch`
@@ -73,7 +77,11 @@ raises on failure (the script then exits non-zero and prints no result):
    depthwise + pointwise pair; per sepconv shape and grid the kernel, its
    plain version, the pair and the fused layer, with the kernel's and the
    pair's share of the bound; the 41 layers of one fused forward summed
-   (`fused_forward_layers`). The accuracy paths (`accuracy_timings`):
+   (`fused_forward_layers`); greedy and merge at K=16 and K=32 on random
+   sets and on the connections the batch-8 decode (default and fidelity())
+   produces, beside their chain estimate (`decoder_kernel_times`), and the
+   decode's own device time (`decode_device_ms`). The accuracy paths
+   (`accuracy_timings`):
    `infer` on plain, s2d and s2d^2 input, flip-TTA, scale search avg and
    dedup, the quality decode and its fragment merge alone, `merge_dedup`
    alone, and batch 32 with and without `chunk=8`.
@@ -84,11 +92,19 @@ raises on failure (the script then exits non-zero and prints no result):
 The line before the last is the nvidia-smi name/power-limit line, the one
 before it the per-kernel JSON record; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
+
+`python3 chip_smoke.py --decoder-kernels-of DIR` instead builds the kernels
+of the port in DIR (a checkout of this repository, for instance an older
+commit's unpacked with `git archive`), prints their ptxas frames, checks
+greedy and merge bit-equal to their plain versions on phase 6's random sets
+and times them there; it prints no result line. Two trees compared in one
+run on one card: DIR=old, DIR=., DIR=., DIR=old.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import os
 import statistics
@@ -108,6 +124,16 @@ HBM_BYTES_PER_S = 3.35e12     # H100 SXM data sheet: HBM3
 BF16_OPS_PER_S = 989e12       # dense bf16 tensor-core peak
 F32_OPS_PER_S = 67e12         # f32 outside the tensor cores
 SCALES = (0.5, 1.0, 1.5)      # infer_multiscale's default scale search
+PLAIN_MERGE_REPLAYS = 2       # plain merge: ~12k launches a call at K=16
+# The chain estimate of greedy and merge: their dependent steps on these
+# inputs, each costed at one on-chip round trip of ROUND_TRIP_CYCLES (a
+# shared-memory load to its use; a warp vote, shuffle or redux is of the
+# same order) at the card's highest SM clock (nvidia-smi clocks.max.sm). A
+# merge step is one round trip (the ballot that decides it), a greedy round
+# two (its max, then its lowest index). A floor a serial kernel can
+# approach, not a prediction: a step does more than that.
+ROUND_TRIP_CYCLES = 30
+DECODER_KERNELS = ("greedy_assign_kernel", "assemble_kernel")
 # top-level packages the port must never load: JAX and the JAX package
 FOREIGN_PACKAGES = ("jax", "jaxlib", "flax", "openpose_plus_tpu")
 SOURCES = {   # kernel: (source, the TPU kernel it replaces)
@@ -144,6 +170,46 @@ def gpu_line() -> str:
          "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+def max_sm_mhz() -> float:
+    """The card's highest SM clock in MHz (nvidia-smi clocks.max.sm)."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60, check=True)
+    return float(out.stdout.strip().splitlines()[0])
+
+
+def ptxas_frames(log_text: str, kernels=DECODER_KERNELS) -> dict:
+    """{mangled name: (stack frame, spill store, spill load bytes)} of every
+    compiled instance whose name holds one of `kernels`, from nvcc's
+    -Xptxas=-v report (nvcc.log beside the built library)."""
+    frames, name = {}, None
+    for line in log_text.splitlines():
+        if "Function properties for " in line:
+            name = line.split("Function properties for ", 1)[1].strip()
+        elif "bytes stack frame" in line and name is not None:
+            if any(k in name for k in kernels):
+                frames[name] = tuple(int(w) for w in line.replace(
+                    ",", " ").split() if w.isdigit())[:3]
+            name = None
+    return frames
+
+
+def record_calls(module, name: str, fn) -> list:
+    """fn() with module.<name> recording its calls' (args, kwargs)."""
+    calls, original = [], getattr(module, name)
+
+    def recorder(*args, **kwargs):
+        calls.append((args, kwargs))
+        return original(*args, **kwargs)
+    setattr(module, name, recorder)
+    try:
+        fn()
+    finally:
+        setattr(module, name, original)
+    return calls
 
 
 def median_ms(torch, fn) -> float:
@@ -199,6 +265,32 @@ def assert_equal(torch, what: str, outs, refs) -> None:
     for i, (o, r) in enumerate(zip(outs, refs)):
         if not torch.equal(o.cpu(), r.cpu()):
             raise AssertionError(f"{what}: output {i} differs")
+
+
+def check_greedy(torch, greedy, scores, k, dev, what) -> tuple:
+    """greedy_assign on the card bit-equal to its plain version on the card
+    and on the CPU (`scores` on the CPU); returns the plain CPU outputs and
+    the max_abs_err."""
+    out = greedy.greedy_assign(scores.to(dev), k)
+    plain_dev = greedy.greedy_assign_plain(scores.to(dev), k)
+    plain_cpu = greedy.greedy_assign_plain(scores, k)
+    torch.cuda.synchronize()
+    assert_equal(torch, f"{what} vs plain (cuda)", out, plain_dev)
+    assert_equal(torch, f"{what} vs plain (cpu)", out, plain_cpu)
+    return plain_cpu, max_abs_err(torch, out, plain_cpu)
+
+
+def check_merge(torch, merge, args, k, m, dev, what) -> float:
+    """assemble on the card bit-equal to its plain version on the card and
+    on the CPU (`args` on the CPU); returns the max_abs_err."""
+    args_dev = [t.to(dev) for t in args]
+    out = merge.assemble(*args_dev, k, m)
+    plain_dev = merge.assemble_plain(*args_dev, k, m)
+    plain_cpu = merge.assemble_plain(*args, k, m)
+    torch.cuda.synchronize()
+    assert_equal(torch, f"{what} vs plain (cuda)", out, plain_dev)
+    assert_equal(torch, f"{what} vs plain (cpu)", out, plain_cpu)
+    return max_abs_err(torch, out, plain_cpu)
 
 
 def load_test_helper(name: str):
@@ -330,6 +422,72 @@ def time_sepconv(torch, common, sepconv, args, dev) -> dict:
 
 def io_bytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def random_decoder_sets(torch, inputs, np, dev) -> dict:
+    """Phase 6's random inputs of greedy and merge, batch 8 on the card,
+    from their own generator (the same in every run and tree): limb scores
+    with ties, and connection sets with a valid prefix of random length
+    (about half the slots valid), at K=16 and K=32."""
+    rng = np.random.default_rng(4)
+    sets = {}
+    for k in (16, 32):
+        scores = inputs.limb_scores(rng, BATCH, k)
+        conns = inputs.connections(rng, BATCH, k)
+        peak_score = inputs.peak_scores(rng, BATCH, k)
+        sets["random", k] = (torch.from_numpy(scores).to(dev),
+                             [torch.from_numpy(x).to(dev) for x in conns],
+                             torch.from_numpy(peak_score).to(dev))
+    return sets
+
+
+def decoder_kernel_times(torch, greedy, merge, scores, conns, peak_score, m,
+                         clock_mhz, plain=False) -> dict:
+    """greedy_assign on `scores` (B, 19, K, K) and assemble on `conns` +
+    `peak_score` at table size m, both checked bit-equal to their plain
+    versions on the card: event and device ms (and with `plain`, their
+    plain versions'), the bound (bytes over the HBM rate against a max and
+    a compare a remaining candidate a round, or 2 m operations a valid
+    connection, over the f32 rate), and the chain estimate: the dependent
+    steps these inputs need (greedy: the most rounds of any image and limb,
+    its accepted connections plus the round that finds none, at most K;
+    merge: the most valid connections of any image) at ROUND_TRIP_CYCLES
+    each (two a greedy round) and the highest SM clock."""
+    k = scores.shape[-1]
+    calls = {
+        "greedy_assign": (lambda: greedy.greedy_assign(scores, k),
+                          lambda: greedy.greedy_assign_plain(scores, k)),
+        "assemble": (lambda: merge.assemble(*conns, peak_score, k, m),
+                     lambda: merge.assemble_plain(*conns, peak_score, k, m)),
+    }
+    out = {}
+    for name, (fn, slow) in calls.items():
+        assert_equal(torch, f"{name} K={k} vs plain (cuda)", fn(), slow())
+        t = out[name] = {"ms": median_ms(torch, fn),
+                         "device_ms": device_ms(torch, fn)}
+        if plain:
+            t["plain_ms"] = median_ms(torch, slow)
+            t["plain_device_ms"] = device_ms(
+                torch, slow, calls=PLAIN_MERGE_REPLAYS
+                if name == "assemble" else TIMED_ITERS)
+    accepted = greedy.greedy_assign(scores, k)
+    rounds = torch.clamp(accepted[3].sum(-1) + 1, max=k)      # (B, 19)
+    steps = conns[3].sum(dim=(1, 2))                          # (B,)
+    cycle_ms = 1e-3 / clock_mhz
+    out["greedy_assign"].update(zip(("bound_ms", "bound_by"), bound(
+        io_bytes(scores, *accepted),
+        2 * int(rounds.sum()) * k * k / F32_OPS_PER_S), strict=True))
+    out["greedy_assign"].update(
+        rounds=int(rounds.max()), rounds_total=int(rounds.sum()),
+        chain_ms=int(rounds.max()) * 2 * ROUND_TRIP_CYCLES * cycle_ms)
+    out["assemble"].update(zip(("bound_ms", "bound_by"), bound(
+        io_bytes(*conns, peak_score, *merge.assemble(*conns, peak_score, k,
+                                                     m)),
+        int(steps.sum()) * m * 2 / F32_OPS_PER_S), strict=True))
+    out["assemble"].update(
+        steps=int(steps.max()), steps_total=int(steps.sum()),
+        chain_ms=int(steps.max()) * ROUND_TRIP_CYCLES * cycle_ms)
+    return out
 
 
 def time_probe(torch, dw_probe, x, dwk) -> dict:
@@ -663,20 +821,6 @@ def accuracy_timings(torch, np, rng, engines, images, acc, gpu) -> None:
     from openpose_plus_tpu_torch import engine as engine_mod
     from openpose_plus_tpu_torch.postproc import decode
 
-    def record(module, name, fn):
-        """fn() with module.<name> recording its calls' arguments."""
-        calls, original = [], getattr(module, name)
-
-        def recorder(*args, **kwargs):
-            calls.append((args, kwargs))
-            return original(*args, **kwargs)
-        setattr(module, name, recorder)
-        try:
-            fn()
-        finally:
-            setattr(module, name, original)
-        return calls
-
     for label, eng in engines.items():
         calls = {"plain": lambda: eng.infer(images),
                  **{name: (lambda x=x: eng.infer(x))
@@ -696,10 +840,10 @@ def accuracy_timings(torch, np, rng, engines, images, acc, gpu) -> None:
     quality = acc["quality"]
     conf, paf = acc["truncated"]
     # the arguments of the calls to time alone, as the paths pass them
-    (merge_args, merge_kwargs), = record(
+    (merge_args, merge_kwargs), = record_calls(
         decode, "merge_fragments",
         lambda: decode.decode_maps(conf, paf, quality))
-    (dedup_args, _), = record(
+    (dedup_args, _), = record_calls(
         engine_mod, "merge_dedup", lambda: engines["default"]
         .infer_multiscale(images, SCALES, flip_tta=True, combine="dedup"))
     log(json.dumps({"accuracy_decode": {
@@ -813,6 +957,11 @@ def main(argv: list[str]) -> int:
         help="also time infer/forward/decode at batch 1, 8 and 32, the "
              "host's enqueue time, and the device's busy time per call "
              "(torch.profiler)")
+    parser.add_argument(
+        "--decoder-kernels-of", metavar="DIR",
+        help="only build the port in DIR (a checkout of this repository), "
+             "print its greedy and merge kernels' ptxas frames, and check "
+             "and time them on phase 6's random sets")
     args = parser.parse_args(argv)
 
     import torch
@@ -825,6 +974,9 @@ def main(argv: list[str]) -> int:
 
     import numpy as np
 
+    tree = args.decoder_kernels_of
+    if tree is not None:
+        sys.path.insert(0, os.path.abspath(tree))
     from openpose_plus_tpu_torch import Engine, default_config
     from openpose_plus_tpu_torch.engine import scaled_size
     from openpose_plus_tpu_torch.models import common, get_model
@@ -840,50 +992,76 @@ def main(argv: list[str]) -> int:
     lib_path = build.build()
     build.load()
     log(f"build: {lib_path.name} in {time.perf_counter() - t0:.2f} s")
-    for line in (lib_path.parent / "nvcc.log").read_text().splitlines():
+    nvcc_log = (lib_path.parent / "nvcc.log").read_text()
+    for line in nvcc_log.splitlines():
         if "ptxas info" in line and ("registers" in line
                                      or "Compiling" in line):
             log(f"  {line.strip()}")
+    frames = ptxas_frames(nvcc_log)
+    for name, (stack, spill_st, spill_ld) in sorted(frames.items()):
+        log(f"  ptxas frame {name}: {stack} bytes stack, {spill_st} bytes "
+            f"spill stores, {spill_ld} bytes spill loads")
+    cfg = default_config("mobilenet_thin")
+    m = cfg.postproc.max_humans
+    clock_mhz = max_sm_mhz()
+    if tree is not None:
+        import openpose_plus_tpu_torch
+        if not openpose_plus_tpu_torch.__file__.startswith(
+                os.path.abspath(tree) + os.sep):
+            raise AssertionError(f"imported {openpose_plus_tpu_torch.__file__}"
+                                 f", not the port in {tree}")
+        for (label, k), case in random_decoder_sets(torch, inputs, np,
+                                                    dev).items():
+            log(json.dumps({"decoder_kernels": {
+                "tree": tree, "set": label, "k": k, "batch": BATCH, "m": m,
+                **decoder_kernel_times(torch, greedy, merge, *case, m,
+                                       clock_mhz),
+                "max_sm_mhz": clock_mhz, "gpu": gpu}}))
+        return 0
+    # greedy and merge keep every instance's locals in registers
+    if ({k for k in DECODER_KERNELS if any(k in n for n in frames)}
+            != set(DECODER_KERNELS)
+            or any(f != (0, 0, 0) for f in frames.values())):
+        raise AssertionError(f"greedy/merge ptxas frames {frames}: expected "
+                             "0 bytes of stack and spills for every instance")
 
     # ---- 3. kernel phases ----------------------------------------------
     rng = np.random.default_rng(0)
-    cfg = default_config("mobilenet_thin")
-    m = cfg.postproc.max_humans
     errs = {"greedy_assign": 0.0, "assemble": 0.0}
     for k in (16, 32):
         for density in (0.3, 1.0):
             scores = torch.from_numpy(inputs.limb_scores(rng, BATCH, k,
                                                          density))
-            scores_dev = scores.to(dev)
-            out = greedy.greedy_assign(scores_dev, k)
-            plain_dev = greedy.greedy_assign_plain(scores_dev, k)
-            plain_cpu = greedy.greedy_assign_plain(scores, k)
-            torch.cuda.synchronize()
-            assert_equal(torch, f"greedy K={k} vs plain (cuda)", out,
-                         plain_dev)
-            assert_equal(torch, f"greedy K={k} vs plain (cpu)", out,
-                         plain_cpu)
-            errs["greedy_assign"] = max(errs["greedy_assign"],
-                                        max_abs_err(torch, out, plain_cpu))
+            accepted, err = check_greedy(torch, greedy, scores, k, dev,
+                                         f"greedy K={k}")
+            errs["greedy_assign"] = max(errs["greedy_assign"], err)
             # merge on real greedy output and on random connection sets
             peak_score = torch.from_numpy(inputs.peak_scores(rng, BATCH, k))
-            for conns in ([t.cpu() for t in plain_cpu],
+            for conns in (accepted,
                           [torch.from_numpy(x)
                            for x in inputs.connections(rng, BATCH, k)]):
-                args_cpu = (*conns, peak_score)
-                args_dev = tuple(t.to(dev) for t in args_cpu)
-                out = merge.assemble(*args_dev, k, m)
-                plain_dev = merge.assemble_plain(*args_dev, k, m)
-                plain_cpu = merge.assemble_plain(*args_cpu, k, m)
-                torch.cuda.synchronize()
-                assert_equal(torch, f"merge K={k} vs plain (cuda)", out,
-                             plain_dev)
-                assert_equal(torch, f"merge K={k} vs plain (cpu)", out,
-                             plain_cpu)
-                errs["assemble"] = max(errs["assemble"],
-                                       max_abs_err(torch, out, plain_cpu))
-    log(f"kernels bit-equal to their plain versions at K=16, 32 (ties "
-        f"included): max_abs_err {errs}")
+                errs["assemble"] = max(errs["assemble"], check_merge(
+                    torch, merge, (*conns, peak_score), k, m, dev,
+                    f"merge K={k}"))
+    # -0.0 tying +0.0, and the connection sets that drive each branch of the
+    # merge, from their own generator
+    rng_sets = np.random.default_rng(3)
+    for k in (16, 32):
+        scores = torch.from_numpy(inputs.signed_zero_scores(rng_sets, BATCH,
+                                                            k))
+        _, err = check_greedy(torch, greedy, scores, k, dev,
+                              f"greedy K={k}, signed zeros")
+        errs["greedy_assign"] = max(errs["greedy_assign"], err)
+        for kind, mk in inputs.MERGE_KINDS.items():
+            fields = [torch.from_numpy(x) for x in (
+                *inputs.merge_connections(rng_sets, BATCH, k, kind),
+                inputs.peak_scores(rng_sets, BATCH, k))]
+            errs["assemble"] = max(errs["assemble"], check_merge(
+                torch, merge, fields, k, mk, dev,
+                f"merge {kind} K={k} M={mk}"))
+    log(f"greedy and merge bit-equal to their plain versions at K=16, 32 "
+        f"(ties, signed zeros, {sorted(inputs.MERGE_KINDS)} included), 0 "
+        f"bytes of stack: max_abs_err {errs}")
 
     # the phases below draw from their own generator, so the main path's
     # images stay those of the runs before them
@@ -1087,12 +1265,15 @@ def main(argv: list[str]) -> int:
                          n_fused, dev)
 
     # ---- 6. timings -------------------------------------------------------
+    decode_device = {}
     for label, eng in (("default", engine), ("fused", fused_engine)):
         infer_ms = median_ms(torch, lambda: eng.infer(images))
         forward_ms = median_ms(torch, lambda: eng.forward(images))
         conf, paf = eng.forward(images)
         decode_ms = median_ms(torch, lambda: decode_maps(conf, paf,
                                                          cfg.postproc))
+        decode_device[label] = device_ms(
+            torch, lambda: decode_maps(conf, paf, cfg.postproc))
         log(json.dumps({"infer": {
             "model": mc.name, "batch": BATCH, "hw": [mc.hin, mc.win],
             "dtype": mc.compute_dtype, "stages": mc.n_stages,
@@ -1101,7 +1282,38 @@ def main(argv: list[str]) -> int:
             "forward_ms": forward_ms, "decode_ms": decode_ms,
             "forward_device_ms": device_ms(
                 torch, lambda: eng.forward(images), calls=FORWARD_REPLAYS),
+            "decode_device_ms": decode_device[label],
             "gpu": gpu}}))
+    # greedy and merge on the random sets, then on what the default
+    # engine's batch-8 decode hands them (default and fidelity() presets)
+    dec_sets = {key: (*case, m) for key, case in random_decoder_sets(
+        torch, inputs, np, dev).items()}
+    conf, paf = engine.forward(images)
+    for label, post in (("infer", cfg.postproc),
+                        ("fidelity", cfg.postproc.fidelity())):
+        decode = functools.partial(decode_maps, conf, paf, post)
+        merges = []
+        (g_args, _), = record_calls(greedy, "greedy_assign", lambda: (
+            merges.extend(record_calls(merge, "assemble", decode))))
+        (m_args, _), = merges
+        dec_sets[label, post.max_peaks] = (g_args[0], list(m_args[:4]),
+                                           m_args[4], m_args[6])
+        if label == "fidelity":
+            decode_device[label] = device_ms(torch, decode)
+    dec_t = {}
+    for (label, k), (scores, conns, peak_score, mk) in dec_sets.items():
+        t = dec_t[label, k] = decoder_kernel_times(
+            torch, greedy, merge, scores, conns, peak_score, mk, clock_mhz,
+            plain=label == "random")
+        line = {"set": label, "k": k, "batch": BATCH, "m": mk, **t,
+                "max_sm_mhz": clock_mhz}
+        if label != "random":     # the decode these inputs came from
+            line["decode_device_ms"] = decode_device[
+                "default" if label == "infer" else label]
+            line["share_of_decode"] = (
+                t["greedy_assign"]["device_ms"] + t["assemble"]["device_ms"]
+            ) / line["decode_device_ms"]
+        log(json.dumps({"decoder_kernels": {**line, "gpu": gpu}}))
     sep_ms = {}
     with torch.no_grad():
         for (c, f), n in sorted(shapes.items()):
@@ -1121,31 +1333,16 @@ def main(argv: list[str]) -> int:
         probe_t[c] = time_probe(torch, dw_probe, x.to(dev), dwk.to(dev))
         log(json.dumps({"probe": {**probe_t[c], "gpu": gpu}}))
     k = cfg.postproc.max_peaks
-    scores = torch.from_numpy(inputs.limb_scores(rng, BATCH, k)).to(dev)
-    conns = [torch.from_numpy(x).to(dev)
-             for x in inputs.connections(rng, BATCH, k)]
-    peak_score = torch.from_numpy(inputs.peak_scores(rng, BATCH, k)).to(dev)
+    # the kernels line: greedy and merge on the random sets at the served K
+    timing = {name: {**dec_t["random", k][name], "library_ms": None}
+              for name in ("greedy_assign", "assemble")}
     paf_gather = one_call_gather(torch, *paf_args)
-    calls = {
-        "greedy_assign": (lambda: greedy.greedy_assign(scores, k),
-                          lambda: greedy.greedy_assign_plain(scores, k)),
-        "assemble": (lambda: merge.assemble(*conns, peak_score, k, m),
-                     lambda: merge.assemble_plain(*conns, peak_score, k, m)),
-        "sample_paf": (lambda: paf_sample.sample_paf(*paf_args),
-                       lambda: paf_sample.sample_paf_plain(*paf_args)),
-    }
-    timing = {name: {"ms": median_ms(torch, fn), "plain_ms": median_ms(
-        torch, plain), "device_ms": device_ms(torch, fn),
-        "plain_device_ms": device_ms(torch, plain)}
-        for name, (fn, plain) in calls.items()}
-    timing["greedy_assign"].update(zip(("bound_ms", "bound_by"), bound(
-        io_bytes(scores, *greedy.greedy_assign(scores, k)),
-        scores.numel() * k / F32_OPS_PER_S), strict=True), library_ms=None)
-    timing["assemble"].update(zip(("bound_ms", "bound_by"), bound(
-        io_bytes(*conns, peak_score, *merge.assemble(*conns, peak_score, k,
-                                                     m)),
-        int(conns[3].sum()) * m * 2 / F32_OPS_PER_S), strict=True),
-        library_ms=None)
+    sample = functools.partial(paf_sample.sample_paf, *paf_args)
+    sample_plain = functools.partial(paf_sample.sample_paf_plain, *paf_args)
+    timing["sample_paf"] = {
+        "ms": median_ms(torch, sample), "plain_ms": median_ms(
+            torch, sample_plain), "device_ms": device_ms(torch, sample),
+        "plain_device_ms": device_ms(torch, sample_plain)}
     timing["sample_paf"].update(zip(("bound_ms", "bound_by"), bound(
         sample_paf_bytes(torch, *paf_args), 0.0), strict=True),
         library_ms=median_ms(torch, paf_gather),

@@ -2,10 +2,12 @@
 
 Replaces the TPU kernel `openpose_plus_tpu/ops/pallas/greedy.py ::
 greedy_assign_pallas`; kernel source `openpose_plus_tpu_torch/csrc/greedy.cu`.
-On the H100 the work is bounded by launch latency and the serial dependency
-between the K rounds, not by bytes: the plain version is K rounds of ~10
-small tensor ops each, the kernel is one launch that keeps every round on
-chip (one block per image, one warp per limb).
+On the H100 the work is bounded by the serial chain of the K rounds, not by
+bytes: the plain version is K rounds of ~10 small tensor ops each, the
+kernel one launch that keeps every round in registers (one warp per image
+and limb, four to a 128-thread block; each round a `redux.sync` max of
+order-preserving integer keys and a `redux.sync` min of the index; the
+loop ends at the first round that finds nothing).
 
 `greedy_assign` dispatches on the device of its input: a CPU tensor takes
 `greedy_assign_plain`, a CUDA tensor launches the kernel or raises. Each

@@ -5,10 +5,12 @@ Replaces the TPU kernel `openpose_plus_tpu/ops/pallas/merge.py ::
 assemble_pallas`; kernel source `openpose_plus_tpu_torch/csrc/merge.cu`.
 Semantics are bit-identical to `openpose_plus_tpu/postproc/group.py ::
 assemble` (the CMU merge with its overwrite-and-count quirk). On the H100
-the work is bounded by launch latency and the serial dependency from one
-connection to the next, not by bytes: the plain version is ~40 tiny tensor
-ops per connection slot (19*K slots), the kernel one launch with one warp
-per image.
+the work is bounded by the serial dependency from one valid connection to
+the next, not by bytes: the plain version is ~40 tiny tensor ops per
+connection slot (19*K slots); the kernel is one launch, a 128-thread block
+per image that stages its inputs in shared memory and compacts the valid
+slots, then one warp whose chain over them runs in registers and shared
+memory only.
 
 `assemble` dispatches on the device of its inputs: CPU tensors take
 `assemble_plain`, CUDA tensors launch the kernel or raise. Each launch adds

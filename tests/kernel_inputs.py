@@ -50,6 +50,65 @@ def connections(rng: np.random.Generator, b: int, k: int
     return slot_a, slot_b, score, valid
 
 
+def signed_zero_scores(rng: np.random.Generator, b: int, k: int
+                       ) -> np.ndarray:
+    """(b, 19, k, k) float32 limb scores whose maxima are often zeros of
+    both signs: -0.0 and +0.0 tie (`rem == best`), so the lowest index
+    wins whatever the sign. Drawn from {-inf, -1, -0.0, +0.0, 0.5}; limb 0
+    has no 0.5, limb 1 only zeros."""
+    values = np.array([-np.inf, -1.0, -0.0, 0.0, 0.5], np.float32)
+    s = rng.choice(values, (b, N_LIMBS, k, k), p=[0.3, 0.2, 0.2, 0.2, 0.1])
+    s[:, 0] = np.where(s[:, 0] == 0.5, -0.0, s[:, 0])
+    s[:, 1] = rng.choice(values[2:4], (b, k, k))
+    return s.astype(np.float32)
+
+
+# Connection sets that drive the merge down each of its branches, and the
+# table size (max_humans) each is meant for; see `merge_connections`.
+MERGE_KINDS = {"merge_heavy": 32, "table_filling": 4, "all_valid": 32,
+               "none_valid": 32}
+
+
+def merge_connections(rng: np.random.Generator, b: int, k: int, kind: str
+                      ) -> tuple[np.ndarray, ...]:
+    """Connection sets like `connections`, (b, 19, k) each, of one kind:
+
+    - "merge_heavy": each limb accepts a few slots at random positions,
+      their endpoints drawn from peaks 0-2 only, so rows collide: two or
+      more found rows, attaches that overwrite a held part. The neck-nose
+      limb (12) mostly accepts none and the head and cycle-closing limbs
+      (13-18) accept 2-5, so the head grows as a fragment of its own that
+      limbs 17-18 then merge into a body (about one merge an image);
+    - "all_valid": every slot valid, endpoints as in `connections`
+      (distinct within a limb);
+    - "table_filling": the same sets, meant for max_humans = 4: many
+      connections find no row, the table fills after four creates and the
+      creates after them are dropped;
+    - "none_valid": no slot valid (the merge is a no-op).
+
+    Returns slot_a, slot_b (int32), score (float32, 0 where invalid),
+    valid (bool)."""
+    if kind == "merge_heavy":
+        pool = min(3, k)
+        slot_a = rng.integers(0, pool, (b, N_LIMBS, k)).astype(np.int32)
+        slot_b = rng.integers(0, pool, (b, N_LIMBS, k)).astype(np.int32)
+        n = rng.integers(0, 4, (b, N_LIMBS, 1))
+        n[:, 13:] = rng.integers(2, 6, (b, N_LIMBS - 13, 1))
+        n[:, 12] = np.where(rng.random((b, 1)) < 0.8, 0, n[:, 12])
+        valid = rng.random((b, N_LIMBS, k)).argsort(-1).argsort(-1) < n
+    else:
+        slot_a, slot_b, _, valid = connections(rng, b, k)
+        if kind in ("table_filling", "all_valid"):
+            valid = np.ones_like(valid)
+        elif kind == "none_valid":
+            valid = np.zeros_like(valid)
+        else:
+            raise ValueError(f"unknown connection set {kind!r}")
+    score = (rng.uniform(0.1, 1.0, (b, N_LIMBS, k)) * valid).astype(
+        np.float32)
+    return slot_a, slot_b, score, valid
+
+
 def peak_scores(rng: np.random.Generator, b: int, k: int) -> np.ndarray:
     """(b, 18, k) float32 peak scores."""
     return rng.uniform(0.1, 1.0, (b, N_PARTS, k)).astype(np.float32)

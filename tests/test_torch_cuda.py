@@ -9,9 +9,11 @@ has no JAX:
         tests/test_torch_cuda.py
 
 It covers what chip_smoke.py's main-path shapes do not: every register
-tiling of the greedy kernel (K from 1 to 32), merge tables with fewer than
-32 rows, the separable conv at odd channel counts, every pixel and F tiling,
-ragged tiles and unaligned views (both load paths), the PAF
+tiling of the greedy kernel (K from 1 to 32, ties of -0.0 with +0.0, a
+NaN), merge tables with fewer than 32 rows, odd K, the connection sets
+that drive each branch of the merge, the separable conv at odd channel
+counts, every pixel and F tiling, ragged tiles and unaligned views (both
+load paths), the PAF
 sampler at K = 1...32 with corner coordinates, the depthwise probe, empty
 batches, and the wrappers' refusals on the card.
 
@@ -43,18 +45,27 @@ def cuda():
 
 
 def _scores(rng, b, k, density):
+    """limb_scores at `density`, or "signed_zero" (-0.0 and +0.0 tie), or
+    "nan" (signed zeros with a NaN in limb 5 of image 0, which the plain
+    version's amax propagates: that limb accepts nothing)."""
+    if density in ("signed_zero", "nan"):
+        s = kernel_inputs.signed_zero_scores(rng, b, k)
+        if density == "nan":
+            s[0, 5, k // 2, 0] = np.nan
+        return torch.from_numpy(s)
     return torch.from_numpy(kernel_inputs.limb_scores(rng, b, k, density))
 
 
-def _conns(rng, b, k):
-    fields = (*kernel_inputs.connections(rng, b, k),
-              kernel_inputs.peak_scores(rng, b, k))
+def _conns(rng, b, k, kind="random"):
+    conns = (kernel_inputs.connections(rng, b, k) if kind == "random"
+             else kernel_inputs.merge_connections(rng, b, k, kind))
+    fields = (*conns, kernel_inputs.peak_scores(rng, b, k))
     return [torch.from_numpy(x) for x in fields]
 
 
-# K*K/32 candidates per lane: 1 (K <= 5), 2, 4, 8, 16 and 32 (K = 32)
-@pytest.mark.parametrize("k", [1, 2, 5, 7, 8, 11, 16, 22, 23, 32])
-@pytest.mark.parametrize("density", [0.3, 1.0])
+# K*K/32 candidates per lane: 1 (K <= 5), 2, 4, 8, 16 and 32 (K = 31, 32)
+@pytest.mark.parametrize("k", [1, 2, 5, 7, 8, 11, 16, 22, 23, 31, 32])
+@pytest.mark.parametrize("density", [0.3, 1.0, "signed_zero", "nan"])
 def test_greedy_kernel_equals_plain(cuda, k, density):
     scores = _scores(np.random.default_rng(k), 5, k, density)
     before = greedy.launches
@@ -65,11 +76,22 @@ def test_greedy_kernel_equals_plain(cuda, k, density):
         assert o.device.type == "cuda" and torch.equal(o.cpu(), r)
 
 
-@pytest.mark.parametrize("k,m", [(1, 1), (4, 4), (8, 16), (16, 7),
-                                 (16, 32), (32, 31), (32, 32)])
-def test_merge_kernel_equals_plain(cuda, k, m):
+# the random connection sets at table sizes below 32, odd K (16-byte and
+# element-wise staging) and K = 64 (over 48 KB of shared memory), then each
+# set of kernel_inputs.merge_connections at the table size it is meant for
+_MERGE_CASES = [pytest.param(k, m, "random", id=f"{k}-{m}")
+                for k, m in [(1, 1), (4, 4), (8, 16), (16, 7), (16, 32),
+                             (32, 31), (32, 32), (5, 32), (31, 32),
+                             (64, 32)]]
+_MERGE_CASES += [pytest.param(k, m, kind, id=f"{kind}-{k}")
+                 for kind, m in kernel_inputs.MERGE_KINDS.items()
+                 for k in (16, 32)]
+
+
+@pytest.mark.parametrize("k,m,kind", _MERGE_CASES)
+def test_merge_kernel_equals_plain(cuda, k, m, kind):
     rng = np.random.default_rng(100 + k * m)
-    args = _conns(rng, 6, k)
+    args = _conns(rng, 6, k, kind)
     before = merge.launches
     out = merge.assemble(*[t.to(cuda) for t in args], k, m)
     torch.cuda.synchronize()
@@ -78,15 +100,16 @@ def test_merge_kernel_equals_plain(cuda, k, m):
         assert o.device.type == "cuda" and torch.equal(o.cpu(), r)
 
 
-def test_merge_kernel_on_greedy_output(cuda):
+@pytest.mark.parametrize("k", [16, 32])
+def test_merge_kernel_on_greedy_output(cuda, k):
     """The two kernels chained as the decoder chains them."""
     rng = np.random.default_rng(7)
-    scores = _scores(rng, 8, 16, 0.3)
-    conns = greedy.greedy_assign(scores.to(cuda), 16)
-    peak_score = torch.from_numpy(kernel_inputs.peak_scores(rng, 8, 16))
-    out = merge.assemble(*conns, peak_score.to(cuda), 16, 32)
-    ref = merge.assemble_plain(*greedy.greedy_assign_plain(scores, 16),
-                               peak_score, 16, 32)
+    scores = _scores(rng, 8, k, 0.3)
+    conns = greedy.greedy_assign(scores.to(cuda), k)
+    peak_score = torch.from_numpy(kernel_inputs.peak_scores(rng, 8, k))
+    out = merge.assemble(*conns, peak_score.to(cuda), k, 32)
+    ref = merge.assemble_plain(*greedy.greedy_assign_plain(scores, k),
+                               peak_score, k, 32)
     for o, r in zip(out, ref):
         assert torch.equal(o.cpu(), r)
 

@@ -235,12 +235,21 @@ def test_sample_paf_wrapper_dispatch():
 
 # ------------------------------------------------------ greedy (kernel 1) ---
 
+# ties: kernel_inputs.limb_scores with or without its injected ties, or
+# "signed_zero" (kernel_inputs.signed_zero_scores: -0.0 and +0.0 tie); K = 1,
+# 5 and 31 put the index arithmetic off the powers of two
 @pytest.mark.parametrize("k,seed,ties", [(8, 0, False), (16, 1, False),
                                          (16, 2, True), (16, 3, True),
-                                         (32, 4, True)])
+                                         (32, 4, True), (1, 5, True),
+                                         (5, 6, True), (31, 7, True),
+                                         (16, 8, "signed_zero"),
+                                         (32, 9, "signed_zero")])
 def test_plain_greedy_matches_xla_and_pallas(k, seed, ties):
     rng = np.random.default_rng(seed)
-    scores = kernel_inputs.limb_scores(rng, 3, k, ties=ties)
+    if ties == "signed_zero":
+        scores = kernel_inputs.signed_zero_scores(rng, 3, k)
+    else:
+        scores = kernel_inputs.limb_scores(rng, 3, k, ties=ties)
     out = tgreedy.greedy_assign_plain(_t(scores), k)
     xla = jax.vmap(functools.partial(jpaf.greedy_assign, max_peaks=k))(
         jnp.asarray(scores))
@@ -274,13 +283,25 @@ def test_greedy_wrapper_dispatch():
 
 # ------------------------------------------------------- merge (kernel 2) ---
 
-@pytest.mark.parametrize("k,m,seed", [(8, 16, 0), (8, 16, 1), (8, 4, 2),
-                                      (16, 32, 3), (16, 32, 4), (16, 8, 5),
-                                      (32, 32, 6)])
-def test_plain_merge_matches_xla_and_pallas(k, m, seed):
+# kind: kernel_inputs.connections ("random") or one of the connection
+# sets of kernel_inputs.merge_connections, at the table size it is meant
+# for (kernel_inputs.MERGE_KINDS)
+_MERGE_CASES = [pytest.param(k, m, seed, "random", id=f"{k}-{m}-{seed}")
+                for k, m, seed in [(8, 16, 0), (8, 16, 1), (8, 4, 2),
+                                   (16, 32, 3), (16, 32, 4), (16, 8, 5),
+                                   (32, 32, 6)]]
+_MERGE_CASES += [pytest.param(k, m, 10 + i, kind, id=f"{kind}-{k}")
+                 for i, (kind, m) in enumerate(
+                     kernel_inputs.MERGE_KINDS.items())
+                 for k in (16, 32)]
+
+
+@pytest.mark.parametrize("k,m,seed,kind", _MERGE_CASES)
+def test_plain_merge_matches_xla_and_pallas(k, m, seed, kind):
     rng = np.random.default_rng(seed)
     b = 3
-    fields = kernel_inputs.connections(rng, b, k)
+    fields = (kernel_inputs.connections(rng, b, k) if kind == "random"
+              else kernel_inputs.merge_connections(rng, b, k, kind))
     peak_score = kernel_inputs.peak_scores(rng, b, k)
     parts, score, count = tmerge.assemble_plain(
         *map(_t, fields), _t(peak_score), k, m)

@@ -85,7 +85,37 @@ raises on failure (the script then exits non-zero and prints no result):
    `infer` on plain, s2d and s2d^2 input, flip-TTA, scale search avg and
    dedup, the quality decode and its fragment merge alone, `merge_dedup`
    alone, and batch 32 with and without `chunk=8`.
-7. With --profile only: batch scaling (1, 8, 32; decode also at the
+7. The rest of the zoo (`zoo_paths`): for each of VGG19, VGG-tiny and
+   hao28, Engine(default_config(name), seed=0, device="cuda") at full
+   width (368x432, 6 stages, bfloat16) with its heads scaled as in phase 4
+   runs `infer` on phase 4's batch-8 images: the greedy, merge and
+   sample_paf counts must rise during that call (set to 0 just before it,
+   read just after), every image must decode to a human, the HumanBatch
+   must have its shapes and be finite and compacted, and the s2d form of
+   the images must give an equal HumanBatch; the float32 forward on the
+   card must match the float32 forward on the CPU at batch 1 within
+   FORWARD32_REL_TOL of the map scale. A `zoo` line per model at batch 8:
+   `infer` event ms, the forward's and the stage head's device ms
+   (`device_ms`), the convolutions' flops and the forward's bound.
+8. The GT-map oracle on the card (`oracle_phase`): `ap_oracle` renders the
+   ground-truth maps of the serving tier's 96 seeded val images
+   (368x432, stride 8, sigma 8) on the card and decodes them with the
+   port's decoder at the base, fidelity() and fidelity() + fragment-merge
+   settings (each decode launches greedy, merge and sample_paf, counts
+   read per variant). "perfect" must read AP 1.0, the three map variants
+   must lie within ORACLE_AP_TOL of ap_benchmark.json's "oracle@368"
+   record, and the same variants on the first ORACLE_CPU_IMAGES images on
+   the CPU must give the card's AP on them within ORACLE_CPU_TOL. An
+   `oracle` line per variant: AP beside the record and its delta, the
+   variant's seconds, one batch's decode and map rendering (event and
+   device ms).
+9. `evaluate_engine` on the card (`eval_phase`): a seeded val bank of
+   EVAL_IMAGES serving-size images drawn with cv2 into a temporary
+   directory of the checkout, letterboxed to 368x432 and served by phase
+   4's scaled-head MobileNet-thin engine: the run must complete with
+   detections and a finite AP, and a CPU engine on the same weights must
+   give the same AP within EVAL_CPU_TOL (an `evaluate_engine` line).
+10. With --profile only: batch scaling (1, 8, 32; decode also at the
    fidelity() preset), the host's enqueue time per call, and the device's
    busy time per call from torch.profiler (see `profile`).
 
@@ -133,6 +163,20 @@ PLAIN_MERGE_REPLAYS = 2       # plain merge: ~12k launches a call at K=16
 # two (its max, then its lowest index). A floor a serial kernel can
 # approach, not a prediction: a step does more than that.
 ROUND_TRIP_CYCLES = 30
+FORWARD32_REL_TOL = 1e-4      # float32 forward, card vs CPU, of the map scale
+ZOO = ("vgg19", "vggtiny", "hao28")
+# GT-map oracle AP on the card against ap_benchmark.json "oracle@368" (the
+# JAX package's record, rounded to 4 digits): ulp-level reorders of
+# near-equal peaks in crowded scenes may change a top-K; card vs CPU on the
+# first ORACLE_CPU_IMAGES images
+ORACLE_AP_TOL = 0.005
+ORACLE_CPU_TOL = 1e-3
+ORACLE_CPU_IMAGES = 16
+EVAL_IMAGES = 16              # evaluate_engine's bank, serving size
+# its AP, card vs CPU: both bf16 engines, whose maps differ by bf16 rounding
+# (cuDNN vs oneDNN), which can move a few random-weight skeletons
+EVAL_CPU_TOL = 2e-2
+HERE = os.path.dirname(os.path.abspath(__file__))
 DECODER_KERNELS = ("greedy_assign_kernel", "assemble_kernel")
 # top-level packages the port must never load: JAX and the JAX package
 FOREIGN_PACKAGES = ("jax", "jaxlib", "flax", "openpose_plus_tpu")
@@ -298,8 +342,7 @@ def load_test_helper(name: str):
     installed package named `tests` may shadow the repository's test
     directory."""
     import importlib.util
-    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
-                        f"{name}.py")
+    path = os.path.join(HERE, "tests", f"{name}.py")
     spec = importlib.util.spec_from_file_location(name, path)
     module = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(module)
@@ -585,6 +628,40 @@ def check_map_scale(torch, what, outs, refs, rel_tol) -> list:
                                  f"{scale}")
         ratios.append(err / scale)
     return ratios
+
+
+def check_forward32(torch, get_model, engine, images, dev, what) -> dict:
+    """The engine's weights in a float32 model on the card and on the CPU,
+    one image at full width (TF32 off for this comparison only): final maps
+    within FORWARD32_REL_TOL of the CPU's map scale. Logs the bf16 engine's
+    distance from the float32 CPU maps too; returns the errors."""
+    cfg32 = dataclasses.replace(engine.config.model, compute_dtype="float32")
+    state = engine.model.state_dict()
+    model_dev = get_model(cfg32).to(dev).eval()
+    model_cpu = get_model(cfg32).eval()
+    model_dev.load_state_dict(state)
+    model_cpu.load_state_dict(state)
+    x = (images[:1].float() / 255.0 - 0.5)
+    with torch.no_grad(), torch.backends.cudnn.flags(enabled=True,
+                                                     allow_tf32=False):
+        o_dev = model_dev(x)
+        o_cpu = model_cpu(x.cpu())
+        o_bf16 = engine.model(x)
+    errs = {}
+    for key in ("conf", "paf"):
+        ref = o_cpu[key][-1]
+        scale = float(ref.abs().max())
+        err32 = float((o_dev[key][-1].cpu() - ref).abs().max())
+        err16 = float((o_bf16[key][-1].float().cpu() - ref).abs().max())
+        log(f"{what}forward {key}: |ref|max {scale:.4g}, float32 card-vs-cpu "
+            f"max_abs_err {err32:.3g}, bfloat16 card-vs-float32 cpu "
+            f"{err16:.3g}")
+        # float32, another accumulation order over ~20-40 conv layers
+        if not err32 <= FORWARD32_REL_TOL * scale:
+            raise AssertionError(f"{what}float32 forward {key} differs: "
+                                 f"{err32}")
+        errs[key] = err32 / scale
+    return errs
 
 
 def launches_during(torch, counted, fn):
@@ -876,6 +953,195 @@ def accuracy_timings(torch, np, rng, engines, images, acc, gpu) -> None:
                                   lambda: engines["default"].infer(big)),
         "chunked_ms": median_ms(torch, lambda: chunked.infer(big)),
         "gpu": gpu}}))
+
+
+def zoo_paths(torch, images, counted, dev, gpu) -> None:
+    """Phase 7 (module docstring): the rest of the zoo at full width."""
+    from openpose_plus_tpu_torch import Engine, default_config
+    from openpose_plus_tpu_torch.models import common, get_model
+
+    s2d = common.space_to_depth(images)
+    for name in ZOO:
+        cfg = default_config(name)
+        mc, m = cfg.model, cfg.postproc.max_humans
+        engine = Engine(cfg, seed=0, device=dev)
+        gains = scale_heads(torch, engine, images)
+        engine.infer(images)                   # warm-up (cuDNN, allocator)
+        out, n = launches_during(torch, counted, lambda: engine.infer(images))
+        check_launches(f"zoo {name}", n, 1, 0)
+        check_humans(torch, f"zoo {name}", out, m, dev)
+        if not bool((out.num_humans > 0).all()):
+            raise AssertionError(f"zoo {name} decoded an image to no humans")
+        assert_batches_equal(torch, f"zoo {name} s2d vs plain",
+                             engine.infer(s2d), out)
+        log(f"zoo {name}: Engine.infer {tuple(images.shape)} "
+            f"{mc.compute_dtype} {mc.n_stages} stages, head gains {gains}; "
+            f"kernel launches {n}; humans per image "
+            f"{out.num_humans.tolist()}; s2d input gives the same HumanBatch")
+        errs = check_forward32(torch, get_model, engine, images, dev,
+                               f"zoo {name} ")
+        with torch.inference_mode():      # the head alone, on the features
+            feature = engine.model(images.float() / 255.0 - 0.5)[
+                "feature"].permute(0, 3, 1, 2)
+            flops = conv_flops(torch, common, engine.model, feature, images)
+        forward_ms = device_ms(torch, lambda: engine.forward(images),
+                               calls=FORWARD_REPLAYS)
+        head = torch.inference_mode()(engine.model.stages)
+        bound_ms, bound_by = bound(io_bytes(images), flops["bf16"]
+                                   / BF16_OPS_PER_S + flops["f32"]
+                                   / F32_OPS_PER_S)
+        log(json.dumps({"zoo": {
+            "model": name, "batch": BATCH, "hw": [mc.hin, mc.win],
+            "dtype": mc.compute_dtype, "stages": mc.n_stages,
+            "launches": n, "humans": out.num_humans.tolist(),
+            "forward32_rel_err": errs,
+            "infer_ms": median_ms(torch, lambda: engine.infer(images)),
+            "forward_device_ms": forward_ms,
+            "head_device_ms": device_ms(
+                torch, lambda: head(feature), calls=FORWARD_REPLAYS),
+            "forward_flops": flops, "forward_bound_ms": bound_ms,
+            "forward_bound_by": bound_by,
+            "forward_pct_of_bound": 100.0 * bound_ms / forward_ms,
+            "gpu": gpu}}))
+
+
+def conv_flops(torch, common, model, feature, images) -> dict:
+    """The convolutions' flops in one forward of `images`, by type: "bf16"
+    for the compute-dtype convs (ConvRelu, SepConvRelu: the tensor cores),
+    "f32" for the float32 prediction 1x1s (Conv1x1F32); and "head", the
+    stage stack's share, from a forward of the stages alone on
+    `feature`."""
+    counts = {"bf16": 0, "f32": 0}
+
+    def hook(module, args, out):
+        if isinstance(module, common.SepConvRelu):
+            c = module.dw_weight.shape[0]
+            px = out.numel() // out.shape[1]
+            n = px * c * (2 * module.dw_weight[0].numel()
+                          + 2 * module.pw_weight.shape[0])
+        else:
+            n = 2 * out.numel() * module.weight[0].numel()
+        counts["f32" if isinstance(module, common.Conv1x1F32)
+               else "bf16"] += n
+
+    handles = [m.register_forward_hook(hook) for m in model.modules()
+               if isinstance(m, (common.ConvRelu, common.SepConvRelu,
+                                 common.Conv1x1F32))]
+    try:
+        model(images.float() / 255.0 - 0.5)
+        total = dict(counts)
+        counts.update(bf16=0, f32=0)
+        model.stages(feature)
+    finally:
+        for h in handles:
+            h.remove()
+    return {**total, "head": counts["bf16"] + counts["f32"]}
+
+
+def oracle_phase(torch, counted, dev, gpu) -> None:
+    """Phase 8 (module docstring): the GT-map oracle on the card against
+    ap_benchmark.json's "oracle@368" record, and card vs CPU on the first
+    ORACLE_CPU_IMAGES images."""
+    from openpose_plus_tpu_torch import ap_oracle
+    from openpose_plus_tpu_torch.data.targets import make_targets
+    from openpose_plus_tpu_torch.eval_coco import evaluate_detections_full
+    from openpose_plus_tpu_torch.postproc import build_decoder
+
+    with open(os.path.join(HERE, "ap_benchmark.json")) as f:
+        record = json.load(f)["oracle@368"]
+    bank = ap_oracle.oracle_bank("serving")
+    first = ap_oracle.oracle_bank("serving", limit=ORACLE_CPU_IMAGES)
+    geo, stride = bank.geo, ap_oracle.STRIDE
+    hout, wout = geo["hin"] // stride, geo["win"] // stride
+    kps = torch.from_numpy(ap_oracle.input_keypoints(bank, 0)).to(dev)
+
+    def render():
+        return make_targets(kps, hout, wout, stride, geo["sigma"],
+                            geo["limb"])
+
+    with torch.inference_mode():
+        conf, paf = render()
+        targets_ms = (median_ms(torch, render), device_ms(torch, render))
+        for variant in ap_oracle.VARIANTS:
+            t0 = time.perf_counter()
+            dets, n = launches_during(torch, counted, lambda: (
+                ap_oracle.oracle_detections(bank, variant, dev)))
+            res = evaluate_detections_full(dets, bank.gt_by_image)
+            seconds = time.perf_counter() - t0
+            want = record[variant]["ap"]
+            line = {"variant": variant, "images": len(bank.samples),
+                    **res.as_dict(), "recorded_ap": want,
+                    "delta": res.ap - want, "tolerance": ORACLE_AP_TOL,
+                    "seconds": seconds}
+            if variant == "perfect":
+                if res.ap != 1.0:
+                    raise AssertionError(f"oracle perfect: AP {res.ap}")
+            else:
+                check_launches(f"oracle {variant}", n,
+                               len(bank.samples) // ap_oracle.BATCH, 0)
+                if not abs(res.ap - want) <= ORACLE_AP_TOL:
+                    raise AssertionError(
+                        f"oracle {variant}: AP {res.ap} on the card, "
+                        f"recorded {want} (tolerance {ORACLE_AP_TOL})")
+                # the same images on the CPU: the decoder's plain versions
+                on_card, on_cpu = (evaluate_detections_full(
+                    ap_oracle.oracle_detections(first, variant, where),
+                    first.gt_by_image).ap for where in (dev, "cpu"))
+                if not abs(on_card - on_cpu) <= ORACLE_CPU_TOL:
+                    raise AssertionError(
+                        f"oracle {variant}, first {ORACLE_CPU_IMAGES} "
+                        f"images: AP {on_card} on the card, {on_cpu} on the "
+                        f"CPU (tolerance {ORACLE_CPU_TOL})")
+                decode = functools.partial(build_decoder(
+                    ap_oracle.variant_config(variant)), conf, paf)
+                line.update(
+                    launches=n, first_images=ORACLE_CPU_IMAGES,
+                    first_ap_card=on_card, first_ap_cpu=on_cpu,
+                    decode_ms=median_ms(torch, decode),
+                    decode_device_ms=device_ms(torch, decode),
+                    targets_ms=targets_ms[0],
+                    targets_device_ms=targets_ms[1])
+            log(f"oracle {variant}: AP {res.ap:.4f} (recorded {want}, delta "
+                f"{res.ap - want:+.5f}), {seconds:.2f} s")
+            log(json.dumps({"oracle": {**line, "gpu": gpu}}))
+
+
+def eval_phase(torch, engine, gpu) -> None:
+    """Phase 9 (module docstring): `evaluate_engine` over a seeded val bank
+    of EVAL_IMAGES serving-size images, on the card and on the CPU."""
+    import math
+    import tempfile
+
+    from openpose_plus_tpu_torch import Engine
+    from openpose_plus_tpu_torch.ap_oracle import GEOMETRIES
+    from openpose_plus_tpu_torch.data.coco import CocoPoseDataset
+    from openpose_plus_tpu_torch.data.synthetic import make_scene_bank
+    from openpose_plus_tpu_torch.eval_coco import evaluate_engine
+
+    size = GEOMETRIES["serving"]["size"]
+    with tempfile.TemporaryDirectory(dir=HERE, prefix=".smoke_bank_") as tmp:
+        ann, imgs = make_scene_bank(tmp, "val", EVAL_IMAGES, size)
+        dataset = CocoPoseDataset(ann, imgs)
+        cpu_engine = Engine(engine.config, params=engine.model.state_dict(),
+                            device="cpu")
+        runs = []
+        for eng in (engine, cpu_engine):
+            t0 = time.perf_counter()
+            runs.append((evaluate_engine(eng, dataset, batch_size=BATCH),
+                         time.perf_counter() - t0))
+    (card, card_s), (cpu, cpu_s) = runs
+    if not (card.n_images == EVAL_IMAGES and card.n_dets > 0
+            and math.isfinite(card.ap)):
+        raise AssertionError(f"evaluate_engine on the card: {card}")
+    if not abs(card.ap - cpu.ap) <= EVAL_CPU_TOL:
+        raise AssertionError(f"evaluate_engine: AP {card.ap} on the card, "
+                             f"{cpu.ap} on the CPU (tolerance "
+                             f"{EVAL_CPU_TOL})")
+    log(json.dumps({"evaluate_engine": {
+        "model": engine.config.model.name, "images": EVAL_IMAGES,
+        "bank_size": size, "card": card.as_dict(), "cpu": cpu.as_dict(),
+        "card_seconds": card_s, "cpu_seconds": cpu_s,
+        "tolerance": EVAL_CPU_TOL, "gpu": gpu}}))
 
 
 def profile(torch, np, rng, engine, images, gpu) -> None:
@@ -1212,31 +1478,7 @@ def main(argv: list[str]) -> int:
     log(f"fused vs unfused final maps: max_abs_err / scale conf "
         f"{ratios[0]:.3g}, paf {ratios[1]:.3g} (limit 2e-2)")
 
-    # float32 forward on the card vs on the CPU, full width, one image;
-    # TF32 off for this comparison only
-    cfg32 = dataclasses.replace(mc, compute_dtype="float32")
-    state = engine.model.state_dict()
-    model_dev = get_model(cfg32).to(dev).eval()
-    model_cpu = get_model(cfg32).eval()
-    model_dev.load_state_dict(state)
-    model_cpu.load_state_dict(state)
-    x = (images[:1].float() / 255.0 - 0.5)
-    with torch.no_grad(), torch.backends.cudnn.flags(enabled=True,
-                                                     allow_tf32=False):
-        o_dev = model_dev(x)
-        o_cpu = model_cpu(x.cpu())
-        o_bf16 = engine.model(x)
-    for key in ("conf", "paf"):
-        ref = o_cpu[key][-1]
-        scale = float(ref.abs().max())
-        err32 = float((o_dev[key][-1].cpu() - ref).abs().max())
-        err16 = float((o_bf16[key][-1].float().cpu() - ref).abs().max())
-        log(f"forward {key}: |ref|max {scale:.4g}, float32 card-vs-cpu "
-            f"max_abs_err {err32:.3g}, bfloat16 card-vs-float32 cpu "
-            f"{err16:.3g}")
-        # float32, another accumulation order over ~40 conv layers
-        if not err32 <= 1e-4 * scale:
-            raise AssertionError(f"float32 forward {key} differs: {err32}")
+    check_forward32(torch, get_model, engine, images, dev, "")
 
     # synthetic scene: three standing people, card (kernels) vs CPU (plain)
     conf, paf = three_people(torch, np, inputs, mc)
@@ -1391,6 +1633,11 @@ def main(argv: list[str]) -> int:
                                          "shape": shape_of[name],
                                          "gpu": gpu}}))
     accuracy_timings(torch, np, rng, engines, images, acc, gpu)
+
+    # ---- 7-9. the zoo, the GT-map oracle, evaluate_engine -----------------
+    zoo_paths(torch, images, counted, dev, gpu)
+    oracle_phase(torch, counted, dev, gpu)
+    eval_phase(torch, engine, gpu)
     if args.profile:
         profile(torch, np, rng, engine, images, gpu)
 

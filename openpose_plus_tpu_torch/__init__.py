@@ -1,11 +1,13 @@
 """openpose_plus_tpu_torch — the PyTorch/CUDA port of openpose_plus_tpu.
 
-Runs MobileNet-thin inference on an NVIDIA GPU (uint8 frames in, plain or
-space-to-depth layouts, `HumanBatch` out), with flip-TTA, scale search and
-the `quality()` decoder, and the decoder's serial tail in hand-written
-Hopper kernels. Imports `torch`, never `jax`, and nothing of the JAX
-package: `config` and `skeleton` are the port's own copies, pinned equal to
-the originals by the tests. `Engine` runs on the card unless it is given
+Runs inference for the model zoo (MobileNet-thin, VGG19, VGG-tiny, hao28)
+on an NVIDIA GPU (uint8 frames in, plain or space-to-depth layouts,
+`HumanBatch` out), with flip-TTA, scale search and the `quality()` decoder,
+and the decoder's serial tail in hand-written Hopper kernels; and COCO
+keypoint evaluation (`eval_coco`, the GT-map oracle in `ap_oracle`).
+Imports `torch`, never `jax`, and nothing of the JAX package: `config`,
+`skeleton` and `data` are the port's own copies, pinned equal to the
+originals by the tests. `Engine` runs on the card unless it is given
 `device="cpu"`.
 
     from openpose_plus_tpu_torch import Engine, default_config
@@ -13,6 +15,7 @@ the originals by the tests. `Engine` runs on the card unless it is given
     humans = engine.infer(images_uint8)
     humans = engine.infer(images_uint8, flip_tta=True)
     humans = engine.infer_multiscale(images_uint8, combine="dedup")
+    vgg = Engine(default_config("vgg19"), device="cuda")
 """
 
 __version__ = "0.1.0"

@@ -46,6 +46,16 @@ class ModelConfig:
             return 1
         return 0
 
+    def train_lowering(self) -> "ModelConfig":
+        """The config the JAX package's training programs build against
+        (`config.py::train_lowering`): VGG19 trains with the plain stem
+        (`stem_s2d=False`), every other model as it serves. The port's
+        models never lower through s2d, so here the flag only gates the s2d
+        input layouts (`preferred_input_layout`)."""
+        if self.name in ("vgg19", "vgg") and self.stem_s2d:
+            return dataclasses.replace(self, stem_s2d=False)
+        return self
+
     def input_shape(self, batch: int, level: int | None = None
                     ) -> tuple[int, int, int, int]:
         """uint8 input shape for a space-to-depth level (default: the

@@ -183,6 +183,8 @@ class Engine:
         device the default raises rather than falling back to the CPU.
     chunk: serve batches larger than `chunk` as a loop of sub-batches
         (`infer` without flip-TTA, as in the reference).
+    fast_init: accepted for the reference's callers and changes nothing:
+        the seeded init is already cheap.
 
     Images are uint8 RGB in one of INPUT_LAYOUTS: plain (B, hin, win, 3),
     s2d (B, hin/2, win/2, 12) or s2d^2 (B, hin/4, win/4, 48), as far as
@@ -191,8 +193,8 @@ class Engine:
 
     def __init__(self, config: Optional[Config] = None,
                  params: Optional[Mapping] = None, seed: int = 0,
-                 device: str | torch.device = "cuda", chunk: int = 0,
-                 mesh=None):
+                 fast_init: bool = False, mesh=None, chunk: int = 0,
+                 device: str | torch.device = "cuda"):
         if mesh is not None:
             raise NotImplementedError(
                 "multi-device serving is ROADMAP.md item 'Distributed'")
@@ -266,6 +268,18 @@ class Engine:
         """images -> (conf, paf) final-stage maps, NHWC float32."""
         return _forward(self.model, self._images(images))
 
-    def calibrate(self, *args, **kwargs) -> None:
+    def calibrate(self, images: np.ndarray | torch.Tensor) -> None:
+        """No-op: the port builds only float engines (int8 raises at model
+        build, ROADMAP.md item 'Calibrated int8'), and the reference's
+        `calibrate` is a no-op for float compute modes."""
+
+    def calibrate_from_paths(self, paths, batch_size: int = 8) -> None:
+        """No-op, as the reference's is for float compute modes."""
+
+    def compile(self, batch_size: int, input_layout: str = "plain") -> None:
+        """Validates the layout as the reference does, then raises: the
+        CUDA-graph capture of `infer` is ROADMAP.md item 8."""
+        check_input_layout(self.config.model, input_layout)
         raise NotImplementedError(
-            "int8 calibration is ROADMAP.md item 'Calibrated int8'")
+            "Engine.compile (a CUDA-graph capture of infer) is ROADMAP.md "
+            "item 8")

@@ -1,8 +1,9 @@
 """Shared building blocks of the pose models, in PyTorch.
 
-Port of `openpose_plus_tpu/models/common.py` (the plain lowering, the fused
-separable branch and the space-to-depth data movement of the input layouts;
-no block-grid conv rearrangements, no int8). Submodules
+Port of `openpose_plus_tpu/models/common.py` (the plain lowering, the dense
+and separable stage branches, the fused separable branch, the VGG blocks
+and the space-to-depth data movement of the input layouts; no block-grid
+conv rearrangements, no int8). Submodules
 and parameters carry the Flax scope names so the weight bridge
 (`openpose_plus_tpu_torch.checkpoint`) is a rename plus a transpose.
 
@@ -170,20 +171,27 @@ class Conv1x1F32(nn.Module):
 
 
 class StageBranch(nn.Module):
-    """One branch (conf or paf) of one stage, separable form:
-    n x SepConvRelu(mid) + ConvRelu 1x1 (proj) + float32 1x1 (out)."""
+    """One branch (conf or paf) of one stage (`models/common.py::
+    StageBranch`): n kxk convs (mid), a 1x1 ConvRelu (proj), the float32
+    1x1 (out). Dense form: n ConvRelu, so Flax names the projection
+    `ConvRelu_{n}`; separable form: n SepConvRelu and `ConvRelu_0`."""
 
     def __init__(self, in_features: int, out_features: int,
                  n_convs: int, kernel: int, proj_features: int,
-                 mid_features: int = 128, dtype: str = "bfloat16",
-                 fused: bool = False):
+                 mid_features: int = 128, separable: bool = False,
+                 dtype: str = "bfloat16", fused: bool = False):
         super().__init__()
         c = in_features
         for i in range(n_convs):
-            self.add_module(f"SepConvRelu_{i}", SepConvRelu(
-                c, mid_features, kernel=kernel, dtype=dtype, fused=fused))
+            if separable:
+                self.add_module(f"SepConvRelu_{i}", SepConvRelu(
+                    c, mid_features, kernel=kernel, dtype=dtype, fused=fused))
+            else:
+                self.add_module(f"ConvRelu_{i}", ConvRelu(
+                    c, mid_features, kernel=kernel, dtype=dtype))
             c = mid_features
-        self.ConvRelu_0 = ConvRelu(c, proj_features, kernel=1, dtype=dtype)
+        proj = ConvRelu(c, proj_features, kernel=1, dtype=dtype)
+        self.add_module(f"ConvRelu_{0 if separable else n_convs}", proj)
         self.Conv_0 = Conv1x1F32(proj_features, out_features)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -193,16 +201,16 @@ class StageBranch(nn.Module):
 
 
 class MultiStageHead(nn.Module):
-    """The stage stack (`models/common.py::MultiStageHead`, separable
-    heads): stage 1 reads the feature map; stage t > 1 reads
-    concat(feature, conf_{t-1}, paf_{t-1}) in the compute dtype."""
+    """The stage stack (`models/common.py::MultiStageHead`): stage 1 reads
+    the feature map; stage t > 1 reads concat(feature, conf_{t-1},
+    paf_{t-1}) in the compute dtype. Dense branches unless `separable`."""
 
     def __init__(self, in_features: int, n_heatmaps: int = 19,
                  n_pafs: int = 38, n_stages: int = 6, stage1_convs: int = 3,
                  stage1_kernel: int = 3, stage1_proj: int = 512,
                  refine_convs: int = 5, refine_kernel: int = 7,
-                 refine_mid: int = 128, dtype: str = "bfloat16",
-                 fused: bool = False):
+                 refine_mid: int = 128, separable: bool = False,
+                 dtype: str = "bfloat16", fused: bool = False):
         super().__init__()
         self.n_stages = n_stages
         for s in range(n_stages):
@@ -213,12 +221,10 @@ class MultiStageHead(nn.Module):
                 kw = dict(in_features=in_features + n_heatmaps + n_pafs,
                           mid_features=refine_mid, n_convs=refine_convs,
                           kernel=refine_kernel, proj_features=refine_mid)
-            self.add_module(f"stage{s + 1}_conf",
-                            StageBranch(out_features=n_heatmaps, dtype=dtype,
-                                        fused=fused, **kw))
-            self.add_module(f"stage{s + 1}_paf",
-                            StageBranch(out_features=n_pafs, dtype=dtype,
-                                        fused=fused, **kw))
+            for name, out in (("conf", n_heatmaps), ("paf", n_pafs)):
+                self.add_module(f"stage{s + 1}_{name}", StageBranch(
+                    out_features=out, separable=separable, dtype=dtype,
+                    fused=fused, **kw))
 
     def forward(self, feature: torch.Tensor
                 ) -> tuple[list[torch.Tensor], list[torch.Tensor]]:
@@ -232,6 +238,81 @@ class MultiStageHead(nn.Module):
             confs.append(getattr(self, f"stage{s + 1}_conf")(x))
             pafs.append(getattr(self, f"stage{s + 1}_paf")(x))
         return confs, pafs
+
+
+def vgg_block(model: nn.Module, prefix: str, in_features: int,
+              features: tuple[int, ...], dtype: str) -> list[str]:
+    """Registers a VGG block's stacked 3x3 ConvRelu on `model` under the
+    Flax names `{prefix}_{i + 1}` (`models/common.py::vgg_block`, plain
+    lowering; the s2d block-grid stem is the same math and is not ported)
+    and returns their names, for `run_vgg_block`."""
+    names = []
+    for i, f in enumerate(features):
+        names.append(f"{prefix}_{i + 1}")
+        model.add_module(names[-1], ConvRelu(in_features, f, dtype=dtype))
+        in_features = f
+    return names
+
+
+def run_vgg_block(model: nn.Module, x: torch.Tensor, names: list[str],
+                  pool: bool) -> torch.Tensor:
+    """The block's convs in order, then the optional 2x2 max pool."""
+    for name in names:
+        x = getattr(model, name)(x)
+    return F.max_pool2d(x, 2, 2) if pool else x
+
+
+class VGGFamilyPose(nn.Module):
+    """The VGG-style backbones of the zoo (VGG19, VGG-tiny, hao28): VGG
+    blocks, optional 3x3 CPM convs, then the dense multi-stage head. NHWC
+    float images in (plain, or the 12-channel s2d layout when the config
+    keeps `stem_s2d`, turned back into the plain image first); the same
+    output dict as MobileNetThinPose.
+
+    BLOCKS: (prefix, features, pool) per VGG block; CPM: (name, features)
+    per CPM conv; HEAD: the MultiStageHead arguments."""
+
+    BLOCKS: tuple = ()
+    CPM: tuple = ()
+    HEAD: dict = {}
+
+    def __init__(self, cfg):
+        super().__init__()
+        d = cfg.compute_dtype
+        self.dtype = compute_dtype(d)
+        self.stem_s2d = cfg.stem_s2d
+        self.blocks = []
+        c = 3
+        for prefix, features, pool in self.BLOCKS:
+            self.blocks.append((vgg_block(self, prefix, c, features, d),
+                                pool))
+            c = features[-1]
+        for name, f in self.CPM:
+            self.add_module(name, ConvRelu(c, f, dtype=d))
+            c = f
+        self.stages = MultiStageHead(
+            c, n_heatmaps=cfg.n_heatmaps, n_pafs=cfg.n_pafs,
+            n_stages=cfg.n_stages, dtype=d, **self.HEAD)
+
+    def forward(self, x: torch.Tensor) -> dict:
+        if x.shape[-1] == 12 and not self.stem_s2d:
+            raise ValueError("s2d input layout needs stem_s2d")
+        if x.shape[-1] not in (3, 12):
+            raise ValueError(f"expected a 3-channel image or its s2d (12) "
+                             f"layout, got {tuple(x.shape)}")
+        x = to_plain(x)               # s2d layout: exact data movement
+        x = x.to(self.dtype).permute(0, 3, 1, 2)     # NCHW, channels-last
+        for names, pool in self.blocks:
+            x = run_vgg_block(self, x, names, pool)
+        for name, _ in self.CPM:
+            x = getattr(self, name)(x)
+        confs, pafs = self.stages(x)
+
+        def nhwc(t: torch.Tensor) -> torch.Tensor:
+            return t.permute(0, 2, 3, 1)
+
+        return dict(conf=[nhwc(c) for c in confs],
+                    paf=[nhwc(p) for p in pafs], feature=nhwc(x))
 
 
 def init_params(model: nn.Module, generator: torch.Generator) -> None:

@@ -1,24 +1,38 @@
-"""Model registry: string name -> torch module (the ported subset of
-`openpose_plus_tpu/models/registry.py`)."""
+"""Model registry: string name -> torch module
+(`openpose_plus_tpu/models/registry.py`, the same names and aliases)."""
 
 from __future__ import annotations
 
 from torch import nn
 
 from openpose_plus_tpu_torch.config import ModelConfig
+from openpose_plus_tpu_torch.models.hao28 import Hao28Pose
 from openpose_plus_tpu_torch.models.mobilenet_thin import MobileNetThinPose
+from openpose_plus_tpu_torch.models.vgg19 import VGG19Pose
+from openpose_plus_tpu_torch.models.vggtiny import VGGTinyPose
 
 _REGISTRY = {
+    "vgg19": VGG19Pose,
+    "vgg": VGG19Pose,            # reference alias --model=vgg
+    "vggtiny": VGGTinyPose,
     "mobilenet_thin": MobileNetThinPose,
     "mobilenet": MobileNetThinPose,
+    "hao28_experimental": Hao28Pose,
+    "hao28": Hao28Pose,
 }
 
 
 def get_model(cfg: ModelConfig) -> nn.Module:
     """Build the model named by cfg.name (float32 params, random values:
     see `common.init_params`)."""
-    if cfg.name not in _REGISTRY:
-        raise NotImplementedError(
-            f"model {cfg.name!r} is not ported yet (ROADMAP.md item 'Rest of "
-            f"the zoo'); ported: {sorted(_REGISTRY)}")
-    return _REGISTRY[cfg.name](cfg)
+    try:
+        cls = _REGISTRY[cfg.name]
+    except KeyError:
+        raise ValueError(
+            f"unknown model {cfg.name!r}; have {sorted(set(_REGISTRY))}"
+        ) from None
+    return cls(cfg)
+
+
+def model_names() -> list[str]:
+    return sorted(set(_REGISTRY))

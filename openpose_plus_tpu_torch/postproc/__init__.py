@@ -6,6 +6,6 @@ kernels on a GPU and as their plain PyTorch versions on the CPU.
 """
 
 from openpose_plus_tpu_torch.postproc.decode import (
-    HumanBatch, decode_maps, merge_dedup)
+    HumanBatch, build_decoder, decode_maps, merge_dedup)
 
-__all__ = ["HumanBatch", "decode_maps", "merge_dedup"]
+__all__ = ["HumanBatch", "build_decoder", "decode_maps", "merge_dedup"]

@@ -1,7 +1,7 @@
 """End-to-end decoding: (conf, paf) maps -> fixed-size skeletons.
 
 Port of `openpose_plus_tpu/postproc/decode.py` with the batch dimension
-written out (no vmap): upsample + smooth, peaks, PAF candidate scores,
+written out (no vmap; `build_decoder` binds a config): upsample + smooth, peaks, PAF candidate scores,
 greedy assignment (CUDA kernel), subset merge (CUDA kernel), peak lookup,
 the optional fragment-merge pass, validity filter and a stable
 score-sorted compaction; and `merge_dedup`, the OKS-NMS combiner of
@@ -128,6 +128,13 @@ def decode_maps(conf: torch.Tensor, paf_map: torch.Tensor,
         part_valid=_take(part_valid, order) & valid_o[..., None],
         score=_take(mean_score, order),
         n_parts=_take(count, order).to(torch.int32), valid=valid_o)
+
+
+def build_decoder(cfg: PostprocConfig):
+    """Standalone decoder fn(conf, paf) -> HumanBatch bound to `cfg`
+    (`openpose_plus_tpu.postproc.build_decoder`; eager, nothing to
+    compile)."""
+    return functools.partial(decode_maps, cfg=cfg)
 
 
 def _score_order(valid: torch.Tensor, score: torch.Tensor) -> torch.Tensor:

@@ -6,7 +6,34 @@ package. The indices must stay those of the JAX package:
 
 from __future__ import annotations
 
+import enum
+
 import numpy as np
+
+
+class CocoPart(enum.IntEnum):
+    """OpenPose 18-part body schema (+ background channel 18)."""
+
+    Nose = 0
+    Neck = 1
+    RShoulder = 2
+    RElbow = 3
+    RWrist = 4
+    LShoulder = 5
+    LElbow = 6
+    LWrist = 7
+    RHip = 8
+    RKnee = 9
+    RAnkle = 10
+    LHip = 11
+    LKnee = 12
+    LAnkle = 13
+    REye = 14
+    LEye = 15
+    REar = 16
+    LEar = 17
+    Background = 18
+
 
 N_PARTS = 18          # body parts (heatmap channels 0..17)
 N_HEATMAPS = 19       # parts + background channel
@@ -27,9 +54,26 @@ COCO_PAIRS_NETWORK: tuple[tuple[int, int], ...] = (
     (32, 33), (36, 37), (18, 19), (26, 27),
 )
 
+# Subset of limbs used for final rendering (drops the ear-shoulder links).
+COCO_PAIRS_RENDER = COCO_PAIRS[:17]
+
+# BGR draw colors per part (the synthetic scene renderer).
+COCO_COLORS: tuple[tuple[int, int, int], ...] = (
+    (255, 0, 0), (255, 85, 0), (255, 170, 0), (255, 255, 0), (170, 255, 0),
+    (85, 255, 0), (0, 255, 0), (0, 255, 85), (0, 255, 170), (0, 255, 255),
+    (0, 170, 255), (0, 85, 255), (0, 0, 255), (85, 0, 255), (170, 0, 255),
+    (255, 0, 255), (255, 0, 170), (255, 0, 85),
+)
+
 # Left/right part index swaps applied when an image is horizontally flipped.
 FLIP_SWAP_PAIRS: tuple[tuple[int, int], ...] = (
     (2, 5), (3, 6), (4, 7), (8, 11), (9, 12), (10, 13), (14, 15), (16, 17),
+)
+
+# OPENPOSE_FROM_COCO[p] = the COCO-17 index whose keypoint feeds OpenPose part
+# p, with -1 for the synthesized Neck (mid-point of the two shoulders).
+OPENPOSE_FROM_COCO: tuple[int, ...] = (
+    0, -1, 6, 8, 10, 5, 7, 9, 12, 14, 16, 11, 13, 15, 2, 1, 4, 3,
 )
 
 # COCO_FROM_OPENPOSE[c] = OpenPose part index feeding COCO-17 keypoint c.

@@ -4,7 +4,8 @@ the originals.
 - `openpose_plus_tpu_torch.config`: every preset `default_config` gives for
   the JAX package's model names, with its `fidelity()` and `quality()`
   post-processing presets, equal field for field (`dataclasses.asdict`);
-  the ModelConfig geometry helpers give the same answers.
+  the ModelConfig geometry helpers and `train_lowering()` give the same
+  answers.
 - `openpose_plus_tpu_torch.skeleton`: every table `np.array_equal`.
 - `tests/kernel_inputs.py`'s scene functions (chip_smoke.py's, on the port's
   skeleton) give `tests/maputil.py`'s maps for the scenes chip_smoke draws.
@@ -72,7 +73,8 @@ def test_model_geometry_matches_jax(kw):
 @pytest.mark.parametrize("table", [
     "N_PARTS", "N_HEATMAPS", "N_LIMBS", "N_PAF_CHANNELS", "COCO_PAIRS",
     "COCO_PAIRS_NETWORK", "FLIP_SWAP_PAIRS", "COCO_FROM_OPENPOSE",
-    "COCO_OKS_SIGMAS", "pairs_array", "paf_channels_array"])
+    "COCO_OKS_SIGMAS", "pairs_array", "paf_channels_array",
+    "OPENPOSE_FROM_COCO", "COCO_PAIRS_RENDER", "COCO_COLORS"])
 def test_skeleton_tables_match_jax(table):
     ref, out = getattr(jskeleton, table), getattr(tskeleton, table)
     if callable(ref):
@@ -82,11 +84,29 @@ def test_skeleton_tables_match_jax(table):
     assert np.array_equal(np.asarray(out), np.asarray(ref))
 
 
+def test_coco_part_enum_matches_jax():
+    assert ([(p.name, int(p)) for p in tskeleton.CocoPart]
+            == [(p.name, int(p)) for p in jskeleton.CocoPart])
+
+
+@pytest.mark.parametrize("kw", [{}, {"stem_s2d": False},
+                                {"compute_dtype": "float32"}], ids=str)
+@pytest.mark.parametrize("name", _NAMES[1:])
+def test_train_lowering_matches_jax(name, kw):
+    """`train_lowering()` gives the JAX package's config for every model
+    name (VGG19 trains with stem_s2d off), so the s2d layout gate agrees."""
+    ref = dataclasses.replace(jconfig.default_config(name).model, **kw)
+    out = dataclasses.replace(tconfig.default_config(name).model, **kw)
+    ref_t, out_t = ref.train_lowering(), out.train_lowering()
+    assert dataclasses.asdict(out_t) == dataclasses.asdict(ref_t)
+    assert out_t.preferred_input_layout() == ref_t.preferred_input_layout()
+
+
 def test_port_skeleton_has_only_copied_names():
     """Every public name of the port's skeleton is one of the JAX
     package's (a copy, not a new table)."""
     names = {n for n in vars(tskeleton) if not n.startswith("_")}
-    names -= {"annotations", "np"}
+    names -= {"annotations", "np", "enum"}
     assert names <= set(vars(jskeleton))
 
 

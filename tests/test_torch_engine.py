@@ -134,17 +134,54 @@ def test_seeded_init_is_reproducible():
     assert a.infer(images).coords.shape == (1, 32, 18, 2)
 
 
-@pytest.mark.parametrize("call", ["calibrate", "mesh"])
+@pytest.mark.parametrize("call", ["calibrate", "mesh", "fast_init",
+                                  "calibrate_from_paths", "compile",
+                                  "build_decoder"])
 def test_unported_paths_raise(call):
+    """The reference's API on the port: multi-device serving and `compile`
+    (the CUDA-graph capture, ROADMAP item 8) raise naming their items;
+    `calibrate` and `calibrate_from_paths` are no-ops on a float engine, as
+    in the reference; `fast_init` is accepted and changes nothing;
+    `postproc.build_decoder` binds a config to `decode_maps`."""
     cfg = _tiny()
     if call == "mesh":
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             Engine(cfg, mesh=object(), device="cpu")
         return
-    engine = Engine(cfg, device="cpu")
-    images = np.zeros((1, 64, 64, 3), np.uint8)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        engine.calibrate(images)
+    images = np.random.default_rng(0).integers(0, 256, (1, 64, 64, 3),
+                                               dtype=np.uint8)
+    if call == "build_decoder":
+        from openpose_plus_tpu_torch.postproc import build_decoder, decode_maps
+        _, engine, _ = _engines()
+        conf, paf = engine.forward(np.repeat(images, 2, axis=0))
+        a = build_decoder(cfg.postproc)(conf, paf)
+        b = decode_maps(conf, paf, cfg.postproc)
+        for f in dataclasses.fields(a):
+            assert torch.equal(getattr(a, f.name), getattr(b, f.name))
+        return
+    engine = Engine(cfg, device="cpu", fast_init=call == "fast_init")
+    before = {k: v.clone() for k, v in engine.model.state_dict().items()}
+    ref = engine.infer(images)
+    if call == "fast_init":
+        plain = Engine(cfg, device="cpu")
+        for k, v in plain.model.state_dict().items():
+            assert torch.equal(before[k], v), k
+        return
+    if call == "compile":
+        with pytest.raises(ValueError, match="input_layout"):
+            engine.compile(1, "nchw")
+        with pytest.raises(NotImplementedError, match="item 8"):
+            engine.compile(1, "s2d")
+        return
+    if call == "calibrate":
+        assert engine.calibrate(images) is None
+    else:
+        assert engine.calibrate_from_paths(["missing.jpg"]) is None
+    for k, v in engine.model.state_dict().items():
+        assert torch.equal(before[k], v), k
+    out = engine.infer(images)
+    for f in dataclasses.fields(out):
+        assert torch.equal(getattr(out, f.name), getattr(ref, f.name))
 
 
 def test_bad_input_raises():
@@ -167,12 +204,15 @@ import torch
 import chip_smoke
 import openpose_plus_tpu_torch
 from openpose_plus_tpu_torch import Engine, default_config
-from openpose_plus_tpu_torch import engine, models, postproc  # noqa: F401
+from openpose_plus_tpu_torch import (ap_oracle, data, engine, eval_coco,
+                                     models, postproc)
+from openpose_plus_tpu_torch.models import hao28, vgg19, vggtiny
 from openpose_plus_tpu_torch.models.common import space_to_depth
 from openpose_plus_tpu_torch.ops import cuda
 
-for mod in pkgutil.iter_modules(cuda.__path__):   # no kernel is built
-    importlib.import_module(f"openpose_plus_tpu_torch.ops.cuda.{mod.name}")
+for pkg in (cuda, data):    # no kernel is built
+    for mod in pkgutil.iter_modules(pkg.__path__):
+        importlib.import_module(f"{pkg.__name__}.{mod.name}")
 cfg = default_config("mobilenet_thin")
 cfg = cfg.replace(model=dataclasses.replace(
     cfg.model, hin=64, win=64, n_stages=2))
@@ -189,9 +229,20 @@ s2d2 = space_to_depth(space_to_depth(torch.from_numpy(images)))
 quality = Engine(cfg.replace(postproc=cfg.postproc.quality()), seed=0,
                  device="cpu")
 assert quality.infer(s2d2).coords.shape == (2, 32, 18, 2)
+for name in ("vgg19", "vggtiny", "hao28"):
+    zoo = default_config(name)
+    zoo = zoo.replace(model=dataclasses.replace(
+        zoo.model, hin=64, win=64, n_stages=2))
+    assert Engine(zoo, seed=0, device="cpu").infer(
+        images).coords.shape == (2, 32, 18, 2)
+oracle = ap_oracle.run_oracle("small", device="cpu", limit=8)
+assert oracle["perfect"].ap == 1.0, oracle
+assert all(0.0 <= r.ap <= 1.0 for r in oracle.values()), oracle
 cuda_modules = "openpose_plus_tpu_torch.ops.cuda."
 print("CUDA_MODULES", sorted(m for m in sys.modules
                              if m.startswith(cuda_modules)))
+print("DATA_MODULES", sorted(m for m in sys.modules
+                             if m.startswith("openpose_plus_tpu_torch.data.")))
 bad = chip_smoke.foreign_modules()
 print("FOREIGN_MODULES", bad)
 sys.exit(1 if bad else 0)
@@ -200,10 +251,11 @@ sys.exit(1 if bad else 0)
 
 def test_port_never_imports_jax():
     """The card machine has no JAX, and the port keeps its own copies of
-    what it needs: importing the port (engine, models, postproc, every
-    ops.cuda module) and running CPU engines through it loads no module of
-    jax, flax or the JAX package `openpose_plus_tpu`, by chip_smoke.py's own
-    end-of-run check."""
+    what it needs: importing the port (engine, models and the zoo,
+    postproc, eval_coco, ap_oracle, every ops.cuda and data module),
+    running CPU engines of every model through it and the GT-map oracle on
+    8 small-tier images loads no module of jax, flax or the JAX package
+    `openpose_plus_tpu`, by chip_smoke.py's own end-of-run check."""
     env = dict(os.environ, PYTHONPATH=REPO)
     proc = subprocess.run([sys.executable, "-c", _NO_JAX], cwd=REPO,
                           env=env, capture_output=True, text=True,
@@ -213,6 +265,8 @@ def test_port_never_imports_jax():
     for name in ("build", "dw_probe", "greedy", "merge", "paf_sample",
                  "sepconv"):
         assert f"openpose_plus_tpu_torch.ops.cuda.{name}'" in proc.stdout
+    for name in ("augment", "coco", "pipeline", "synthetic", "targets"):
+        assert f"openpose_plus_tpu_torch.data.{name}'" in proc.stdout
 
 
 def test_foreign_module_check_sees_the_jax_package():

@@ -17,7 +17,7 @@ import torch
 from openpose_plus_tpu.checkpoint import _flatten
 from openpose_plus_tpu.config import default_config
 from openpose_plus_tpu.models import get_model as jax_model
-from openpose_plus_tpu_torch.checkpoint import from_flax
+from openpose_plus_tpu_torch.checkpoint import from_flax, to_flax
 from openpose_plus_tpu_torch.config import default_config as tdefault_config
 from openpose_plus_tpu_torch.models import common, get_model as torch_model
 
@@ -110,8 +110,26 @@ def test_conv2d_same_matches_xla(size, kernel, stride, depthwise):
 @pytest.mark.parametrize("name", ["vgg19", "vgg", "vggtiny", "hao28",
                                   "hao28_experimental", "nonexistent"])
 def test_unported_models_raise(name):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        torch_model(dataclasses.replace(tdefault_config().model, name=name))
+    """Every name of the zoo builds and has the reference's parameter tree
+    (keys and shapes, tiny size); an unknown name raises ValueError, as
+    the reference's registry does."""
+    if name == "nonexistent":
+        with pytest.raises(ValueError, match="unknown model"):
+            torch_model(dataclasses.replace(tdefault_config().model,
+                                            name=name))
+        return
+    kw = dict(hin=64, win=64, n_stages=2)
+    cfg = dataclasses.replace(default_config(name).model, **kw)
+    shapes = jax.eval_shape(lambda: jax_model(cfg).init(
+        jax.random.PRNGKey(0), jnp.zeros((1, 64, 64, 3), jnp.float32)))
+    leaves, _ = jax.tree_util.tree_flatten_with_path(shapes)
+    ref = {"/".join(p.key for p in path): tuple(leaf.shape)
+           for path, leaf in leaves}
+    model = torch_model(dataclasses.replace(tdefault_config(name).model,
+                                            **kw))
+    flax_shapes = {k: tuple(v.shape) for k, v in to_flax(
+        model.state_dict()).items()}
+    assert flax_shapes == ref
 
 
 def test_int8_compute_raises():

@@ -2,8 +2,8 @@
 
 The PyTorch port (openpose_plus_tpu_torch) names its submodules after the
 Flax scopes, so a flat Flax dict maps one to one onto its state_dict; these
-tests pin that mapping at full MobileNet-thin width and pin every numpy
-helper the port had to copy (the originals import JAX) equal to its source.
+tests pin that mapping at the full width of every model of the zoo and
+pin every numpy helper the port had to copy (the originals import JAX) equal to its source.
 """
 
 import dataclasses
@@ -53,11 +53,25 @@ def test_round_trip_on_jax_init():
         np.testing.assert_array_equal(back[key], np.asarray(value), key)
 
 
-def test_full_width_keys_map_one_to_one():
-    """Every Flax key of full-width MobileNet-thin (default config: 368x432,
-    width 0.75, 6 stages) is consumed exactly once: the strict load fails on
-    a missing, extra or mis-shaped key."""
-    cfg = jconfig.default_config("mobilenet_thin").model
+# Flax keys of each full-width model (default config: 368x432, 6 stages),
+# and one key of its stage-2 paf branch that the mapping must carry: the
+# separable branch's projection is ConvRelu_0, the dense branch's
+# ConvRelu_{n_convs} (Flax numbers each module kind on its own).
+_FULL_WIDTH = {
+    "mobilenet_thin": (230, "stages/stage2_paf/SepConvRelu_1/dw_kernel"),
+    "vgg19": (184, "stages/stage2_paf/ConvRelu_5/kernel"),
+    "vggtiny": (178, "stages/stage2_paf/ConvRelu_5/kernel"),
+    "hao28": (140, "stages/stage2_paf/ConvRelu_3/kernel"),
+}
+
+
+@pytest.mark.parametrize("name", sorted(_FULL_WIDTH))
+def test_full_width_keys_map_one_to_one(name):
+    """Every Flax key of the full-width model (default config: 368x432,
+    6 stages; MobileNet-thin at width 0.75) is consumed exactly once: the
+    strict load fails on a missing, extra or mis-shaped key."""
+    n_keys, probe = _FULL_WIDTH[name]
+    cfg = jconfig.default_config(name).model
     shapes = jax.eval_shape(
         lambda: jax_model(cfg).init(
             jax.random.PRNGKey(0),
@@ -67,20 +81,25 @@ def test_full_width_keys_map_one_to_one():
     flat = {"/".join(p.key for p in path):
             rng.standard_normal(leaf.shape).astype(np.float32)
             for path, leaf in leaves}
-    assert len(flat) == 230
-    assert "params/stages/stage2_paf/SepConvRelu_1/dw_kernel" in flat
+    assert len(flat) == n_keys
+    assert f"params/{probe}" in flat
     assert "params/stages/stage1_conf/Conv_0/kernel" in flat
     state = from_flax(flat)
-    assert len(state) == 230
-    model = torch_model(tconfig.default_config("mobilenet_thin").model)
+    assert len(state) == n_keys
+    model = torch_model(tconfig.default_config(name).model)
     model.load_state_dict(state, strict=True)
-    dw = state["stages.stage2_paf.SepConvRelu_1.dw_weight"]
-    c = dw.shape[0]
-    assert tuple(dw.shape) == (c, 1, 3, 3)         # depthwise, groups=C
-    np.testing.assert_array_equal(
-        dw[:, 0].numpy(),
-        flat["params/stages/stage2_paf/SepConvRelu_1/dw_kernel"][:, :, 0]
-        .transpose(2, 0, 1))
+    if name == "mobilenet_thin":
+        dw = state["stages.stage2_paf.SepConvRelu_1.dw_weight"]
+        c = dw.shape[0]
+        assert tuple(dw.shape) == (c, 1, 3, 3)     # depthwise, groups=C
+        np.testing.assert_array_equal(
+            dw[:, 0].numpy(),
+            flat["params/stages/stage2_paf/SepConvRelu_1/dw_kernel"]
+            [:, :, 0].transpose(2, 0, 1))
+    else:
+        w = state[probe.replace("/", ".").replace("kernel", "weight")]
+        np.testing.assert_array_equal(
+            w.numpy(), flat[f"params/{probe}"].transpose(3, 2, 0, 1))
     back = to_flax(model.state_dict())
     assert back.keys() == flat.keys()
     for key in flat:

@@ -115,7 +115,29 @@ raises on failure (the script then exits non-zero and prints no result):
    4's scaled-head MobileNet-thin engine: the run must complete with
    detections and a finite AP, and a CPU engine on the same weights must
    give the same AP within EVAL_CPU_TOL (an `evaluate_engine` line).
-10. With --profile only: batch scaling (1, 8, 32; decode also at the
+10. Training (`train_phase`): MobileNet-thin at full width (368x432,
+   width 0.75, 6 stages, bf16, batch 8, lr 1e-3, no weight decay,
+   ap_benchmark.py's moderate augmentation: `ap_bench.build_config`) on a
+   seeded bank of TRAIN_IMAGES serving-size images drawn with cv2 into a
+   temporary directory of the checkout. (1) One step from the same seeded
+   parameters on the same TRAIN_CPU_BATCH images on the card and on the
+   CPU: the loss within TRAIN_LOSS_RTOL, every gradient leaf within
+   TRAIN_LEAF_RTOL relative L2 and all leaves within TRAIN_ALL_RTOL, every
+   updated parameter within 2 lr (`train_step_card_vs_cpu`). (2)
+   `train_loop` with the real pipeline for TRAIN_STEPS steps (a loss and a
+   metrics-CSV row every step, a checkpoint every TRAIN_CKPT): every loss
+   finite, the mean of the last 50 below TRAIN_FALL x the mean of the
+   first 10, no hand kernel launched; then a resume to TRAIN_RESUME_TO
+   that logs "resumed from step TRAIN_STEPS". (3) The trained state_dict
+   served by an Engine: `infer` launches the decoder's kernels and gives
+   a finite, compacted HumanBatch. (4) A `train` line: the step's event
+   median on a batch already on the card, its device-busy time
+   (torch.profiler), the imgs/s of `train_loop` with the pipeline (log
+   every 100 steps), the batches/s of `TrainPipeline` alone and which of
+   the two sets the pace, peak memory, and the step's FLOP bound (3 x the
+   forward's conv flops, `conv_flops`, over the bf16 tensor-core peak)
+   with the share of it the step reaches.
+11. With --profile only: batch scaling (1, 8, 32; decode also at the
    fidelity() preset), the host's enqueue time per call, and the device's
    busy time per call from torch.profiler (see `profile`).
 
@@ -136,6 +158,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -176,6 +199,26 @@ EVAL_IMAGES = 16              # evaluate_engine's bank, serving size
 # its AP, card vs CPU: both bf16 engines, whose maps differ by bf16 rounding
 # (cuDNN vs oneDNN), which can move a few random-weight skeletons
 EVAL_CPU_TOL = 2e-2
+# phase 10, training: a seeded bank of TRAIN_IMAGES serving-size images,
+# TRAIN_STEPS steps of train_loop with a checkpoint every TRAIN_CKPT, then
+# a resume to TRAIN_RESUME_TO; card vs CPU on TRAIN_CPU_BATCH images
+TRAIN_IMAGES = 32
+TRAIN_STEPS = 300
+TRAIN_CKPT = 150
+TRAIN_RESUME_TO = 310
+TRAIN_LR = 1e-3
+TRAIN_CPU_BATCH = 2
+# card vs CPU, both bf16: the loss relative; each gradient leaf's relative
+# L2 and that of all leaves together. bf16 rounds every activation to 8
+# bits of mantissa, and the card's and the CPU's roundings differ
+# independently; on the CPU one step's bf16 gradients at this width lie
+# 1.2% (median leaf) to 8.5% (worst leaf), 0.4% overall, from the float32
+# ones (tests/test_torch_train.py::test_bf16_step_gradients_near_float32)
+TRAIN_LOSS_RTOL = 2e-2
+TRAIN_LEAF_RTOL = 0.15
+TRAIN_ALL_RTOL = 5e-2
+TRAIN_FALL = 0.7              # mean of the last 50 losses / first 10
+TRAIN_PIPELINE_BATCHES = 40   # TrainPipeline alone, after 5 of warm-up
 HERE = os.path.dirname(os.path.abspath(__file__))
 DECODER_KERNELS = ("greedy_assign_kernel", "assemble_kernel")
 # top-level packages the port must never load: JAX and the JAX package
@@ -1144,6 +1187,235 @@ def eval_phase(torch, engine, gpu) -> None:
         "tolerance": EVAL_CPU_TOL, "gpu": gpu}}))
 
 
+def _rel_l2(torch, a, b) -> float:
+    """||a - b|| / ||b|| (0 when both are zero)."""
+    a, b = a.double(), b.double()
+    den = float(b.norm())
+    num = float((a - b).norm())
+    return num / den if den > 0 else (0.0 if num == 0 else float("inf"))
+
+
+def train_step_card_vs_cpu(torch, T, cfg, batch, dev) -> dict:
+    """Phase 10.1: one step of make_train_step_on_batch from the same
+    seeded parameters on the same TRAIN_CPU_BATCH images, on the card and
+    on the CPU: the loss, every gradient leaf and every updated
+    parameter."""
+    small = {k: v[:TRAIN_CPU_BATCH] for k, v in batch.items()}
+    out = {}
+    for where in (dev, "cpu"):
+        state = T.create_train_state(cfg, seed=0, device=where)
+        before = {n: p.detach().cpu().clone()
+                  for n, p in state.model.named_parameters()}
+        state, m = T.make_train_step_on_batch(cfg)(state, small)
+        out[where] = (float(m["loss"]), before,
+                      {n: p.grad.detach().cpu()
+                       for n, p in state.model.named_parameters()},
+                      {n: p.detach().cpu()
+                       for n, p in state.model.named_parameters()})
+    (loss, p0, grads, params), (loss_c, p0_c, grads_c, params_c) = (
+        out[dev], out["cpu"])
+    for n in p0:
+        if not torch.equal(p0[n], p0_c[n]):
+            raise AssertionError(f"train: seeded parameter {n} differs "
+                                 "between the card and the CPU")
+    leaf = {n: _rel_l2(torch, grads[n], grads_c[n]) for n in grads}
+    every = _rel_l2(torch, torch.cat([g.flatten() for g in grads.values()]),
+                    torch.cat([g.flatten() for g in grads_c.values()]))
+    worst = max(leaf, key=leaf.get)
+    # Adam's first step moves an element by at most ~lr, whatever its
+    # gradient: two proper first steps from equal parameters lie within 2 lr
+    step_bound = 2 * cfg.train.lr_init * (1 + 1e-3)
+    param_err = max(float((params[n] - params_c[n]).abs().max())
+                    for n in params)
+    same_sign = float(torch.cat([
+        ((params[n] - p0[n]).sign() == (params_c[n] - p0[n]).sign()
+         ).flatten().float() for n in params]).mean())
+    res = {"loss_card": loss, "loss_cpu": loss_c,
+           "loss_rel_err": abs(loss - loss_c) / abs(loss_c),
+           "grad_rel_l2_all": every, "grad_rel_l2_worst_leaf": leaf[worst],
+           "grad_worst_leaf": worst,
+           "grad_rel_l2_median_leaf": statistics.median(leaf.values()),
+           "param_max_abs_err": param_err, "param_bound": step_bound,
+           "update_same_sign_share": same_sign}
+    if not (math.isfinite(loss) and res["loss_rel_err"] <= TRAIN_LOSS_RTOL
+            and leaf[worst] <= TRAIN_LEAF_RTOL and every <= TRAIN_ALL_RTOL
+            and param_err <= step_bound):
+        raise AssertionError(f"train step, card vs CPU: {res} (tolerances: "
+                             f"loss {TRAIN_LOSS_RTOL}, leaf "
+                             f"{TRAIN_LEAF_RTOL}, all {TRAIN_ALL_RTOL})")
+    return res
+
+
+def _csv_rows(path) -> list[dict]:
+    import csv
+    with open(path) as f:
+        return [{k: float(v) for k, v in row.items()}
+                for row in csv.DictReader(f)]
+
+
+def check_full_width(cfg) -> None:
+    """Phase 10 trains MobileNet-thin at its served width: 368x432, width
+    0.75, 6 stages, bf16, batch 8."""
+    mc = cfg.model
+    if (mc.name, mc.hin, mc.win, mc.width_multiplier, mc.n_stages,
+            mc.compute_dtype, cfg.train.batch_size) != (
+            "mobilenet_thin", 368, 432, 0.75, 6, "bfloat16", BATCH):
+        raise AssertionError(f"train: not the full-width config {cfg}")
+
+
+def train_phase(torch, np, counted, dev, gpu) -> None:
+    """Phase 10 (module docstring): training MobileNet-thin at full width
+    on the card."""
+    import tempfile
+
+    from openpose_plus_tpu_torch import Engine, ap_bench
+    from openpose_plus_tpu_torch import checkpoint as ckpt
+    from openpose_plus_tpu_torch import train as T
+    from openpose_plus_tpu_torch.data.coco import CocoPoseDataset
+    from openpose_plus_tpu_torch.data.pipeline import TrainPipeline
+    from openpose_plus_tpu_torch.data.synthetic import make_scene_bank
+    from openpose_plus_tpu_torch.models import common
+
+    geo = ap_bench.GEOMETRIES["serving"]
+    with tempfile.TemporaryDirectory(dir=HERE, prefix=".smoke_bank_") as tmp:
+        t0 = time.perf_counter()
+        ann, imgs = make_scene_bank(tmp, "train", TRAIN_IMAGES, geo["size"])
+        bank_s = time.perf_counter() - t0
+        base = ap_bench.build_config("mobilenet_thin", ann, imgs,
+                                     TRAIN_STEPS, TRAIN_LR, geo)
+        mc = base.model
+        check_full_width(base)
+        cfg = base.replace(train=dataclasses.replace(
+            base.train, log_every=1, checkpoint_every=TRAIN_CKPT,
+            checkpoint_dir=os.path.join(tmp, "ck"),
+            metrics_csv=os.path.join(tmp, "metrics.csv")))
+        dataset = CocoPoseDataset(ann, imgs)
+        pipe = TrainPipeline(dataset, cfg, seed=0)
+        batch = next(iter(pipe))
+        pipe.stop()
+
+        # 1. card against CPU
+        vs_cpu = train_step_card_vs_cpu(torch, T, cfg, batch, dev)
+        log(f"train step card vs CPU (batch {TRAIN_CPU_BATCH}, bf16): "
+            f"{vs_cpu}")
+
+        # 2. train_loop with the pipeline, a checkpoint, the resume
+        logs = []
+        for module in counted.values():
+            module.launches = 0
+        t0 = time.perf_counter()
+        state = T.train_loop(cfg, n_steps=TRAIN_STEPS, log=logs.append,
+                             device=dev)
+        torch.cuda.synchronize()
+        loop_s = time.perf_counter() - t0
+        loop_launches = {n: m.launches for n, m in counted.items()}
+        if any(loop_launches.values()):   # cuDNN and autograd only
+            raise AssertionError(f"train_loop launched hand kernels "
+                                 f"{loop_launches}")
+        rows = _csv_rows(cfg.train.metrics_csv)
+        losses = [r["loss"] for r in rows]
+        saved = sorted(int(d) for d in os.listdir(cfg.train.checkpoint_dir)
+                       if d.isdigit())
+        if not (len(losses) == TRAIN_STEPS and state.step == TRAIN_STEPS
+                and all(map(math.isfinite, losses))):
+            raise AssertionError(f"train_loop: {len(losses)} logged losses, "
+                                 f"step {state.step}, non-finite: "
+                                 f"{[x for x in losses if not math.isfinite(x)][:5]}")
+        first, last = statistics.mean(losses[:10]), statistics.mean(
+            losses[-50:])
+        if not last < TRAIN_FALL * first:
+            raise AssertionError(f"train_loop: loss {first} (first 10) -> "
+                                 f"{last} (last 50), not below "
+                                 f"{TRAIN_FALL} x")
+        if saved != [TRAIN_CKPT, TRAIN_STEPS]:
+            raise AssertionError(f"train_loop checkpoints {saved}")
+        state = T.train_loop(cfg, n_steps=TRAIN_RESUME_TO, log=logs.append,
+                             device=dev)
+        resumed_to = state.step
+        if (f"resumed from step {TRAIN_STEPS}" not in logs
+                or state.step != TRAIN_RESUME_TO
+                or len(_csv_rows(cfg.train.metrics_csv)) != TRAIN_RESUME_TO
+                or ckpt.latest_step(cfg.train.checkpoint_dir)
+                != TRAIN_STEPS):
+            raise AssertionError(f"train_loop resume: step {state.step}, "
+                                 f"logs {logs[-3:]}")
+        log(f"train_loop: {TRAIN_STEPS} steps in {loop_s:.1f} s, loss "
+            f"{first:.1f} (first 10) -> {last:.2f} (last 50), checkpoints "
+            f"{saved}, resumed from step {TRAIN_STEPS} to {resumed_to}; "
+            f"hand-kernel launches in the loop {loop_launches}")
+
+        # 3. the trained weights served by an Engine
+        images = torch.as_tensor(batch["images"]).to(dev)
+        engine = Engine(base, params=state.model.state_dict(), device=dev)
+        humans, n = launches_during(torch, counted,
+                                    lambda: engine.infer(images))
+        check_launches("train handoff", n, 1, 0)
+        check_humans(torch, "train handoff", humans,
+                     base.postproc.max_humans, dev)
+
+        # 4. timings: the step on a batch on the card, the loop with the
+        # pipeline, the pipeline alone, memory and the FLOP bound
+        step_fn = T.make_train_step_on_batch(cfg)
+        on_card = {k: torch.as_tensor(v).to(dev) for k, v in batch.items()}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        step_ms = median_ms(torch, lambda: step_fn(state, on_card))
+        peak = torch.cuda.max_memory_allocated()
+        busy_ms, kernels, _ = device_busy(torch,
+                                          lambda: step_fn(state, on_card))
+        timed = cfg.replace(train=dataclasses.replace(
+            cfg.train, log_every=100, checkpoint_every=10 ** 9,
+            checkpoint_dir=os.path.join(tmp, "ck_timed"),
+            metrics_csv=os.path.join(tmp, "timed.csv")))
+        T.train_loop(timed, n_steps=TRAIN_STEPS, log=lambda _: None,
+                     device=dev)
+        loop_imgs = statistics.mean(
+            r["imgs_per_sec"] for r in _csv_rows(timed.train.metrics_csv)[1:])
+        pipe = TrainPipeline(dataset, cfg, seed=1)
+        it = iter(pipe)
+        for _ in range(5):
+            next(it)
+        t0 = time.perf_counter()
+        for _ in range(TRAIN_PIPELINE_BATCHES):
+            next(it)
+        pipe_bps = TRAIN_PIPELINE_BATCHES / (time.perf_counter() - t0)
+        pipe.stop()
+        with torch.no_grad():
+            state.model.eval()
+            feature = state.model(on_card["images"].float() / 255.0 - 0.5)[
+                "feature"].permute(0, 3, 1, 2)
+            flops = conv_flops(torch, common, state.model, feature,
+                               on_card["images"])
+            state.model.train()
+        step_flops = 3 * (flops["bf16"] + flops["f32"])
+        bound_ms = step_flops / BF16_OPS_PER_S * 1e3
+        step_imgs = BATCH * 1000.0 / step_ms
+        log(json.dumps({"train": {
+            "model": mc.name, "batch": BATCH, "hw": [mc.hin, mc.win],
+            "dtype": mc.compute_dtype, "stages": mc.n_stages,
+            "lr": TRAIN_LR, "optimizer": cfg.train.optimizer,
+            "bank_images": TRAIN_IMAGES, "bank_seconds": bank_s,
+            "card_vs_cpu": vs_cpu, "loss_first10": first,
+            "loss_last50": last, "loop_steps": TRAIN_STEPS,
+            "loop_seconds_log_every_1": loop_s, "resumed_to": resumed_to,
+            "loop_launches": loop_launches,
+            "handoff_humans": humans.num_humans.tolist(),
+            "step_ms": step_ms, "step_imgs_per_sec": step_imgs,
+            "step_device_busy_ms": busy_ms,
+            "step_device_idle_share": 1.0 - busy_ms / step_ms,
+            "step_kernels": kernels,
+            "loop_imgs_per_sec": loop_imgs,
+            "pipeline_batches_per_sec": pipe_bps,
+            "pipeline_imgs_per_sec": pipe_bps * BATCH,
+            "paced_by": ("step" if step_imgs < pipe_bps * BATCH
+                         else "pipeline"),
+            "peak_memory_bytes": peak,
+            "forward_flops": flops, "step_flops": step_flops,
+            "step_bound_ms": bound_ms, "step_bound_by": "operations",
+            "step_pct_of_bound": 100.0 * bound_ms / step_ms,
+            "gpu": gpu}}))
+
+
 def profile(torch, np, rng, engine, images, gpu) -> None:
     """--profile: where the time of the served call goes.
 
@@ -1155,10 +1427,6 @@ def profile(torch, np, rng, engine, images, gpu) -> None:
        the union of the device kernels' intervals per call, their count,
        and the idle share against the unprofiled median; then the top
        rows by device time."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity
-    from torch.profiler import profile as torch_profile
-
     from openpose_plus_tpu_torch.postproc import decode_maps
 
     cfg = engine.config
@@ -1191,11 +1459,31 @@ def profile(torch, np, rng, engine, images, gpu) -> None:
         enqueue.append((t1 - t0) * 1e3)
         to_end.append((t2 - t0) * 1e3)
 
+    busy_ms, kernels, prof = device_busy(torch, lambda: engine.infer(images))
+    log(json.dumps({"host_and_device": {
+        "batch": BATCH, "host_enqueue_ms": statistics.median(enqueue),
+        "host_to_end_ms": statistics.median(to_end),
+        "device_busy_ms": busy_ms,
+        "device_kernels_per_call": kernels,
+        "device_idle_share": 1.0 - busy_ms / infer_ms[BATCH],
+        "gpu": gpu}}))
+    log(prof.key_averages().table(sort_by="self_device_time_total",
+                                  row_limit=15, max_name_column_width=60))
+
+
+def device_busy(torch, fn, calls: int = PROFILED_CALLS) -> tuple:
+    """torch.profiler over `calls` calls of fn(): the union of the device
+    kernels' intervals per call (ms), the kernels per call, and the
+    profile."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+
     torch.cuda.synchronize()
     with torch_profile(activities=[ProfilerActivity.CPU,
                                    ProfilerActivity.CUDA]) as prof:
-        for _ in range(PROFILED_CALLS):
-            engine.infer(images)
+        for _ in range(calls):
+            fn()
         torch.cuda.synchronize()
     spans = sorted((e.time_range.start, e.time_range.end)
                    for e in prof.events() if e.device_type == DeviceType.CUDA)
@@ -1203,16 +1491,7 @@ def profile(torch, np, rng, engine, images, gpu) -> None:
     for a, b in spans:                 # union of intervals (one stream)
         busy_us += max(0.0, b - max(a, end))
         end = max(end, b)
-    busy_ms = busy_us / 1e3 / PROFILED_CALLS
-    log(json.dumps({"host_and_device": {
-        "batch": BATCH, "host_enqueue_ms": statistics.median(enqueue),
-        "host_to_end_ms": statistics.median(to_end),
-        "device_busy_ms": busy_ms,
-        "device_kernels_per_call": len(spans) / PROFILED_CALLS,
-        "device_idle_share": 1.0 - busy_ms / infer_ms[BATCH],
-        "gpu": gpu}}))
-    log(prof.key_averages().table(sort_by="self_device_time_total",
-                                  row_limit=15, max_name_column_width=60))
+    return busy_us / 1e3 / calls, len(spans) / calls, prof
 
 
 def main(argv: list[str]) -> int:
@@ -1638,6 +1917,9 @@ def main(argv: list[str]) -> int:
     zoo_paths(torch, images, counted, dev, gpu)
     oracle_phase(torch, counted, dev, gpu)
     eval_phase(torch, engine, gpu)
+
+    # ---- 10. training ------------------------------------------------------
+    train_phase(torch, np, counted, dev, gpu)
     if args.profile:
         profile(torch, np, rng, engine, images, gpu)
 

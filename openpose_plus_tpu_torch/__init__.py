@@ -3,8 +3,11 @@
 Runs inference for the model zoo (MobileNet-thin, VGG19, VGG-tiny, hao28)
 on an NVIDIA GPU (uint8 frames in, plain or space-to-depth layouts,
 `HumanBatch` out), with flip-TTA, scale search and the `quality()` decoder,
-and the decoder's serial tail in hand-written Hopper kernels; and COCO
-keypoint evaluation (`eval_coco`, the GT-map oracle in `ap_oracle`).
+and the decoder's serial tail in hand-written Hopper kernels; COCO
+keypoint evaluation (`eval_coco`, the GT-map oracle in `ap_oracle`); and
+single-device training (`train`: loss, Adam or momentum, the host
+pipeline in `data.pipeline`, `train_loop` with resume; `ap_bench` trains
+on the seeded scene bank and measures AP).
 Imports `torch`, never `jax`, and nothing of the JAX package: `config`,
 `skeleton` and `data` are the port's own copies, pinned equal to the
 originals by the tests. `Engine` runs on the card unless it is given
@@ -16,6 +19,9 @@ originals by the tests. `Engine` runs on the card unless it is given
     humans = engine.infer(images_uint8, flip_tta=True)
     humans = engine.infer_multiscale(images_uint8, combine="dedup")
     vgg = Engine(default_config("vgg19"), device="cuda")
+
+    python -m openpose_plus_tpu_torch.train --model mobilenet_thin \
+        --train-images DIR --train-annotations FILE --device cuda
 """
 
 __version__ = "0.1.0"

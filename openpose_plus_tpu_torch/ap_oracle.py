@@ -14,7 +14,7 @@ scored by `eval_coco.evaluate_detections_full`. Variants:
 
 The bank comes from `data.synthetic.scene_bank_annotations`, so the oracle
 needs neither cv2 nor image files, and it writes no file. The trained-model
-variants of ap_benchmark.py wait for training (ROADMAP.md item 13).
+rows of ap_benchmark.py are `ap_bench`.
 
     from openpose_plus_tpu_torch.ap_oracle import run_oracle
     results = run_oracle("serving", device="cuda")   # {variant: EvalResult}

@@ -1,4 +1,12 @@
-"""Weight bridge between the JAX package's flat npz layout and torch.
+"""Training checkpoints with resume, and the weight bridge between the JAX
+package's flat npz layout and torch.
+
+Checkpoints (`openpose_plus_tpu/checkpoint.py::save/latest_step/restore`):
+one directory a step under the checkpoint path, `<path>/<step>/state.pt`
+holding the step and the `state_dict` of the model, the optimizer and the
+lr schedule (`torch.save`); only the newest `keep` are kept, and a save is
+written under a temporary name and renamed into place, so an interrupted
+save never leaves a step directory behind.
 
 The JAX package saves parameters as a flat npz of 'scope/name' keys
 (`openpose_plus_tpu.checkpoint.save_npz`), e.g.
@@ -16,7 +24,9 @@ kernel kinds:
 from __future__ import annotations
 
 import os
-from typing import Mapping
+import shutil
+import tempfile
+from typing import Any, Mapping, Optional
 
 import numpy as np
 import torch
@@ -66,3 +76,61 @@ def to_flax(state_dict: Mapping[str, torch.Tensor]) -> dict[str, np.ndarray]:
                        + [_TORCH_TO_LEAF[scopes[-1]]])
         out[key] = np.ascontiguousarray(arr)
     return out
+
+
+# ------------------------------------------------------------ checkpoints ---
+
+_STATE_FILE = "state.pt"
+
+
+def _steps(path: str) -> list[int]:
+    if not os.path.isdir(path):
+        return []
+    return sorted(int(name) for name in os.listdir(path)
+                  if name.isdigit()
+                  and os.path.isfile(os.path.join(path, name, _STATE_FILE)))
+
+
+def save(path: str, state: Any, step: int, keep: int = 3) -> None:
+    """Save a TrainState (anything with `state_dict()`) under path/<step>,
+    atomically, then delete all but the newest `keep` steps."""
+    os.makedirs(path, exist_ok=True)
+    final = os.path.join(path, str(int(step)))
+    tmp = tempfile.mkdtemp(prefix=f".{int(step)}.", dir=path)
+    try:
+        torch.save(state.state_dict(), os.path.join(tmp, _STATE_FILE))
+        if os.path.isdir(final):
+            shutil.rmtree(final)
+        os.rename(tmp, final)
+    except BaseException:
+        shutil.rmtree(tmp, ignore_errors=True)
+        raise
+    for old in _steps(path)[:-keep]:
+        shutil.rmtree(os.path.join(path, str(old)), ignore_errors=True)
+
+
+def latest_step(path: str) -> Optional[int]:
+    """The newest saved step under `path`, or None."""
+    steps = _steps(path)
+    return steps[-1] if steps else None
+
+
+def restore(path: str, template: Any, step: Optional[int] = None) -> Any:
+    """Load path/<step> (the newest by default) into `template` (a
+    TrainState: its model, optimizer and schedule, on their device) and
+    return it."""
+    step = latest_step(path) if step is None else step
+    if step is None:
+        raise FileNotFoundError(f"no checkpoint under {path}")
+    state = torch.load(os.path.join(path, str(int(step)), _STATE_FILE),
+                       map_location=template.device, weights_only=True)
+    template.load_state_dict(state)
+    return template
+
+
+def save_npz(path: str, state_dict: Mapping[str, torch.Tensor]) -> str:
+    """A model's state_dict as the JAX package's flat npz ('params/...'
+    keys, HWIO kernels; `openpose_plus_tpu.checkpoint.load_npz` reads it).
+    np.savez appends '.npz' to a bare path; the path written is returned."""
+    np.savez(path, **to_flax(state_dict))
+    return path if path.endswith(".npz") else path + ".npz"

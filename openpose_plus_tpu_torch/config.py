@@ -1,9 +1,10 @@
-"""The port's configuration: the model and post-processing sections of
-`openpose_plus_tpu/config.py`, copied so that the port imports nothing of
-the JAX package. Field names, defaults and the `fidelity()` / `quality()`
-presets are the JAX package's; `tests/test_torch_config.py` pins them
-equal to the originals. The data, training and mesh sections belong to
-parts of the system not yet ported (ROADMAP.md §1).
+"""The port's configuration: every section of `openpose_plus_tpu/config.py`
+(model, post-processing, data, training, mesh), copied so that the port
+imports nothing of the JAX package. Field names, defaults and the
+`fidelity()` / `quality()` presets are the JAX package's;
+`tests/test_torch_config.py` pins them equal to the originals. The mesh
+section is read only to refuse what is not ported (ROADMAP.md item
+'Distributed').
 """
 
 from __future__ import annotations
@@ -28,9 +29,11 @@ class ModelConfig:
     # Kept for the s2d input layouts' gate (`preferred_input_layout`); the
     # port turns an s2d input back into the plain image before conv1.
     stem_s2d: bool = True
+    # recompute each stage branch's activations in the backward pass
     remat_stages: bool = False
     # Route the marked stride-1 3x3 bf16 separable layers through the
-    # hand-written `fused_sepconv` kernel (inference only).
+    # hand-written `fused_sepconv` kernel (inference only: training with
+    # it raises).
     fused_inference: bool = False
 
     def preferred_input_layout(self) -> int:
@@ -107,10 +110,74 @@ class PostprocConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class DataConfig:
+    """Dataset paths, augmentation ranges, GT label widths and the host
+    pipeline's workers."""
+
+    train_images: str = "data/coco/train2017"
+    train_annotations: str = "data/coco/annotations/person_keypoints_train2017.json"
+    val_images: str = "data/coco/val2017"
+    val_annotations: str = "data/coco/annotations/person_keypoints_val2017.json"
+    rotate_max_deg: float = 40.0
+    scale_min: float = 0.5
+    scale_max: float = 1.1
+    shift_frac: float = 0.25   # random-crop center shift, fraction of frame
+    flip_prob: float = 0.5
+    sigma: float = 8.0           # GT heatmap Gaussian sigma (input pixels)
+    limb_width: float = 8.0      # GT PAF band half-width (input pixels)
+    prefetch: int = 4
+    num_workers: int = 8
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """Optimization schedule: Adam or momentum, staircase lr decay, L2 on
+    the kernels, logging, checkpoints and visual dumps."""
+
+    batch_size: int = 8
+    n_steps: int = 600_000
+    lr_init: float = 4e-5
+    lr_decay_every: int = 136_120
+    lr_decay_factor: float = 0.333
+    weight_decay: float = 5e-4
+    optimizer: str = "adam"      # "adam" | "momentum"
+    momentum: float = 0.9
+    # distributed strategy: "sync-sgd", "sma", "pair-avg" (only one device
+    # is ported: see train.train_loop)
+    kf_optimizer: str = "sync-sgd"
+    # "inv-sqrt-area": lr_init * sqrt(lr_ref_area / (hout * wout));
+    # "none": lr_init as it is (train.effective_lr_init)
+    lr_scaling: str = "none"
+    lr_ref_area: int = 256
+    log_every: int = 100
+    checkpoint_every: int = 5000
+    checkpoint_dir: str = "checkpoints"
+    metrics_csv: str = ""        # one CSV row per log interval; "" = off
+    vis_every: int = 0           # predicted-vs-GT heatmap dumps; 0 = off
+    vis_dir: str = "vis"
+    seed: int = 0
+    donate_state: bool = True    # JAX buffer donation; the port updates in place
+
+
+@dataclasses.dataclass(frozen=True)
+class ParallelConfig:
+    """Device-mesh layout: a data axis and an optional spatial axis."""
+
+    data_axis: str = "data"
+    spatial_axis: str = "spatial"
+    spatial_parallelism: int = 1   # shards of the image H dimension
+    multihost: bool = False
+
+
+@dataclasses.dataclass(frozen=True)
 class Config:
     model: ModelConfig = dataclasses.field(default_factory=ModelConfig)
     postproc: PostprocConfig = dataclasses.field(
         default_factory=PostprocConfig)
+    data: DataConfig = dataclasses.field(default_factory=DataConfig)
+    train: TrainConfig = dataclasses.field(default_factory=TrainConfig)
+    parallel: ParallelConfig = dataclasses.field(
+        default_factory=ParallelConfig)
 
     def replace(self, **kw) -> "Config":
         return dataclasses.replace(self, **kw)

@@ -1,10 +1,10 @@
 """COCO keypoint annotation loading — no pycocotools dependency.
 
-Copy of what evaluation reads from `openpose_plus_tpu/data/coco.py`: the
-sample record, the COCO-17 -> OpenPose-18 conversion, the dataset (same
-filtering, ordering and eval ignore boxes) and `pad_keypoints`. The crowd
-segmentations stay raw (`PoseSample.ignore_segms`): decoding them into loss
-masks belongs to training (ROADMAP.md item 'Training').
+Copy of `openpose_plus_tpu/data/coco.py`: the sample record with its loss
+mask (`PoseSample.ignore_mask`), the COCO-17 -> OpenPose-18 conversion, the
+COCO mask formats (polygon, uncompressed and compressed RLE; pycocotools is
+not needed), the dataset (same filtering, ordering and eval ignore boxes)
+and `pad_keypoints`. `cv2` (polygon masks) is imported inside the call.
 """
 
 from __future__ import annotations
@@ -31,7 +31,7 @@ class PoseSample:
     keypoints_coco: np.ndarray
     # annotation areas (P,) for OKS
     areas: np.ndarray
-    # segmentation payloads of regions to EXCLUDE from the loss (raw)
+    # segmentation payloads of regions to EXCLUDE from the loss
     ignore_segms: list[Any]
     # (Q, 4) x,y,w,h boxes of crowd/unlabeled person annotations — eval
     # ignore regions (COCOeval gtIg)
@@ -39,9 +39,13 @@ class PoseSample:
         default_factory=lambda: np.zeros((0, 4), np.float32))
 
     def ignore_mask(self) -> np.ndarray:
-        raise NotImplementedError(
-            "segmentation masks for the training loss are ROADMAP.md item "
-            "'Training'")
+        """uint8 (height, width): 1 where the loss applies, 0 on ignore
+        regions."""
+        mask = np.ones((self.height, self.width), np.uint8)
+        for segm in self.ignore_segms:
+            m = decode_segmentation(segm, self.height, self.width)
+            mask[m > 0] = 0
+        return mask
 
 
 def coco17_to_openpose18(kp17: np.ndarray) -> np.ndarray:
@@ -61,6 +65,67 @@ def coco17_to_openpose18(kp17: np.ndarray) -> np.ndarray:
                                        (ls[1] + rs[1]) / 2, 1.0)
     return out
 
+
+# ----------------------------------------------------------- mask decode --
+
+def _decode_rle_counts(counts: list[int], h: int, w: int) -> np.ndarray:
+    """COCO uncompressed RLE: column-major runs, starting with zeros."""
+    flat = np.zeros(h * w, np.uint8)
+    pos = 0
+    val = 0
+    for run in counts:
+        flat[pos:pos + run] = val
+        pos += run
+        val = 1 - val
+    return flat.reshape((w, h)).T  # column-major -> (h, w)
+
+
+def _decode_compressed_rle(s: str | bytes, h: int, w: int) -> np.ndarray:
+    """COCO compressed RLE string (LEB128-like, 5 bits a character, sign
+    folding, and every count from the 3rd on delta-coded against the count
+    two before it)."""
+    if isinstance(s, str):
+        s = s.encode("ascii")
+    counts: list[int] = []
+    i = 0
+    while i < len(s):
+        x = 0
+        k = 0
+        more = True
+        while more:
+            c = s[i] - 48
+            x |= (c & 0x1F) << (5 * k)
+            more = bool(c & 0x20)
+            i += 1
+            if not more and (c & 0x10):
+                x |= -1 << (5 * k + 5)
+            k += 1
+        if len(counts) > 2:
+            x += counts[-2]
+        counts.append(x)
+    return _decode_rle_counts(counts, h, w)
+
+
+def decode_segmentation(segm: Any, h: int, w: int) -> np.ndarray:
+    """Polygon list / RLE dict -> uint8 (h, w) binary mask."""
+    if isinstance(segm, dict):
+        counts = segm["counts"]
+        sh, sw = segm["size"]
+        if isinstance(counts, list):
+            return _decode_rle_counts(counts, sh, sw)
+        return _decode_compressed_rle(counts, sh, sw)
+    try:
+        import cv2
+    except ImportError:
+        raise RuntimeError("cv2 required for polygon masks") from None
+    mask = np.zeros((h, w), np.uint8)
+    for poly in segm:
+        pts = np.asarray(poly, np.float64).reshape(-1, 2)
+        cv2.fillPoly(mask, [np.round(pts).astype(np.int32)], 1)
+    return mask
+
+
+# ---------------------------------------------------------------- dataset --
 
 class CocoPoseDataset:
     """Images containing at least one keypoint-annotated person, sorted by

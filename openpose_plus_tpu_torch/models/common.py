@@ -20,6 +20,7 @@ import math
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
 from openpose_plus_tpu_torch.ops.cuda import sepconv
@@ -203,16 +204,20 @@ class StageBranch(nn.Module):
 class MultiStageHead(nn.Module):
     """The stage stack (`models/common.py::MultiStageHead`): stage 1 reads
     the feature map; stage t > 1 reads concat(feature, conf_{t-1},
-    paf_{t-1}) in the compute dtype. Dense branches unless `separable`."""
+    paf_{t-1}) in the compute dtype. Dense branches unless `separable`.
+    With `remat`, each branch recomputes its activations in the backward
+    pass instead of keeping them (`nn.remat(StageBranch)`)."""
 
     def __init__(self, in_features: int, n_heatmaps: int = 19,
                  n_pafs: int = 38, n_stages: int = 6, stage1_convs: int = 3,
                  stage1_kernel: int = 3, stage1_proj: int = 512,
                  refine_convs: int = 5, refine_kernel: int = 7,
                  refine_mid: int = 128, separable: bool = False,
-                 dtype: str = "bfloat16", fused: bool = False):
+                 dtype: str = "bfloat16", fused: bool = False,
+                 remat: bool = False):
         super().__init__()
         self.n_stages = n_stages
+        self.remat = remat
         for s in range(n_stages):
             if s == 0:
                 kw = dict(in_features=in_features, n_convs=stage1_convs,
@@ -235,9 +240,16 @@ class MultiStageHead(nn.Module):
             if s > 0:
                 x = torch.cat([feature, confs[-1].to(feature.dtype),
                                pafs[-1].to(feature.dtype)], dim=1)
-            confs.append(getattr(self, f"stage{s + 1}_conf")(x))
-            pafs.append(getattr(self, f"stage{s + 1}_paf")(x))
+            confs.append(self._branch(f"stage{s + 1}_conf", x))
+            pafs.append(self._branch(f"stage{s + 1}_paf", x))
         return confs, pafs
+
+    def _branch(self, name: str, x: torch.Tensor) -> torch.Tensor:
+        branch = getattr(self, name)
+        if self.remat and torch.is_grad_enabled():
+            return torch.utils.checkpoint.checkpoint(branch, x,
+                                                     use_reentrant=False)
+        return branch(x)
 
 
 def vgg_block(model: nn.Module, prefix: str, in_features: int,
@@ -292,7 +304,8 @@ class VGGFamilyPose(nn.Module):
             c = f
         self.stages = MultiStageHead(
             c, n_heatmaps=cfg.n_heatmaps, n_pafs=cfg.n_pafs,
-            n_stages=cfg.n_stages, dtype=d, **self.HEAD)
+            n_stages=cfg.n_stages, dtype=d, remat=cfg.remat_stages,
+            **self.HEAD)
 
     def forward(self, x: torch.Tensor) -> dict:
         if x.shape[-1] == 12 and not self.stem_s2d:

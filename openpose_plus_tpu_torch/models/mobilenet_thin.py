@@ -54,7 +54,7 @@ class MobileNetThinPose(nn.Module):
             c128 + c512, n_heatmaps=cfg.n_heatmaps, n_pafs=cfg.n_pafs,
             n_stages=cfg.n_stages, stage1_convs=3, stage1_kernel=3,
             stage1_proj=256, refine_convs=3, refine_kernel=3, refine_mid=128,
-            separable=True, dtype=d, fused=fz)
+            separable=True, dtype=d, fused=fz, remat=cfg.remat_stages)
 
     def forward(self, x: torch.Tensor) -> dict:
         if x.shape[-1] not in (3, 12, 48):

@@ -68,6 +68,19 @@ class HumanBatch:
                       for f in dataclasses.fields(cls)})
 
 
+def _lookup(table: torch.Tensor, index: torch.Tensor) -> torch.Tensor:
+    """table (B, N, C) rows at index (B, R) -> (B, R, C), as the reference's
+    one-hot matmul computes it (`decode.py:119-123`): the selected entry
+    plus 0 x every other entry of its column, so an entry is NaN wherever
+    another entry of its image's column is not finite (0 x inf = NaN), and
+    is itself otherwise."""
+    vals = table.gather(1, index[..., None].expand(-1, -1, table.shape[-1]))
+    bad = ~torch.isfinite(table)
+    others_bad = (bad.sum(1, keepdim=True)
+                  - (~torch.isfinite(vals)).to(torch.long)) > 0
+    return torch.where(others_bad, torch.full_like(vals, float("nan")), vals)
+
+
 def decode_maps(conf: torch.Tensor, paf_map: torch.Tensor,
                 cfg: PostprocConfig) -> HumanBatch:
     """Batched decode: (B, H, W, 19) + (B, H, W, 38) -> HumanBatch.
@@ -97,8 +110,7 @@ def decode_maps(conf: torch.Tensor, paf_map: torch.Tensor,
     m, n_parts = gids.shape[1], gids.shape[2]
     part_valid = gids >= 0
     safe = torch.where(part_valid, gids, torch.zeros_like(gids)).long()
-    vals = table.gather(1, safe.reshape(b, -1, 1).expand(-1, -1, 3))
-    vals = vals.reshape(b, m, n_parts, 3)
+    vals = _lookup(table, safe.reshape(b, -1)).reshape(b, m, n_parts, 3)
     coords = torch.where(part_valid[..., None], vals[..., :2],
                          torch.zeros_like(vals[..., :2]))
     part_scores = torch.where(part_valid, vals[..., 2],

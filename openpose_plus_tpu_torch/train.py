@@ -1,0 +1,396 @@
+"""Training on one device: deep-supervision loss, optimizer and schedule,
+the train step, the loop with resume, and the CLI.
+
+Port of `openpose_plus_tpu/train.py`, function for function:
+
+  * loss: the sum over stages of the masked L2 of (conf, paf) against the
+    GT maps, each stage's term summed over pixels and channels and averaged
+    over the batch (`pose_loss`)
+  * optimizer: Adam or momentum SGD with a staircase lr decay; the weight
+    decay is coupled L2 added to the gradient before the optimizer (as
+    `optax.add_decayed_weights` chained in front of it; not AdamW), on the
+    4-D kernels only (`make_optimizer`)
+  * the step synthesises the GT maps on the device from the batch's
+    keypoints (`data.targets.make_targets`), so the host only decodes and
+    warps images (`data.pipeline.TrainPipeline`)
+  * checkpoints with resume (`checkpoint.save` / `restore`)
+
+Everything runs on one torch device, the card unless the caller passes
+`device="cpu"`; without a CUDA device the default raises. The distributed
+strategies (`kf_optimizer` "sma" / "pair-avg", multi-host, spatial
+sharding) raise `NotImplementedError` (ROADMAP.md item 'Distributed').
+
+    python -m openpose_plus_tpu_torch.train --model mobilenet_thin \\
+        --train-images DIR --train-annotations FILE --steps 1000
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+import time
+from typing import Any, Callable, Optional
+
+import numpy as np
+import torch
+from torch import nn
+
+from openpose_plus_tpu_torch.config import Config, TrainConfig
+from openpose_plus_tpu_torch.data.targets import make_targets
+from openpose_plus_tpu_torch.engine import preprocess_images
+from openpose_plus_tpu_torch.models import common, get_model
+
+
+@dataclasses.dataclass
+class TrainState:
+    """The step count and the objects a step updates in place: the model
+    (in train mode), its optimizer and its lr schedule."""
+
+    step: int
+    model: nn.Module
+    optimizer: torch.optim.Optimizer
+    scheduler: torch.optim.lr_scheduler.LambdaLR
+    device: torch.device
+
+    def state_dict(self) -> dict:
+        return {"step": self.step, "model": self.model.state_dict(),
+                "optimizer": self.optimizer.state_dict(),
+                "scheduler": self.scheduler.state_dict()}
+
+    def load_state_dict(self, state: dict) -> None:
+        self.step = int(state["step"])
+        self.model.load_state_dict(state["model"])
+        self.optimizer.load_state_dict(state["optimizer"])
+        self.scheduler.load_state_dict(state["scheduler"])
+
+
+def effective_lr_init(cfg: TrainConfig, out_area: Optional[int] = None
+                      ) -> float:
+    """lr_init after the geometry-transfer rule (TrainConfig.lr_scaling):
+    "inv-sqrt-area" scales it by sqrt(lr_ref_area / out_area)."""
+    if cfg.lr_scaling == "none" or out_area is None:
+        return cfg.lr_init
+    if cfg.lr_scaling != "inv-sqrt-area":
+        raise ValueError(f"unknown lr_scaling {cfg.lr_scaling!r}")
+    return cfg.lr_init * float(cfg.lr_ref_area / out_area) ** 0.5
+
+
+def _decay(cfg: TrainConfig) -> Callable[[int], float]:
+    """The staircase factor at optimizer step `count` (counted before that
+    step, as optax counts)."""
+    return lambda count: cfg.lr_decay_factor ** (count // cfg.lr_decay_every)
+
+
+def lr_schedule(cfg: TrainConfig, out_area: Optional[int] = None
+                ) -> Callable[[int], float]:
+    """count -> lr: effective_lr_init * decay_factor ** (count //
+    decay_every), the staircase exponential decay."""
+    init, decay = effective_lr_init(cfg, out_area), _decay(cfg)
+    return lambda count: init * decay(count)
+
+
+def make_optimizer(cfg: TrainConfig, model: nn.Module,
+                   out_area: Optional[int] = None
+                   ) -> tuple[torch.optim.Optimizer,
+                              torch.optim.lr_scheduler.LambdaLR]:
+    """The optimizer over `model`'s parameters and its lr schedule, a
+    LambdaLR stepped once after each optimizer step. Two parameter groups:
+    the kernels (ndim >= 2) with `weight_decay` as coupled L2, the biases
+    with none."""
+    params = list(model.parameters())
+    groups = [{"params": [p for p in params if p.ndim >= 2],
+               "weight_decay": cfg.weight_decay},
+              {"params": [p for p in params if p.ndim < 2],
+               "weight_decay": 0.0}]
+    lr = effective_lr_init(cfg, out_area)
+    if cfg.optimizer == "adam":
+        opt = torch.optim.Adam(groups, lr=lr, betas=(0.9, 0.999), eps=1e-8)
+    elif cfg.optimizer == "momentum":
+        opt = torch.optim.SGD(groups, lr=lr, momentum=cfg.momentum,
+                              dampening=0.0, nesterov=False)
+    else:
+        raise ValueError(f"unknown optimizer {cfg.optimizer!r}")
+    return opt, torch.optim.lr_scheduler.LambdaLR(opt, _decay(cfg))
+
+
+def pose_loss(outputs: dict, gt_conf: torch.Tensor, gt_paf: torch.Tensor,
+              mask: Optional[torch.Tensor] = None
+              ) -> tuple[torch.Tensor, dict]:
+    """Deep-supervision masked L2: total = sum over stages of
+    mean_batch[sum over H, W, C of ((pred - gt) * mask)^2] for both
+    branches, each stage's output cast to float32 first. mask: (B, h, w, 1)
+    with 0 over unannotated regions. The metrics are the last stage's two
+    terms."""
+    if mask is None:
+        mask = torch.ones_like(gt_conf[..., :1])
+    total = 0.0
+    last_conf = last_paf = None
+    for conf, paf in zip(outputs["conf"], outputs["paf"]):
+        l_conf = (((conf.float() - gt_conf) * mask) ** 2).sum(
+            dim=(1, 2, 3)).mean()
+        l_paf = (((paf.float() - gt_paf) * mask) ** 2).sum(
+            dim=(1, 2, 3)).mean()
+        total = total + l_conf + l_paf
+        last_conf, last_paf = l_conf, l_paf
+    return total, {"loss_conf_last": last_conf, "loss_paf_last": last_paf}
+
+
+def _device(device: str | torch.device) -> torch.device:
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"training: device {dev}, but no CUDA device is available; "
+            "pass device=\"cpu\" to train on the CPU")
+    return dev
+
+
+def _check_trainable(config: Config) -> None:
+    if config.model.compute_dtype == "int8":
+        raise ValueError(
+            "int8 is a calibrated inference mode (Engine.calibrate); train "
+            "in bfloat16/float32 — the same checkpoint then serves int8.")
+    if config.model.fused_inference:
+        raise ValueError(
+            "fused_inference routes layers through fused_sepconv, which has "
+            "no backward; train with fused_inference=False (the weights "
+            "then serve either way)")
+
+
+def create_train_state(config: Config, seed: int = 0,
+                       device: str | torch.device = "cuda") -> TrainState:
+    """A fresh model of `config.model.train_lowering()` (seeded init on the
+    host, so one seed gives the same parameters on every device), its
+    optimizer and schedule, on `device`, in train mode."""
+    _check_trainable(config)
+    dev = _device(device)
+    model = get_model(config.model.train_lowering())
+    common.init_params(model, torch.Generator().manual_seed(seed))
+    model.to(dev).train()
+    opt, sched = make_optimizer(config.train, model,
+                                config.model.hout * config.model.wout)
+    return TrainState(step=0, model=model, optimizer=opt, scheduler=sched,
+                      device=dev)
+
+
+def _update(state: TrainState, images: torch.Tensor, gt_conf: torch.Tensor,
+            gt_paf: torch.Tensor, mask: Optional[torch.Tensor]
+            ) -> tuple[TrainState, dict]:
+    """One optimizer step in place; metrics stay on the device (no sync)
+    but `lr`, the schedule's value at the step before its increment."""
+    lr = state.optimizer.param_groups[0]["lr"]
+    state.optimizer.zero_grad(set_to_none=True)
+    loss, metrics = pose_loss(state.model(images), gt_conf, gt_paf, mask)
+    loss.backward()
+    state.optimizer.step()
+    state.scheduler.step()
+    state.step += 1
+    metrics = {k: v.detach() for k, v in metrics.items()}
+    return state, dict(metrics, loss=loss.detach(), lr=lr)
+
+
+def make_train_step(config: Config):
+    """step(state, images, gt_conf, gt_paf, mask) -> (state, metrics):
+    `images` are preprocessed float images on the state's device, the GT
+    maps (B, hout, wout, 19 / 38) and the mask (B, hout, wout, 1) too. The
+    state is updated in place and returned."""
+    _check_trainable(config)
+    return _update
+
+
+def _to_device(x: Any, device: torch.device) -> torch.Tensor:
+    """A host array or tensor -> `device`, copied once: from pinned host
+    memory and without blocking when the target is a GPU."""
+    t = torch.as_tensor(x)
+    if t.device == device:
+        return t
+    if device.type == "cuda" and t.device.type == "cpu":
+        t = t.pin_memory()
+    return t.to(device, non_blocking=True)
+
+
+def make_train_step_on_batch(config: Config):
+    """step(state, batch) -> (state, metrics) over a pipeline batch
+    {'images' uint8 (any input layout Engine takes), 'keypoints' (B, P,
+    18, 3), 'mask' (B, hout, wout, 1)}: the batch is copied to the state's
+    device once, normalised there (/255 - 0.5) and its GT maps synthesised
+    there at the model's output grid."""
+    _check_trainable(config)
+    m, d = config.model, config.data
+
+    def step_fn(state: TrainState, batch: dict):
+        dev = state.device
+        images = preprocess_images(_to_device(batch["images"], dev))
+        keypoints = _to_device(batch["keypoints"], dev)
+        mask = _to_device(batch["mask"], dev)
+        gt_conf, gt_paf = make_targets(keypoints, m.hout, m.wout, m.stride,
+                                       d.sigma, d.limb_width)
+        return _update(state, images, gt_conf, gt_paf, mask)
+
+    return step_fn
+
+
+def _check_single_device(config: Config) -> None:
+    p = config.parallel
+    if (config.train.kf_optimizer != "sync-sgd" or p.multihost
+            or p.spatial_parallelism > 1):
+        raise NotImplementedError(
+            f"training across devices (kf_optimizer="
+            f"{config.train.kf_optimizer!r}, multihost={p.multihost}, "
+            f"spatial_parallelism={p.spatial_parallelism}) is ROADMAP.md "
+            "item 'Distributed'; the port trains on one device")
+
+
+def train_loop(config: Config, n_steps: Optional[int] = None,
+               resume: bool = True, log=print,
+               device: str | torch.device = "cuda") -> TrainState:
+    """The training loop on one device: the COCO dataset and the host
+    pipeline, on-device GT synthesis, resume from the newest checkpoint,
+    a log line and a metrics-CSV row every `log_every` steps, checkpoints
+    every `checkpoint_every` and heatmap dumps every `vis_every`."""
+    from openpose_plus_tpu_torch import checkpoint as ckpt
+    from openpose_plus_tpu_torch.data.coco import CocoPoseDataset
+    from openpose_plus_tpu_torch.data.pipeline import TrainPipeline
+
+    _check_single_device(config)
+    n_steps = n_steps or config.train.n_steps
+    state = create_train_state(config, config.train.seed, device)
+    ckpt_dir = config.train.checkpoint_dir
+    if resume and ckpt.latest_step(ckpt_dir) is not None:
+        state = ckpt.restore(ckpt_dir, state)
+        log(f"resumed from step {state.step}")
+
+    dataset = CocoPoseDataset(config.data.train_annotations,
+                              config.data.train_images)
+    pipeline = TrainPipeline(dataset, config, seed=config.train.seed)
+    step_fn = make_train_step_on_batch(config)
+    csv_writer = _metrics_csv_writer(config)
+    it = iter(pipeline)
+    t0 = time.perf_counter()
+    imgs_since = 0
+    try:
+        for i in range(state.step, n_steps):
+            batch = next(it)
+            state, metrics = step_fn(state, batch)
+            imgs_since += batch["images"].shape[0]
+            if (i + 1) % config.train.log_every == 0:
+                loss = float(metrics["loss"])          # synchronises
+                dt = time.perf_counter() - t0
+                log(f"step {i + 1} loss {loss:.2f} "
+                    f"lr {float(metrics['lr']):.2e} "
+                    f"{imgs_since / dt:.1f} img/s")
+                csv_writer(i + 1, metrics, imgs_since / dt)
+                t0 = time.perf_counter()
+                imgs_since = 0
+            if (i + 1) % config.train.checkpoint_every == 0:
+                ckpt.save(ckpt_dir, state, i + 1)
+            if (config.train.vis_every
+                    and (i + 1) % config.train.vis_every == 0):
+                _dump_vis(config, state, batch, i + 1)
+    finally:
+        pipeline.stop()
+    return state
+
+
+def _metrics_csv_writer(config: Config):
+    """Row-per-log-interval CSV metrics (no-op when metrics_csv is empty).
+    Columns: step, loss, loss_conf_last, loss_paf_last, lr, imgs_per_sec."""
+    path = config.train.metrics_csv
+    if not path:
+        return lambda *a: None
+    if os.path.dirname(path):
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+    if not os.path.exists(path):
+        with open(path, "w") as f:
+            f.write("step,loss,loss_conf_last,loss_paf_last,lr,"
+                    "imgs_per_sec\n")
+
+    def write(step, metrics, imgs_per_sec):
+        # open per row: rows land every log_every steps, and a crash never
+        # loses buffered rows
+        with open(path, "a") as f:
+            f.write(f"{step},{float(metrics['loss']):.6g},"
+                    f"{float(metrics['loss_conf_last']):.6g},"
+                    f"{float(metrics['loss_paf_last']):.6g},"
+                    f"{float(metrics['lr']):.6g},{imgs_per_sec:.2f}\n")
+
+    return write
+
+
+def _dump_vis(config: Config, state: TrainState, batch, step: int) -> None:
+    """Render predicted vs GT heatmaps of the batch's first image over the
+    plain image (vis_dir/step<N>_{pred,gt}.jpg)."""
+    try:
+        import cv2
+    except ImportError:
+        return
+    from openpose_plus_tpu_torch.utils.vis import draw_maps_overlay
+
+    m, d = config.model, config.data
+    images = common.to_plain(_to_device(batch["images"][:1], state.device))
+    with torch.no_grad():
+        out = state.model(preprocess_images(images))
+        gt, _ = make_targets(_to_device(batch["keypoints"][:1], state.device),
+                             m.hout, m.wout, m.stride, d.sigma, d.limb_width)
+    pred = out["conf"][-1][0].float().cpu().numpy()
+    img = np.ascontiguousarray(images[0].cpu().numpy()[:, :, ::-1])  # BGR
+    os.makedirs(config.train.vis_dir, exist_ok=True)
+    cv2.imwrite(os.path.join(config.train.vis_dir, f"step{step}_pred.jpg"),
+                draw_maps_overlay(img, pred))
+    cv2.imwrite(os.path.join(config.train.vis_dir, f"step{step}_gt.jpg"),
+                draw_maps_overlay(img, gt[0].cpu().numpy()))
+
+
+def main(argv: Optional[list[str]] = None) -> None:
+    """CLI: the JAX package's flags, plus --device (default cuda)."""
+    import argparse
+
+    p = argparse.ArgumentParser(description="Train a pose model (PyTorch)")
+    p.add_argument("--model", default="vgg19")
+    p.add_argument("--steps", type=int, default=None)
+    p.add_argument("--batch-size", type=int, default=None)
+    p.add_argument("--parallel", action="store_true",
+                   help="multi-host (ROADMAP.md item 'Distributed': raises)")
+    p.add_argument("--kf-optimizer", default="sync-sgd",
+                   choices=["sync-sgd", "sma", "pair-avg"],
+                   help="distributed strategy (only sync-sgd on one device "
+                        "is ported)")
+    p.add_argument("--spatial", type=int, default=1,
+                   help="spatial-parallel shards of the image height")
+    p.add_argument("--train-images", default=None)
+    p.add_argument("--train-annotations", default=None)
+    p.add_argument("--checkpoint-dir", default=None)
+    p.add_argument("--metrics-csv", default=None,
+                   help="append per-log-interval metrics rows here")
+    p.add_argument("--lr-scaling", default=None,
+                   choices=["none", "inv-sqrt-area"],
+                   help="geometry-transfer lr rule: inv-sqrt-area scales "
+                        "lr_init by sqrt(lr_ref_area/(hout*wout))")
+    p.add_argument("--device", default="cuda",
+                   help="torch device to train on (default cuda)")
+    args = p.parse_args(argv)
+
+    from openpose_plus_tpu_torch.config import default_config
+
+    cfg = default_config(args.model)
+    tr = dataclasses.replace(cfg.train, kf_optimizer=args.kf_optimizer)
+    if args.lr_scaling:
+        tr = dataclasses.replace(tr, lr_scaling=args.lr_scaling)
+    if args.batch_size:
+        tr = dataclasses.replace(tr, batch_size=args.batch_size)
+    if args.checkpoint_dir:
+        tr = dataclasses.replace(tr, checkpoint_dir=args.checkpoint_dir)
+    if args.metrics_csv:
+        tr = dataclasses.replace(tr, metrics_csv=args.metrics_csv)
+    da = cfg.data
+    if args.train_images:
+        da = dataclasses.replace(da, train_images=args.train_images)
+    if args.train_annotations:
+        da = dataclasses.replace(da, train_annotations=args.train_annotations)
+    pa = dataclasses.replace(cfg.parallel, multihost=args.parallel,
+                             spatial_parallelism=args.spatial)
+    cfg = cfg.replace(train=tr, data=da, parallel=pa)
+    train_loop(cfg, n_steps=args.steps, device=args.device)
+
+
+if __name__ == "__main__":
+    main()

@@ -2,8 +2,9 @@
 the originals.
 
 - `openpose_plus_tpu_torch.config`: every preset `default_config` gives for
-  the JAX package's model names, with its `fidelity()` and `quality()`
-  post-processing presets, equal field for field (`dataclasses.asdict`);
+  the JAX package's model names (every section: model, postproc, data,
+  train, parallel), with its `fidelity()` and `quality()` post-processing
+  presets, equal field for field (`dataclasses.asdict`);
   the ModelConfig geometry helpers and `train_lowering()` give the same
   answers.
 - `openpose_plus_tpu_torch.skeleton`: every table `np.array_equal`.
@@ -25,10 +26,13 @@ from tests import kernel_inputs, maputil
 _NAMES = [None, *model_names()]
 
 
+_SECTIONS = ["model", "postproc", "data", "train", "parallel"]
+
+
 def _sections(cfg):
-    """The sections of a Config the port keeps (model and postproc)."""
+    """The sections of a Config the port keeps (all of them)."""
     return {k: v for k, v in dataclasses.asdict(cfg).items()
-            if k in ("model", "postproc")}
+            if k in _SECTIONS}
 
 
 @pytest.mark.parametrize("name", _NAMES)
@@ -36,9 +40,11 @@ def test_default_config_matches_jax(name):
     ref = jconfig.default_config(name)
     out = tconfig.default_config(name)
     assert dataclasses.asdict(out) == _sections(ref)
-    assert list(dataclasses.asdict(out)) == ["model", "postproc"]
-    fields = [f.name for f in dataclasses.fields(out.model)]
-    assert fields == [f.name for f in dataclasses.fields(ref.model)]
+    assert list(dataclasses.asdict(out)) == _SECTIONS
+    for section in _SECTIONS:
+        fields = [f.name for f in dataclasses.fields(getattr(out, section))]
+        assert fields == [f.name for f in dataclasses.fields(
+            getattr(ref, section))], section
 
 
 @pytest.mark.parametrize("upsample", [None, 4])

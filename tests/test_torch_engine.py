@@ -204,8 +204,10 @@ import torch
 import chip_smoke
 import openpose_plus_tpu_torch
 from openpose_plus_tpu_torch import Engine, default_config
-from openpose_plus_tpu_torch import (ap_oracle, data, engine, eval_coco,
-                                     models, postproc)
+from openpose_plus_tpu_torch import (ap_bench, ap_oracle, checkpoint, data,
+                                     engine, eval_coco, models, postproc,
+                                     train)
+from openpose_plus_tpu_torch.utils import vis
 from openpose_plus_tpu_torch.models import hao28, vgg19, vggtiny
 from openpose_plus_tpu_torch.models.common import space_to_depth
 from openpose_plus_tpu_torch.ops import cuda
@@ -235,6 +237,14 @@ for name in ("vgg19", "vggtiny", "hao28"):
         zoo.model, hin=64, win=64, n_stages=2))
     assert Engine(zoo, seed=0, device="cpu").infer(
         images).coords.shape == (2, 32, 18, 2)
+tcfg = cfg.replace(train=dataclasses.replace(cfg.train, batch_size=2))
+state = train.create_train_state(tcfg, device="cpu")
+kp = np.zeros((2, 1, 18, 3), np.float32)
+kp[..., :2], kp[..., 2] = 30.0, 1.0
+state, metrics = train.make_train_step_on_batch(tcfg)(state, {
+    "images": images, "keypoints": kp,
+    "mask": np.ones((2, 8, 8, 1), np.float32)})
+assert np.isfinite(float(metrics["loss"])) and state.step == 1
 oracle = ap_oracle.run_oracle("small", device="cpu", limit=8)
 assert oracle["perfect"].ap == 1.0, oracle
 assert all(0.0 <= r.ap <= 1.0 for r in oracle.values()), oracle
@@ -243,6 +253,8 @@ print("CUDA_MODULES", sorted(m for m in sys.modules
                              if m.startswith(cuda_modules)))
 print("DATA_MODULES", sorted(m for m in sys.modules
                              if m.startswith("openpose_plus_tpu_torch.data.")))
+print("PORT_MODULES", sorted(m for m in sys.modules
+                             if m.startswith("openpose_plus_tpu_torch.")))
 bad = chip_smoke.foreign_modules()
 print("FOREIGN_MODULES", bad)
 sys.exit(1 if bad else 0)
@@ -252,9 +264,10 @@ sys.exit(1 if bad else 0)
 def test_port_never_imports_jax():
     """The card machine has no JAX, and the port keeps its own copies of
     what it needs: importing the port (engine, models and the zoo,
-    postproc, eval_coco, ap_oracle, every ops.cuda and data module),
-    running CPU engines of every model through it and the GT-map oracle on
-    8 small-tier images loads no module of jax, flax or the JAX package
+    postproc, eval_coco, ap_oracle, train, ap_bench, checkpoint, every
+    ops.cuda and data module), running CPU engines of every model through
+    it, a train step and the GT-map oracle on 8 small-tier images loads no
+    module of jax, flax or the JAX package
     `openpose_plus_tpu`, by chip_smoke.py's own end-of-run check."""
     env = dict(os.environ, PYTHONPATH=REPO)
     proc = subprocess.run([sys.executable, "-c", _NO_JAX], cwd=REPO,
@@ -267,6 +280,8 @@ def test_port_never_imports_jax():
         assert f"openpose_plus_tpu_torch.ops.cuda.{name}'" in proc.stdout
     for name in ("augment", "coco", "pipeline", "synthetic", "targets"):
         assert f"openpose_plus_tpu_torch.data.{name}'" in proc.stdout
+    for name in ("train", "ap_bench", "checkpoint", "utils.vis"):
+        assert f"openpose_plus_tpu_torch.{name}'" in proc.stdout
 
 
 def test_foreign_module_check_sees_the_jax_package():

@@ -396,3 +396,28 @@ def test_empty_maps_and_unported_options():
     quality = decode_maps(conf, paf, _port(CFG).quality())  # merge on
     assert not quality.valid.any()
     assert quality.coords.shape == (2, CFG.max_humans, 18, 2)
+
+
+def test_non_finite_maps_decode_as_reference():
+    """An inf in one conf pixel and a NaN in one PAF channel: the port
+    gives the reference's outputs, NaN included. The reference looks the
+    peaks up by a one-hot matmul (0 x inf = NaN), so every part score of
+    the image with the inf is NaN; the port's gather reproduces that."""
+    maps = [_maps("clean"), _maps("noisy"), _maps("clean")]
+    conf = np.stack([c for c, _ in maps])
+    paf = np.stack([p for _, p in maps])
+    conf[0, 5, 7, 3] = np.inf
+    paf[1, :, :, 11] = np.nan
+    ref = jdecode.build_decoder(CFG)(conf, paf)
+    out = decode_maps(_t(conf), _t(paf), _port(CFG))
+    assert np.isnan(np.asarray(ref.part_scores)[0][np.asarray(
+        ref.part_valid)[0]]).all()
+    for name in ("valid", "n_parts", "part_valid"):
+        np.testing.assert_array_equal(getattr(out, name).numpy(),
+                                      np.asarray(getattr(ref, name)), name)
+    # the finite values agree to ~1 ulp (test_decode_maps_matches_jax);
+    # NaN must stand where the reference's stands
+    for name in ("coords", "part_scores", "score"):
+        a, r = getattr(out, name).numpy(), np.asarray(getattr(ref, name))
+        np.testing.assert_array_equal(np.isnan(a), np.isnan(r), name)
+        np.testing.assert_allclose(a, r, rtol=0, atol=1e-5, err_msg=name)

@@ -137,7 +137,29 @@ raises on failure (the script then exits non-zero and prints no result):
    the two sets the pace, peak memory, and the step's FLOP bound (3 x the
    forward's conv flops, `conv_flops`, over the bf16 tensor-core peak)
    with the share of it the step reaches.
-11. With --profile only: batch scaling (1, 8, 32; decode also at the
+11. Calibrated int8 (`int8_phase`): first `int8_conv` and the quantize
+   pass against their plain versions on seeded edge cases (Cin 3, 185 and
+   537, stride 2 on even and odd sizes, s_out 1e-6, both output modes):
+   bit-equal. Then for VGG19 and MobileNet-thin at full width (368x432, 6
+   stages, batch 8, phase 4's images): a bf16 engine seeded and
+   head-scaled as in phases 4 and 7, an int8 engine on its weights
+   (zero scales), `calibrate` on the batch (timed), then `infer`: the
+   decoder's kernels launch, int8_conv launches once per ConvRelu and
+   SepConvRelu and quantize_act once per float input (`int8_layers`),
+   the HumanBatch is finite and compacted with a human in every image
+   where the bf16 engine finds one. The forward's every int8_conv and
+   quantize_act output equals that of the same forward routed through
+   the plain versions (each distinct shape also checked kernel vs plain
+   on its own inputs), the maps within INT8_PLAIN_TOL of their scale, and
+   the int8 conf maps have cosine > INT8_COSINE against the bf16 engine's.
+   An `int8` line per model (forward device ms int8 and bf16, infer
+   event ms, calibration ms, the FLOP bound: int8 convs at the int8 peak,
+   depthwise at bf16, heads at f32), a `kernel_times` line per int8_conv
+   shape group (event and device ms, plain, bound, `torch._int_mm` on the
+   1x1 layers as `library_*`, the bf16 cuDNN conv of the shape as
+   `cudnn_*`) and an `int8_forward_layers` line (the groups summed over a
+   forward, and the quantize passes).
+12. With --profile only: batch scaling (1, 8, 32; decode also at the
    fidelity() preset), the host's enqueue time per call, and the device's
    busy time per call from torch.profiler (see `profile`).
 
@@ -150,7 +172,12 @@ of the port in DIR (a checkout of this repository, for instance an older
 commit's unpacked with `git archive`), prints their ptxas frames, checks
 greedy and merge bit-equal to their plain versions on phase 6's random sets
 and times them there; it prints no result line. Two trees compared in one
-run on one card: DIR=old, DIR=., DIR=., DIR=old.
+run on one card: DIR=old, DIR=., DIR=., DIR=old. `--int8-kernels-of DIR`
+does the same for the int8 conv: it builds the port in DIR, runs phase 11's
+two int8 engines there, and checks and times DIR's `int8_conv` at each shape
+group of their forwards (`int8_kernels` lines, the layers of a forward
+summed). `--mma-ceiling` only builds and runs `probes/mma_ceiling.cu`, the
+card's `mma.sync` rates from registers (s8 m16n8k32, bf16 m16n8k16).
 """
 
 from __future__ import annotations
@@ -219,6 +246,14 @@ TRAIN_LEAF_RTOL = 0.15
 TRAIN_ALL_RTOL = 5e-2
 TRAIN_FALL = 0.7              # mean of the last 50 losses / first 10
 TRAIN_PIPELINE_BATCHES = 40   # TrainPipeline alone, after 5 of warm-up
+# phase 11, int8: the two full-width engines; their conf maps against the
+# bf16 engine's on the same weights (tests/test_quant.py's criterion); the
+# kernel forward against the plain-routed one (equal int8 outputs, so only
+# cuDNN's depthwise and float32 heads could move the maps)
+INT8_MODELS = ("vgg19", "mobilenet_thin")
+INT8_COSINE = 0.98
+INT8_PLAIN_TOL = 1e-6
+INT8_OPS_PER_S = 1979e12      # dense int8 tensor-core peak
 HERE = os.path.dirname(os.path.abspath(__file__))
 DECODER_KERNELS = ("greedy_assign_kernel", "assemble_kernel")
 # top-level packages the port must never load: JAX and the JAX package
@@ -236,6 +271,14 @@ SOURCES = {   # kernel: (source, the TPU kernel it replaces)
                    "scripts/profile_pallas_dw.py:49"),
     "copy_bias": ("openpose_plus_tpu_torch/csrc/sepconv.cu",
                   "scripts/profile_pallas_dw.py:49"),
+    # port kernels with no Pallas counterpart
+    "int8_conv": ("openpose_plus_tpu_torch/csrc/int8_conv.cu",
+                  "XLA int8 conv, openpose_plus_tpu/models/common.py:129 "
+                  "(_int8_conv); no Pallas kernel"),
+    "quantize_act": ("openpose_plus_tpu_torch/csrc/int8_conv.cu",
+                     "XLA quantize_act, openpose_plus_tpu/models/"
+                     "common.py:84 (_int8_conv's float input); no Pallas "
+                     "kernel"),
 }
 
 
@@ -1416,6 +1459,476 @@ def train_phase(torch, np, counted, dev, gpu) -> None:
             "gpu": gpu}}))
 
 
+def int8_layers(common, model) -> tuple[int, int]:
+    """(int8 convs, quantize passes) of one forward of `model` in int8:
+    every ConvRelu and SepConvRelu is one int8 conv; a separable model
+    quantizes the float input of each (the image, the bf16 output of each
+    depthwise, a projection's bf16 input), a dense one the image and each
+    later stage's input, the rest of its chain staying int8."""
+    convs = sum(isinstance(m, (common.ConvRelu, common.SepConvRelu))
+                for m in model.modules())
+    if any(isinstance(m, common.SepConvRelu) for m in model.modules()):
+        return convs, convs
+    return convs, 1 + model.stages.n_stages - 1
+
+
+def int8_flops(torch, common, model, images) -> dict:
+    """The convolutions' operations in one int8 forward of `images`, by
+    the type they run in: "int8" (the int8 convs: ConvRelu, a
+    SepConvRelu's pointwise), "bf16" (the depthwise convs), "f32" (the
+    prediction 1x1s); 2 per multiply-add."""
+    counts = {"int8": 0, "bf16": 0, "f32": 0}
+
+    def hook(module, args, out):
+        out = out.q if isinstance(out, common.QAct) else out
+        px = out.numel() // out.shape[1]
+        if isinstance(module, common.SepConvRelu):
+            c = module.dw_weight.shape[0]
+            counts["bf16"] += 2 * px * c * module.dw_weight[0].numel()
+            counts["int8"] += 2 * px * c * module.pw_weight.shape[0]
+        elif isinstance(module, common.Conv1x1F32):
+            counts["f32"] += 2 * out.numel() * module.weight[0].numel()
+        else:
+            counts["int8"] += 2 * out.numel() * module.weight[0].numel()
+
+    handles = [m.register_forward_hook(hook) for m in model.modules()
+               if isinstance(m, (common.ConvRelu, common.SepConvRelu,
+                                 common.Conv1x1F32))]
+    try:
+        with torch.inference_mode():
+            model(images.float() / 255.0 - 0.5)
+    finally:
+        for h in handles:
+            h.remove()
+    return counts
+
+
+def int8_bound(q, cin, kernel, out) -> tuple[float, str]:
+    """int8_conv's bound for a conv over `cin` channels (q may carry zero
+    channels past them, the packed weights do): the input's Cin channels,
+    the Cout * kernel^2 * Cin weights, rescale, bias and the output moved
+    once, against 2 * M * N * K int8 operations (K = kernel^2 * Cin) at
+    the int8 tensor-core peak; the channel padding counted nowhere."""
+    cout = out.shape[-1]
+    m = out.numel() // cout
+    ops = 2 * m * cout * kernel * kernel * cin
+    nbytes = (q.numel() // q.shape[-1] * cin + cout * kernel * kernel * cin
+              + io_bytes(out) + 8 * cout)
+    return bound(nbytes, ops / INT8_OPS_PER_S)
+
+
+def record_outputs(module, names, fn) -> dict:
+    """fn() with module.<name> for each of `names` recording its calls'
+    (args, output); returns {name: [(args, output), ...]}."""
+    calls = {name: [] for name in names}
+    originals = {name: getattr(module, name) for name in names}
+
+    def recorder(name):
+        def call(*args):
+            out = originals[name](*args)
+            calls[name].append((args, out))
+            return out
+        return call
+    for name in names:
+        setattr(module, name, recorder(name))
+    try:
+        fn()
+    finally:
+        for name, original in originals.items():
+            setattr(module, name, original)
+    return calls
+
+
+def routed_plain(module, fn):
+    """fn() with the int8 conv and the quantize pass sent to their plain
+    versions (on the card)."""
+    kernel, quant = module.int8_conv, module.quantize_act
+    module.int8_conv = module.int8_conv_plain
+    module.quantize_act = module.quantize_act_plain
+    try:
+        return fn()
+    finally:
+        module.int8_conv, module.quantize_act = kernel, quant
+
+
+def int8_engines(torch, name, images, dev) -> tuple:
+    """Phase 11's engines of `name` at full width from `default_config`:
+    the bf16 engine (seeded, heads scaled as phase 4 scales them) and the
+    int8 engine on its weights, not yet calibrated; (bf16, int8, gains)."""
+    from openpose_plus_tpu_torch import Engine, default_config
+    cfg = default_config(name)
+    bf16 = Engine(cfg, seed=0, device=dev)
+    gains = scale_heads(torch, bf16, images)
+    cfg8 = cfg.replace(model=dataclasses.replace(cfg.model,
+                                                 compute_dtype="int8"))
+    return bf16, Engine(cfg8, params=bf16.model.state_dict(),
+                        device=dev), gains
+
+
+def int8_forward_calls(torch, common, int8_conv, engine, images) -> tuple:
+    """One int8 forward of `images` with its int8_conv and quantize_act
+    calls recorded ({name: [(args, output), ...]}), and the input channels
+    of each int8_conv call's layer (its q may carry zero channels past
+    them), in call order."""
+    cins = []
+
+    def hook(module, args):
+        weight = (module.pw_weight if isinstance(module, common.SepConvRelu)
+                  else module.weight)
+        cins.append(weight.shape[1])
+    handles = [m.register_forward_pre_hook(hook)
+               for m in engine.model.modules()
+               if isinstance(m, (common.ConvRelu, common.SepConvRelu))]
+    try:
+        with torch.inference_mode():
+            calls = record_outputs(int8_conv, ("int8_conv", "quantize_act"),
+                                   lambda: engine.forward(images))
+    finally:
+        for h in handles:
+            h.remove()
+    if len(cins) != len(calls["int8_conv"]):
+        raise AssertionError(f"{len(cins)} int8 layers ran "
+                             f"{len(calls['int8_conv'])} int8_conv calls")
+    return calls, cins
+
+
+def int8_groups(calls, cins) -> dict:
+    """A forward's int8_conv calls by shape: {(q shape, Cin, Cout,
+    kernel, stride, bf16 out): [args, output, layers]}."""
+    groups: dict = {}
+    for (args, out), cin in zip(calls["int8_conv"], cins):
+        q, k, stride, s_out = args[0], args[2], args[5], args[7]
+        key = (tuple(q.shape), cin, out.shape[-1], k, stride, s_out is None)
+        groups.setdefault(key, [args, out, 0])[2] += 1
+    return groups
+
+
+def int8_edge_cases(torch, np, inputs, int8_conv, dev) -> list:
+    """Seeded int8_conv arguments beyond the forwards' shapes: Cin 3 /
+    185 / 537 at stride 2 on even sizes (SAME pads (0, 1)) and odd ones,
+    M and N off the 64-wide tiles, and s_out = 1e-6 (every positive
+    output saturates); each in both output modes."""
+    rng = np.random.default_rng(8)
+    cases = []
+    for b, h, w, cin, cout, k, stride, tiny in (
+            (2, 40, 50, 3, 24, 3, 2, False), (3, 17, 19, 185, 200, 7, 2,
+                                               False),
+            (2, 46, 54, 537, 128, 1, 1, True), (1, 23, 27, 185, 128, 7, 1,
+                                                 True),
+            (1, 9, 7, 537, 40, 3, 2, False)):
+        q, weight, bias, s_in, s_out = inputs.int8_conv_inputs(
+            rng, b, h, w, cin, cout, k)
+        qw, wmax = int8_conv.quantize_weight(torch.from_numpy(weight))
+        pads = tuple(max((-(-n // stride) - 1) * stride + k - n, 0) // 2
+                     for n in (h, w))
+        args = [torch.from_numpy(q).to(dev), int8_conv.pack_weight(qw).to(
+            dev), k, int8_conv.rescale(torch.tensor(s_in).to(dev),
+                                       wmax.to(dev)),
+                torch.from_numpy(bias).to(dev), stride, pads]
+        s = torch.tensor(1e-6 if tiny else s_out).to(dev)
+        cases += [(*args, s), (*args, None)]
+    return cases
+
+
+def int8_phase(torch, np, images, counted, dev, gpu) -> dict:
+    """Phase 11 (module docstring): calibrated int8 serving at full width;
+    returns the kernels line's entries of int8_conv and quantize_act."""
+    from openpose_plus_tpu_torch.models import common
+    from openpose_plus_tpu_torch.ops.cuda import int8_conv
+
+    inputs = load_test_helper("kernel_inputs")
+    worst = {"int8_conv": 0.0, "quantize_act": 0.0}
+    checked = set()
+
+    def check_kernel(name, args):
+        """kernel vs plain on the card on `args`: bit-equal."""
+        key = (name, tuple(tuple(a.shape) if hasattr(a, "shape") else a
+                           for a in args))
+        if key in checked:
+            return
+        checked.add(key)
+        fn = getattr(int8_conv, name)
+        with torch.inference_mode():
+            out, ref = fn(*args), getattr(int8_conv, name + "_plain")(*args)
+        torch.cuda.synchronize()
+        if not torch.equal(out, ref):
+            raise AssertionError(f"{name} {key[1]} differs from its plain "
+                                 "version")
+        worst[name] = max(worst[name], float((out.float() - ref.float())
+                                             .abs().max()))
+
+    for args in int8_edge_cases(torch, np, inputs, int8_conv, dev):
+        check_kernel("int8_conv", args)
+    for c in (185, 3):
+        x = torch.from_numpy(np.random.default_rng(9).standard_normal(
+            (2, 46, 54, c)).astype(np.float32) * 3).to(dev, torch.bfloat16)
+        for s in (1e-6, 0.5, 1.0):
+            check_kernel("quantize_act", (x, torch.tensor(s, device=dev)))
+    log(f"int8 edge cases: {len(checked)} kernel calls bit-equal to their "
+        "plain versions (Cin 3/185/537, stride 2 on even and odd sizes, "
+        "s_out 1e-6, both output modes; quantize at Cin 185 and 3, "
+        "channel-padded)")
+
+    line = {}
+    for name in INT8_MODELS:
+        bf16, engine, gains = int8_engines(torch, name, images, dev)
+        mc, m = engine.config.model, engine.config.postproc.max_humans
+        scales = torch.stack(engine._calib)    # every calib buffer
+        if bool(scales.any()):
+            raise AssertionError(f"int8 {name}: scales before calibration")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        engine.calibrate(images)
+        torch.cuda.synchronize()
+        calib_ms = (time.perf_counter() - t0) * 1e3
+        scales = torch.stack(engine._calib)
+        if not bool(scales.min() > 0):
+            raise AssertionError(f"int8 {name}: "
+                                 f"{int((scales <= 0).sum())} of "
+                                 f"{scales.numel()} scales are still 0 "
+                                 "after calibration")
+        n_convs, n_quant = int8_layers(common, engine.model)
+
+        # every int8 conv of a forward through the kernel; the main path
+        engine.infer(images)                   # warm-up (weights cached)
+        torch.cuda.synchronize()
+        int8_conv.launches = int8_conv.quantize_launches = 0
+        out, n = launches_during(torch, counted, lambda: engine.infer(images))
+        n.update(int8_conv=int8_conv.launches,
+                 quantize_act=int8_conv.quantize_launches)
+        check_launches(f"int8 {name}", n, 1, 0)
+        if (n["int8_conv"], n["quantize_act"]) != (n_convs, n_quant):
+            raise AssertionError(
+                f"int8 {name}: {n['int8_conv']} int8_conv and "
+                f"{n['quantize_act']} quantize_act launches, expected "
+                f"{n_convs} and {n_quant}")
+        check_humans(torch, f"int8 {name}", out, m, dev)
+        ref_out = bf16.infer(images)
+        missing = (ref_out.num_humans > 0) & (out.num_humans == 0)
+        if bool(missing.any()):
+            raise AssertionError(f"int8 {name}: no humans where bf16 finds "
+                                 f"{ref_out.num_humans.tolist()}")
+
+        # kernel forward == plain-routed forward, and every layer's kernel
+        # call == its plain version on the same inputs
+        names = ("int8_conv", "quantize_act")
+        kern, cins = int8_forward_calls(torch, common, int8_conv, engine,
+                                        images)
+        with torch.inference_mode():
+            plain = routed_plain(int8_conv, lambda: record_outputs(
+                int8_conv, names, lambda: engine.forward(images)))
+        for key in names:
+            if len(kern[key]) != len(plain[key]):
+                raise AssertionError(f"int8 {name}: {key} calls differ")
+            for (args, o), (_, r) in zip(kern[key], plain[key]):
+                if not torch.equal(o, r):
+                    raise AssertionError(f"int8 {name}: a {key} output of "
+                                         "the forward differs from the "
+                                         "plain-routed one")
+                check_kernel(key, args)
+        maps = engine.forward(images)
+        ratios = check_map_scale(torch, f"int8 {name} kernel vs plain",
+                                 maps, routed_plain(
+                                     int8_conv, lambda: engine.forward(
+                                         images)), INT8_PLAIN_TOL)
+        conf8, conf16 = maps[0].flatten(), bf16.forward(images)[0].flatten()
+        cosine = float(conf8 @ conf16 / (conf8.norm() * conf16.norm()))
+        if not cosine > INT8_COSINE:
+            raise AssertionError(f"int8 {name}: conf cosine {cosine} vs "
+                                 "bf16")
+        log(f"int8 {name}: {n_convs} int8 layers, launches {n}; humans "
+            f"{out.num_humans.tolist()} (bf16 "
+            f"{ref_out.num_humans.tolist()}); forward == plain-routed "
+            f"({len(kern['int8_conv'])} int8_conv and "
+            f"{len(kern['quantize_act'])} quantize_act outputs equal, maps "
+            f"{ratios}); conf cosine vs bf16 {cosine:.5f}")
+
+        # timings: the forwards, infer, calibration, the bound
+        flops = int8_flops(torch, common, engine.model, images)
+        fwd8 = device_ms(torch, lambda: engine.forward(images),
+                         calls=FORWARD_REPLAYS)
+        fwd16 = device_ms(torch, lambda: bf16.forward(images),
+                          calls=FORWARD_REPLAYS)
+        bound_ms, bound_by = bound(io_bytes(images), flops["int8"]
+                                   / INT8_OPS_PER_S + flops["bf16"]
+                                   / BF16_OPS_PER_S + flops["f32"]
+                                   / F32_OPS_PER_S)
+        log(json.dumps({"int8": {
+            "model": name, "batch": BATCH, "hw": [mc.hin, mc.win],
+            "stages": mc.n_stages, "int8_layers": n_convs,
+            "quantize_passes": n_quant, "launches": n,
+            "humans": out.num_humans.tolist(),
+            "humans_bf16": ref_out.num_humans.tolist(),
+            "conf_cosine_vs_bf16": cosine, "head_gains": gains,
+            "forward_device_ms": fwd8, "bf16_forward_device_ms": fwd16,
+            "forward_over_bf16": fwd8 / fwd16,
+            "infer_ms": median_ms(torch, lambda: engine.infer(images)),
+            "bf16_infer_ms": median_ms(torch, lambda: bf16.infer(images)),
+            "calibrate_ms": calib_ms, "forward_flops": flops,
+            "forward_bound_ms": bound_ms, "forward_bound_by": bound_by,
+            "forward_pct_of_bound": 100.0 * bound_ms / fwd8,
+            "gpu": gpu}}))
+
+        # per shape group: the kernel, its plain version, torch._int_mm
+        # (1x1 layers where K and N are multiples of 8) and the bf16 cuDNN
+        # conv that the int8 layer replaces
+        groups = int8_groups(kern, cins)
+        totals = {key: 0.0 for key in ("ms", "plain_ms", "device_ms",
+                                       "bound_ms", "library_ms",
+                                       "library_device_ms", "cudnn_ms",
+                                       "cudnn_device_ms")}
+        totals["library_layers"] = 0
+        for (shape, cin, cout, k, stride, bf16_out), (args, o, count) in (
+                sorted(groups.items())):
+            t = time_int8_group(torch, common, int8_conv, args, o, cin)
+            log(json.dumps({"kernel_times": {
+                "name": "int8_conv", "model": name, "batch": BATCH,
+                "q": [*shape[:3], cin], "q_channels": shape[3],
+                "cout": cout, "kernel": k,
+                "stride": stride, "out": "bf16" if bf16_out else "int8",
+                "layers": count, **t, "gpu": gpu}}))
+            for key in totals:
+                if t.get(key) is not None:
+                    totals[key] += count * t[key]
+            if t["library_ms"] is not None:
+                totals["library_layers"] += count
+        quant = {"ms": 0.0, "plain_ms": 0.0, "device_ms": 0.0,
+                 "bound_ms": 0.0}
+        for args, _ in kern["quantize_act"]:
+            t = time_quantize(torch, int8_conv, args)
+            for key in quant:
+                quant[key] += t[key]
+        log(json.dumps({"int8_forward_layers": {
+            "model": name, "batch": BATCH, "layers": n_convs,
+            "groups": len(groups), **totals,
+            "pct_of_bound": 100.0 * totals["bound_ms"]
+            / totals["device_ms"], "quantize_act": quant, "gpu": gpu}}))
+        if name == INT8_MODELS[0]:
+            line = {
+                "int8_conv": dict(
+                    totals, launches=n["int8_conv"],
+                    max_abs_err=worst["int8_conv"], bound_by="operations",
+                    library_ms=None,
+                    shape=f"the {n_convs} layers of one batch-{BATCH} "
+                          f"{name} int8 forward (no one PyTorch call "
+                          "computes an int8 conv; torch._int_mm and the "
+                          "bf16 cuDNN conv are in the per-shape lines)"),
+                "quantize_act": dict(
+                    quant, launches=n["quantize_act"],
+                    max_abs_err=worst["quantize_act"], bound_by="bytes",
+                    library_ms=None,
+                    shape=f"the {n_quant} passes of one batch-{BATCH} "
+                          f"{name} int8 forward")}
+        del engine, bf16
+        torch.cuda.empty_cache()
+    line["int8_conv"]["max_abs_err"] = worst["int8_conv"]
+    line["quantize_act"]["max_abs_err"] = worst["quantize_act"]
+    return line
+
+
+def time_int8_group(torch, common, int8_conv, args, out, cin) -> dict:
+    """One int8_conv shape, a conv over `cin` channels: the kernel (event
+    and device ms), its plain version (event ms), the bound; torch._int_mm
+    on the same int32 product where the layer is a 1x1 and K and N are
+    multiples of 8 (`library_*`), and the bf16 cuDNN conv of the same
+    shape, channels-last, that the int8 layer replaces (`cudnn_*`); the
+    yardsticks without the channel padding."""
+    q, wp, k, rs, bias, stride, pads, s_out = args
+    cout = out.shape[-1]
+    calls = {"": lambda: int8_conv.int8_conv(*args),
+             "plain_": lambda: int8_conv.int8_conv_plain(*args)}
+    x16 = q[..., :cin].to(torch.bfloat16).permute(0, 3, 1, 2)
+    w16 = wp.view(cout, k, k, -1)[..., :cin].permute(0, 3, 1, 2).to(
+        torch.bfloat16)
+    calls["cudnn_"] = lambda: common.conv2d_same(x16, w16, stride)
+    mat = k == 1 and cin % 8 == 0 and cout % 8 == 0 and q.numel() > 16 * cin
+    if mat:
+        a2 = q[..., :cin].reshape(-1, cin)
+        b2 = wp[:, :cin].contiguous().t()  # (Cin, Cout), column-major
+        calls["library_"] = lambda: torch._int_mm(a2, b2)
+    t = {}
+    for key, fn in calls.items():
+        t[f"{key}ms"] = median_ms(torch, fn)
+        if key != "plain_":
+            t[f"{key}device_ms"] = device_ms(torch, fn)
+    if not mat:
+        t["library_ms"] = t["library_device_ms"] = None
+    t["bound_ms"], t["bound_by"] = int8_bound(q, cin, k, out)
+    t["pct_of_bound"] = 100.0 * t["bound_ms"] / t["device_ms"]
+    return t
+
+
+def time_quantize(torch, int8_conv, args) -> dict:
+    """One quantize_act call: kernel event and device ms, plain event ms,
+    the bound (2 bytes read and 1 written an element, the channel padding
+    it may write not counted)."""
+    t = {"ms": median_ms(torch, lambda: int8_conv.quantize_act(*args)),
+         "plain_ms": median_ms(
+             torch, lambda: int8_conv.quantize_act_plain(*args)),
+         "device_ms": device_ms(torch, lambda: int8_conv.quantize_act(
+             *args))}
+    x = args[0]
+    t["bound_ms"] = bound(io_bytes(x) + x.numel(), 4 * x.numel()
+                          / F32_OPS_PER_S)[0]
+    return t
+
+
+def int8_kernels_of(torch, np, tree, dev, gpu) -> None:
+    """--int8-kernels-of: the int8_conv kernel of the port in `tree`
+    (imported) at every shape group of its own calibrated full-width
+    int8 forwards of INT8_MODELS (phase 11's engines, on seeded images),
+    each group checked bit-equal to its plain version, then timed by
+    CUDA-graph replay; one `int8_kernels` line a model, with the layers'
+    device ms summed over a forward."""
+    from openpose_plus_tpu_torch import default_config
+    from openpose_plus_tpu_torch.models import common
+    from openpose_plus_tpu_torch.ops.cuda import int8_conv
+
+    for name in INT8_MODELS:
+        mc = default_config(name).model
+        images = torch.from_numpy(np.random.default_rng(11).integers(
+            0, 256, (BATCH, mc.hin, mc.win, 3), dtype=np.uint8)).to(dev)
+        bf16, engine, _ = int8_engines(torch, name, images, dev)
+        engine.calibrate(images)
+        calls, cins = int8_forward_calls(torch, common, int8_conv, engine,
+                                         images)
+        groups, total = [], 0.0
+        for (shape, cin, cout, k, stride, bf16_out), (args, _, count) in (
+                sorted(int8_groups(calls, cins).items())):
+            with torch.inference_mode():
+                if not torch.equal(int8_conv.int8_conv(*args),
+                                   int8_conv.int8_conv_plain(*args)):
+                    raise AssertionError(f"{tree} {name} {shape} -> {cout}:"
+                                         " kernel differs from its plain "
+                                         "version")
+            ms = device_ms(torch, lambda: int8_conv.int8_conv(*args))
+            groups.append([[*shape[:3], cin], cout, k, stride,
+                           "bf16" if bf16_out else "int8", count, ms])
+            total += count * ms
+        log(json.dumps({"int8_kernels": {
+            "tree": tree, "model": name, "batch": BATCH, "groups": groups,
+            "layers": len(cins), "layers_device_ms": total, "gpu": gpu}}))
+        del bf16, engine, calls
+        torch.cuda.empty_cache()
+
+
+def mma_ceiling(build) -> None:
+    """--mma-ceiling: builds and runs probes/mma_ceiling.cu, the TOPS of
+    `mma.sync` m16n8k32 s8 and m16n8k16 bf16 issued from registers with no
+    memory traffic, at 4, 8 and 16 warps a block."""
+    out_dir = build.BUILD_ROOT / "mma_ceiling"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    exe = out_dir / "mma_ceiling"
+    subprocess.run([build._nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
+                    "-O3", "-o", str(exe),
+                    os.path.join(HERE, "probes", "mma_ceiling.cu")],
+                   check=True)
+    run = subprocess.run([str(exe)], capture_output=True, text=True,
+                         check=True)
+    for line in run.stdout.splitlines():
+        log(f"mma ceiling: {line}")
+
+
 def profile(torch, np, rng, engine, images, gpu) -> None:
     """--profile: where the time of the served call goes.
 
@@ -1507,7 +2020,18 @@ def main(argv: list[str]) -> int:
         help="only build the port in DIR (a checkout of this repository), "
              "print its greedy and merge kernels' ptxas frames, and check "
              "and time them on phase 6's random sets")
+    parser.add_argument(
+        "--int8-kernels-of", metavar="DIR",
+        help="only build the port in DIR and check and time its int8_conv "
+             "kernel at the shape groups of its own full-width int8 "
+             "forwards (phase 11's engines)")
+    parser.add_argument(
+        "--mma-ceiling", action="store_true",
+        help="only build and run probes/mma_ceiling.cu: the card's "
+             "mma.sync s8 and bf16 rates from registers")
     args = parser.parse_args(argv)
+    if args.decoder_kernels_of and args.int8_kernels_of:
+        parser.error("one of --decoder-kernels-of and --int8-kernels-of")
 
     import torch
     if not torch.cuda.is_available():
@@ -1519,7 +2043,7 @@ def main(argv: list[str]) -> int:
 
     import numpy as np
 
-    tree = args.decoder_kernels_of
+    tree = args.decoder_kernels_of or args.int8_kernels_of
     if tree is not None:
         sys.path.insert(0, os.path.abspath(tree))
     from openpose_plus_tpu_torch import Engine, default_config
@@ -1531,6 +2055,9 @@ def main(argv: list[str]) -> int:
     inputs = load_test_helper("kernel_inputs")
 
     dev = torch.device("cuda", 0)
+    if args.mma_ceiling:
+        mma_ceiling(build)
+        return 0
 
     # ---- 2. build -------------------------------------------------------
     t0 = time.perf_counter()
@@ -1555,6 +2082,9 @@ def main(argv: list[str]) -> int:
                 os.path.abspath(tree) + os.sep):
             raise AssertionError(f"imported {openpose_plus_tpu_torch.__file__}"
                                  f", not the port in {tree}")
+        if args.int8_kernels_of:
+            int8_kernels_of(torch, np, tree, dev, gpu)
+            return 0
         for (label, k), case in random_decoder_sets(torch, inputs, np,
                                                     dev).items():
             log(json.dumps({"decoder_kernels": {
@@ -1920,6 +2450,11 @@ def main(argv: list[str]) -> int:
 
     # ---- 10. training ------------------------------------------------------
     train_phase(torch, np, counted, dev, gpu)
+
+    # ---- 11. calibrated int8 ----------------------------------------------
+    for name, t in int8_phase(torch, np, images, counted, dev, gpu).items():
+        timing[name], launches[name], errs[name] = (t, t["launches"],
+                                                    t["max_abs_err"])
     if args.profile:
         profile(torch, np, rng, engine, images, gpu)
 

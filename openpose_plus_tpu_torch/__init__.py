@@ -3,7 +3,9 @@
 Runs inference for the model zoo (MobileNet-thin, VGG19, VGG-tiny, hao28)
 on an NVIDIA GPU (uint8 frames in, plain or space-to-depth layouts,
 `HumanBatch` out), with flip-TTA, scale search and the `quality()` decoder,
-and the decoder's serial tail in hand-written Hopper kernels; COCO
+and the decoder's serial tail in hand-written Hopper kernels; calibrated
+int8 serving (`compute_dtype="int8"`, `Engine.calibrate`) with the int8
+convs in a hand-written int8 tensor-core kernel; COCO
 keypoint evaluation (`eval_coco`, the GT-map oracle in `ap_oracle`); and
 single-device training (`train`: loss, Adam or momentum, the host
 pipeline in `data.pipeline`, `train_loop` with resume; `ap_bench` trains

@@ -12,6 +12,10 @@ evaluate_engine`) under cumulative inference settings:
   with --frag-merge also fidelity_fm, fidelity_tta_fm and
   fidelity_tta_msdd_fm (the fragment-merge pass; msdd: per-scale decode
   and OKS-dedup merge)
+  with --int8 also fidelity_int8: the same float weights in a calibrated
+  int8 engine (`compute_dtype="int8"`), its scales from
+  `calibrate_from_paths` on the first 8 TRAIN images, never the eval
+  images (the TensorRT protocol)
 
 Geometry tiers (--geometry): "small" (256 px scenes, 128x128 input) and
 "serving" (736 px scenes, 368x432 input, rows keyed "<model>@368"). The
@@ -19,8 +23,8 @@ banks, the trained weights (the JAX flat npz layout, `checkpoint.
 save_npz`), a loss CSV per training run and the results
 (`results.json`) go to the git-ignored `.ap_bench_torch/`; the JAX
 package's record `ap_benchmark.json` is only read, and each row prints
-beside its record for the same key. The int8 variant, the scale-set study,
-`--large-bank` and `--curve` wait for their own items (ROADMAP.md §1).
+beside its record for the same key. The scale-set study, `--large-bank`
+and `--curve` wait for their own items (ROADMAP.md §1).
 
     python -m openpose_plus_tpu_torch.ap_bench --model mobilenet_thin \\
         --geometry serving --steps 16000 --lr 1e-3 --frag-merge
@@ -45,6 +49,8 @@ RESULTS_PATH = os.path.join(BANK_DIR, "results.json")
 MODELS = ("mobilenet_thin", "vggtiny", "hao28", "vgg19")
 VARIANTS = ("base", "fidelity", "fidelity_tta", "fidelity_tta_ms")
 FM_VARIANTS = ("fidelity_fm", "fidelity_tta_fm", "fidelity_tta_msdd_fm")
+INT8_VARIANTS = ("fidelity_int8",)
+CALIB_IMAGES = 8      # train images the int8 variant calibrates on
 MS_SCALES = {"fidelity_tta_ms": (0.5, 1.0, 1.5),
              "fidelity_tta_msdd_fm": (0.5, 1.0, 1.5)}
 
@@ -159,8 +165,9 @@ def train_model(model: str, steps: int, lr: float, ann: str, imgs: str,
 
 
 def eval_variant(cfg, params, variant: str, dataset,
-                 device: str = "cuda") -> dict:
-    """One inference variant's AP over the val bank."""
+                 device: str = "cuda", calib_dataset=None) -> dict:
+    """One inference variant's AP over the val bank; the int8 variant
+    calibrates on `calib_dataset` (the train bank)."""
     from openpose_plus_tpu_torch.engine import Engine
     from openpose_plus_tpu_torch.eval_coco import evaluate_engine
 
@@ -170,7 +177,13 @@ def eval_variant(cfg, params, variant: str, dataset,
     if variant.endswith("_fm"):
         ecfg = ecfg.replace(postproc=dataclasses.replace(
             ecfg.postproc, fragment_merge_rel=0.5))
+    if variant in INT8_VARIANTS:
+        ecfg = ecfg.replace(model=dataclasses.replace(
+            ecfg.model, compute_dtype="int8"))
     eng = Engine(ecfg, params=params, device=device)
+    if variant in INT8_VARIANTS:
+        eng.calibrate_from_paths([calib_dataset[i].image_path
+                                  for i in range(CALIB_IMAGES)])
     kwargs = {}
     if variant.startswith("fidelity_tta"):
         kwargs["flip_tta"] = True
@@ -202,7 +215,8 @@ def _gpu_line() -> str:
 
 def run_model(model: str, steps: int, lr: float, force: bool,
               geometry: str = "small", lr_scaling: str = "none",
-              frag_merge: bool = False, device: str = "cuda") -> dict:
+              frag_merge: bool = False, device: str = "cuda",
+              int8: bool = False) -> dict:
     """Train one model at one tier and evaluate its variants; returns the
     row ({variant: result}) as stored in RESULTS_PATH."""
     from openpose_plus_tpu_torch.data.coco import CocoPoseDataset
@@ -222,7 +236,8 @@ def run_model(model: str, steps: int, lr: float, force: bool,
     record = _load(RECORD_PATH).get(key, {})
     res = _load(RESULTS_PATH)
     row = res.get(key, {})
-    variants = VARIANTS + (FM_VARIANTS if frag_merge else ())
+    variants = (VARIANTS + (FM_VARIANTS if frag_merge else ())
+                + (INT8_VARIANTS if int8 else ()))
     missing = [v for v in variants
                if force or v not in row or row[v].get("steps") != steps
                or row[v].get("lr", lr) != lr]
@@ -233,9 +248,11 @@ def run_model(model: str, steps: int, lr: float, force: bool,
     cfg, params, info = train_model(model, steps, lr, train_ann, train_imgs,
                                     geo, lr_scaling, device)
     val_set = CocoPoseDataset(val_ann, val_imgs)
+    train_set = CocoPoseDataset(train_ann, train_imgs)
     gpu = _gpu_line()
     for variant in missing:
-        out = eval_variant(cfg, params, variant, val_set, device)
+        out = eval_variant(cfg, params, variant, val_set, device,
+                           calib_dataset=train_set)
         want = record.get(variant, {}).get("ap")
         out.update(steps=steps, lr=lr, n_val=geo["n_val"], hin=geo["hin"],
                    bank_size=geo["size"], record_ap=want, device=gpu,
@@ -267,10 +284,13 @@ def main(argv=None) -> None:
                          "record under <model><tier>#lrrule")
     ap.add_argument("--frag-merge", action="store_true",
                     help="also evaluate the fragment-merge repair pass")
+    ap.add_argument("--int8", action="store_true",
+                    help="also evaluate the calibrated int8 engine "
+                         "(fidelity_int8)")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
     run_model(args.model, args.steps, args.lr, args.force, args.geometry,
-              args.lr_scaling, args.frag_merge, args.device)
+              args.lr_scaling, args.frag_merge, args.device, args.int8)
 
 
 if __name__ == "__main__":

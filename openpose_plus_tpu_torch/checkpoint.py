@@ -13,8 +13,10 @@ The JAX package saves parameters as a flat npz of 'scope/name' keys
 'params/stages/stage2_paf/SepConvRelu_1/dw_kernel'. The port names its
 submodules after the Flax scopes, so the mapping is mechanical: drop the
 leading 'params' collection, join the scopes with '.', rename the leaf, and
-move every 4-D kernel from HWIO to OIHW. One permutation serves all three
-kernel kinds:
+move every 4-D kernel from HWIO to OIHW. An int8 model's `calib` collection
+('calib/conv1_1/act_scale', 'calib/stages/stage2_in_scale') maps the same
+way onto the buffers of the same names (0-d float32). One permutation
+serves all three kernel kinds:
 
     dense      (k, k, Cin, Cout) -> (Cout, Cin, k, k)
     depthwise  (3, 3, 1, C)      -> (C, 1, 3, 3)     (groups=C)
@@ -31,11 +33,14 @@ from typing import Any, Mapping, Optional
 import numpy as np
 import torch
 
+from openpose_plus_tpu_torch.models.common import is_calib_leaf
+
 _LEAF_TO_TORCH = {"kernel": "weight", "bias": "bias",
                   "dw_kernel": "dw_weight", "dw_bias": "dw_bias",
                   "pw_kernel": "pw_weight", "pw_bias": "pw_bias"}
 _TORCH_TO_LEAF = {v: k for k, v in _LEAF_TO_TORCH.items()}
 _COLLECTION = "params"
+_CALIB = "calib"
 
 
 def load_npz(path: str) -> dict[str, np.ndarray]:
@@ -48,13 +53,17 @@ def load_npz(path: str) -> dict[str, np.ndarray]:
 
 
 def from_flax(flat: Mapping[str, np.ndarray]) -> dict[str, torch.Tensor]:
-    """Flat Flax dict -> torch state_dict (float32, OIHW kernels)."""
+    """Flat Flax dict -> torch state_dict (float32, OIHW kernels; the
+    calib scales as 0-d buffers)."""
     out: dict[str, torch.Tensor] = {}
     for key, value in flat.items():
         scopes = key.split("/")
-        if scopes[0] != _COLLECTION or scopes[-1] not in _LEAF_TO_TORCH:
-            raise KeyError(f"not a float model parameter: {key!r}")
         arr = np.array(value, dtype=np.float32)       # an owned copy
+        if scopes[0] == _CALIB and is_calib_leaf(scopes[-1]):
+            out[".".join(scopes[1:])] = torch.from_numpy(arr)
+            continue
+        if scopes[0] != _COLLECTION or scopes[-1] not in _LEAF_TO_TORCH:
+            raise KeyError(f"not a model parameter or calib scale: {key!r}")
         if arr.ndim == 4:
             arr = np.ascontiguousarray(arr.transpose(3, 2, 0, 1))
         name = ".".join(scopes[1:-1] + [_LEAF_TO_TORCH[scopes[-1]]])
@@ -67,15 +76,34 @@ def to_flax(state_dict: Mapping[str, torch.Tensor]) -> dict[str, np.ndarray]:
     out: dict[str, np.ndarray] = {}
     for name, tensor in state_dict.items():
         scopes = name.split(".")
+        arr = tensor.detach().to("cpu", torch.float32).numpy()
+        if is_calib_leaf(scopes[-1]):
+            out["/".join([_CALIB] + scopes)] = arr.copy()   # stays 0-d
+            continue
         if scopes[-1] not in _TORCH_TO_LEAF:
             raise KeyError(f"not a model parameter: {name!r}")
-        arr = tensor.detach().to("cpu", torch.float32).numpy()
         if arr.ndim == 4:
             arr = arr.transpose(2, 3, 1, 0)
         key = "/".join([_COLLECTION] + scopes[:-1]
                        + [_TORCH_TO_LEAF[scopes[-1]]])
         out[key] = np.ascontiguousarray(arr)
     return out
+
+
+def load_model_state(model: torch.nn.Module,
+                     state: Mapping[str, torch.Tensor]) -> None:
+    """`model.load_state_dict(state)`, strict except for the int8 calib
+    scales: an int8 model keeps zero scales where `state` has none (float
+    weights serve every compute mode, as in the reference), and a float
+    model ignores scales it has no buffers for."""
+    own = set(model.state_dict())
+    state = {k: v for k, v in state.items()
+             if k in own or not is_calib_leaf(k.rsplit(".", 1)[-1])}
+    missing, unexpected = model.load_state_dict(state, strict=False)
+    missing = [k for k in missing if not is_calib_leaf(k.rsplit(".", 1)[-1])]
+    if missing or unexpected:
+        raise RuntimeError(f"load_model_state: missing keys {missing}, "
+                           f"unexpected keys {unexpected}")
 
 
 # ------------------------------------------------------------ checkpoints ---

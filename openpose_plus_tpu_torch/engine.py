@@ -1,11 +1,12 @@
 """Inference engine: preprocess -> CNN forward -> grouping, on one device.
 
 Port of `openpose_plus_tpu/engine.py`: the served `Engine.infer` path, flip
-test-time augmentation, scale search (`infer_multiscale`, "avg" and "dedup")
-and the space-to-depth input layouts. The whole pipeline runs on the
-engine's device — uint8 frames in, `HumanBatch` out — with the decoder's
-serial tail in the hand-written CUDA kernels on a GPU. Nothing is compiled
-ahead of time: PyTorch runs eagerly.
+test-time augmentation, scale search (`infer_multiscale`, "avg" and "dedup"),
+the space-to-depth input layouts, and calibrated int8 serving (`calibrate`,
+`calibrate_from_paths`, implicit calibration on the first batch). The whole
+pipeline runs on the engine's device — uint8 frames in, `HumanBatch` out —
+with the decoder's serial tail in the hand-written CUDA kernels on a GPU.
+Nothing is compiled ahead of time: PyTorch runs eagerly.
 """
 
 from __future__ import annotations
@@ -16,7 +17,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from openpose_plus_tpu_torch.checkpoint import from_flax
+from openpose_plus_tpu_torch.checkpoint import from_flax, load_model_state
 from openpose_plus_tpu_torch.config import Config, PostprocConfig, default_config
 from openpose_plus_tpu_torch.models import common, get_model
 from openpose_plus_tpu_torch.postproc import (
@@ -184,7 +185,14 @@ class Engine:
     chunk: serve batches larger than `chunk` as a loop of sub-batches
         (`infer` without flip-TTA, as in the reference).
     fast_init: accepted for the reference's callers and changes nothing:
-        the seeded init is already cheap.
+        the seeded init is already cheap (an int8 engine's scales start at
+        zero either way).
+
+    An int8 engine (`compute_dtype="int8"`) takes float parameters with or
+    without its calibration scales (a float state_dict, or a Flax dict
+    without `calib/`: zero scales); `infer`, `infer_multiscale` and
+    `forward` calibrate on the first batch they see unless every scale is
+    already > 0. `calibrate` / `calibrate_from_paths` do it explicitly.
 
     Images are uint8 RGB in one of INPUT_LAYOUTS: plain (B, hin, win, 3),
     s2d (B, hin/2, win/2, 12) or s2d^2 (B, hin/4, win/4, 48), as far as
@@ -212,8 +220,11 @@ class Engine:
         else:
             if any("/" in key for key in params):
                 params = from_flax(params)
-            self.model.load_state_dict(params, strict=True)
+            load_model_state(self.model, params)
         self.model.to(self.device).eval()
+        self._calib = [b for name, b in self.model.named_buffers()
+                       if common.is_calib_leaf(name.rsplit(".", 1)[-1])]
+        self._calibrated = False
 
     def _images(self, images) -> torch.Tensor:
         images = torch.as_tensor(images, device=self.device)
@@ -231,13 +242,21 @@ class Engine:
             raise ValueError(f"expected uint8 images, got {images.dtype}")
         return images
 
+    def _serving(self, images) -> torch.Tensor:
+        """The checked images, after the implicit calibration of an int8
+        engine on the first batch it serves."""
+        images = self._images(images)
+        if self._needs_calibration():
+            self.calibrate(images)
+        return images
+
     @torch.inference_mode()
     def infer(self, images: np.ndarray | torch.Tensor,
               flip_tta: bool = False) -> HumanBatch:
         """images (uint8, any of INPUT_LAYOUTS) -> skeletons (on `device`).
         flip_tta averages the maps with those of the horizontally flipped
         image, mirrored back (2 forwards, 1 decode)."""
-        images = self._images(images)
+        images = self._serving(images)
         if flip_tta:
             return infer_tta(self.model, images, self.config.postproc)
         return infer_step(self.model, images, self.config.postproc,
@@ -259,22 +278,59 @@ class Engine:
                              f"got {combine!r}")
         impl = (infer_multiscale_avg if combine == "avg"
                 else infer_multiscale_dedup)
-        return impl(self.model, self._images(images), self.config.postproc,
+        return impl(self.model, self._serving(images), self.config.postproc,
                     tuple(scales), bool(flip_tta), self.config.model.stride)
 
     @torch.inference_mode()
     def forward(self, images: np.ndarray | torch.Tensor
                 ) -> tuple[torch.Tensor, torch.Tensor]:
         """images -> (conf, paf) final-stage maps, NHWC float32."""
-        return _forward(self.model, self._images(images))
+        return _forward(self.model, self._serving(images))
 
+    @torch.inference_mode()
     def calibrate(self, images: np.ndarray | torch.Tensor) -> None:
-        """No-op: the port builds only float engines (int8 raises at model
-        build, ROADMAP.md item 'Calibrated int8'), and the reference's
-        `calibrate` is a no-op for float compute modes."""
+        """Record the int8 activation scales from representative images
+        (the TensorRT int8 calibration step): one forward with every int8
+        layer in calibration mode, running its bf16 float path and keeping
+        the running max |activation|. Call again to widen coverage; scales
+        only grow. No-op for float compute modes."""
+        if not self._calib:
+            return
+        images = self._images(images)
+        common.set_calibrating(self.model, True)
+        try:
+            self.model(preprocess_images(images))
+        finally:
+            common.set_calibrating(self.model, False)
+        self._calibrated = True
 
     def calibrate_from_paths(self, paths, batch_size: int = 8) -> None:
-        """No-op, as the reference's is for float compute modes."""
+        """Calibrate from image files, the TensorRT protocol's held-out
+        calibration set (train-side images, not the eval images): each
+        letterboxed to the engine's geometry, in batches of `batch_size`,
+        the last padded by repeating its last image (scales only grow, so
+        repeats change nothing). No-op for float compute modes."""
+        if not self._calib:
+            return
+        from openpose_plus_tpu_torch.data.augment import letterbox
+        from openpose_plus_tpu_torch.data.pipeline import _load_image
+
+        m = self.config.model
+        imgs = [letterbox(_load_image(p), m.hin, m.win)[0] for p in paths]
+        for i in range(0, len(imgs), batch_size):
+            chunk = imgs[i:i + batch_size]
+            while len(chunk) < batch_size:
+                chunk.append(chunk[-1])
+            self.calibrate(np.stack(chunk))
+
+    def _needs_calibration(self) -> bool:
+        """An int8 engine needs calibration until every scale is > 0 (a
+        partly calibrated one would saturate its zero-scale layers); the
+        answer is kept once every scale is > 0."""
+        if not self._calib or self._calibrated:
+            return False
+        self._calibrated = bool(torch.stack(self._calib).min() > 0)
+        return not self._calibrated
 
     def compile(self, batch_size: int, input_layout: str = "plain") -> None:
         """Validates the layout as the reference does, then raises: the

@@ -1,10 +1,10 @@
 """Shared building blocks of the pose models, in PyTorch.
 
 Port of `openpose_plus_tpu/models/common.py` (the plain lowering, the dense
-and separable stage branches, the fused separable branch, the VGG blocks
-and the space-to-depth data movement of the input layouts; no block-grid
-conv rearrangements, no int8). Submodules
-and parameters carry the Flax scope names so the weight bridge
+and separable stage branches, the fused separable branch, the VGG blocks,
+the space-to-depth data movement of the input layouts, and the calibrated
+int8 mode; no block-grid conv rearrangements). Submodules and parameters
+carry the Flax scope names so the weight bridge
 (`openpose_plus_tpu_torch.checkpoint`) is a rename plus a transpose.
 
 Numerics follow the reference layer by layer: every conv runs in the compute
@@ -12,28 +12,155 @@ dtype, its bias is added in the compute dtype AFTER the conv, then ReLU; the
 last 1x1 of each branch runs in float32 on the upcast input. Tensors are
 NCHW inside the model; parameters are float32 and cast per call, as the
 Flax modules cast their float32 params.
+
+int8 (`compute_dtype="int8"`) is an inference mode, not an activation
+dtype: the dense and pointwise convs run on the int8 tensor cores
+(`ops.cuda.int8_conv`) with per-channel weight scales derived from the
+float params, per-tensor activation scales recorded by calibration, and
+everything else in bf16. A `ConvRelu` emits its output as a `QAct` (int8
+values + their scale), which the next dense conv and the max pool take as
+they are. The scales are buffers named as the Flax `calib` leaves
+(`act_scale`, `out_scale`, `stage{n}_in_scale`), registered only in int8
+models; `set_calibrating(model, True)` makes every int8 layer run its
+bf16 float path and grow the scales instead (`Engine.calibrate`).
 """
 
 from __future__ import annotations
 
 import math
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
 import torch.utils.checkpoint
 from torch import nn
 
-from openpose_plus_tpu_torch.ops.cuda import sepconv
+from openpose_plus_tpu_torch.ops.cuda import int8_conv, sepconv
 
-_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+# "int8" carries bf16 between the convs (`common.py::_dtype`)
+_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
+           "int8": torch.bfloat16}
+CALIB_LEAVES = ("act_scale", "out_scale")   # + "stage{n}_in_scale"
 
 
 def compute_dtype(name: str) -> torch.dtype:
     if name not in _DTYPES:
-        raise NotImplementedError(
-            f"compute_dtype {name!r} is not ported (int8 is ROADMAP.md item "
-            "'Calibrated int8'); use 'bfloat16' or 'float32'")
+        raise ValueError(f"compute_dtype must be one of {sorted(_DTYPES)}, "
+                         f"got {name!r}")
     return _DTYPES[name]
+
+
+class QAct(NamedTuple):
+    """An int8-resident activation (`common.py::QAct`): q, int8 NCHW
+    channels-last (NHWC in memory), and the 0-d float32 scale its values
+    span ([-scale, scale]). A dense stage input carries zero channels past
+    its own up to `int8_conv.padded(C)` (the quantize pass writes the
+    layout the int8 conv reads); only int8 convs read it."""
+
+    q: torch.Tensor
+    scale: torch.Tensor
+
+
+def dequant(x):
+    """QAct -> bf16, (q * (max(scale, 1e-6) / 127)); float tensors pass."""
+    if isinstance(x, QAct):
+        s = (x.scale.clamp_min(int8_conv.SCALE_FLOOR)
+             / int8_conv.device_scalar(127.0, x.scale.device))
+        return (x.q.float() * s).to(torch.bfloat16)
+    return x
+
+
+def is_calib_leaf(name: str) -> bool:
+    """A buffer / Flax leaf name of the int8 calibration scales."""
+    return name in CALIB_LEAVES or (name.startswith("stage")
+                                    and name.endswith("_in_scale"))
+
+
+def set_calibrating(model: nn.Module, on: bool) -> None:
+    """Calibration mode on every int8 layer of `model` (the reference's
+    mutable `calib` collection)."""
+    for m in model.modules():
+        if hasattr(m, "calibrating"):
+            m.calibrating = on
+
+
+def _grow(scale: torch.Tensor, x: torch.Tensor) -> None:
+    """scale = max(scale, max |x|), in place (a running max: only grows)."""
+    scale.copy_(torch.maximum(scale, x.abs().amax().float()))
+
+
+def _nhwc(x: torch.Tensor) -> torch.Tensor:
+    """An NCHW activation's NHWC view, contiguous (no copy when it is
+    channels-last)."""
+    return x.permute(0, 2, 3, 1).contiguous()
+
+
+class _Int8Layer(nn.Module):
+    """The int8 state of a quantized layer: the calib buffers, the
+    calibration flag, and the int8 weights cached per float weight (the
+    inference weights do not change; an in-place update or a
+    `load_state_dict` bumps the weight's version and drops the cache)."""
+
+    def _init_int8(self, dtype: str) -> None:
+        self.int8 = dtype == "int8"
+        if self.int8:
+            self.calibrating = False
+            self.register_buffer("act_scale", torch.zeros(()))
+            self.register_buffer("out_scale", torch.zeros(()))
+        self._qcache: tuple | None = None
+
+    def _int8_weights(self, weight: torch.Tensor) -> tuple:
+        key = (weight.data_ptr(), weight._version, weight.device)
+        if self._qcache is None or self._qcache[0] != key:
+            with torch.no_grad():
+                qw, wmax = int8_conv.quantize_weight(weight)
+                self._qcache = (key, int8_conv.pack_weight(qw), wmax)
+        return self._qcache[1:]
+
+    def _int8_conv(self, x, weight: torch.Tensor, bias: torch.Tensor,
+                   stride: int, emit_q: bool = True):
+        """`common.py::_int8_conv` (ReLU always): calibrating, the bf16
+        conv recording max |input| and max |output|; else the int8 conv of
+        a QAct (its own scale) or of a float input quantized at
+        act_scale, returning a QAct at out_scale (emit_q) or bf16."""
+        if self.calibrating:
+            xf = dequant(x)
+            _grow(self.act_scale, xf)
+            y = conv2d_same(xf.to(torch.bfloat16),
+                            weight.to(torch.bfloat16), stride)
+            y = F.relu(_bias_add(y, bias))
+            _grow(self.out_scale, y)
+            return y
+        floor = int8_conv.SCALE_FLOOR
+        if isinstance(x, QAct):
+            q, s_in = _nhwc(x.q), x.scale.clamp_min(floor)
+        else:
+            s_in = self.act_scale.clamp_min(floor)
+            q = int8_conv.quantize_act(_nhwc(x.to(torch.bfloat16)), s_in)
+        w_packed, wmax = self._int8_weights(weight)
+        k = weight.shape[-1]
+        pads = (same_padding(q.shape[1], k, stride)[0],
+                same_padding(q.shape[2], k, stride)[0])
+        s_out = self.out_scale.clamp_min(floor) if emit_q else None
+        y = int8_conv.int8_conv(q, w_packed, k,
+                                int8_conv.rescale(s_in, wmax),
+                                bias.detach().float().contiguous(),
+                                stride, pads,
+                                s_out).permute(0, 3, 1, 2)
+        return QAct(y, s_out) if emit_q else y
+
+
+def maxpool2x2(x):
+    """2x2 stride-2 max pool (VALID: an odd last row or column is
+    dropped); a QAct pools its int8 plane (max commutes with the positive
+    scale), exactly."""
+    if isinstance(x, QAct):
+        q = _nhwc(x.q)
+        b, h, w, c = q.shape
+        q = q[:, :h // 2 * 2, :w // 2 * 2].reshape(
+            b, h // 2, 2, w // 2, 2, c).amax(dim=(2, 4))
+        return QAct(q.permute(0, 3, 1, 2), x.scale)
+    return F.max_pool2d(x, 2, 2)
 
 
 def same_padding(size: int, kernel: int, stride: int) -> tuple[int, int]:
@@ -100,8 +227,9 @@ def _bias_add(y: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
     return y + bias.to(y.dtype).view(1, -1, 1, 1)
 
 
-class ConvRelu(nn.Module):
-    """kxk conv + ReLU (`models/common.py::ConvRelu`, float path)."""
+class ConvRelu(_Int8Layer):
+    """kxk conv + ReLU (`models/common.py::ConvRelu`); in int8, float or
+    QAct in, QAct out."""
 
     def __init__(self, in_features: int, features: int, kernel: int = 3,
                  stride: int = 1, dtype: str = "bfloat16"):
@@ -111,14 +239,17 @@ class ConvRelu(nn.Module):
         self.weight = nn.Parameter(
             torch.empty(features, in_features, kernel, kernel))
         self.bias = nn.Parameter(torch.zeros(features))
+        self._init_int8(dtype)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x):
+        if self.int8:
+            return self._int8_conv(x, self.weight, self.bias, self.stride)
         dt = self.dtype
         y = conv2d_same(x.to(dt), self.weight.to(dt), self.stride)
         return F.relu(_bias_add(y, self.bias))
 
 
-class SepConvRelu(nn.Module):
+class SepConvRelu(_Int8Layer):
     """Depthwise kxk + ReLU, pointwise 1x1 + ReLU
     (`models/common.py::SepConvRelu`, plain and fused branches).
 
@@ -126,7 +257,9 @@ class SepConvRelu(nn.Module):
     JAX gate) the block runs as one `ops.cuda.sepconv.fused_sepconv` call;
     the JAX gate's TPU VMEM budget (`fused_sepconv_fits`) is not ported, so
     every such layer fuses. Inference only: the fused call has no
-    backward."""
+    backward. In int8 it never fuses (the reference's gate asks for
+    bfloat16): a QAct input is dequantized, the depthwise runs in bf16 and
+    the pointwise as an int8 conv with a bf16 output."""
 
     def __init__(self, in_features: int, features: int, kernel: int = 3,
                  stride: int = 1, dtype: str = "bfloat16",
@@ -135,15 +268,17 @@ class SepConvRelu(nn.Module):
         self.stride = stride
         self.dtype = compute_dtype(dtype)
         self.fused = (fused and stride == 1 and kernel == 3
-                      and self.dtype == torch.bfloat16)
+                      and dtype == "bfloat16")
         self.dw_weight = nn.Parameter(
             torch.empty(in_features, 1, kernel, kernel))
         self.dw_bias = nn.Parameter(torch.zeros(in_features))
         self.pw_weight = nn.Parameter(
             torch.empty(features, in_features, 1, 1))
         self.pw_bias = nn.Parameter(torch.zeros(features))
+        self._init_int8(dtype)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x):
+        x = dequant(x)
         dt = self.dtype
         if self.fused:   # NCHW channels-last in, so NHWC-contiguous views
             return sepconv.fused_sepconv(
@@ -154,21 +289,26 @@ class SepConvRelu(nn.Module):
         y = conv2d_same(x.to(dt), self.dw_weight.to(dt), self.stride,
                         groups=self.dw_weight.shape[0])
         y = F.relu(_bias_add(y, self.dw_bias))
+        if self.int8:
+            return self._int8_conv(y, self.pw_weight, self.pw_bias, 1,
+                                   emit_q=False)
         y = F.conv2d(y, self.pw_weight.to(dt))
         return F.relu(_bias_add(y, self.pw_bias))
 
 
 class Conv1x1F32(nn.Module):
     """The final prediction 1x1 (Flax `nn.Conv(dtype=float32)`): float32
-    conv of the upcast input, then the float32 bias."""
+    conv of the upcast input (a QAct dequantized first: the int8 chain
+    ends here), then the float32 bias."""
 
     def __init__(self, in_features: int, features: int):
         super().__init__()
         self.weight = nn.Parameter(torch.empty(features, in_features, 1, 1))
         self.bias = nn.Parameter(torch.zeros(features))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return _bias_add(F.conv2d(x.float(), self.weight), self.bias)
+    def forward(self, x) -> torch.Tensor:
+        return _bias_add(F.conv2d(dequant(x).float(), self.weight),
+                         self.bias)
 
 
 class StageBranch(nn.Module):
@@ -195,7 +335,7 @@ class StageBranch(nn.Module):
         self.add_module(f"ConvRelu_{0 if separable else n_convs}", proj)
         self.Conv_0 = Conv1x1F32(proj_features, out_features)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x) -> torch.Tensor:
         for layer in self.children():
             x = layer(x)
         return x
@@ -206,7 +346,9 @@ class MultiStageHead(nn.Module):
     the feature map; stage t > 1 reads concat(feature, conf_{t-1},
     paf_{t-1}) in the compute dtype. Dense branches unless `separable`.
     With `remat`, each branch recomputes its activations in the backward
-    pass instead of keeping them (`nn.remat(StageBranch)`)."""
+    pass instead of keeping them (`nn.remat(StageBranch)`). An int8 dense
+    head quantizes each later stage's input once, at its calibrated
+    `stage{n}_in_scale`, and hands the QAct to both branches."""
 
     def __init__(self, in_features: int, n_heatmaps: int = 19,
                  n_pafs: int = 38, n_stages: int = 6, stage1_convs: int = 3,
@@ -218,6 +360,12 @@ class MultiStageHead(nn.Module):
         super().__init__()
         self.n_stages = n_stages
         self.remat = remat
+        self.int8 = dtype == "int8" and not separable
+        if self.int8:
+            self.calibrating = False
+            for s in range(1, n_stages):
+                self.register_buffer(f"stage{s + 1}_in_scale",
+                                     torch.zeros(()))
         for s in range(n_stages):
             if s == 0:
                 kw = dict(in_features=in_features, n_convs=stage1_convs,
@@ -231,20 +379,32 @@ class MultiStageHead(nn.Module):
                     out_features=out, separable=separable, dtype=dtype,
                     fused=fused, **kw))
 
-    def forward(self, feature: torch.Tensor
+    def forward(self, feature
                 ) -> tuple[list[torch.Tensor], list[torch.Tensor]]:
         confs: list[torch.Tensor] = []
         pafs: list[torch.Tensor] = []
+        f_float = dequant(feature)
         x = feature
         for s in range(self.n_stages):
             if s > 0:
-                x = torch.cat([feature, confs[-1].to(feature.dtype),
-                               pafs[-1].to(feature.dtype)], dim=1)
+                x = torch.cat([f_float, confs[-1].to(f_float.dtype),
+                               pafs[-1].to(f_float.dtype)], dim=1)
+                if self.int8:
+                    x = self._stage_input(s, x)
             confs.append(self._branch(f"stage{s + 1}_conf", x))
             pafs.append(self._branch(f"stage{s + 1}_paf", x))
         return confs, pafs
 
-    def _branch(self, name: str, x: torch.Tensor) -> torch.Tensor:
+    def _stage_input(self, s: int, x: torch.Tensor):
+        scale = getattr(self, f"stage{s + 1}_in_scale")
+        if self.calibrating:
+            _grow(scale, x)
+            return x
+        scale = scale.clamp_min(int8_conv.SCALE_FLOOR)
+        q = int8_conv.quantize_act(_nhwc(x), scale)
+        return QAct(q.permute(0, 3, 1, 2), scale)
+
+    def _branch(self, name: str, x) -> torch.Tensor:
         branch = getattr(self, name)
         if self.remat and torch.is_grad_enabled():
             return torch.utils.checkpoint.checkpoint(branch, x,
@@ -256,8 +416,9 @@ def vgg_block(model: nn.Module, prefix: str, in_features: int,
               features: tuple[int, ...], dtype: str) -> list[str]:
     """Registers a VGG block's stacked 3x3 ConvRelu on `model` under the
     Flax names `{prefix}_{i + 1}` (`models/common.py::vgg_block`, plain
-    lowering; the s2d block-grid stem is the same math and is not ported)
-    and returns their names, for `run_vgg_block`."""
+    lowering; the s2d block-grid stem is the same math, in int8 the same
+    integer sums, and is not ported) and returns their names, for
+    `run_vgg_block`."""
     names = []
     for i, f in enumerate(features):
         names.append(f"{prefix}_{i + 1}")
@@ -266,12 +427,12 @@ def vgg_block(model: nn.Module, prefix: str, in_features: int,
     return names
 
 
-def run_vgg_block(model: nn.Module, x: torch.Tensor, names: list[str],
-                  pool: bool) -> torch.Tensor:
-    """The block's convs in order, then the optional 2x2 max pool."""
+def run_vgg_block(model: nn.Module, x, names: list[str], pool: bool):
+    """The block's convs in order, then the optional 2x2 max pool (of the
+    int8 plane for a QAct)."""
     for name in names:
         x = getattr(model, name)(x)
-    return F.max_pool2d(x, 2, 2) if pool else x
+    return maxpool2x2(x) if pool else x
 
 
 class VGGFamilyPose(nn.Module):
@@ -325,7 +486,7 @@ class VGGFamilyPose(nn.Module):
             return t.permute(0, 2, 3, 1)
 
         return dict(conf=[nhwc(c) for c in confs],
-                    paf=[nhwc(p) for p in pafs], feature=nhwc(x))
+                    paf=[nhwc(p) for p in pafs], feature=nhwc(dequant(x)))
 
 
 def init_params(model: nn.Module, generator: torch.Generator) -> None:

@@ -9,6 +9,8 @@ JAX model lowers the stem region through space-to-depth on mod-4 inputs;
 that is the same math (exactly so in float32) and is not ported. The s2d
 input layouts (12 and 48 channels) are taken as the JAX model takes them:
 here they are turned back into the plain image first (`common.to_plain`).
+In int8 the stem is the plain quantized `ConvRelu` conv1, as in the
+reference, which refuses the s2d layouts there.
 """
 
 from __future__ import annotations
@@ -38,6 +40,7 @@ class MobileNetThinPose(nn.Module):
         d = cfg.compute_dtype
         fz = cfg.fused_inference   # dw5-dw9 and the stage head, as in JAX
         self.dtype = common.compute_dtype(d)
+        self.int8 = d == "int8"
         c32, c64, c128, c256, c512 = (_w(w, c) for c in (32, 64, 128, 256,
                                                         512))
         self.conv1 = common.ConvRelu(3, c32, stride=2, dtype=d)
@@ -60,6 +63,10 @@ class MobileNetThinPose(nn.Module):
         if x.shape[-1] not in (3, 12, 48):
             raise ValueError(f"expected a 3-channel image or its s2d (12) / "
                              f"s2d^2 (48) layout, got {tuple(x.shape)}")
+        if x.shape[-1] != 3 and self.int8:
+            raise ValueError(
+                "space-to-depth input layouts need stem_s2d and a float "
+                "compute mode; feed plain (B, H, W, 3) images")
         x = common.to_plain(x)        # s2d layouts: exact data movement
         x = x.to(self.dtype).permute(0, 3, 1, 2)     # NCHW, channels-last
         x = self.conv1(x)                              # stride 2

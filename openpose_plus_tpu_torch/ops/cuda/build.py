@@ -50,6 +50,12 @@ _SIGNATURES = {
     # paf, sy, sx, chans, px, py, batch, h, w, c, n_limbs, n, device, stream
     "sample_paf_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                           _I, _P],
+    # q, w, rescale, bias, s_out, y, batch, h, w, cin, cout, ho, wo,
+    # kernel, stride, pad_top, pad_left, device, stream
+    "int8_conv_launch": [_P] * 6 + [_I] * 12 + [_P],
+    # x, scale, out, rows, c, cp, device, stream
+    "quantize_act_launch": [_P, _P, _P] + [ctypes.c_longlong] * 3
+                           + [_I, _P],
 }
 
 _lib: ctypes.CDLL | None = None

@@ -1,5 +1,6 @@
 """Random inputs for the port's kernels (greedy assignment, subset merge,
-PAF sampling, fused separable conv and the depthwise probe), the bf16
+PAF sampling, fused separable conv, the depthwise probe and the int8
+conv), the bf16
 agreement measure of the separable kernels, and synthetic pose scenes
 (`make_maps`, `standing_person`: tests/maputil.py's functions on the port's
 own skeleton tables). numpy and `openpose_plus_tpu_torch.skeleton` only: no
@@ -139,6 +140,21 @@ def sepconv_inputs(rng: np.random.Generator, b: int, h: int, w: int,
             (rng.standard_normal((1, 1, c, f)) / np.sqrt(c)).astype(
                 np.float32),
             (0.1 * rng.standard_normal(f)).astype(np.float32))
+
+
+def int8_conv_inputs(rng: np.random.Generator, b: int, h: int, w: int,
+                     cin: int, cout: int, k: int) -> tuple:
+    """q (b, h, w, cin) int8 over the full range [-127, 127], float32
+    weights (cout, cin, k, k) scaled as the lecun-normal init, a small
+    nonzero bias (cout,), and the scales (s_in, s_out) as floats: outputs
+    are ~s_in * 0.58 / sqrt(3) in spread, so at s_out = 1.2 * s_in a few
+    percent of them saturate at 127."""
+    q = rng.integers(-127, 128, (b, h, w, cin)).astype(np.int8)
+    weight = (rng.standard_normal((cout, cin, k, k))
+              / np.sqrt(k * k * cin)).astype(np.float32)
+    bias = (0.05 * rng.standard_normal(cout)).astype(np.float32)
+    s_in = float(np.float32(rng.uniform(0.5, 4.0)))
+    return q, weight, bias, s_in, float(np.float32(1.2 * s_in))
 
 
 def bf16_mismatch(out, ref, floor=0.0) -> tuple[float, float]:

@@ -14,8 +14,10 @@ NaN), merge tables with fewer than 32 rows, odd K, the connection sets
 that drive each branch of the merge, the separable conv at odd channel
 counts, every pixel and F tiling, ragged tiles and unaligned views (both
 load paths), the PAF
-sampler at K = 1...32 with corner coordinates, the depthwise probe, empty
-batches, and the wrappers' refusals on the card.
+sampler at K = 1...32 with corner coordinates, the depthwise probe, the
+int8 conv (kernel sizes 1, 3 and 7, stride 2 on even and odd sizes, Cin
+of 3, 185 and 537, both output modes, M and N edges) and the int8
+quantize pass, empty batches, and the wrappers' refusals on the card.
 
 The separable kernels are held to their plain versions as
 tests/test_torch_sepconv.py states: `kernel_inputs.bf16_mismatch` at most 2
@@ -29,8 +31,8 @@ import torch
 # pytest puts this directory on sys.path; `from tests import ...` would
 # break where an installed package named `tests` shadows it
 import kernel_inputs
-from openpose_plus_tpu_torch.ops.cuda import (dw_probe, greedy, merge,
-                                              paf_sample, sepconv)
+from openpose_plus_tpu_torch.ops.cuda import (dw_probe, greedy, int8_conv,
+                                              merge, paf_sample, sepconv)
 
 pytestmark = pytest.mark.cuda
 
@@ -339,3 +341,144 @@ def test_new_kernels_launch_nothing_on_an_empty_batch(cuda):
     assert [tuple(t.shape) for t in (y, px, py, dw, cp)] == [
         (0, 9, 10, 8), (0, 19, 10, 4, 4), (0, 19, 10, 4, 4),
         (0, 9, 10, 16), (0, 9, 10, 16)]
+
+
+def _int8_case(rng, b, h, w, cin, cout, k, dev):
+    """The int8 conv's inputs on `dev` (kernel_inputs.int8_conv_inputs):
+    q, the packed weights, rescale, bias and the floored s_out."""
+    q, weight, bias, s_in, s_out = kernel_inputs.int8_conv_inputs(
+        rng, b, h, w, cin, cout, k)
+    qw, wmax = int8_conv.quantize_weight(torch.from_numpy(weight))
+    return [torch.from_numpy(q).to(dev),
+            int8_conv.pack_weight(qw).to(dev),
+            int8_conv.rescale(torch.tensor(s_in).to(dev), wmax.to(dev)),
+            torch.from_numpy(bias).to(dev), torch.tensor(s_out).to(dev)]
+
+
+def _same_pads(h, w, k, stride):
+    def low(size):
+        out = -(-size // stride)
+        return max((out - 1) * stride + k - size, 0) // 2
+    return low(h), low(w)
+
+
+# (B, H, W, Cin, Cout, k, stride): every kernel size, stride 2 on even
+# (pads (0, 1)) and odd sizes, Cin 3 / 185 / 537 (byte loads) and multiples
+# of 16 (vector loads), Cout off the 64-wide tile, M off the 64-pixel tile
+_INT8_CASES = [(2, 10, 12, 3, 24, 3, 2), (2, 9, 11, 3, 64, 3, 2),
+               (1, 12, 14, 3, 64, 3, 1), (2, 7, 9, 185, 128, 7, 1),
+               (1, 8, 10, 537, 128, 1, 1), (2, 9, 10, 48, 96, 1, 1),
+               (1, 13, 17, 24, 48, 3, 2), (3, 5, 6, 128, 200, 3, 1),
+               (1, 11, 9, 32, 40, 7, 2), (2, 6, 5, 16, 8, 1, 1)]
+
+
+@pytest.mark.parametrize("case", _INT8_CASES)
+@pytest.mark.parametrize("quant", [True, False])
+def test_int8_conv_kernel_equals_plain(cuda, case, quant):
+    b, h, w, cin, cout, k, stride = case
+    args = _int8_case(np.random.default_rng(cin + k), b, h, w, cin, cout,
+                      k, cuda)
+    q, wp, rs, bias, s_out = args
+    s_out = s_out if quant else None
+    pads = _same_pads(h, w, k, stride)
+    before = int8_conv.launches
+    out = int8_conv.int8_conv(q, wp, k, rs, bias, stride, pads, s_out)
+    torch.cuda.synchronize()
+    assert int8_conv.launches == before + 1
+    ref = int8_conv.int8_conv_plain(q, wp, k, rs, bias, stride, pads, s_out)
+    cpu = int8_conv.int8_conv_plain(
+        q.cpu(), wp.cpu(), k, rs.cpu(), bias.cpu(), stride, pads,
+        None if s_out is None else s_out.cpu())
+    assert out.dtype == (torch.int8 if quant else torch.bfloat16)
+    assert torch.equal(out, ref) and torch.equal(out.cpu(), cpu)
+    if quant:
+        assert int(out.abs().max()) == 127 and int((out == 0).sum()) > 0
+
+
+@pytest.mark.parametrize("shape", [(1,), (7,), (8,), (1000,), (4099,),
+                                   (2, 5, 7, 3), (2, 5, 7, 24),
+                                   (2, 5, 7, 128), (2, 5, 7, 185),
+                                   (2, 5, 7, 537)])
+@pytest.mark.parametrize("scale", [0.0, 0.8, 1.0])
+def test_quantize_kernel_equals_plain(cuda, shape, scale):
+    """Clipping, the 1e-6 floor, and the .5 ties of t = (2i + 1) / 254 at
+    scale 1; rows of C % 8 != 0 (one load at a time), C % 8 == 0 (16-byte
+    loads) and C % 64 == 0 (the flat pass), each written channel-padded to
+    a multiple of 64 with zeros."""
+    size = int(np.prod(shape))
+    rng = np.random.default_rng(size)
+    ties = (np.arange(-127, 127) * 2 + 1) / 254.0
+    x = np.concatenate([rng.standard_normal(size) * 2, ties])[:size] * 1.0
+    x = torch.from_numpy(x.reshape(shape)).to(torch.bfloat16).to(cuda)
+    s = torch.tensor(scale, device=cuda)
+    before = int8_conv.quantize_launches
+    out = int8_conv.quantize_act(x, s)
+    torch.cuda.synchronize()
+    assert int8_conv.quantize_launches == before + 1
+    assert out.shape == (*shape[:-1], int8_conv.padded(shape[-1]))
+    assert torch.equal(out, int8_conv.quantize_act_plain(x, s))
+    assert torch.equal(out.cpu(), int8_conv.quantize_act_plain(x.cpu(),
+                                                               s.cpu()))
+
+
+def test_int8_wrappers_refuse_what_the_kernels_do_not_take(cuda):
+    q, wp, rs, bias, s_out = _int8_case(np.random.default_rng(0), 1, 6, 7,
+                                        16, 8, 3, cuda)
+    pads = (1, 1)
+    with pytest.raises(ValueError, match="int8"):
+        int8_conv.int8_conv(q.float(), wp, 3, rs, bias, 1, pads, s_out)
+    with pytest.raises(ValueError, match="packed"):
+        int8_conv.int8_conv(q, wp, 1, rs, bias, 1, (0, 0), s_out)
+    with pytest.raises(ValueError, match="bias"):
+        int8_conv.int8_conv(q, wp, 3, rs, bias[:4], 1, pads, s_out)
+    with pytest.raises(ValueError, match="s_out"):
+        int8_conv.int8_conv(q, wp, 3, rs, bias, 1, pads, s_out.cpu())
+    with pytest.raises(ValueError, match="contiguous"):
+        int8_conv.int8_conv(q.transpose(1, 2).contiguous().transpose(1, 2),
+                            wp, 3, rs, bias, 1, pads, s_out)
+    with pytest.raises(ValueError, match="stride"):
+        int8_conv.int8_conv(q, wp, 3, rs, bias, 3, pads, s_out)
+    x = torch.zeros((4, 8), dtype=torch.float32, device=cuda)
+    with pytest.raises(ValueError, match="bf16"):
+        int8_conv.quantize_act(x, s_out)
+    with pytest.raises(ValueError, match="scale"):
+        int8_conv.quantize_act(x.bfloat16(), s_out.cpu())
+    before = (int8_conv.launches, int8_conv.quantize_launches)
+    empty = int8_conv.int8_conv(q[:0], wp, 3, rs, bias, 1, pads, s_out)
+    assert empty.shape == (0, 6, 7, 8)
+    assert int8_conv.quantize_act(x[:0].bfloat16(), s_out).shape == (0, 64)
+    assert (int8_conv.launches, int8_conv.quantize_launches) == before
+
+
+@pytest.mark.parametrize("name", ["mobilenet_thin", "vggtiny"])
+def test_int8_engine_runs_every_int8_layer_through_the_kernel(cuda, name):
+    """A small int8 engine on the card: one int8_conv launch per ConvRelu
+    and SepConvRelu, and its maps equal those of the same forward with
+    every kernel call sent to its plain version."""
+    import dataclasses
+
+    from openpose_plus_tpu_torch import Engine, default_config
+    from openpose_plus_tpu_torch.models import common
+
+    cfg = default_config(name)
+    cfg = cfg.replace(model=dataclasses.replace(
+        cfg.model, hin=64, win=80, n_stages=2, compute_dtype="int8"))
+    engine = Engine(cfg, seed=0, device=cuda)
+    images = torch.from_numpy(np.random.default_rng(1).integers(
+        0, 256, (2, 64, 80, 3), dtype=np.uint8)).to(cuda)
+    engine.calibrate(images)
+    layers = sum(isinstance(m, (common.ConvRelu, common.SepConvRelu))
+                 for m in engine.model.modules())
+    before = int8_conv.launches
+    maps = engine.forward(images)
+    torch.cuda.synchronize()
+    assert int8_conv.launches == before + layers
+    kernel, quant = int8_conv.int8_conv, int8_conv.quantize_act
+    try:
+        int8_conv.int8_conv = int8_conv.int8_conv_plain
+        int8_conv.quantize_act = int8_conv.quantize_act_plain
+        plain = engine.forward(images)
+    finally:
+        int8_conv.int8_conv, int8_conv.quantize_act = kernel, quant
+    for a, b in zip(maps, plain):
+        assert torch.equal(a, b)

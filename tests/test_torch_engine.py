@@ -237,6 +237,12 @@ for name in ("vgg19", "vggtiny", "hao28"):
         zoo.model, hin=64, win=64, n_stages=2))
     assert Engine(zoo, seed=0, device="cpu").infer(
         images).coords.shape == (2, 32, 18, 2)
+for name in ("mobilenet_thin", "vgg19", "vggtiny", "hao28"):
+    q8 = default_config(name)
+    q8 = q8.replace(model=dataclasses.replace(
+        q8.model, hin=64, win=64, n_stages=2, compute_dtype="int8"))
+    assert Engine(q8, seed=0, device="cpu").infer(
+        images).coords.shape == (2, 32, 18, 2)
 tcfg = cfg.replace(train=dataclasses.replace(cfg.train, batch_size=2))
 state = train.create_train_state(tcfg, device="cpu")
 kp = np.zeros((2, 1, 18, 3), np.float32)
@@ -266,7 +272,8 @@ def test_port_never_imports_jax():
     what it needs: importing the port (engine, models and the zoo,
     postproc, eval_coco, ap_oracle, train, ap_bench, checkpoint, every
     ops.cuda and data module), running CPU engines of every model through
-    it, a train step and the GT-map oracle on 8 small-tier images loads no
+    it (int8 engines too), a train step and the GT-map oracle on 8
+    small-tier images loads no
     module of jax, flax or the JAX package
     `openpose_plus_tpu`, by chip_smoke.py's own end-of-run check."""
     env = dict(os.environ, PYTHONPATH=REPO)
@@ -275,8 +282,8 @@ def test_port_never_imports_jax():
                           timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert "FOREIGN_MODULES []" in proc.stdout
-    for name in ("build", "dw_probe", "greedy", "merge", "paf_sample",
-                 "sepconv"):
+    for name in ("build", "dw_probe", "greedy", "int8_conv", "merge",
+                 "paf_sample", "sepconv"):
         assert f"openpose_plus_tpu_torch.ops.cuda.{name}'" in proc.stdout
     for name in ("augment", "coco", "pipeline", "synthetic", "targets"):
         assert f"openpose_plus_tpu_torch.data.{name}'" in proc.stdout

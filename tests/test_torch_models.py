@@ -132,10 +132,27 @@ def test_unported_models_raise(name):
     assert flax_shapes == ref
 
 
-def test_int8_compute_raises():
-    cfg = dataclasses.replace(tdefault_config().model, compute_dtype="int8")
-    with pytest.raises(NotImplementedError, match="int8"):
-        torch_model(cfg)
+@pytest.mark.parametrize("name", ["mobilenet_thin", "vgg19", "vggtiny",
+                                  "hao28"])
+def test_every_model_builds_in_int8(name):
+    """int8 is a compute mode of every registry model: bf16 between the
+    convs, one int8 layer per ConvRelu / SepConvRelu with its two calib
+    scales, the stage-input scales on dense heads only, and the same
+    parameters as the float model."""
+    kw = dict(hin=64, win=64, n_stages=3)
+    cfg = dataclasses.replace(tdefault_config(name).model, **kw)
+    model = torch_model(dataclasses.replace(cfg, compute_dtype="int8"))
+    layers = [m for m in model.modules()
+              if isinstance(m, (common.ConvRelu, common.SepConvRelu))]
+    assert layers and all(m.int8 and m.dtype == torch.bfloat16
+                          for m in layers)
+    buffers = dict(model.named_buffers())
+    assert len(buffers) == 2 * len(layers) + (
+        0 if name == "mobilenet_thin" else 2)
+    assert ("stages.stage3_in_scale" in buffers) == (name != "mobilenet_thin")
+    assert [k for k, _ in model.named_parameters()] == [
+        k for k, _ in torch_model(cfg).named_parameters()]
+    assert not dict(torch_model(cfg).named_buffers())
 
 
 def test_random_init_statistics_follow_flax():

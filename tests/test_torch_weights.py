@@ -118,8 +118,16 @@ def test_load_npz_reads_jax_save_npz(tmp_path):
 
 
 def test_from_flax_rejects_non_param_collections():
-    with pytest.raises(KeyError):
-        from_flax({"calib/conv1/act_scale": np.zeros(())})
+    """Only `params/` and the int8 scales of `calib/` are model state; a
+    calib scale becomes the 0-d buffer of the same name."""
+    for key in ("batch_stats/conv1/mean", "calib/conv1/kernel",
+                "cache/conv1/act_scale"):
+        with pytest.raises(KeyError):
+            from_flax({key: np.zeros(())})
+    out = from_flax({"calib/stages/stage2_conf/ConvRelu_0/out_scale":
+                     np.float32(0.25)})
+    assert list(out) == ["stages.stage2_conf.ConvRelu_0.out_scale"]
+    assert out["stages.stage2_conf.ConvRelu_0.out_scale"].shape == ()
 
 
 @pytest.mark.parametrize("sigma", [0.0, 1.0, 1.25, 5.0])

@@ -155,10 +155,19 @@ def test_input_layouts(name):
 
 
 def test_int8_zoo_raises():
-    cfg = dataclasses.replace(tconfig.default_config("vgg19").model,
-                              compute_dtype="int8")
-    with pytest.raises(NotImplementedError, match="int8"):
-        torch_model(cfg)
+    """The zoo builds in int8 (an inference mode) and raises where the
+    reference does: training it, and an unknown compute dtype."""
+    from openpose_plus_tpu_torch.train import create_train_state
+
+    cfg = tconfig.default_config("vgg19")
+    cfg = cfg.replace(model=dataclasses.replace(
+        cfg.model, hin=64, win=64, n_stages=2, compute_dtype="int8"))
+    model = torch_model(cfg.model)
+    assert model.conv1_1.int8 and hasattr(model.stages, "stage2_in_scale")
+    with pytest.raises(ValueError, match="int8"):
+        create_train_state(cfg, seed=0, device="cpu")
+    with pytest.raises(ValueError, match="compute_dtype"):
+        torch_model(dataclasses.replace(cfg.model, compute_dtype="int4"))
 
 
 def test_vggtiny_engine_matches_jax_engine():

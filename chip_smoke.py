@@ -15,7 +15,10 @@ raises on failure (the script then exits non-zero and prints no result):
 1. Requires a CUDA device; prints the card's name and power limit
    (nvidia-smi).
 2. Builds the hand-written kernels from openpose_plus_tpu_torch/csrc/ with
-   nvcc (openpose_plus_tpu_torch/ops/cuda/build.py).
+   nvcc (openpose_plus_tpu_torch/ops/cuda/build.py) and prints ptxas'
+   report: every instance of greedy, merge, the int8 conv (one a tile plan
+   and output type) and the two quantize passes must keep 0 bytes of stack
+   and spills.
 3. Kernel phases: each kernel against its plain PyTorch version on the
    card and on a CPU copy, on seeded random inputs (tests/kernel_inputs.py):
    - greedy and merge at batch 8, K=16 and K=32, M=32, with injected ties:
@@ -154,9 +157,10 @@ raises on failure (the script then exits non-zero and prints no result):
    the int8 conf maps have cosine > INT8_COSINE against the bf16 engine's.
    An `int8` line per model (forward device ms int8 and bf16, infer
    event ms, calibration ms, the FLOP bound: int8 convs at the int8 peak,
-   depthwise at bf16, heads at f32), a `kernel_times` line per int8_conv
-   shape group (event and device ms, plain, bound, `torch._int_mm` on the
-   1x1 layers as `library_*`, the bf16 cuDNN conv of the shape as
+   depthwise at bf16, heads at f32; the forward's device time by kernel
+   from torch.profiler), a `kernel_times` line per int8_conv shape group
+   (event and device ms, plain, bound, the tile plan, `torch._int_mm` on
+   the 1x1 layers as `library_*`, the bf16 cuDNN conv of the shape as
    `cudnn_*`) and an `int8_forward_layers` line (the groups summed over a
    forward, and the quantize passes).
 12. With --profile only: batch scaling (1, 8, 32; decode also at the
@@ -173,11 +177,16 @@ commit's unpacked with `git archive`), prints their ptxas frames, checks
 greedy and merge bit-equal to their plain versions on phase 6's random sets
 and times them there; it prints no result line. Two trees compared in one
 run on one card: DIR=old, DIR=., DIR=., DIR=old. `--int8-kernels-of DIR`
-does the same for the int8 conv: it builds the port in DIR, runs phase 11's
-two int8 engines there, and checks and times DIR's `int8_conv` at each shape
-group of their forwards (`int8_kernels` lines, the layers of a forward
-summed). `--mma-ceiling` only builds and runs `probes/mma_ceiling.cu`, the
-card's `mma.sync` rates from registers (s8 m16n8k32, bf16 m16n8k16).
+does the same for the int8 kernels: it builds the port in DIR, runs phase
+11's two int8 engines there, and checks and times DIR's `int8_conv` at each
+shape group of their forwards (under each of DIR's tile plans too) and its
+`quantize_act` at each quantize shape (`int8_kernels` lines, the layers and
+passes of a forward summed). `--mma-ceiling` only builds and runs
+`probes/mma_ceiling.cu`: the card's `mma.sync` rates from registers (s8
+m16n8k32, bf16 m16n8k16) and `wgmma` rates from shared memory (s8
+m64n128k32, bf16 m64n128k16). `--int8-phases` only builds
+csrc/int8_conv.cu with its phase clocks and reads where a block of the
+int8 conv spends its time at the forwards' main shapes (`int8_phases`).
 """
 
 from __future__ import annotations
@@ -256,6 +265,17 @@ INT8_PLAIN_TOL = 1e-6
 INT8_OPS_PER_S = 1979e12      # dense int8 tensor-core peak
 HERE = os.path.dirname(os.path.abspath(__file__))
 DECODER_KERNELS = ("greedy_assign_kernel", "assemble_kernel")
+# csrc/int8_conv.cu: the conv (one instance per tile plan of
+# ops/cuda/int8_conv.py `PLANS` and output type) and the quantize passes
+INT8_KERNELS = ("int8_conv_kernel", "quantize_kernel", "quantize_pad_kernel")
+# --int8-phases: int8_conv shapes of phase 11's forwards (batch 8, VGG19
+# but the last), as (B, H, W, Cin, Cout, kernel, int8 output)
+INT8_PHASE_SHAPES = ((8, 46, 54, 128, 128, 7, True),
+                     (8, 46, 54, 128, 128, 1, True),
+                     (8, 46, 54, 128, 128, 1, False),
+                     (8, 92, 108, 256, 256, 3, True),
+                     (8, 184, 216, 64, 128, 3, True),
+                     (8, 368, 432, 64, 64, 3, True))
 # top-level packages the port must never load: JAX and the JAX package
 FOREIGN_PACKAGES = ("jax", "jaxlib", "flax", "openpose_plus_tpu")
 SOURCES = {   # kernel: (source, the TPU kernel it replaces)
@@ -1459,6 +1479,24 @@ def train_phase(torch, np, counted, dev, gpu) -> None:
             "gpu": gpu}}))
 
 
+def kernel_breakdown(prof, calls: int, top: int = 8) -> dict:
+    """{kernel name (cut to 60 characters): device ms per call} of the
+    `top` kernels by device time in a torch.profiler profile of `calls`
+    calls, and "rest" for the others."""
+    from torch.autograd import DeviceType
+
+    by_name: dict = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            name = e.name[:60]
+            by_name[name] = by_name.get(name, 0.0) + (
+                e.time_range.end - e.time_range.start) / 1e3 / calls
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1])
+    out = dict(ranked[:top])
+    out["rest"] = sum(ms for _, ms in ranked[top:])
+    return out
+
+
 def int8_layers(common, model) -> tuple[int, int]:
     """(int8 convs, quantize passes) of one forward of `model` in int8:
     every ConvRelu and SepConvRelu is one int8 conv; a separable model
@@ -1753,6 +1791,8 @@ def int8_phase(torch, np, images, counted, dev, gpu) -> dict:
                                    / INT8_OPS_PER_S + flops["bf16"]
                                    / BF16_OPS_PER_S + flops["f32"]
                                    / F32_OPS_PER_S)
+        busy_ms, n_kernels, prof = device_busy(
+            torch, lambda: engine.forward(images), calls=2)
         log(json.dumps({"int8": {
             "model": name, "batch": BATCH, "hw": [mc.hin, mc.win],
             "stages": mc.n_stages, "int8_layers": n_convs,
@@ -1767,6 +1807,8 @@ def int8_phase(torch, np, images, counted, dev, gpu) -> dict:
             "calibrate_ms": calib_ms, "forward_flops": flops,
             "forward_bound_ms": bound_ms, "forward_bound_by": bound_by,
             "forward_pct_of_bound": 100.0 * bound_ms / fwd8,
+            "forward_busy_ms": busy_ms, "forward_kernels": n_kernels,
+            "forward_by_kernel_ms": kernel_breakdown(prof, 2),
             "gpu": gpu}}))
 
         # per shape group: the kernel, its plain version, torch._int_mm
@@ -1855,30 +1897,77 @@ def time_int8_group(torch, common, int8_conv, args, out, cin) -> dict:
         t["library_ms"] = t["library_device_ms"] = None
     t["bound_ms"], t["bound_by"] = int8_bound(q, cin, k, out)
     t["pct_of_bound"] = 100.0 * t["bound_ms"] / t["device_ms"]
+    t["plan"] = plan_of(int8_conv, args)
     return t
+
+
+def plan_times(torch, int8_conv, args) -> dict:
+    """{"BMxBN": device ms} of the int8_conv call `args` under each tile
+    plan of the port's `PLANS` (the wrapper's `tile_plan` replaced for the
+    call), each output checked equal to the chosen plan's; {} for a port
+    without plans."""
+    plans = getattr(int8_conv, "PLANS", ())
+    if not plans:
+        return {}
+    chosen, times = int8_conv.tile_plan, {}
+    with torch.inference_mode():
+        ref = int8_conv.int8_conv(*args)
+        for plan in plans:
+            int8_conv.tile_plan = lambda *a, _plan=plan: _plan
+            try:
+                if not torch.equal(int8_conv.int8_conv(*args), ref):
+                    raise AssertionError(f"int8_conv under plan {plan} "
+                                         "differs from the chosen plan's")
+                times["x".join(map(str, plan))] = device_ms(
+                    torch, lambda: int8_conv.int8_conv(*args))
+            finally:
+                int8_conv.tile_plan = chosen
+    return times
+
+
+def plan_of(int8_conv, args):
+    """The tile plan [block_m, block_n] the int8_conv wrapper takes for
+    these arguments (None for a port without `tile_plan`)."""
+    tile_plan = getattr(int8_conv, "tile_plan", None)
+    if tile_plan is None:
+        return None
+    q, wp, k, _, _, stride, pads = args[:7]
+    b, h, w, c = q.shape
+    return list(tile_plan(b, h, w, int8_conv.padded(c), wp.shape[0], k,
+                          stride, pads))
+
+
+def quantize_bound(x, padded) -> float:
+    """quantize_act's bound on x: 2 bytes read an element, and its int8
+    output written, the channel padding's zeros included (rows of
+    `padded` channels)."""
+    rows = x.numel() // x.shape[-1]
+    return bound(io_bytes(x) + rows * padded, 4 * x.numel()
+                 / F32_OPS_PER_S)[0]
 
 
 def time_quantize(torch, int8_conv, args) -> dict:
     """One quantize_act call: kernel event and device ms, plain event ms,
-    the bound (2 bytes read and 1 written an element, the channel padding
-    it may write not counted)."""
+    the bound (`quantize_bound`)."""
     t = {"ms": median_ms(torch, lambda: int8_conv.quantize_act(*args)),
          "plain_ms": median_ms(
              torch, lambda: int8_conv.quantize_act_plain(*args)),
          "device_ms": device_ms(torch, lambda: int8_conv.quantize_act(
              *args))}
     x = args[0]
-    t["bound_ms"] = bound(io_bytes(x) + x.numel(), 4 * x.numel()
-                          / F32_OPS_PER_S)[0]
+    t["bound_ms"] = quantize_bound(x, int8_conv.padded(x.shape[-1]))
     return t
 
 
 def int8_kernels_of(torch, np, tree, dev, gpu) -> None:
-    """--int8-kernels-of: the int8_conv kernel of the port in `tree`
-    (imported) at every shape group of its own calibrated full-width
-    int8 forwards of INT8_MODELS (phase 11's engines, on seeded images),
-    each group checked bit-equal to its plain version, then timed by
-    CUDA-graph replay; one `int8_kernels` line a model, with the layers'
+    """--int8-kernels-of: the int8_conv and quantize_act kernels of the
+    port in `tree` (imported) at every shape group of its own calibrated
+    full-width int8 forwards of INT8_MODELS (phase 11's engines, on seeded
+    images), each group checked bit-equal to its plain version, then timed
+    by CUDA-graph replay; one `int8_kernels` line a model: each conv group
+    [q, Cout, kernel, stride, out, layers, device ms, tile plan, {plan:
+    device ms} of every plan of the tree's `PLANS`] and each quantize group
+    [x shape, passes, device ms, bound ms], the layers' and the passes'
     device ms summed over a forward."""
     from openpose_plus_tpu_torch import default_config
     from openpose_plus_tpu_torch.models import common
@@ -1903,11 +1992,31 @@ def int8_kernels_of(torch, np, tree, dev, gpu) -> None:
                                          "version")
             ms = device_ms(torch, lambda: int8_conv.int8_conv(*args))
             groups.append([[*shape[:3], cin], cout, k, stride,
-                           "bf16" if bf16_out else "int8", count, ms])
+                           "bf16" if bf16_out else "int8", count, ms,
+                           plan_of(int8_conv, args),
+                           plan_times(torch, int8_conv, args)])
             total += count * ms
+        quant: dict = {}
+        for args, _ in calls["quantize_act"]:
+            quant.setdefault(tuple(args[0].shape), [args, 0])[1] += 1
+        q_groups, q_total = [], 0.0
+        for shape, (args, count) in sorted(quant.items()):
+            with torch.inference_mode():
+                if not torch.equal(int8_conv.quantize_act(*args),
+                                   int8_conv.quantize_act_plain(*args)):
+                    raise AssertionError(f"{tree} {name} quantize {shape}: "
+                                         "kernel differs from its plain "
+                                         "version")
+            ms = device_ms(torch, lambda: int8_conv.quantize_act(*args))
+            q_groups.append([list(shape), count, ms, quantize_bound(
+                args[0], int8_conv.padded(shape[-1]))])
+            q_total += count * ms
         log(json.dumps({"int8_kernels": {
             "tree": tree, "model": name, "batch": BATCH, "groups": groups,
-            "layers": len(cins), "layers_device_ms": total, "gpu": gpu}}))
+            "layers": len(cins), "layers_device_ms": total,
+            "quantize_groups": q_groups,
+            "passes": len(calls["quantize_act"]),
+            "quantize_device_ms": q_total, "gpu": gpu}}))
         del bf16, engine, calls
         torch.cuda.empty_cache()
 
@@ -1915,18 +2024,95 @@ def int8_kernels_of(torch, np, tree, dev, gpu) -> None:
 def mma_ceiling(build) -> None:
     """--mma-ceiling: builds and runs probes/mma_ceiling.cu, the TOPS of
     `mma.sync` m16n8k32 s8 and m16n8k16 bf16 issued from registers with no
-    memory traffic, at 4, 8 and 16 warps a block."""
+    memory traffic, at 4, 8 and 16 warps a block, and of `wgmma`
+    m64n128k32 s8 and m64n128k16 bf16 from shared memory at 1, 2 and 3
+    warpgroups a block, one block an SM."""
     out_dir = build.BUILD_ROOT / "mma_ceiling"
     out_dir.mkdir(parents=True, exist_ok=True)
     exe = out_dir / "mma_ceiling"
     subprocess.run([build._nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
-                    "-O3", "-o", str(exe),
+                    "-std=c++17", "-O3", "-o", str(exe),
                     os.path.join(HERE, "probes", "mma_ceiling.cu")],
                    check=True)
     run = subprocess.run([str(exe)], capture_output=True, text=True,
                          check=True)
     for line in run.stdout.splitlines():
         log(f"mma ceiling: {line}")
+
+
+def int8_phases(torch, np, build, int8_conv, inputs, dev, gpu) -> None:
+    """--int8-phases: where a block of the int8 conv spends its time.
+    Builds csrc/int8_conv.cu alone with INT8_CONV_PHASES defined (clock64
+    stamps at five points of every block, read back by
+    `int8_conv_phases`), runs the wrapper on that library at each of
+    INT8_PHASE_SHAPES (seeded inputs, the output checked equal to the plain
+    version) and prints one `int8_phases` line a shape: the tile plan, the
+    blocks, the SM clocks from a block's start to each phase (set-up, first
+    stage arrived, products done, tile staged, rows stored) at the 10th,
+    50th and 90th percentile over the first 4096 blocks of one launch, and
+    the device ms of the stamped and of the regular build."""
+    import ctypes
+    out_dir = build.BUILD_ROOT / "int8_phases"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    so = out_dir / "libint8_phases.so"
+    subprocess.run([build._nvcc(), *build.NVCC_FLAGS, "-DINT8_CONV_PHASES",
+                    "-shared", "-o", str(so),
+                    str(build.CSRC / "int8_conv.cu")],
+                   check=True, capture_output=True)
+    stamped = ctypes.CDLL(str(so))
+    stamped.int8_conv_launch.argtypes = build._SIGNATURES["int8_conv_launch"]
+    stamped.int8_conv_phases.argtypes = [ctypes.c_void_p]
+    stamped.int8_conv_launch.restype = ctypes.c_int
+    stamped.int8_conv_phases.restype = ctypes.c_int
+    regular = build.load
+    stamps = np.zeros((4096, 6), np.int64)
+    rng = np.random.default_rng(0)
+    for b, h, w, cin, cout, k, quant in INT8_PHASE_SHAPES:
+        q, weight, bias, s_in, s_out = inputs.int8_conv_inputs(
+            rng, b, h, w, cin, cout, k)
+        qw, wmax = int8_conv.quantize_weight(torch.from_numpy(weight))
+        pads = (k // 2, k // 2)
+        args = [torch.from_numpy(q).to(dev),
+                int8_conv.pack_weight(qw).to(dev), k,
+                int8_conv.rescale(torch.tensor(s_in, device=dev),
+                                  wmax.to(dev)),
+                torch.from_numpy(bias).to(dev), 1, pads,
+                torch.tensor(s_out, device=dev) if quant else None]
+
+        def call():
+            return int8_conv.int8_conv(*args)
+
+        with torch.inference_mode():
+            ms = device_ms(torch, call)
+            ref = int8_conv.int8_conv_plain(*args)
+            build.load = lambda: stamped
+            try:
+                if not torch.equal(call(), ref):
+                    raise AssertionError(f"int8 phases {b, h, w, cin, cout, k}"
+                                         ": the stamped kernel differs")
+                stamped_ms = device_ms(torch, call)
+                call()
+                torch.cuda.synchronize()
+            finally:
+                build.load = regular
+        if stamped.int8_conv_phases(stamps.ctypes.data) != 0:
+            raise RuntimeError("int8_conv_phases: copy failed")
+        plan = int8_conv.tile_plan(b, h, w, cin, cout, k, 1, pads)
+        blocks = -(-b * h * w // plan[0]) * -(-cout // plan[1])
+        st = stamps[:min(blocks, len(stamps))]
+        clocks = {name: np.percentile(st[:, i] - st[:, 0],
+                                      [10, 50, 90]).tolist()
+                  for i, name in enumerate(("setup", "first_stage",
+                                            "products", "staged", "stored"),
+                                           start=1)}
+        log(json.dumps({"int8_phases": {
+            "shape": [b, h, w, cin, cout, k, "int8" if quant else "bf16"],
+            "plan": list(plan), "blocks": blocks,
+            "clocks_from_start_p10_50_90": clocks, "device_ms": ms,
+            "stamped_device_ms": stamped_ms, "max_sm_mhz": max_sm_mhz(),
+            "gpu": gpu}}))
+        del args, ref
+        torch.cuda.empty_cache()
 
 
 def profile(torch, np, rng, engine, images, gpu) -> None:
@@ -2023,12 +2209,18 @@ def main(argv: list[str]) -> int:
     parser.add_argument(
         "--int8-kernels-of", metavar="DIR",
         help="only build the port in DIR and check and time its int8_conv "
-             "kernel at the shape groups of its own full-width int8 "
-             "forwards (phase 11's engines)")
+             "and quantize_act kernels at the shape groups of its own "
+             "full-width int8 forwards (phase 11's engines)")
     parser.add_argument(
         "--mma-ceiling", action="store_true",
         help="only build and run probes/mma_ceiling.cu: the card's "
-             "mma.sync s8 and bf16 rates from registers")
+             "mma.sync s8 and bf16 rates from registers and its wgmma "
+             "rates from shared memory")
+    parser.add_argument(
+        "--int8-phases", action="store_true",
+        help="only build csrc/int8_conv.cu with its phase clocks and print "
+             "where a block of the int8 conv spends its time at the "
+             "forwards' main shapes")
     args = parser.parse_args(argv)
     if args.decoder_kernels_of and args.int8_kernels_of:
         parser.error("one of --decoder-kernels-of and --int8-kernels-of")
@@ -2050,13 +2242,17 @@ def main(argv: list[str]) -> int:
     from openpose_plus_tpu_torch.engine import scaled_size
     from openpose_plus_tpu_torch.models import common, get_model
     from openpose_plus_tpu_torch.ops.cuda import (build, dw_probe, greedy,
-                                                  merge, paf_sample, sepconv)
+                                                  int8_conv, merge,
+                                                  paf_sample, sepconv)
     from openpose_plus_tpu_torch.postproc import decode_maps
     inputs = load_test_helper("kernel_inputs")
 
     dev = torch.device("cuda", 0)
     if args.mma_ceiling:
         mma_ceiling(build)
+        return 0
+    if args.int8_phases:
+        int8_phases(torch, np, build, int8_conv, inputs, dev, gpu)
         return 0
 
     # ---- 2. build -------------------------------------------------------
@@ -2070,7 +2266,9 @@ def main(argv: list[str]) -> int:
                                      or "Compiling" in line):
             log(f"  {line.strip()}")
     frames = ptxas_frames(nvcc_log)
-    for name, (stack, spill_st, spill_ld) in sorted(frames.items()):
+    int8_frames = ptxas_frames(nvcc_log, INT8_KERNELS)
+    for name, (stack, spill_st, spill_ld) in sorted({**frames,
+                                                     **int8_frames}.items()):
         log(f"  ptxas frame {name}: {stack} bytes stack, {spill_st} bytes "
             f"spill stores, {spill_ld} bytes spill loads")
     cfg = default_config("mobilenet_thin")
@@ -2099,6 +2297,15 @@ def main(argv: list[str]) -> int:
             or any(f != (0, 0, 0) for f in frames.values())):
         raise AssertionError(f"greedy/merge ptxas frames {frames}: expected "
                              "0 bytes of stack and spills for every instance")
+    # the int8 conv's 64 or 32 s32 accumulators a thread and its epilogue
+    # stay in registers at every instance, the quantize passes too
+    n_conv = sum(INT8_KERNELS[0] in n for n in int8_frames)
+    if (n_conv != 2 * len(int8_conv.PLANS) or len(int8_frames) != n_conv + 2
+            or any(f != (0, 0, 0) for f in int8_frames.values())):
+        raise AssertionError(f"int8 ptxas frames {int8_frames}: expected "
+                             f"{2 * len(int8_conv.PLANS)} int8_conv "
+                             "instances and the two quantize passes, each "
+                             "with 0 bytes of stack and spills")
 
     # ---- 3. kernel phases ----------------------------------------------
     rng = np.random.default_rng(0)

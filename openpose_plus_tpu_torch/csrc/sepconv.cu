@@ -73,11 +73,12 @@
 // rounded to bf16, the bias as a bf16 add, ReLU. Never build with
 // --use_fast_math.
 
-#include <cuda.h>   // CUtensorMap (the encoder is reached through cudart)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
+
+#include "hopper.cuh"   // TMA, mbarriers, tensor-map encoders
 
 namespace {
 
@@ -98,10 +99,6 @@ __device__ __forceinline__ float add_bf16(float a, float b) {
 // max(v, 0) that keeps a NaN, as jnp.maximum and torch.relu do.
 __device__ __forceinline__ float relu(float v) { return v < 0.0f ? 0.0f : v; }
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
 // 16-byte cp.async from global to shared; src_bytes < 16 zero-fills the
 // rest (0: nothing is read).
 __device__ __forceinline__ void cp_async16(void* dst, const void* src,
@@ -116,71 +113,6 @@ __device__ __forceinline__ void cp_async_commit() {
 }
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-
-// TMA loads of one box of a tensor map into shared memory (128-byte aligned),
-// completing on mbarrier `bar`; coordinates innermost first, out-of-bounds
-// elements zero-filled.
-__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
-                                         int c0, uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.1d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%2}], [%3];\n" ::"r"(smem_addr(dst)),
-      "l"(map), "r"(c0), "r"(smem_addr(bar))
-      : "memory");
-}
-__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
-                                         int c0, int c1, uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(smem_addr(dst)),
-      "l"(map), "r"(c0), "r"(c1), "r"(smem_addr(bar))
-      : "memory");
-}
-__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
-                                         int c0, int c1, int c2, int c3,
-                                         uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(smem_addr(dst)),
-      "l"(map), "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(smem_addr(bar))
-      : "memory");
-}
-
-__device__ __forceinline__ void bar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
-                   smem_addr(bar)),
-               "r"(count)
-               : "memory");
-}
-
-// This thread's arrival on `bar` for the current phase, announcing `bytes`
-// more of the phase's bulk copies (0 if it issued none).
-__device__ __forceinline__ void bar_arrive(uint64_t* bar, int bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-          smem_addr(bar)),
-      "r"(bytes)
-      : "memory");
-}
-
-// Wait until the phase of `bar` with this parity has completed.
-__device__ __forceinline__ void bar_wait(uint64_t* bar, int parity) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "WAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
-      "@!p bra WAIT;\n"
-      "}\n" ::"r"(smem_addr(bar)),
-      "r"(parity)
-      : "memory");
-}
-
-// Orders this thread's earlier shared-memory accesses before the bulk
-// copies issued after the next barrier (another proxy writes them).
-__device__ __forceinline__ void fence_async() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 // Element offset of (row, 16-byte chunk) in the 128 x 32 bf16 tile: the
@@ -878,45 +810,12 @@ int f_tile(int f) {
   return f <= 192 ? 192 : 128;
 }
 
-constexpr int kMaxDevices = 64;
-
-// Opt a kernel into `bytes` of dynamic shared memory (above 48 KB) once per
-// device.
-template <typename Kernel>
-int set_smem(Kernel kernel, int bytes, int device, bool (&done)[kMaxDevices]) {
-  if (bytes <= 48 * 1024 || device < 0 || device >= kMaxDevices ||
-      done[device])
-    return 0;
-  const int err = static_cast<int>(cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes));
-  if (err == 0) done[device] = true;
-  return err;
-}
-
 struct SepArgs {
   const bf16 *x, *dwk, *dwb, *pwk, *pwb;
   bf16* y;
   int h, w, c, f;
   bool vec_w, vec_y;
 };
-
-// cuTensorMapEncodeTiled, a CUDA driver API entry point reached through
-// cudart (no libcuda link).
-using EncodeTiled = decltype(&cuTensorMapEncodeTiled);
-
-EncodeTiled tensor_map_encoder() {
-  static const EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                         cudaEnableDefault, &found) !=
-            cudaSuccess ||
-        found != cudaDriverEntryPointSuccess)
-      p = nullptr;
-    return reinterpret_cast<EncodeTiled>(p);
-  }();
-  return fn;
-}
 
 // A bf16 tensor map of `rank` dimensions (innermost first; the outer ones'
 // strides in elements) read in boxes `box`, out-of-bounds elements zero.

@@ -51,8 +51,8 @@ _SIGNATURES = {
     "sample_paf_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                           _I, _P],
     # q, w, rescale, bias, s_out, y, batch, h, w, cin, cout, ho, wo,
-    # kernel, stride, pad_top, pad_left, device, stream
-    "int8_conv_launch": [_P] * 6 + [_I] * 12 + [_P],
+    # kernel, stride, pad_top, pad_left, block_m, block_n, device, stream
+    "int8_conv_launch": [_P] * 6 + [_I] * 14 + [_P],
     # x, scale, out, rows, c, cp, device, stream
     "quantize_act_launch": [_P, _P, _P] + [ctypes.c_longlong] * 3
                            + [_I, _P],
@@ -63,12 +63,20 @@ _lock = threading.Lock()
 
 
 def sources() -> list[Path]:
+    """The sources nvcc compiles, one object each."""
     return sorted(CSRC.glob("*.cu"))
 
 
+def headers() -> list[Path]:
+    """The headers the sources include (`csrc/*.cuh`)."""
+    return sorted(CSRC.glob("*.cuh"))
+
+
 def _digest() -> str:
+    """The build's key: the flags, and every source's and header's name and
+    bytes (an edited header rebuilds the library)."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources():
+    for src in sorted(sources() + headers()):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return h.hexdigest()[:16]

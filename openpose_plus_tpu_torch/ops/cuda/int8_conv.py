@@ -6,12 +6,13 @@ preferred_element_type=jnp.int32)`, `common.py:129`); no Pallas kernel.
 Kernel source `openpose_plus_tpu_torch/csrc/int8_conv.cu`, two kernels:
 
 - `int8_conv`: one conv layer in one launch, NHWC. An implicit GEMM on the
-  int8 tensor cores (`mma.sync` m16n8k32 s8 x s8 -> s32): M = B*Ho*Wo
-  pixels, N = Cout, K = kh*kw*Cin_p (Cin padded to a multiple of 64 per
-  tap: zero channels in the input, written by `quantize_act` or else
-  appended by the wrapper, zeros in the packed weights), SAME padding
-  filled with zeros as the tiles load; then
-  the float32 epilogue
+  int8 tensor cores (`wgmma` m64nNk32 s8 x s8 -> s32, both operands brought
+  to shared memory by TMA: the input through an im2col tensor map, whose
+  zero fill is the SAME padding): M = B*Ho*Wo pixels, N = Cout, K =
+  kh*kw*Cin_p (Cin padded to a multiple of 64 per tap: zero channels in
+  the input, written by `quantize_act` or else appended by the wrapper,
+  zeros in the packed weights), in tiles of `tile_plan(...)`; then the
+  float32 epilogue
 
       y = relu(fl(fl(float(acc) * rescale[c]) + bias[c]))
 
@@ -52,6 +53,11 @@ quantize_launches = 0   # quantize_act kernel launches in this process
 K_STEP = 64             # Cin is padded to a multiple of this, per tap
 SCALE_FLOOR = 1e-6      # max(scale, 1e-6), as the reference
 WEIGHT_FLOOR = 1e-12
+
+# (pixels, channels) a block: csrc/int8_conv.cu `launch_plan`'s instances
+PLANS = ((192, 128), (128, 64))
+CORNER = 128            # a 4-D im2col map's corners lie in [-128, 127]
+MAX_BLOCKS = 2 ** 31 - 1
 
 
 @functools.lru_cache(maxsize=None)
@@ -131,6 +137,40 @@ def _geometry(q: torch.Tensor, w_packed: torch.Tensor, kernel: int,
         raise ValueError(f"{where}: pads {pads} for a {kernel}x{kernel} "
                          "conv")
     return b, h, w, cin, w_packed.shape[0], -(-h // stride), -(-w // stride)
+
+
+def tile_plan(batch: int, h: int, w: int, cin_p: int, cout: int,
+              kernel: int, stride: int, pads: tuple[int, int]
+              ) -> tuple[int, int]:
+    """The int8 conv kernel's tile for one layer shape: (block_m, block_n),
+    the output pixels and channels a block owns. Cin_p is the padded input
+    channel count the kernel reads. Raises ValueError on a shape the kernel's
+    launcher refuses.
+
+    Up to Cout 64: 128 x 64 blocks, two resident on an SM, so one block's
+    loads and epilogue overlap the other's products. Above: 192 x 128
+    blocks alone on an SM, 128-wide channel tiles (the wgmma's N) and three
+    consumer warpgroups, which keep the tensor cores busier than two. At M
+    = 8 * 46 * 54 and Cout 128 (VGG19's 7x7 layers) that is 104 blocks, one
+    wave of the H100's 132 SMs."""
+    top, left = pads
+    ho, wo = -(-h // stride), -(-w // stride)
+    upper = ((ho - 1) * stride - top - (h - 1),
+             (wo - 1) * stride - left - (w - 1))
+    if (batch < 0 or h < 1 or w < 1 or cin_p < K_STEP or cin_p % K_STEP
+            or cout < 1 or not 1 <= kernel <= 7 or stride not in (1, 2)
+            or not (0 <= top < kernel and 0 <= left < kernel)
+            or not all(-CORNER <= u < CORNER for u in upper)):
+        raise ValueError(
+            f"int8_conv: no tile plan for batch {batch}, {h}x{w}x{cin_p} -> "
+            f"{cout}, kernel {kernel}, stride {stride}, pads {pads} (the "
+            f"kernel takes Cin a multiple of {K_STEP}, kernel 1..7, stride 1 "
+            "or 2, pads below the kernel)")
+    bm, bn = plan = (128, 64) if cout <= 64 else (192, 128)
+    blocks = -(-batch * ho * wo // bm) * -(-cout // bn)
+    if blocks > MAX_BLOCKS:
+        raise ValueError(f"int8_conv: {blocks} blocks exceed the grid")
+    return plan
 
 
 def int8_conv_plain(q: torch.Tensor, w_packed: torch.Tensor, kernel: int,
@@ -215,13 +255,14 @@ def int8_conv(q: torch.Tensor, w_packed: torch.Tensor, kernel: int,
         # (a quantize pass writes them itself; of the zoo's int8 chains only
         # the 32-channel second stem conv of VGG-tiny and hao28 pads here)
         q = F.pad(q, (0, cin_p - cin))
+    plan = tile_plan(b, h, w, cin_p, cout, kernel, stride, pads)
     q, w_packed = _aligned(q), _aligned(w_packed)
     lib = build.load()
     err = lib.int8_conv_launch(
         q.data_ptr(), w_packed.data_ptr(), rescale.data_ptr(),
         bias.data_ptr(), None if s_out is None else s_out.data_ptr(),
         y.data_ptr(), b, h, w, cin_p, cout, ho, wo, kernel, stride,
-        pads[0], pads[1], q.device.index,
+        pads[0], pads[1], *plan, q.device.index,
         torch.cuda.current_stream(q.device).cuda_stream)
     build.check(lib, err, "int8_conv_launch")
     launches += 1

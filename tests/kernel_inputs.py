@@ -157,6 +157,24 @@ def int8_conv_inputs(rng: np.random.Generator, b: int, h: int, w: int,
     return q, weight, bias, s_in, float(np.float32(1.2 * s_in))
 
 
+# int8 conv shapes the kernel's launcher (`int8_conv_launch`) refuses, as
+# (B, H, W, Cin_p, Cout, kernel, stride, (pad_top, pad_left)), each breaking
+# one of its checks; the wrapper's tile plan refuses them too
+INT8_REFUSED = [
+    (8, 46, 54, 32, 128, 3, 1, (1, 1)),      # Cin not padded to 64
+    (8, 46, 54, 100, 128, 3, 1, (1, 1)),
+    (8, 46, 54, 0, 128, 3, 1, (1, 1)),
+    (8, 46, 54, 64, 0, 3, 1, (1, 1)),        # no output channel
+    (8, 46, 54, 64, 64, 9, 1, (4, 4)),       # kernel above 7
+    (8, 46, 54, 64, 64, 0, 1, (0, 0)),
+    (8, 46, 54, 64, 64, 3, 3, (1, 1)),       # stride 3
+    (8, 46, 54, 64, 64, 3, 1, (3, 1)),       # a pad as large as the kernel
+    (8, 46, 54, 64, 64, 3, 1, (1, -1)),
+    (8, 0, 54, 64, 64, 3, 1, (1, 1)),        # an empty image
+    (-1, 46, 54, 64, 64, 3, 1, (1, 1)),
+]
+
+
 def bf16_mismatch(out, ref, floor=0.0) -> tuple[float, float]:
     """Agreement of two bf16 results (given as float32 arrays): the worst
     |out - ref| in units of 2**-7 * (max(|out|, |ref|) + floor), and the

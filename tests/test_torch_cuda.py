@@ -16,8 +16,9 @@ counts, every pixel and F tiling, ragged tiles and unaligned views (both
 load paths), the PAF
 sampler at K = 1...32 with corner coordinates, the depthwise probe, the
 int8 conv (kernel sizes 1, 3 and 7, stride 2 on even and odd sizes, Cin
-of 3, 185 and 537, both output modes, M and N edges) and the int8
-quantize pass, empty batches, and the wrappers' refusals on the card.
+of 3, 185, 537 and 576, both output modes, M and N edges, both tile plans'
+pixel counts and several N tiles) and the int8 quantize pass, empty
+batches, and the wrappers' refusals on the card.
 
 The separable kernels are held to their plain versions as
 tests/test_torch_sepconv.py states: `kernel_inputs.bf16_mismatch` at most 2
@@ -363,13 +364,25 @@ def _same_pads(h, w, k, stride):
 
 
 # (B, H, W, Cin, Cout, k, stride): every kernel size, stride 2 on even
-# (pads (0, 1)) and odd sizes, Cin 3 / 185 / 537 (byte loads) and multiples
-# of 16 (vector loads), Cout off the 64-wide tile, M off the 64-pixel tile
+# (pads (0, 1)) and odd sizes, Cin 3 / 185 / 537 (channel-padded rows) and
+# multiples of 16, Cout off the 64-wide tile, M off the pixel tile; then
+# the tile plan's cases: Cout 256 and 512 (several 128-wide N tiles), M of
+# 128 and 129 pixels (part of one 192 x 128 block; at Cout 64 and 40 one
+# 128 x 64 block and one more pixel), a 7x7 over Cin 576 (441 stages: the
+# ring wraps 55 times), stride 2 of a 7x7 and a 1x1 on even sizes (the
+# im2col box's corners), and M = 19968 (104 blocks of 192 pixels) and
+# 19969 (a last block of one pixel)
 _INT8_CASES = [(2, 10, 12, 3, 24, 3, 2), (2, 9, 11, 3, 64, 3, 2),
                (1, 12, 14, 3, 64, 3, 1), (2, 7, 9, 185, 128, 7, 1),
                (1, 8, 10, 537, 128, 1, 1), (2, 9, 10, 48, 96, 1, 1),
                (1, 13, 17, 24, 48, 3, 2), (3, 5, 6, 128, 200, 3, 1),
-               (1, 11, 9, 32, 40, 7, 2), (2, 6, 5, 16, 8, 1, 1)]
+               (1, 11, 9, 32, 40, 7, 2), (2, 6, 5, 16, 8, 1, 1),
+               (1, 6, 7, 64, 256, 3, 1), (1, 5, 6, 128, 512, 1, 1),
+               (1, 8, 16, 64, 128, 3, 1), (1, 3, 43, 64, 128, 3, 1),
+               (1, 9, 10, 576, 64, 7, 1), (2, 14, 16, 64, 128, 7, 2),
+               (1, 10, 12, 64, 64, 1, 2), (1, 104, 192, 64, 128, 3, 1),
+               (1, 1, 19969, 64, 96, 3, 1), (1, 8, 16, 64, 64, 3, 1),
+               (1, 3, 43, 64, 40, 3, 1)]
 
 
 @pytest.mark.parametrize("case", _INT8_CASES)
@@ -398,13 +411,18 @@ def test_int8_conv_kernel_equals_plain(cuda, case, quant):
 @pytest.mark.parametrize("shape", [(1,), (7,), (8,), (1000,), (4099,),
                                    (2, 5, 7, 3), (2, 5, 7, 24),
                                    (2, 5, 7, 128), (2, 5, 7, 185),
-                                   (2, 5, 7, 537)])
+                                   (2, 5, 7, 537), (3, 61, 67, 537),
+                                   (1, 2053, 185), (4111, 24), (2, 1201, 3),
+                                   (3, 333, 1000), (7, 96), (2, 16448)])
 @pytest.mark.parametrize("scale", [0.0, 0.8, 1.0])
 def test_quantize_kernel_equals_plain(cuda, shape, scale):
     """Clipping, the 1e-6 floor, and the .5 ties of t = (2i + 1) / 254 at
-    scale 1; rows of C % 8 != 0 (one load at a time), C % 8 == 0 (16-byte
-    loads) and C % 64 == 0 (the flat pass), each written channel-padded to
-    a multiple of 64 with zeros."""
+    scale 1; rows of C % 8 != 0 (pieces across rows), C % 8 == 0 (a piece
+    in one row) and C % 64 == 0 (the flat pass, also where a row is longer
+    than the padded pass's staging tile), the others written
+    channel-padded to a multiple of 64 with zeros; row counts that give a
+    block several rows and leave the tensor's last 16-byte piece partial
+    (rows * C % 8 != 0: 537, 185, 3 and 1000 channels)."""
     size = int(np.prod(shape))
     rng = np.random.default_rng(size)
     ties = (np.arange(-127, 127) * 2 + 1) / 254.0
@@ -419,6 +437,19 @@ def test_quantize_kernel_equals_plain(cuda, shape, scale):
     assert torch.equal(out, int8_conv.quantize_act_plain(x, s))
     assert torch.equal(out.cpu(), int8_conv.quantize_act_plain(x.cpu(),
                                                                s.cpu()))
+
+
+def test_quantize_kernel_takes_a_scalar(cuda):
+    """A 0-d input takes the flat pass and comes back 0-d, as the plain
+    version's."""
+    s = torch.tensor(0.8, device=cuda)
+    before = int8_conv.quantize_launches
+    for v in (-3.0, -0.5, 0.3, 0.8, 5.0):
+        x = torch.tensor(v, dtype=torch.bfloat16, device=cuda)
+        out = int8_conv.quantize_act(x, s)
+        assert out.shape == () and out.dtype == torch.int8
+        assert torch.equal(out, int8_conv.quantize_act_plain(x, s))
+    assert int8_conv.quantize_launches == before + 5
 
 
 def test_int8_wrappers_refuse_what_the_kernels_do_not_take(cuda):
@@ -448,6 +479,21 @@ def test_int8_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     assert empty.shape == (0, 6, 7, 8)
     assert int8_conv.quantize_act(x[:0].bfloat16(), s_out).shape == (0, 64)
     assert (int8_conv.launches, int8_conv.quantize_launches) == before
+
+
+@pytest.mark.parametrize("args", kernel_inputs.INT8_REFUSED)
+def test_int8_launcher_refuses_what_the_tile_plan_refuses(cuda, args):
+    """int8_conv_launch itself returns an error under every plan for each
+    shape the tile plan refuses: it checks its arguments before it reads a
+    pointer, so none is passed."""
+    from openpose_plus_tpu_torch.ops.cuda import build
+    lib = build.load()
+    b, h, w, cin_p, cout, k, stride, (top, left) = args
+    ho, wo = -(-h // stride), -(-w // stride)
+    for plan in int8_conv.PLANS:
+        assert lib.int8_conv_launch(None, None, None, None, None, None, b, h,
+                                    w, cin_p, cout, ho, wo, k, stride, top,
+                                    left, *plan, cuda.index, None) != 0
 
 
 @pytest.mark.parametrize("name", ["mobilenet_thin", "vggtiny"])

@@ -163,7 +163,28 @@ raises on failure (the script then exits non-zero and prints no result):
    the 1x1 layers as `library_*`, the bf16 cuDNN conv of the shape as
    `cudnn_*`) and an `int8_forward_layers` line (the groups summed over a
    forward, and the quantize passes).
-12. With --profile only: batch scaling (1, 8, 32; decode also at the
+12. The deploy path (`deploy_phase`): copies of phase 4's two engines (same
+   weights) and phase 11's VGG19 int8 engine, calibrated on the batch, each
+   `compile`d at batch 8 (a CUDA-graph capture of `infer`): the replay
+   launches no kernel from Python (the counts stay 0) and its HumanBatch
+   equals the eager call's; a torch.profiler trace of the replays shows
+   the kernels by name, per replay one greedy_assign_kernel,
+   assemble_kernel and sample_paf_kernel, 41 fused_sepconv_kernel on the
+   fused engine, and on the int8 engine one int8_conv_kernel per int8 layer
+   and one quantize pass per float input, as phase 11 counts them; a
+   result held by the caller is unchanged after the next call. Both float
+   engines are exported at batch 8 (`export.save_engine`) and reloaded in
+   a fresh process, which must give the eager HumanBatch, raise the
+   launch counts (41 fused_sepconv) and import neither `models` nor
+   `engine`. `StreamEstimator.run_frames` over DEPLOY_FRAMES frames of
+   mixed sizes gives, batch by batch, `infer` on the letterboxed batch;
+   `python -m openpose_plus_tpu_torch infer`, `export` and `infer
+   --engine-dir` on cv2-written JPEGs exit 0. A `deploy` line: `infer`
+   event ms eager and compiled (median of 20) at batch 8 (each engine) and
+   1 (MobileNet-thin), the compiled call's device-busy ms and idle share,
+   the artifacts' export, load and infer times, and `run_frames`
+   sustained frames/s on VGA frames beside the host's letterbox time.
+13. With --profile only: batch scaling (1, 8, 32; decode also at the
    fidelity() preset), the host's enqueue time per call, and the device's
    busy time per call from torch.profiler (see `profile`).
 
@@ -263,6 +284,14 @@ INT8_MODELS = ("vgg19", "mobilenet_thin")
 INT8_COSINE = 0.98
 INT8_PLAIN_TOL = 1e-6
 INT8_OPS_PER_S = 1979e12      # dense int8 tensor-core peak
+# phase 12, the deploy path: the compiled calls traced TRACE_GAP_S apart;
+# run_frames' equality check over DEPLOY_FRAMES
+# frames of mixed sizes; its rate over DEPLOY_STREAM_BATCHES batches of
+# DEPLOY_FRAME_HW frames after one batch of warm-up
+TRACE_GAP_S = 0.05
+DEPLOY_FRAMES = 29
+DEPLOY_STREAM_BATCHES = 20
+DEPLOY_FRAME_HW = (480, 640)
 HERE = os.path.dirname(os.path.abspath(__file__))
 DECODER_KERNELS = ("greedy_assign_kernel", "assemble_kernel")
 # csrc/int8_conv.cu: the conv (one instance per tile plan of
@@ -2115,6 +2144,309 @@ def int8_phases(torch, np, build, int8_conv, inputs, dev, gpu) -> None:
         torch.cuda.empty_cache()
 
 
+# a fresh process: load the artifacts phase 12 exported, serve the batch
+_LOAD_ARTIFACTS = """
+import json, statistics, sys, time
+import numpy as np
+import torch
+from openpose_plus_tpu_torch import export
+from openpose_plus_tpu_torch.ops.cuda import greedy, merge, paf_sample, sepconv
+tmp = sys.argv[1]
+images = torch.from_numpy(np.load(tmp + "/images.npy"))
+counted = {"greedy_assign": greedy, "assemble": merge,
+           "sample_paf": paf_sample, "fused_sepconv": sepconv}
+res = {}
+for label in sys.argv[2:]:
+    t0 = time.perf_counter()
+    engine = export.load_engine(tmp + "/" + label)
+    load_s = time.perf_counter() - t0
+    x = images.to(engine.device)
+    for module in counted.values():
+        module.launches = 0
+    out = engine.infer(x)
+    torch.cuda.synchronize()
+    launches = {k: m.launches for k, m in counted.items()}
+    ref = np.load(tmp + "/" + label + "/eager.npz")
+    equal = all(np.array_equal(getattr(out, f).cpu().numpy(), ref[f])
+                for f in export.FIELDS)
+    times = []
+    for _ in range(23):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        engine.infer(x)
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    res[label] = {"load_s": load_s, "launches": launches, "equal": equal,
+                  "infer_ms": statistics.median(times[3:])}
+res["port_modules"] = sorted(
+    m for m in sys.modules if m.startswith(("openpose_plus_tpu_torch.models",
+                                            "openpose_plus_tpu_torch.engine")))
+print(json.dumps(res))
+"""
+
+
+REPLAY_KERNELS = ("greedy_assign_kernel", "assemble_kernel",
+                  "sample_paf_kernel", "fused_sepconv_kernel",
+                  "int8_conv_kernel", "quantize")
+
+
+def replay_trace(torch, calls: dict) -> dict:
+    """One torch.profiler session over one call of each of `calls` ({label:
+    fn}), TRACE_GAP_S apart on an idle card, so each call's device events
+    form one cluster of the timeline (one session: records went missing in
+    later sessions of one process). Per label: {"kernels": {name: device
+    kernels whose name contains it, for REPLAY_KERNELS}, "busy_ms": the
+    union of its device intervals, "device_events": their count}."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+
+    torch.cuda.synchronize()
+    with torch_profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA]) as prof:
+        for fn in calls.values():
+            time.sleep(TRACE_GAP_S)
+            fn()
+            torch.cuda.synchronize()
+    spans = sorted((e.time_range.start, e.time_range.end, e.name)
+                   for e in prof.events() if e.device_type == DeviceType.CUDA)
+    clusters, end = [], float("-inf")
+    for a, b, name in spans:                # time_range in microseconds
+        if a - end > TRACE_GAP_S * 1e6 / 2:
+            clusters.append([])
+        clusters[-1].append((a, b, name))
+        end = max(end, b)
+    if len(clusters) != len(calls):
+        raise AssertionError(f"replay trace: {len(clusters)} clusters of "
+                             f"device events for {len(calls)} calls")
+    out = {}
+    for label, cluster in zip(calls, clusters):
+        busy_us, end = 0.0, float("-inf")
+        for a, b, _ in cluster:             # union of intervals
+            busy_us += max(0.0, b - max(a, end))
+            end = max(end, b)
+        out[label] = {
+            "kernels": {k: sum(k in name for _, _, name in cluster)
+                        for k in REPLAY_KERNELS},
+            "busy_ms": busy_us / 1e3, "device_events": len(cluster)}
+    return out
+
+
+def compiled_case(torch, label, engine, images, other) -> dict:
+    """Phase 12 on one engine: eager `infer`, `compile` at the batch of
+    `images`, the replay against the eager HumanBatch with no Python
+    launch, a held result across the next call, and the eager and
+    compiled event times; returns the numbers."""
+    from openpose_plus_tpu_torch.engine import infer_step
+    from openpose_plus_tpu_torch.ops.cuda import (greedy, int8_conv, merge,
+                                                  paf_sample, sepconv)
+
+    counted = (greedy, merge, paf_sample, sepconv, int8_conv)
+    eager = engine.infer(images)
+    with torch.inference_mode():
+        eager_other = infer_step(engine.model, other,
+                                 engine.config.postproc)
+    eager_ms = median_ms(torch, lambda: engine.infer(images))
+    t0 = time.perf_counter()
+    engine.compile(images.shape[0])
+    torch.cuda.synchronize()
+    compile_s = time.perf_counter() - t0
+    for module in counted:
+        module.launches = 0
+    int8_conv.quantize_launches = 0
+    out = engine.infer(images)
+    torch.cuda.synchronize()
+    python_launches = sum(m.launches for m in counted) + (
+        int8_conv.quantize_launches)
+    if python_launches:
+        raise AssertionError(f"deploy {label}: the replay launched "
+                             f"{python_launches} kernels from Python")
+    assert_batches_equal(torch, f"deploy {label}: replay vs eager", out,
+                         eager)
+    held = engine.infer(images)
+    snapshot = {f.name: getattr(held, f.name).clone()
+                for f in dataclasses.fields(held)}
+    assert_batches_equal(torch, f"deploy {label}: replay of other images",
+                         engine.infer(other), eager_other)
+    torch.cuda.synchronize()
+    for name, t in snapshot.items():
+        if not torch.equal(getattr(held, name), t):
+            raise AssertionError(f"deploy {label}: a held result's {name} "
+                                 "changed at the next call")
+    compiled_ms = median_ms(torch, lambda: engine.infer(images))
+    log(f"deploy {label}: compiled replay == eager, no Python launch, held "
+        "result intact")
+    return {"eager_ms": eager_ms, "compiled_ms": compiled_ms,
+            "eager_over_compiled": eager_ms / compiled_ms,
+            "compile_s": compile_s}
+
+
+def deploy_phase(torch, np, engine, fused_engine, images, n_fused, dev,
+                 gpu) -> None:
+    """Phase 12 (module docstring): compile, export, stream and the CLI on
+    the card."""
+    import tempfile
+
+    import cv2
+
+    from openpose_plus_tpu_torch import Engine, export, host, stream
+    from openpose_plus_tpu_torch.data.augment import letterbox
+    from openpose_plus_tpu_torch.models import common
+
+    rng = np.random.default_rng(12)
+    other = torch.from_numpy(rng.integers(0, 256, tuple(images.shape),
+                                          dtype=np.uint8)).to(dev)
+    # copies on the same weights: the phase 4 engines stay eager
+    default, fused = (Engine(e.config, params=e.model.state_dict(),
+                             device=dev) for e in (engine, fused_engine))
+    _, int8, _ = int8_engines(torch, "vgg19", images, dev)
+    int8.calibrate(images)
+    n_convs, n_quant = int8_layers(common, int8.model)
+    mc = default.config.model
+    line = {"model": mc.name, "hw": [mc.hin, mc.win],
+            "dtype": mc.compute_dtype, "stages": mc.n_stages}
+    cases = {"batch8": (default, images, {}),
+             "batch1": (default, images[:1], {}),
+             "fused_batch8": (fused, images,
+                              {"fused_sepconv_kernel": n_fused}),
+             "int8_vgg19_batch8": (int8, images, {"int8_conv_kernel": n_convs,
+                                                  "quantize": n_quant})}
+    for label, (eng, imgs, _) in cases.items():
+        line[label] = compiled_case(torch, label, eng, imgs,
+                                    other[:imgs.shape[0]])
+    # the kernels of one replay of each graph, by name, in one trace
+    trace = replay_trace(torch, {
+        label: functools.partial(eng.infer, imgs)
+        for label, (eng, imgs, _) in cases.items()})
+    for label, (_, _, expect) in cases.items():
+        want = {**dict.fromkeys(REPLAY_KERNELS[:3], 1),
+                **dict.fromkeys(REPLAY_KERNELS[3:], 0), **expect}
+        got = trace[label]
+        if got["kernels"] != want:
+            raise AssertionError(f"deploy {label}: kernels of one replay "
+                                 f"{got['kernels']}, expected {want}")
+        line[label].update(
+            kernels_per_replay=got["kernels"],
+            device_events_per_replay=got["device_events"],
+            compiled_busy_ms=got["busy_ms"],
+            compiled_idle_share=1.0 - got["busy_ms"]
+            / line[label]["compiled_ms"])
+    log(f"deploy: one replay of each graph traced, kernels by name "
+        f"{ {k: v['kernels'] for k, v in trace.items()} }")
+    del cases, int8
+    torch.cuda.empty_cache()
+
+    env = dict(os.environ, PYTHONPATH=HERE)
+    with tempfile.TemporaryDirectory(dir=HERE,
+                                     prefix=".smoke_bank_deploy_") as tmp:
+        # export at batch 8, reload in a fresh process
+        line["export"] = {}
+        labels = {"default": (default, 0), "fused": (fused, n_fused)}
+        for label, (eng, _) in labels.items():
+            t0 = time.perf_counter()
+            export.save_engine(eng, os.path.join(tmp, label),
+                               batch_size=BATCH)
+            line["export"][label] = {"export_s": time.perf_counter() - t0}
+            out = eng.infer(images)
+            np.savez(os.path.join(tmp, label, "eager.npz"),
+                     **{f: getattr(out, f).cpu().numpy()
+                        for f in export.FIELDS})
+        np.save(os.path.join(tmp, "images.npy"), images.cpu().numpy())
+        proc = subprocess.run(
+            [sys.executable, "-c", _LOAD_ARTIFACTS, tmp, *labels],
+            cwd=HERE, env=env, capture_output=True, text=True, timeout=600)
+        if proc.returncode != 0:
+            raise AssertionError(f"loading the artifacts failed:\n"
+                                 f"{proc.stdout}\n{proc.stderr}")
+        loaded = json.loads(proc.stdout.strip().splitlines()[-1])
+        if loaded.pop("port_modules"):
+            raise AssertionError("loading an artifact imported the model "
+                                 "code")
+        for label, (_, fused_n) in labels.items():
+            got = loaded[label]
+            n = got["launches"]
+            if not got["equal"] or min(
+                    n[k] for k in ("greedy_assign", "assemble",
+                                   "sample_paf")) < 1 or (
+                    n["fused_sepconv"] != fused_n):
+                raise AssertionError(f"artifact {label} in a fresh process: "
+                                     f"{got}")
+            line["export"][label].update(got)
+        log(f"deploy: artifacts reloaded in a fresh process equal the eager "
+            f"calls, launches {[loaded[k]['launches'] for k in labels]}, no "
+            "model code imported")
+
+        # run_frames: every batch equals infer on its letterboxed batch
+        est = stream.StreamEstimator(default, batch=BATCH)
+        frames = [rng.integers(0, 256, (int(rng.integers(48, 721)),
+                                        int(rng.integers(48, 1281)), 3),
+                               dtype=np.uint8) for _ in range(DEPLOY_FRAMES)]
+        results = list(est.run_frames(frames))
+        sizes = [min(BATCH, DEPLOY_FRAMES - i)
+                 for i in range(0, DEPLOY_FRAMES, BATCH)]
+        if [r.n for r in results] != sizes:
+            raise AssertionError(f"run_frames batches {[r.n for r in results]}"
+                                 f", expected {sizes}")
+        for r in results:
+            boxes = [letterbox(frames[i], mc.hin, mc.win) for i in r.indices]
+            served = np.zeros(est.shape, np.uint8)
+            served[:r.n] = [host.pack(b[0], est.s2d) for b in boxes]
+            np.testing.assert_array_equal(r.scales, np.asarray(
+                [b[1] for b in boxes], np.float32))
+            np.testing.assert_array_equal(r.pads, np.asarray(
+                [b[2] for b in boxes], np.float32))
+            assert_batches_equal(torch, "run_frames vs infer", r.humans,
+                                 default.infer(torch.from_numpy(served)
+                                               .to(dev)))
+        log(f"deploy: run_frames over {DEPLOY_FRAMES} frames of mixed sizes "
+            "== infer on each letterboxed batch")
+        vga = [rng.integers(0, 256, (*DEPLOY_FRAME_HW, 3), dtype=np.uint8)
+               for _ in range(BATCH)]
+        t0 = time.perf_counter()
+        for f in vga:
+            host.pack(letterbox(f, mc.hin, mc.win)[0], est.s2d)
+        host_ms = (time.perf_counter() - t0) * 1e3
+        n_frames = BATCH * (DEPLOY_STREAM_BATCHES + 1)
+        it = est.run_frames(vga[i % BATCH] for i in range(n_frames))
+        next(it)                          # warm-up batch
+        t0 = time.perf_counter()
+        timed = sum(r.n for r in it)
+        seconds = time.perf_counter() - t0
+        line["run_frames"] = {
+            "batch": BATCH, "frame_hw": list(DEPLOY_FRAME_HW),
+            "layout": est.s2d, "frames": timed, "seconds": seconds,
+            "fps": timed / seconds, "host_letterbox_ms_per_batch": host_ms}
+
+        # the CLI in fresh processes, on cv2-written JPEGs
+        jpgs = []
+        for i in range(3):
+            jpgs.append(os.path.join(tmp, f"cli{i}.jpg"))
+            cv2.imwrite(jpgs[-1], rng.integers(0, 256, (*DEPLOY_FRAME_HW, 3),
+                                               dtype=np.uint8))
+        art = os.path.join(tmp, "cli_engine")
+        line["cli_s"] = {}
+        for label, argv in (
+                ("infer", ["infer", "--images", *jpgs, "--batch", "2"]),
+                ("export", ["export", "--out", art, "--batch", "2"]),
+                ("infer_engine_dir", ["infer", "--images", *jpgs,
+                                      "--engine-dir", art])):
+            t0 = time.perf_counter()
+            proc = subprocess.run(
+                [sys.executable, "-m", "openpose_plus_tpu_torch", *argv],
+                cwd=HERE, env=env, capture_output=True, text=True,
+                timeout=600)
+            if proc.returncode != 0:
+                raise AssertionError(f"python -m openpose_plus_tpu_torch "
+                                     f"{label}: rc {proc.returncode}\n"
+                                     f"{proc.stdout}\n{proc.stderr}")
+            line["cli_s"][label] = time.perf_counter() - t0
+        log(f"deploy: python -m openpose_plus_tpu_torch infer, export, infer "
+            f"--engine-dir: rc 0 ({line['cli_s']})")
+    log(json.dumps({"deploy": {**line, "gpu": gpu}}))
+
+
 def profile(torch, np, rng, engine, images, gpu) -> None:
     """--profile: where the time of the served call goes.
 
@@ -2662,6 +2994,9 @@ def main(argv: list[str]) -> int:
     for name, t in int8_phase(torch, np, images, counted, dev, gpu).items():
         timing[name], launches[name], errs[name] = (t, t["launches"],
                                                     t["max_abs_err"])
+
+    # ---- 12. the deploy path ---------------------------------------------
+    deploy_phase(torch, np, engine, fused_engine, images, n_fused, dev, gpu)
     if args.profile:
         profile(torch, np, rng, engine, images, gpu)
 

@@ -3,14 +3,17 @@
 Port of `openpose_plus_tpu/engine.py`: the served `Engine.infer` path, flip
 test-time augmentation, scale search (`infer_multiscale`, "avg" and "dedup"),
 the space-to-depth input layouts, and calibrated int8 serving (`calibrate`,
-`calibrate_from_paths`, implicit calibration on the first batch). The whole
-pipeline runs on the engine's device — uint8 frames in, `HumanBatch` out —
-with the decoder's serial tail in the hand-written CUDA kernels on a GPU.
-Nothing is compiled ahead of time: PyTorch runs eagerly.
+`calibrate_from_paths`, implicit calibration on the first batch), and
+`compile`, the reference's ahead-of-time build: a CUDA-graph capture of the
+served step at one batch size and layout. The whole pipeline runs on the
+engine's device — uint8 frames in, `HumanBatch` out — with the decoder's
+serial tail in the hand-written CUDA kernels on a GPU. Calls that were not
+compiled run eagerly.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Mapping, Optional
 
 import numpy as np
@@ -19,13 +22,14 @@ import torch.nn.functional as F
 
 from openpose_plus_tpu_torch.checkpoint import from_flax, load_model_state
 from openpose_plus_tpu_torch.config import Config, PostprocConfig, default_config
+from openpose_plus_tpu_torch.host import INPUT_LAYOUTS
 from openpose_plus_tpu_torch.models import common, get_model
 from openpose_plus_tpu_torch.postproc import (
     HumanBatch, decode_maps, merge_dedup)
 from openpose_plus_tpu_torch.postproc.flip import mirror_maps
 
-INPUT_LAYOUTS = ("plain", "s2d", "s2d2")
 _CHANNELS = (3, 12, 48)          # per INPUT_LAYOUTS level
+CAPTURE_WARMUP = 2               # eager calls before a CUDA-graph capture
 
 
 def check_input_layout(model_cfg, input_layout: str) -> int:
@@ -188,6 +192,9 @@ class Engine:
         the seeded init is already cheap (an int8 engine's scales start at
         zero either way).
 
+    `compile(batch_size, input_layout)` captures `infer` at that shape in a
+    CUDA graph (see there); later `infer` calls at the shape replay it.
+
     An int8 engine (`compute_dtype="int8"`) takes float parameters with or
     without its calibration scales (a float state_dict, or a Flax dict
     without `calib/`: zero scales); `infer`, `infer_multiscale` and
@@ -225,6 +232,9 @@ class Engine:
         self._calib = [b for name, b in self.model.named_buffers()
                        if common.is_calib_leaf(name.rsplit(".", 1)[-1])]
         self._calibrated = False
+        # compiled input shapes -> (graph, static input, static outputs),
+        # or None until captured
+        self._graphs: dict[tuple[int, ...], Optional[tuple]] = {}
 
     def _images(self, images) -> torch.Tensor:
         images = torch.as_tensor(images, device=self.device)
@@ -259,6 +269,8 @@ class Engine:
         images = self._serving(images)
         if flip_tta:
             return infer_tta(self.model, images, self.config.postproc)
+        if tuple(images.shape) in self._graphs:
+            return self._replay(images)
         return infer_step(self.model, images, self.config.postproc,
                           self.chunk)
 
@@ -303,6 +315,9 @@ class Engine:
         finally:
             common.set_calibrating(self.model, False)
         self._calibrated = True
+        # the graphs hold int8 weights and rescales read at capture:
+        # recapture at the next infer
+        self._graphs = dict.fromkeys(self._graphs)
 
     def calibrate_from_paths(self, paths, batch_size: int = 8) -> None:
         """Calibrate from image files, the TensorRT protocol's held-out
@@ -333,9 +348,66 @@ class Engine:
         return not self._calibrated
 
     def compile(self, batch_size: int, input_layout: str = "plain") -> None:
-        """Validates the layout as the reference does, then raises: the
-        CUDA-graph capture of `infer` is ROADMAP.md item 8."""
-        check_input_layout(self.config.model, input_layout)
-        raise NotImplementedError(
-            "Engine.compile (a CUDA-graph capture of infer) is ROADMAP.md "
-            "item 8")
+        """Build the served step for a fixed batch size and input layout,
+        the reference's ahead-of-time compile (the TensorRT "engine build"
+        step). input_layout: "plain" (B,hin,win,3), "s2d" (B,hin/2,win/2,
+        12) or "s2d2" (B,hin/4,win/4,48), validated as the reference does.
+
+        On a CUDA engine: CAPTURE_WARMUP eager calls on a side stream (they
+        build the kernels and fill every lazy cache), then `infer_step`
+        (with `chunk`, without flip-TTA, as the reference compiles only
+        `_infer`) captured in a `torch.cuda.CUDAGraph` over a static uint8
+        input. A later `infer` of that shape copies its images in, replays
+        the graph and returns fresh copies of its outputs (the next replay
+        overwrites the graph's own). Other shapes and flip-TTA run
+        eagerly. An int8 engine that still needs calibration captures at
+        its first `infer` of the shape, after calibrating; `calibrate`
+        drops the graphs, which are captured again at the next `infer`. A
+        capture that fails raises. Weights changed after a capture are
+        not seen by an int8 graph (its packed int8 weights are taken at
+        capture): compile again.
+
+        On a CPU engine: the layout is validated and one warm-up call runs
+        (the counterpart of XLA compiling for the CPU); `infer` stays
+        eager."""
+        m = self.config.model
+        shape = m.input_shape(batch_size, check_input_layout(m, input_layout))
+        if self.device.type != "cuda":
+            with torch.inference_mode():
+                infer_step(self.model, torch.zeros(shape, dtype=torch.uint8,
+                                                   device=self.device),
+                           self.config.postproc, self.chunk)
+            return
+        self._graphs[shape] = None
+        if not self._needs_calibration():
+            self._capture(shape)
+
+    @torch.inference_mode()
+    def _capture(self, shape: tuple[int, ...]) -> None:
+        dev = self.device
+        static_in = torch.zeros(shape, dtype=torch.uint8, device=dev)
+
+        def step() -> HumanBatch:
+            return infer_step(self.model, static_in, self.config.postproc,
+                              self.chunk)
+
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            for _ in range(CAPTURE_WARMUP):
+                step()
+        torch.cuda.current_stream(dev).wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = step()
+        self._graphs[shape] = (graph, static_in, out)
+
+    def _replay(self, images: torch.Tensor) -> HumanBatch:
+        shape = tuple(images.shape)
+        if self._graphs[shape] is None:
+            self._capture(shape)
+        graph, static_in, out = self._graphs[shape]
+        static_in.copy_(images)
+        graph.replay()
+        return HumanBatch(**{f.name: getattr(out, f.name).clone()
+                             for f in dataclasses.fields(out)})

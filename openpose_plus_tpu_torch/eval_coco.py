@@ -38,7 +38,7 @@ class Detection:
     score: float
 
 
-def _row(field, batch_index: int) -> np.ndarray:
+def host_row(field, batch_index: int) -> np.ndarray:
     """One image's row of a HumanBatch field, as a host array."""
     if isinstance(field, torch.Tensor):
         return field[batch_index].cpu().numpy()
@@ -62,11 +62,11 @@ def humans_to_detections(humans: HumanBatch, batch_index: int, image_id: int,
     any device or host arrays (`host_humans`: one copy per batch).
     """
     out = []
-    valid = _row(humans.valid, batch_index)
-    coords = _row(humans.coords, batch_index)
-    pvalid = _row(humans.part_valid, batch_index)
-    pscore = _row(humans.part_scores, batch_index)
-    hscore = _row(humans.score, batch_index)
+    valid = host_row(humans.valid, batch_index)
+    coords = host_row(humans.coords, batch_index)
+    pvalid = host_row(humans.part_valid, batch_index)
+    pscore = host_row(humans.part_scores, batch_index)
+    hscore = host_row(humans.score, batch_index)
     for m in np.nonzero(valid)[0]:
         kp = np.zeros((17, 3), np.float32)
         for c, part in enumerate(skeleton.COCO_FROM_OPENPOSE):

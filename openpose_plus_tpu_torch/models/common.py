@@ -110,6 +110,9 @@ class _Int8Layer(nn.Module):
         self._qcache: tuple | None = None
 
     def _int8_weights(self, weight: torch.Tensor) -> tuple:
+        if torch.compiler.is_compiling():   # traced: fake weights, no cache
+            qw, wmax = int8_conv.quantize_weight(weight)
+            return int8_conv.pack_weight(qw), wmax
         key = (weight.data_ptr(), weight._version, weight.device)
         if self._qcache is None or self._qcache[0] != key:
             with torch.no_grad():

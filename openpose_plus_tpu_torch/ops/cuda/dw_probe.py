@@ -12,15 +12,18 @@ taps; 16-byte stores), so its time is that stage's own on the card.
   same I/O with no compute, so its time is the traffic floor the DW-only
   kernel is held against.
 
-dwk is (9, C) bf16. A CPU tensor takes the plain version, a CUDA tensor
-launches the kernel or raises; each launch adds one to the wrapper's
-module-level count (`dw3x3_relu_launches`, `copy_bias_launches`).
+dwk is (9, C) bf16. Each wrapper calls its op (`openpose_plus_tpu_torch::
+dw3x3_relu`, `::copy_bias`, torch.library): a CPU tensor takes the plain
+version, a CUDA tensor launches the kernel or raises; each launch adds one
+to the wrapper's module-level count (`dw3x3_relu_launches`,
+`copy_bias_launches`).
 """
 
 from __future__ import annotations
 
 import torch
 
+from openpose_plus_tpu_torch.ops import NAMESPACE, check_device
 from openpose_plus_tpu_torch.ops.cuda.sepconv import _aligned, dw_taps
 
 dw3x3_relu_launches = 0   # kernel launches in this process
@@ -36,8 +39,6 @@ def copy_bias_plain(x: torch.Tensor, dwk: torch.Tensor) -> torch.Tensor:
 
 
 def _check(name: str, x: torch.Tensor, dwk: torch.Tensor) -> None:
-    if x.device.type != "cuda":
-        raise ValueError(f"{name}: unsupported device {x.device}")
     if x.dim() != 4 or tuple(dwk.shape) != (9, x.shape[-1]):
         raise ValueError(f"{name}: x {tuple(x.shape)}, dwk "
                          f"{tuple(dwk.shape)} are not (B, H, W, C), (9, C)")
@@ -48,10 +49,13 @@ def _check(name: str, x: torch.Tensor, dwk: torch.Tensor) -> None:
         raise ValueError(f"{name}: x and dwk must be contiguous bf16")
 
 
-def _launch(name: str, x: torch.Tensor, dwk: torch.Tensor,
-            y: torch.Tensor) -> None:
+def _launch(name: str, x: torch.Tensor, dwk: torch.Tensor) -> torch.Tensor:
     from openpose_plus_tpu_torch.ops.cuda import build
 
+    _check(name, x, dwk)
+    y = torch.empty_like(x)
+    if not y.numel():
+        return y
     lib = build.load()
     b, h, w, c = x.shape
     x, dwk = _aligned(x, 16), _aligned(dwk, 16)
@@ -59,29 +63,54 @@ def _launch(name: str, x: torch.Tensor, dwk: torch.Tensor,
         x.data_ptr(), dwk.data_ptr(), y.data_ptr(), b, h, w, c,
         x.device.index, torch.cuda.current_stream(x.device).cuda_stream)
     build.check(lib, err, f"{name}_launch")
+    return y
+
+
+def _fake(x, dwk):
+    return x.new_empty(x.shape, dtype=torch.bfloat16)
+
+
+@torch.library.custom_op(f"{NAMESPACE}::dw3x3_relu", mutates_args=(),
+                         device_types="cpu",
+                         schema="(Tensor x, Tensor dwk) -> Tensor")
+def _dw3x3_relu_op(x: torch.Tensor, dwk: torch.Tensor) -> torch.Tensor:
+    return dw3x3_relu_plain(x, dwk)
+
+
+@_dw3x3_relu_op.register_kernel("cuda")
+def _(x: torch.Tensor, dwk: torch.Tensor) -> torch.Tensor:
+    global dw3x3_relu_launches
+    y = _launch("dw3x3_relu", x, dwk)
+    dw3x3_relu_launches += bool(y.numel())
+    return y
+
+
+@torch.library.custom_op(f"{NAMESPACE}::copy_bias", mutates_args=(),
+                         device_types="cpu",
+                         schema="(Tensor x, Tensor dwk) -> Tensor")
+def _copy_bias_op(x: torch.Tensor, dwk: torch.Tensor) -> torch.Tensor:
+    return copy_bias_plain(x, dwk)
+
+
+@_copy_bias_op.register_kernel("cuda")
+def _(x: torch.Tensor, dwk: torch.Tensor) -> torch.Tensor:
+    global copy_bias_launches
+    y = _launch("copy_bias", x, dwk)
+    copy_bias_launches += bool(y.numel())
+    return y
+
+
+_dw3x3_relu_op.register_fake(_fake)
+_copy_bias_op.register_fake(_fake)
 
 
 def dw3x3_relu(x: torch.Tensor, dwk: torch.Tensor) -> torch.Tensor:
-    """Dispatching wrapper; same contract as `dw3x3_relu_plain`."""
-    global dw3x3_relu_launches
-    if x.device.type == "cpu":
-        return dw3x3_relu_plain(x, dwk)
-    _check("dw3x3_relu", x, dwk)
-    y = torch.empty_like(x)
-    if y.numel():
-        _launch("dw3x3_relu", x, dwk, y)
-        dw3x3_relu_launches += 1
-    return y
+    """Dispatching wrapper (the op); same contract as `dw3x3_relu_plain`."""
+    check_device("dw3x3_relu", x)
+    return _dw3x3_relu_op(x, dwk)
 
 
 def copy_bias(x: torch.Tensor, dwk: torch.Tensor) -> torch.Tensor:
-    """Dispatching wrapper; same contract as `copy_bias_plain`."""
-    global copy_bias_launches
-    if x.device.type == "cpu":
-        return copy_bias_plain(x, dwk)
-    _check("copy_bias", x, dwk)
-    y = torch.empty_like(x)
-    if y.numel():
-        _launch("copy_bias", x, dwk, y)
-        copy_bias_launches += 1
-    return y
+    """Dispatching wrapper (the op); same contract as `copy_bias_plain`."""
+    check_device("copy_bias", x)
+    return _copy_bias_op(x, dwk)

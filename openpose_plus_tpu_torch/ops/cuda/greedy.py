@@ -9,14 +9,18 @@ and limb, four to a 128-thread block; each round a `redux.sync` max of
 order-preserving integer keys and a `redux.sync` min of the index; the
 loop ends at the first round that finds nothing).
 
-`greedy_assign` dispatches on the device of its input: a CPU tensor takes
-`greedy_assign_plain`, a CUDA tensor launches the kernel or raises. Each
-launch adds one to the module-level `launches` count.
+`greedy_assign` calls the op `openpose_plus_tpu_torch::greedy_assign`
+(torch.library), which dispatches on the device of its input: a CPU tensor
+takes `greedy_assign_plain`, a CUDA tensor launches the kernel or raises.
+Each launch adds one to the module-level `launches` count. As an op it
+traces into torch.export graphs and CUDA-graph captures as one node.
 """
 
 from __future__ import annotations
 
 import torch
+
+from openpose_plus_tpu_torch.ops import NAMESPACE, check_device
 
 N_LIMBS = 19
 MAX_K = 32
@@ -58,13 +62,26 @@ def greedy_assign_plain(scores: torch.Tensor, max_peaks: int
             torch.cat(out_s, -1), torch.cat(out_v, -1))
 
 
-def greedy_assign(scores: torch.Tensor, max_peaks: int
-                  ) -> tuple[torch.Tensor, ...]:
-    """Dispatching wrapper; same contract as `greedy_assign_plain`."""
-    if scores.device.type == "cpu":
-        return greedy_assign_plain(scores, max_peaks)
-    if scores.device.type != "cuda":
-        raise ValueError(f"greedy_assign: unsupported device {scores.device}")
+@torch.library.custom_op(
+    f"{NAMESPACE}::greedy_assign", mutates_args=(), device_types="cpu",
+    schema="(Tensor scores, int max_peaks) -> (Tensor, Tensor, Tensor, "
+           "Tensor)")
+def _greedy_assign_op(scores: torch.Tensor, max_peaks: int
+                      ) -> tuple[torch.Tensor, ...]:
+    return greedy_assign_plain(scores, max_peaks)
+
+
+@_greedy_assign_op.register_fake
+def _(scores, max_peaks):
+    b, n_limbs, k = scores.shape[:3]
+    slot = scores.new_empty((b, n_limbs, k), dtype=torch.int32)
+    return (slot, torch.empty_like(slot), scores.new_empty((b, n_limbs, k)),
+            scores.new_empty((b, n_limbs, k), dtype=torch.bool))
+
+
+@_greedy_assign_op.register_kernel("cuda")
+def _greedy_assign_cuda(scores: torch.Tensor, max_peaks: int
+                        ) -> tuple[torch.Tensor, ...]:
     b, n_limbs, k, k2 = scores.shape
     if (n_limbs, k2) != (N_LIMBS, k) or k != max_peaks:
         raise ValueError(f"greedy_assign: scores {tuple(scores.shape)} is "
@@ -91,3 +108,11 @@ def greedy_assign(scores: torch.Tensor, max_peaks: int
     build.check(lib, err, "greedy_assign_launch")
     launches += 1
     return slot_a, slot_b, score, valid
+
+
+def greedy_assign(scores: torch.Tensor, max_peaks: int
+                  ) -> tuple[torch.Tensor, ...]:
+    """Dispatching wrapper (the op); same contract as
+    `greedy_assign_plain`."""
+    check_device("greedy_assign", scores)
+    return _greedy_assign_op(scores, max_peaks)

@@ -31,9 +31,10 @@ the epilogues are the same correctly rounded float32 operations. The plain
 conv takes the products in float64 (exact: |acc| <= 127^2 * 7*7*576 <
 2^53), rounds to int32 and runs the same epilogue as separate PyTorch ops.
 
-`int8_conv` and `quantize_act` dispatch on the device of their input: a
-CPU tensor takes the plain version, a CUDA tensor launches the kernel or
-raises. Each launch adds one to `launches` (the conv) or
+`int8_conv` and `quantize_act` call the ops `openpose_plus_tpu_torch::
+int8_conv` and `::quantize_act` (torch.library), which dispatch on the
+device of their input: a CPU tensor takes the plain version, a CUDA tensor
+launches the kernel or raises. Each launch adds one to `launches` (the conv) or
 `quantize_launches`. The scales stay on the device (0-d float32 tensors
 read by the kernels): no host synchronisation, and no division by a host
 scalar, which PyTorch on the card would turn into a multiply by the
@@ -42,10 +43,10 @@ reciprocal.
 
 from __future__ import annotations
 
-import functools
-
 import torch
 import torch.nn.functional as F
+
+from openpose_plus_tpu_torch.ops import NAMESPACE, check_device, device_cache
 
 launches = 0            # int8_conv kernel launches in this process
 quantize_launches = 0   # quantize_act kernel launches in this process
@@ -60,7 +61,7 @@ CORNER = 128            # a 4-D im2col map's corners lie in [-128, 127]
 MAX_BLOCKS = 2 ** 31 - 1
 
 
-@functools.lru_cache(maxsize=None)
+@device_cache
 def device_scalar(value: float, device: torch.device) -> torch.Tensor:
     """A float32 0-d tensor on `device` (dividing by it is a true division
     everywhere), made once per device: a forward then copies nothing from
@@ -214,17 +215,32 @@ def _scalar_on(t: torch.Tensor, dev: torch.device, what: str) -> None:
                          f"{t.dtype} {tuple(t.shape)} on {t.device}")
 
 
-def int8_conv(q: torch.Tensor, w_packed: torch.Tensor, kernel: int,
-              rescale: torch.Tensor, bias: torch.Tensor, stride: int,
-              pads: tuple[int, int],
-              s_out: torch.Tensor | None = None) -> torch.Tensor:
-    """Dispatching wrapper; same contract as `int8_conv_plain`. On the card
-    every tensor must be contiguous and on q's device."""
-    if q.device.type == "cpu":
-        return int8_conv_plain(q, w_packed, kernel, rescale, bias, stride,
-                               pads, s_out)
-    if q.device.type != "cuda":
-        raise ValueError(f"int8_conv: unsupported device {q.device}")
+@torch.library.custom_op(
+    f"{NAMESPACE}::int8_conv", mutates_args=(), device_types="cpu",
+    schema="(Tensor q, Tensor w_packed, int kernel, Tensor rescale, Tensor "
+           "bias, int stride, int[] pads, Tensor? s_out) -> Tensor")
+def _int8_conv_op(q: torch.Tensor, w_packed: torch.Tensor, kernel: int,
+                  rescale: torch.Tensor, bias: torch.Tensor, stride: int,
+                  pads: list[int], s_out: torch.Tensor | None
+                  ) -> torch.Tensor:
+    return int8_conv_plain(q, w_packed, kernel, rescale, bias, stride,
+                           tuple(pads), s_out)
+
+
+@_int8_conv_op.register_fake
+def _(q, w_packed, kernel, rescale, bias, stride, pads, s_out):
+    b, _, _, _, cout, ho, wo = _geometry(q, w_packed, kernel, stride,
+                                         tuple(pads), "int8_conv")
+    return q.new_empty((b, ho, wo, cout), dtype=torch.bfloat16
+                       if s_out is None else torch.int8)
+
+
+@_int8_conv_op.register_kernel("cuda")
+def _int8_conv_cuda(q: torch.Tensor, w_packed: torch.Tensor, kernel: int,
+                    rescale: torch.Tensor, bias: torch.Tensor, stride: int,
+                    pads: list[int], s_out: torch.Tensor | None
+                    ) -> torch.Tensor:
+    pads = tuple(pads)
     b, h, w, cin, cout, ho, wo = _geometry(q, w_packed, kernel, stride,
                                            pads, "int8_conv")
     if q.dtype != torch.int8 or w_packed.dtype != torch.int8:
@@ -269,13 +285,25 @@ def int8_conv(q: torch.Tensor, w_packed: torch.Tensor, kernel: int,
     return y
 
 
-def quantize_act(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
-    """Dispatching wrapper of `quantize_act_plain`; on the card x must be
-    contiguous bf16 and scale one float32 on its device."""
-    if x.device.type == "cpu":
-        return quantize_act_plain(x, scale)
-    if x.device.type != "cuda":
-        raise ValueError(f"quantize_act: unsupported device {x.device}")
+def _quantized_shape(x: torch.Tensor) -> tuple[int, ...]:
+    """quantize_act's output shape: the last axis padded to `padded(C)`."""
+    return (*x.shape[:-1], padded(x.shape[-1])) if x.dim() > 0 else ()
+
+
+@torch.library.custom_op(
+    f"{NAMESPACE}::quantize_act", mutates_args=(), device_types="cpu",
+    schema="(Tensor x, Tensor scale) -> Tensor")
+def _quantize_act_op(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    return quantize_act_plain(x, scale)
+
+
+@_quantize_act_op.register_fake
+def _(x, scale):
+    return x.new_empty(_quantized_shape(x), dtype=torch.int8)
+
+
+@_quantize_act_op.register_kernel("cuda")
+def _quantize_act_cuda(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     if x.dtype != torch.bfloat16 or not x.is_contiguous():
         raise ValueError(f"quantize_act kernel takes contiguous bf16, got "
                          f"{x.dtype} (contiguous: {x.is_contiguous()})")
@@ -285,8 +313,7 @@ def quantize_act(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     global quantize_launches
     c = x.shape[-1] if x.dim() > 0 else 1
     cp = padded(c) if x.dim() > 0 else c
-    out = torch.empty((*x.shape[:-1], cp) if x.dim() > 0 else (),
-                      dtype=torch.int8, device=x.device)
+    out = torch.empty(_quantized_shape(x), dtype=torch.int8, device=x.device)
     if x.numel() == 0:
         return out
     if cp == c:                 # one flat pass
@@ -302,3 +329,21 @@ def quantize_act(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     build.check(lib, err, "quantize_act_launch")
     quantize_launches += 1
     return out
+
+
+def int8_conv(q: torch.Tensor, w_packed: torch.Tensor, kernel: int,
+              rescale: torch.Tensor, bias: torch.Tensor, stride: int,
+              pads: tuple[int, int],
+              s_out: torch.Tensor | None = None) -> torch.Tensor:
+    """Dispatching wrapper (the op); same contract as `int8_conv_plain`. On
+    the card every tensor must be contiguous and on q's device."""
+    check_device("int8_conv", q)
+    return _int8_conv_op(q, w_packed, kernel, rescale, bias, stride,
+                         list(pads), s_out)
+
+
+def quantize_act(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """Dispatching wrapper (the op) of `quantize_act_plain`; on the card x
+    must be contiguous bf16 and scale one float32 on its device."""
+    check_device("quantize_act", x)
+    return _quantize_act_op(x, scale)

@@ -12,18 +12,18 @@ per image that stages its inputs in shared memory and compacts the valid
 slots, then one warp whose chain over them runs in registers and shared
 memory only.
 
-`assemble` dispatches on the device of its inputs: CPU tensors take
+`assemble` calls the op `openpose_plus_tpu_torch::assemble` (torch.library),
+which dispatches on the device of its inputs: CPU tensors take
 `assemble_plain`, CUDA tensors launch the kernel or raise. Each launch adds
 one to the module-level `launches` count.
 """
 
 from __future__ import annotations
 
-import functools
-
 import torch
 
 from openpose_plus_tpu_torch import skeleton
+from openpose_plus_tpu_torch.ops import NAMESPACE, check_device, device_cache
 
 N_PARTS = skeleton.N_PARTS
 MAX_HUMANS = 32        # one warp lane per human row
@@ -129,23 +129,42 @@ def assemble_plain(slot_a: torch.Tensor, slot_b: torch.Tensor,
     return parts, subset_score, count
 
 
-@functools.lru_cache(maxsize=None)
+@device_cache
 def limb_pairs(device: torch.device) -> torch.Tensor:
     """(L, 2) int32 part indices of each limb's endpoints, one cached copy
     per device (the kernel's table; the PAF scorer indexes with it too)."""
     return torch.as_tensor(skeleton.pairs_array(), device=device)
 
 
-def assemble(slot_a: torch.Tensor, slot_b: torch.Tensor, score: torch.Tensor,
-             valid: torch.Tensor, peak_score: torch.Tensor, max_peaks: int,
-             max_humans: int
-             ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Dispatching wrapper; same contract as `assemble_plain`."""
-    if slot_a.device.type == "cpu":
-        return assemble_plain(slot_a, slot_b, score, valid, peak_score,
-                              max_peaks, max_humans)
-    if slot_a.device.type != "cuda":
-        raise ValueError(f"assemble: unsupported device {slot_a.device}")
+_SCHEMA = ("(Tensor slot_a, Tensor slot_b, Tensor score, Tensor valid, "
+           "Tensor peak_score, int max_peaks, int max_humans) -> (Tensor, "
+           "Tensor, Tensor)")
+
+
+@torch.library.custom_op(f"{NAMESPACE}::assemble", mutates_args=(),
+                         device_types="cpu", schema=_SCHEMA)
+def _assemble_op(slot_a: torch.Tensor, slot_b: torch.Tensor,
+                 score: torch.Tensor, valid: torch.Tensor,
+                 peak_score: torch.Tensor, max_peaks: int, max_humans: int
+                 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    return assemble_plain(slot_a, slot_b, score, valid, peak_score,
+                          max_peaks, max_humans)
+
+
+@_assemble_op.register_fake
+def _(slot_a, slot_b, score, valid, peak_score, max_peaks, max_humans):
+    b = slot_a.shape[0]
+    i32, f32 = torch.int32, torch.float32
+    return (slot_a.new_empty((b, max_humans, N_PARTS), dtype=i32),
+            slot_a.new_empty((b, max_humans), dtype=f32),
+            slot_a.new_empty((b, max_humans), dtype=i32))
+
+
+@_assemble_op.register_kernel("cuda")
+def _assemble_cuda(slot_a: torch.Tensor, slot_b: torch.Tensor,
+                   score: torch.Tensor, valid: torch.Tensor,
+                   peak_score: torch.Tensor, max_peaks: int, max_humans: int
+                   ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     b, n_limbs, k = slot_a.shape
     expect = {"slot_a": (slot_a, torch.int32, (b, n_limbs, k)),
               "slot_b": (slot_b, torch.int32, (b, n_limbs, k)),
@@ -186,3 +205,13 @@ def assemble(slot_a: torch.Tensor, slot_b: torch.Tensor, score: torch.Tensor,
     build.check(lib, err, "assemble_launch")
     launches += 1
     return parts, subset_score, count
+
+
+def assemble(slot_a: torch.Tensor, slot_b: torch.Tensor, score: torch.Tensor,
+             valid: torch.Tensor, peak_score: torch.Tensor, max_peaks: int,
+             max_humans: int
+             ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Dispatching wrapper (the op); same contract as `assemble_plain`."""
+    check_device("assemble", slot_a)
+    return _assemble_op(slot_a, slot_b, score, valid, peak_score, max_peaks,
+                        max_humans)

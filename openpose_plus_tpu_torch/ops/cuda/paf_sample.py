@@ -7,23 +7,23 @@ limb are sampled at integer (y, x) points, bit-identical to a gather; the
 port batches the TPU kernel's single image as (B, ...). On the H100 the
 kernel is bound by latency and scattered reads: one thread per sample.
 
-`sample_paf` dispatches on the device of `paf`: a CPU tensor takes
-`sample_paf_plain`, a CUDA tensor launches the kernel or raises. Each launch
-adds one to the module-level `launches` count.
+`sample_paf` calls the op `openpose_plus_tpu_torch::sample_paf`
+(torch.library), which dispatches on the device of `paf`: a CPU tensor
+takes `sample_paf_plain`, a CUDA tensor launches the kernel or raises. Each
+launch adds one to the module-level `launches` count.
 """
 
 from __future__ import annotations
 
-import functools
-
 import torch
 
 from openpose_plus_tpu_torch import skeleton
+from openpose_plus_tpu_torch.ops import NAMESPACE, check_device, device_cache
 
 launches = 0   # kernel launches in this process (see module docstring)
 
 
-@functools.lru_cache(maxsize=None)
+@device_cache
 def limb_channels(device: torch.device) -> torch.Tensor:
     """(L, 2) int64 PAF channels (x, y) of each limb, one cached copy per
     device (the kernel's table)."""
@@ -44,14 +44,25 @@ def sample_paf_plain(paf: torch.Tensor, sy: torch.Tensor, sx: torch.Tensor,
     return px.reshape(sy.shape), py.reshape(sy.shape)
 
 
-def sample_paf(paf: torch.Tensor, sy: torch.Tensor, sx: torch.Tensor,
-               chans: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """Dispatching wrapper; same contract as `sample_paf_plain`. On the card
-    every input must be contiguous."""
-    if paf.device.type == "cpu":
-        return sample_paf_plain(paf, sy, sx, chans)
-    if paf.device.type != "cuda":
-        raise ValueError(f"sample_paf: unsupported device {paf.device}")
+@torch.library.custom_op(
+    f"{NAMESPACE}::sample_paf", mutates_args=(), device_types="cpu",
+    schema="(Tensor paf, Tensor sy, Tensor sx, Tensor chans) -> (Tensor, "
+           "Tensor)")
+def _sample_paf_op(paf: torch.Tensor, sy: torch.Tensor, sx: torch.Tensor,
+                   chans: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    return sample_paf_plain(paf, sy, sx, chans)
+
+
+@_sample_paf_op.register_fake
+def _(paf, sy, sx, chans):
+    px = sy.new_empty(sy.shape, dtype=paf.dtype)
+    return px, torch.empty_like(px)
+
+
+@_sample_paf_op.register_kernel("cuda")
+def _sample_paf_cuda(paf: torch.Tensor, sy: torch.Tensor, sx: torch.Tensor,
+                     chans: torch.Tensor
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
     if any(t.device != paf.device for t in (sy, sx, chans)):
         raise ValueError("sample_paf: all tensors must be on one device")
     if paf.dim() != 4 or sy.dim() < 2 or sy.shape != sx.shape or (
@@ -85,3 +96,11 @@ def sample_paf(paf: torch.Tensor, sy: torch.Tensor, sx: torch.Tensor,
     build.check(lib, err, "sample_paf_launch")
     launches += 1
     return px, py
+
+
+def sample_paf(paf: torch.Tensor, sy: torch.Tensor, sx: torch.Tensor,
+               chans: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Dispatching wrapper (the op); same contract as `sample_paf_plain`.
+    On the card every input must be contiguous."""
+    check_device("sample_paf", paf)
+    return _sample_paf_op(paf, sy, sx, chans)

@@ -19,7 +19,8 @@ stride 1, SAME padding, bf16 in and out, f32 accumulation. The JAX
 package's layouts: x (B, H, W, C), dw_kernel (3, 3, 1, C), pw_kernel
 (1, 1, C, F); weights of any float type are cast to bf16 per call.
 
-`fused_sepconv` dispatches on the device of `x`: a CPU tensor takes
+`fused_sepconv` calls the op `openpose_plus_tpu_torch::fused_sepconv`
+(torch.library), which dispatches on the device of `x`: a CPU tensor takes
 `fused_sepconv_plain`, a CUDA tensor launches the kernel or raises. Each
 launch adds one to the module-level `launches` count. There is no backward
 (the TPU kernel has no VJP either): the wrapper raises when grad mode is on
@@ -30,6 +31,8 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+from openpose_plus_tpu_torch.ops import NAMESPACE, check_device
 
 launches = 0   # kernel launches in this process (see module docstring)
 
@@ -96,25 +99,28 @@ def _aligned(t: torch.Tensor, nbytes: int) -> torch.Tensor:
     return t if t.data_ptr() % nbytes == 0 else t.clone()
 
 
-def fused_sepconv(x: torch.Tensor, dw_kernel: torch.Tensor,
-                  dw_bias: torch.Tensor, pw_kernel: torch.Tensor,
-                  pw_bias: torch.Tensor, stride: int = 1) -> torch.Tensor:
-    """Dispatching wrapper; same contract as `fused_sepconv_plain`. On the
-    card x must be bf16 and NHWC-contiguous (the NCHW channels-last
-    activations of the port's model, permuted to NHWC, are)."""
+@torch.library.custom_op(
+    f"{NAMESPACE}::fused_sepconv", mutates_args=(), device_types="cpu",
+    schema="(Tensor x, Tensor dw_kernel, Tensor dw_bias, Tensor pw_kernel, "
+           "Tensor pw_bias) -> Tensor")
+def _fused_sepconv_op(x: torch.Tensor, dw_kernel: torch.Tensor,
+                      dw_bias: torch.Tensor, pw_kernel: torch.Tensor,
+                      pw_bias: torch.Tensor) -> torch.Tensor:
+    return fused_sepconv_plain(x, dw_kernel, dw_bias, pw_kernel, pw_bias)
+
+
+@_fused_sepconv_op.register_fake
+def _(x, dw_kernel, dw_bias, pw_kernel, pw_bias):
+    _bf16_weights(x, dw_kernel, dw_bias, pw_kernel, pw_bias)   # the checks
+    return x.new_empty((*x.shape[:3], pw_kernel.shape[-1]),
+                       dtype=torch.bfloat16)
+
+
+@_fused_sepconv_op.register_kernel("cuda")
+def _fused_sepconv_cuda(x: torch.Tensor, dw_kernel: torch.Tensor,
+                        dw_bias: torch.Tensor, pw_kernel: torch.Tensor,
+                        pw_bias: torch.Tensor) -> torch.Tensor:
     args = (x, dw_kernel, dw_bias, pw_kernel, pw_bias)
-    if torch.is_grad_enabled() and any(t.requires_grad for t in args):
-        raise RuntimeError(
-            "fused_sepconv has no backward (nor has the TPU kernel): call it "
-            "under torch.no_grad() or inference_mode; train with "
-            "fused_inference=False")
-    if stride != 1:
-        raise ValueError(f"fused_sepconv is stride 1 only, got {stride}; "
-                         "strided layers run the unfused pair")
-    if x.device.type == "cpu":
-        return fused_sepconv_plain(*args)
-    if x.device.type != "cuda":
-        raise ValueError(f"fused_sepconv: unsupported device {x.device}")
     if any(t.device != x.device for t in args):
         raise ValueError("fused_sepconv: all tensors must be on one device")
     if x.dtype != torch.bfloat16:
@@ -140,3 +146,22 @@ def fused_sepconv(x: torch.Tensor, dw_kernel: torch.Tensor,
     build.check(lib, err, "fused_sepconv_launch")
     launches += 1
     return y
+
+
+def fused_sepconv(x: torch.Tensor, dw_kernel: torch.Tensor,
+                  dw_bias: torch.Tensor, pw_kernel: torch.Tensor,
+                  pw_bias: torch.Tensor, stride: int = 1) -> torch.Tensor:
+    """Dispatching wrapper (the op); same contract as `fused_sepconv_plain`.
+    On the card x must be bf16 and NHWC-contiguous (the NCHW channels-last
+    activations of the port's model, permuted to NHWC, are)."""
+    args = (x, dw_kernel, dw_bias, pw_kernel, pw_bias)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in args):
+        raise RuntimeError(
+            "fused_sepconv has no backward (nor has the TPU kernel): call it "
+            "under torch.no_grad() or inference_mode; train with "
+            "fused_inference=False")
+    if stride != 1:
+        raise ValueError(f"fused_sepconv is stride 1 only, got {stride}; "
+                         "strided layers run the unfused pair")
+    check_device("fused_sepconv", x)
+    return _fused_sepconv_op(*args)

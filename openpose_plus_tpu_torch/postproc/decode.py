@@ -19,6 +19,7 @@ import torch
 
 from openpose_plus_tpu_torch import skeleton
 from openpose_plus_tpu_torch.config import PostprocConfig
+from openpose_plus_tpu_torch.ops import device_cache
 from openpose_plus_tpu_torch.postproc import group, nms, paf
 
 
@@ -232,7 +233,7 @@ def merge_fragments(coords: torch.Tensor, part_scores: torch.Tensor,
     return coords, part_scores, pvd, sc, cnt
 
 
-@functools.lru_cache(maxsize=None)
+@device_cache
 def _grid_size(w: int, h: int, device: torch.device) -> torch.Tensor:
     """float32 (w, h) on `device`, cached: a tensor, so the division by it
     is a true division on every device (a Python scalar divisor may become
@@ -252,7 +253,7 @@ def _oks_sigmas_18() -> np.ndarray:
     return sig
 
 
-@functools.lru_cache(maxsize=None)
+@device_cache
 def _oks_var(device: torch.device) -> torch.Tensor:
     """(2 sigma)^2 per part on `device`, cached."""
     sig = torch.as_tensor(_oks_sigmas_18(), device=device)

@@ -15,12 +15,11 @@ each equal to its original.
 
 from __future__ import annotations
 
-import functools
-
 import numpy as np
 import torch
 
 from openpose_plus_tpu_torch import skeleton
+from openpose_plus_tpu_torch.ops import device_cache
 
 
 def _part_swap() -> np.ndarray:
@@ -72,7 +71,7 @@ def paf_channel_permutation() -> tuple[np.ndarray, np.ndarray]:
 _PAF_PERM, _PAF_SIGN = paf_channel_permutation()
 
 
-@functools.lru_cache(maxsize=None)
+@device_cache
 def _tables(device: torch.device
             ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The part swap, PAF permutation and PAF sign on `device`, cached (no

@@ -20,6 +20,7 @@ import torch
 import torch.nn.functional as F
 
 from openpose_plus_tpu_torch import skeleton
+from openpose_plus_tpu_torch.ops import device_cache
 from openpose_plus_tpu_torch.postproc import common
 
 
@@ -65,7 +66,7 @@ def _upsample_smooth_matrix(n_in: int, factor: int, sigma: float
     return r.astype(np.float32)
 
 
-@functools.lru_cache(maxsize=None)
+@device_cache
 def _operator(n_in: int, factor: int, sigma: float, device: torch.device
               ) -> torch.Tensor:
     """`_upsample_smooth_matrix` as a float64 tensor, cached per device (a

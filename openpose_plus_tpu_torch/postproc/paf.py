@@ -10,11 +10,11 @@ dispatching wrappers of the CUDA sampling and greedy kernels
 from __future__ import annotations
 
 import dataclasses
-import functools
 
 import numpy as np
 import torch
 
+from openpose_plus_tpu_torch.ops import device_cache
 from openpose_plus_tpu_torch.ops.cuda import greedy, merge, paf_sample
 from openpose_plus_tpu_torch.postproc import common, nms
 from openpose_plus_tpu_torch.postproc.nms import PeakSet
@@ -42,7 +42,7 @@ def sample_coords(ax: torch.Tensor, ay: torch.Tensor, dx: torch.Tensor,
     return sy.to(torch.int32), sx.to(torch.int32)
 
 
-@functools.lru_cache(maxsize=None)
+@device_cache
 def _tables(device: torch.device, n_samples: int
             ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Limb endpoint pairs ((L, 2) int32, the merge kernel's table), PAF

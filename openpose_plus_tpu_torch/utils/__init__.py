@@ -1,1 +1,2 @@
-"""Host-side helpers (debug renders)."""
+"""Host-side helpers: skeleton drawing and debug renders (`vis`), scope
+timing and device traces (`tracer`)."""

@@ -528,3 +528,135 @@ def test_int8_engine_runs_every_int8_layer_through_the_kernel(cuda, name):
         int8_conv.int8_conv, int8_conv.quantize_act = kernel, quant
     for a, b in zip(maps, plain):
         assert torch.equal(a, b)
+
+
+# ------------------------------------------------------ the deploy path ---
+
+def _deploy_engine(cuda, dtype="bfloat16", fused=False):
+    """A small MobileNet-thin on the card, its last stage's prediction
+    kernels scaled (as tests/test_torch_engine.py scales them) so random
+    images decode to humans."""
+    import dataclasses
+
+    from openpose_plus_tpu_torch import Engine, default_config
+
+    cfg = default_config("mobilenet_thin")
+    cfg = cfg.replace(model=dataclasses.replace(
+        cfg.model, hin=64, win=80, n_stages=2, compute_dtype=dtype,
+        fused_inference=fused))
+    engine = Engine(cfg, seed=3, device=cuda)
+    with torch.no_grad():
+        for name, p in engine.model.named_parameters():
+            for branch, gain in (("conf", 400.0), ("paf", 1000.0)):
+                if name.endswith(f"stage2_{branch}.Conv_0.weight"):
+                    p.mul_(gain)
+    return engine
+
+
+def _deploy_images(cuda, seed, b=2):
+    return torch.from_numpy(np.random.default_rng(seed).integers(
+        0, 256, (b, 64, 80, 3), dtype=np.uint8)).to(cuda)
+
+
+def _same_humans(a, b):
+    import dataclasses
+
+    return all(torch.equal(getattr(a, f.name), getattr(b, f.name))
+               for f in dataclasses.fields(a))
+
+
+@pytest.mark.parametrize("fused", [False, True])
+def test_compiled_replay_equals_eager(cuda, fused):
+    """compile captures infer in a CUDA graph: the replay launches no
+    kernel from Python (the counts stay) and gives the eager HumanBatch;
+    the s2d^2 layout compiles too; other shapes and flip-TTA stay eager."""
+    from openpose_plus_tpu_torch.models.common import space_to_depth
+
+    engine = _deploy_engine(cuda, fused=fused)
+    images = _deploy_images(cuda, 0)
+    eager = engine.infer(images)
+    flip = engine.infer(images, flip_tta=True)
+    packed = space_to_depth(space_to_depth(images))
+    engine.compile(2)
+    engine.compile(2, "s2d2")
+    assert all(v is not None for v in engine._graphs.values())
+    before = (greedy.launches, merge.launches, sepconv.launches)
+    out = engine.infer(images)
+    out2 = engine.infer(packed)
+    torch.cuda.synchronize()
+    assert (greedy.launches, merge.launches, sepconv.launches) == before
+    assert _same_humans(out, eager) and _same_humans(out2, eager)
+    assert int(out.num_humans.sum()) >= 1
+    assert _same_humans(engine.infer(images, flip_tta=True), flip)
+    before = (greedy.launches,)
+    engine.infer(images[:1])               # another shape: eager
+    torch.cuda.synchronize()
+    assert greedy.launches == before[0] + 1
+
+
+def test_compiled_result_survives_the_next_call(cuda):
+    engine = _deploy_engine(cuda)
+    a, b = _deploy_images(cuda, 1), _deploy_images(cuda, 2)
+    eager_a, eager_b = engine.infer(a), engine.infer(b)
+    assert not _same_humans(eager_a, eager_b)
+    engine.compile(2)
+    held = engine.infer(a)
+    second = engine.infer(b)
+    torch.cuda.synchronize()
+    assert _same_humans(held, eager_a) and _same_humans(second, eager_b)
+
+
+def test_calibrate_drops_the_graph(cuda):
+    """An uncalibrated int8 engine captures at its first (calibrating)
+    infer; calibrate() drops the graph, the next infer captures again, and
+    every replay equals the eager step of the engine as it then is."""
+    from openpose_plus_tpu_torch.engine import infer_step
+
+    engine = _deploy_engine(cuda, dtype="int8")
+    images = _deploy_images(cuda, 3)
+    engine.compile(2)
+    shape = tuple(images.shape)
+    assert engine._graphs == {shape: None}
+
+    def eager():
+        with torch.inference_mode():
+            return infer_step(engine.model, images, engine.config.postproc)
+
+    out = engine.infer(images)
+    assert engine._graphs[shape] is not None
+    assert _same_humans(out, eager())
+    engine.calibrate(_deploy_images(cuda, 4) // 2 + 128)
+    assert engine._graphs == {shape: None}
+    out = engine.infer(images)
+    assert engine._graphs[shape] is not None
+    assert _same_humans(out, eager())
+
+
+def test_stream_and_export_on_the_card(cuda, tmp_path):
+    """StreamEstimator compiles the engine and stages frames through its
+    pinned buffers: each result equals infer on the letterboxed batch. An
+    artifact exported on the card reloads and launches the kernels."""
+    from openpose_plus_tpu_torch import export, host, stream
+    from openpose_plus_tpu_torch.data.augment import letterbox
+
+    engine = _deploy_engine(cuda)
+    m = engine.config.model
+    rng = np.random.default_rng(5)
+    frames = [rng.integers(0, 256, (h, w, 3), dtype=np.uint8)
+              for h, w in ((50, 70), (64, 80), (90, 40), (33, 81), (64, 99))]
+    est = stream.StreamEstimator(engine, batch=2)
+    results = list(est.run_frames(frames))
+    assert [r.n for r in results] == [2, 2, 1]
+    for r in results:
+        batch = np.zeros(est.shape, np.uint8)
+        batch[:r.n] = [host.pack(letterbox(frames[i], m.hin, m.win)[0],
+                                 est.s2d) for i in r.indices]
+        assert _same_humans(r.humans, engine.infer(batch))
+    export.save_engine(engine, str(tmp_path / "a"), batch_size=2)
+    loaded = export.load_engine(str(tmp_path / "a"))
+    images = _deploy_images(cuda, 6)
+    before = greedy.launches
+    out = loaded.infer(images)
+    torch.cuda.synchronize()
+    assert greedy.launches == before + 1
+    assert _same_humans(out, engine.infer(images))

@@ -138,8 +138,10 @@ def test_seeded_init_is_reproducible():
                                   "calibrate_from_paths", "compile",
                                   "build_decoder"])
 def test_unported_paths_raise(call):
-    """The reference's API on the port: multi-device serving and `compile`
-    (the CUDA-graph capture, ROADMAP item 8) raise naming their items;
+    """The reference's API on the port: multi-device serving raises naming
+    its item; `compile` on a CPU engine validates the layout as the
+    reference does, runs one warm-up call and leaves `infer` unchanged (the
+    CUDA-graph capture is the card's; tests/test_torch_cuda.py);
     `calibrate` and `calibrate_from_paths` are no-ops on a float engine, as
     in the reference; `fast_init` is accepted and changes nothing;
     `postproc.build_decoder` binds a config to `decode_maps`."""
@@ -170,10 +172,15 @@ def test_unported_paths_raise(call):
     if call == "compile":
         with pytest.raises(ValueError, match="input_layout"):
             engine.compile(1, "nchw")
-        with pytest.raises(NotImplementedError, match="item 8"):
-            engine.compile(1, "s2d")
-        return
-    if call == "calibrate":
+        odd = Engine(cfg.replace(model=dataclasses.replace(cfg.model,
+                                                           hin=62)),
+                     device="cpu")
+        with pytest.raises(ValueError, match="not supported"):
+            odd.compile(1, "s2d2")
+        engine.compile(1, "s2d")
+        engine.compile(1)
+        assert engine._graphs == {}          # the CPU engine stays eager
+    elif call == "calibrate":
         assert engine.calibrate(images) is None
     else:
         assert engine.calibrate_from_paths(["missing.jpg"]) is None
@@ -204,10 +211,10 @@ import torch
 import chip_smoke
 import openpose_plus_tpu_torch
 from openpose_plus_tpu_torch import Engine, default_config
-from openpose_plus_tpu_torch import (ap_bench, ap_oracle, checkpoint, data,
-                                     engine, eval_coco, models, postproc,
-                                     train)
-from openpose_plus_tpu_torch.utils import vis
+from openpose_plus_tpu_torch import (ap_bench, ap_oracle, checkpoint, cli,
+                                     data, engine, eval_coco, export, host,
+                                     models, postproc, stream, train)
+from openpose_plus_tpu_torch.utils import tracer, vis
 from openpose_plus_tpu_torch.models import hao28, vgg19, vggtiny
 from openpose_plus_tpu_torch.models.common import space_to_depth
 from openpose_plus_tpu_torch.ops import cuda
@@ -231,6 +238,9 @@ s2d2 = space_to_depth(space_to_depth(torch.from_numpy(images)))
 quality = Engine(cfg.replace(postproc=cfg.postproc.quality()), seed=0,
                  device="cpu")
 assert quality.infer(s2d2).coords.shape == (2, 32, 18, 2)
+frames = [np.zeros((40, 50, 3), np.uint8)] * 3
+assert [r.n for r in stream.StreamEstimator(engine, batch=2).run_frames(
+    frames)] == [2, 1]
 for name in ("vgg19", "vggtiny", "hao28"):
     zoo = default_config(name)
     zoo = zoo.replace(model=dataclasses.replace(
@@ -270,10 +280,11 @@ sys.exit(1 if bad else 0)
 def test_port_never_imports_jax():
     """The card machine has no JAX, and the port keeps its own copies of
     what it needs: importing the port (engine, models and the zoo,
-    postproc, eval_coco, ap_oracle, train, ap_bench, checkpoint, every
+    postproc, eval_coco, ap_oracle, train, ap_bench, checkpoint, the
+    deploy modules cli, export, host, stream and utils.tracer, every
     ops.cuda and data module), running CPU engines of every model through
-    it (int8 engines too), a train step and the GT-map oracle on 8
-    small-tier images loads no
+    it (int8 engines too), a stream of frames, a train step and the GT-map
+    oracle on 8 small-tier images loads no
     module of jax, flax or the JAX package
     `openpose_plus_tpu`, by chip_smoke.py's own end-of-run check."""
     env = dict(os.environ, PYTHONPATH=REPO)
@@ -287,7 +298,8 @@ def test_port_never_imports_jax():
         assert f"openpose_plus_tpu_torch.ops.cuda.{name}'" in proc.stdout
     for name in ("augment", "coco", "pipeline", "synthetic", "targets"):
         assert f"openpose_plus_tpu_torch.data.{name}'" in proc.stdout
-    for name in ("train", "ap_bench", "checkpoint", "utils.vis"):
+    for name in ("train", "ap_bench", "checkpoint", "utils.vis", "cli",
+                 "export", "host", "stream", "utils.tracer"):
         assert f"openpose_plus_tpu_torch.{name}'" in proc.stdout
 
 

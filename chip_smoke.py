@@ -184,7 +184,33 @@ raises on failure (the script then exits non-zero and prints no result):
    1 (MobileNet-thin), the compiled call's device-busy ms and idle share,
    the artifacts' export, load and infer times, and `run_frames`
    sustained frames/s on VGA frames beside the host's letterbox time.
-13. With --profile only: batch scaling (1, 8, 32; decode also at the
+13. The file stream and the grouping oracle (`stream_phase`): a seeded
+   set of STREAM_JPEGS 640x480 JPEGs, STREAM_PNGS PNGs of mixed sizes and
+   one unreadable file in a temporary `.smoke_bank_stream_*` directory.
+   `StreamEstimator.run_files` on a compiled copy of phase 4's engine
+   (batch 8, 368x432, 6 stages, bf16; it must be on the card) gives, batch
+   by batch, `infer` on the loader's own batch (`loader.StreamLoader`);
+   every readable file appears once and the unreadable one never. A replay
+   raises no Python launch count (phase 12), so one torch.profiler session
+   over that run names the kernels: greedy, merge and sample_paf once a
+   batch. Phase 4's three-person scene and two noisy versions of it
+   decode on the card to the humans of the port's numpy grouping oracle
+   (`postproc/oracle.decode_oracle` on the card's own preprocessed maps;
+   tests/test_postproc_parity.py's criteria): the card machine's first
+   check of the decoder that does not come from the decoder's own code.
+   `python -m openpose_plus_tpu_torch stream --images '<dir>/*.jpg' --loop
+   --repeat 20` exits 0 and prints the host scopes' report. A `stream`
+   line, at batch 8: `benchmark_stream` frames/s on the looped JPEGs with
+   8 and 1 workers, the loader alone (no engine) and `run_frames` on
+   640x480 frames with 8 and 1 workers; each at 8 workers also without the
+   loader's hold of cv2 at one thread (`_cv2_all_threads`), and
+   `benchmark_stream` also with torch's intra-op pool at one thread and
+   with blocking CUDA events; each rate in STREAM_ROUNDS rounds (median and
+   all), beside the host's cores busy (process CPU time over wall time)
+   and the tracer's per-frame ms of `decode`, `resize` and `s2d2`;
+   the consumer's per-batch stack and pinned copy, the compiled replay's
+   event ms, and the machine's CPU count.
+14. With --profile only: batch scaling (1, 8, 32; decode also at the
    fidelity() preset), the host's enqueue time per call, and the device's
    busy time per call from torch.profiler (see `profile`).
 
@@ -212,6 +238,7 @@ int8 conv spends its time at the forwards' main shapes (`int8_phases`).
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import json
@@ -221,6 +248,7 @@ import statistics
 import subprocess
 import sys
 import time
+import types
 
 BATCH = 8
 TIMED_ITERS = 20
@@ -292,6 +320,15 @@ TRACE_GAP_S = 0.05
 DEPLOY_FRAMES = 29
 DEPLOY_STREAM_BATCHES = 20
 DEPLOY_FRAME_HW = (480, 640)
+# phase 13, the file stream: the seeded files, the batches timed after one
+# of warm-up (every rate in STREAM_ROUNDS rounds, each in another order),
+# and the noisy scenes held to the oracle
+STREAM_JPEGS = 24
+STREAM_PNGS = 4
+STREAM_BATCHES = 100
+STREAM_ROUNDS = 3
+STREAM_SCENE_NOISE = 0.15
+STREAM_NOISY_SEEDS = (0, 1)
 HERE = os.path.dirname(os.path.abspath(__file__))
 DECODER_KERNELS = ("greedy_assign_kernel", "assemble_kernel")
 # csrc/int8_conv.cu: the conv (one instance per tile plan of
@@ -2447,6 +2484,298 @@ def deploy_phase(torch, np, engine, fused_engine, images, n_fused, dev,
     log(json.dumps({"deploy": {**line, "gpu": gpu}}))
 
 
+def stream_files(np, cv2, tmp) -> tuple[list, list, str]:
+    """Phase 13's files in `tmp`: STREAM_JPEGS 640x480 JPEGs of seeded
+    photo-like content (smooth colour fields and sensor-like noise),
+    STREAM_PNGS PNGs of mixed sizes and one unreadable file."""
+    rng = np.random.default_rng(13)
+
+    def picture(h, w):
+        coarse = rng.integers(0, 256, (6, 8, 3), dtype=np.uint8)
+        smooth = cv2.resize(coarse, (w, h), interpolation=cv2.INTER_CUBIC)
+        noise = rng.normal(0.0, 4.0, (h, w, 3))
+        return np.clip(smooth + noise, 0, 255).astype(np.uint8)
+
+    jpgs, pngs = [], []
+    for i in range(STREAM_JPEGS):
+        jpgs.append(os.path.join(tmp, f"photo{i:03d}.jpg"))
+        cv2.imwrite(jpgs[-1], picture(*DEPLOY_FRAME_HW),
+                    [cv2.IMWRITE_JPEG_QUALITY, 90])
+    for i, hw in enumerate(((300, 500), (720, 1280), (368, 432), (97, 61))):
+        pngs.append(os.path.join(tmp, f"still{i}.png"))
+        cv2.imwrite(pngs[-1], picture(*hw))
+    bad = os.path.join(tmp, "broken.jpg")
+    with open(bad, "wb") as f:
+        f.write(b"\xff\xd8 not a jpeg")
+    return jpgs, pngs, bad
+
+
+def oracle_matches(np, what, o_humans, batch, b) -> None:
+    """Row b of a HumanBatch against the oracle's humans, by
+    tests/test_postproc_parity.py's criteria: the same count, and each
+    oracle human matched once by part set and count, mean score and every
+    part's coordinates and score within 1e-3."""
+    valid = batch.valid[b].cpu().numpy()
+    rows = []
+    for m in np.flatnonzero(valid):
+        pv = batch.part_valid[b, m].cpu().numpy()
+        vals = np.concatenate([batch.coords[b, m].cpu().numpy(),
+                               batch.part_scores[b, m].cpu().numpy()[:, None]],
+                              axis=1)
+        rows.append(({p: vals[p] for p in np.flatnonzero(pv)},
+                     float(batch.score[b, m]), int(batch.n_parts[b, m])))
+    if len(rows) != len(o_humans):
+        raise AssertionError(f"{what}: {len(rows)} humans on the card, "
+                             f"{len(o_humans)} from the oracle")
+    unmatched = list(range(len(rows)))
+    for oh in o_humans:
+        hit = next((i for i in unmatched
+                    if rows[i][2] == oh.n_parts
+                    and set(rows[i][0]) == set(oh.parts)
+                    and abs(rows[i][1] - oh.score / oh.n_parts) <= 1e-3
+                    and all(abs(rows[i][0][p][k] - oh.parts[p][k]) < 1e-3
+                            for p in oh.parts for k in range(3))), None)
+        if hit is None:
+            raise AssertionError(f"{what}: no card human matches the "
+                                 f"oracle's {oh}")
+        unmatched.remove(hit)
+
+
+def stream_phase(torch, np, engine, scenes, dev, gpu) -> None:
+    """Phase 13 (module docstring): the file stream and the grouping oracle
+    on the card."""
+    import tempfile
+
+    import cv2
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+
+    from openpose_plus_tpu_torch import Engine, loader, stream
+    from openpose_plus_tpu_torch.ops.cuda import greedy, merge, paf_sample
+    from openpose_plus_tpu_torch.postproc import decode_maps, nms
+    from openpose_plus_tpu_torch.postproc.oracle import decode_oracle
+    from openpose_plus_tpu_torch.utils.tracer import GLOBAL_TRACER
+
+    post = engine.config.postproc
+    mc = engine.config.model
+    # the grouping oracle on the card's preprocessed maps
+    conf, paf = three_people(torch, np, scenes, mc)
+    scenes_maps = {"three people": (conf, paf)}
+    people = [scenes.standing_person(11.37 + 15.61 * i, 21.43 - 0.7 * i,
+                                     0.93 + 0.1 * i) for i in range(3)]
+    for seed in STREAM_NOISY_SEEDS:
+        c, p = scenes.make_maps(people, mc.hout, mc.wout,
+                                noise=STREAM_SCENE_NOISE, seed=seed)
+        scenes_maps[f"noisy seed {seed}"] = (
+            torch.from_numpy(np.stack([c] * BATCH)),
+            torch.from_numpy(np.stack([p] * BATCH)))
+    oracle_humans = {}
+    for what, (c, p) in scenes_maps.items():
+        c, p = c.to(dev), p.to(dev)
+        on_card = decode_maps(c, p, post)
+        smoothed = nms.upsample_smooth(c, post.upsample_factor,
+                                       post.smooth_sigma).cpu().numpy()
+        paf_u = nms.upsample(p, post.upsample_factor).cpu().numpy()
+        for b in range(BATCH):
+            o_humans = decode_oracle(smoothed[b], paf_u[b], post,
+                                     preprocessed=True)
+            oracle_matches(np, f"oracle, {what}, image {b}", o_humans,
+                           on_card, b)
+        oracle_humans[what] = len(o_humans)
+    if oracle_humans["three people"] != 3:
+        raise AssertionError(f"oracle: {oracle_humans}")
+    log(f"stream: the card's decode == the numpy grouping oracle on the "
+        f"card's preprocessed maps, humans {oracle_humans}")
+
+    # a compiled copy: phase 4's engine stays eager for --profile
+    served = Engine(engine.config, params=engine.model.state_dict(),
+                    device=dev)
+    est = stream.StreamEstimator(served, batch=BATCH)
+    if served.device.type != "cuda" or est.workers != 8:
+        raise AssertionError(f"stream: engine on {served.device}, "
+                             f"{est.workers} workers")
+    line = {"model": mc.name, "batch": BATCH, "hw": [mc.hin, mc.win],
+            "layout": est.s2d, "cpu_count": os.cpu_count(),
+            "cpu_affinity": len(os.sched_getaffinity(0)),
+            "cv2_threads": cv2.getNumThreads(), "cv2": cv2.__version__,
+            "oracle_humans": oracle_humans}
+    env = dict(os.environ, PYTHONPATH=HERE)
+    with tempfile.TemporaryDirectory(dir=HERE,
+                                     prefix=".smoke_bank_stream_") as tmp:
+        jpgs, pngs, bad = stream_files(np, cv2, tmp)
+        paths = [*jpgs[:5], bad, *pngs, *jpgs[5:]]
+        line["jpeg_mean_bytes"] = statistics.mean(os.path.getsize(p)
+                                                  for p in jpgs)
+        counted = (greedy, merge, paf_sample)
+        torch.cuda.synchronize()
+        for module in counted:
+            module.launches = 0
+        with torch_profile(activities=[ProfilerActivity.CPU,
+                                       ProfilerActivity.CUDA]) as prof:
+            results = list(est.run_files(paths))
+            torch.cuda.synchronize()
+        python_launches = sum(m.launches for m in counted)
+        names = [e.name for e in prof.events()
+                 if e.device_type == DeviceType.CUDA]
+        kernels = {k: sum(k in n for n in names)
+                   for k in REPLAY_KERNELS[:3]}
+        if not results:
+            raise AssertionError("run_files yielded no batch")
+        if kernels != dict.fromkeys(REPLAY_KERNELS[:3], len(results)) or (
+                python_launches):
+            raise AssertionError(
+                f"run_files over {len(results)} batches: kernels in the "
+                f"trace {kernels}, Python launches {python_launches}")
+        ref = list(loader.StreamLoader(paths, mc.hin, mc.win, batch=BATCH,
+                                       s2d=est.s2d))
+        seen = [i for r in results for i in r.indices.tolist()]
+        readable = [i for i, p in enumerate(paths) if p != bad]
+        if seen != readable or len(ref) != len(results):
+            raise AssertionError(f"run_files indices {seen}, expected "
+                                 f"{readable}")
+        for r, b in zip(results, ref):
+            for name in ("indices", "scales", "pads"):
+                np.testing.assert_array_equal(getattr(r, name), b[name])
+            batch = np.zeros(est.shape, np.uint8)
+            batch[:r.n] = b["images"]
+            assert_batches_equal(torch, "run_files vs infer", r.humans,
+                                 served.infer(torch.from_numpy(batch)
+                                              .to(dev)))
+        humans = [int(r.humans.num_humans[:r.n].sum()) for r in results]
+        line.update(files=len(paths), batches=[r.n for r in results],
+                    kernels_per_run=kernels, humans_per_batch=humans)
+        log(f"stream: run_files over {len(paths)} files ({len(readable)} "
+            f"readable) == infer on each loaded batch, batches "
+            f"{line['batches']}, kernels in the trace {kernels}")
+
+        # the CLI in a fresh process
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "openpose_plus_tpu_torch", "stream",
+             "--images", os.path.join(tmp, "*.jpg"), "--loop", "--repeat",
+             "20"], cwd=HERE, env=env, capture_output=True, text=True,
+            timeout=600)
+        if proc.returncode != 0 or "frames in" not in proc.stdout or not all(
+                k in proc.stdout for k in ("decode", "resize", "s2d2")):
+            raise AssertionError(f"stream --images: rc {proc.returncode}\n"
+                                 f"{proc.stdout}\n{proc.stderr}")
+        line["cli_s"] = time.perf_counter() - t0
+        line["cli_fps_line"] = next(ln for ln in proc.stdout.splitlines()
+                                    if "frames in" in ln)
+        log(f"stream: python -m openpose_plus_tpu_torch stream --images "
+            f"--loop --repeat 20: rc 0, {line['cli_fps_line']}")
+
+        # rates at batch 8, each with the host's CPU time over its wall
+        # time (cores busy); variants at 8 workers: "_cv2_all_threads"
+        # without the loader's hold of cv2 at one thread, "_torch_threads_1"
+        # with torch's intra-op pool at one thread, "_blocking_events" with
+        # the stream's CUDA events waited on by blocking, not spinning
+        serial = loader.SERIAL_CV2
+        event = torch.cuda.Event
+        torch_threads = torch.get_num_threads()
+
+        @contextlib.contextmanager
+        def variant(name):
+            if name == "cv2_all_threads":
+                loader.SERIAL_CV2 = types.SimpleNamespace(
+                    acquire=lambda: None, release=lambda: None)
+            elif name == "torch_threads_1":
+                torch.set_num_threads(1)
+            elif name == "blocking_events":
+                torch.cuda.Event = functools.partial(event, blocking=True)
+            try:
+                yield
+            finally:
+                loader.SERIAL_CV2 = serial
+                torch.set_num_threads(torch_threads)
+                torch.cuda.Event = event
+
+        def benchmark_stream(workers):
+            return stream.benchmark_stream(
+                served, jpgs, n_batches=STREAM_BATCHES, batch=BATCH,
+                workers=workers)["fps"]
+
+        def loader_alone(workers):
+            it = iter(loader.StreamLoader(jpgs, mc.hin, mc.win, batch=BATCH,
+                                          workers=workers, loop=True,
+                                          s2d=est.s2d))
+            next(it)
+            t0 = time.perf_counter()
+            frames = sum(len(next(it)["indices"])
+                         for _ in range(STREAM_BATCHES))
+            fps = frames / (time.perf_counter() - t0)
+            it.close()
+            return fps
+
+        def run_frames(workers):
+            it = stream.StreamEstimator(served, batch=BATCH,
+                                        workers=workers).run_frames(
+                vga[i % BATCH] for i in range(BATCH * (STREAM_BATCHES + 1)))
+            next(it)                     # warm-up batch
+            t0 = time.perf_counter()
+            frames = sum(r.n for r in it)
+            return frames / (time.perf_counter() - t0)
+
+        vga = [cv2.cvtColor(cv2.imread(p), cv2.COLOR_BGR2RGB)
+               for p in jpgs[:BATCH]]
+        cases = [(fn, w, v)
+                 for fn in (benchmark_stream, loader_alone, run_frames)
+                 for w, v in ((8, ""), (1, ""), (8, "cv2_all_threads"))]
+        cases[3:3] = [(benchmark_stream, 8, "torch_threads_1"),
+                      (benchmark_stream, 8, "blocking_events")]
+        runs = {}
+        for r in range(STREAM_ROUNDS):       # each round in another order
+            for fn, workers, name in cases[r:] + cases[:r]:
+                GLOBAL_TRACER.reset()
+                with variant(name):
+                    wall, cpu = time.perf_counter(), time.process_time()
+                    fps = fn(workers)
+                    busy = (time.process_time() - cpu) / (
+                        time.perf_counter() - wall)
+                key = f"{fn.__name__}_w{workers}" + (f"_{name}" if name
+                                                     else "")
+                runs.setdefault(key, []).append((fps, busy, {
+                    scope: node.total_s / node.calls * 1e3
+                    for scope, node in GLOBAL_TRACER._root.children.items()}))
+        line["rates"] = {key: {
+            "fps_median": statistics.median(f for f, _, _ in got),
+            "fps": [f for f, _, _ in got],
+            "cores_busy_median": statistics.median(b for _, b, _ in got),
+            "scope_ms_median": {scope: statistics.median(
+                sc[scope] for _, _, sc in got) for scope in got[0][2]}}
+            for key, got in runs.items()}
+        if cv2.getNumThreads() != line["cv2_threads"]:
+            raise AssertionError(f"cv2 threads {cv2.getNumThreads()} after "
+                                 f"the loaders closed, {line['cv2_threads']} "
+                                 "before")
+        # the consumer thread's share: stacking a batch, filling the pinned
+        # slot (through numpy, as stream._run does)
+        packed = [loader._load_frame(f, mc.hin, mc.win, est.s2d)[0]
+                  for f in vga]
+        pinned = torch.empty(est.shape, dtype=torch.uint8,
+                             pin_memory=True).numpy()
+        stack_s, copy_s = [], []
+        for _ in range(TIMED_ITERS):
+            t0 = time.perf_counter()
+            stacked = np.stack(packed)
+            t1 = time.perf_counter()
+            pinned[:] = stacked
+            stack_s.append(t1 - t0)
+            copy_s.append(time.perf_counter() - t1)
+        line.update(
+            consumer_stack_ms=statistics.median(stack_s) * 1e3,
+            consumer_pinned_copy_ms=statistics.median(copy_s) * 1e3)
+        images = torch.from_numpy(np.stack(packed)).to(dev)
+        line["compiled_replay_ms"] = median_ms(torch,
+                                               lambda: served.infer(images))
+        line["device_ceiling_fps"] = BATCH * 1e3 / line["compiled_replay_ms"]
+    log(json.dumps({"stream": {**line, "gpu": gpu}}))
+    log(gpu)
+    del served, est
+    torch.cuda.empty_cache()
+
+
 def profile(torch, np, rng, engine, images, gpu) -> None:
     """--profile: where the time of the served call goes.
 
@@ -2997,6 +3326,9 @@ def main(argv: list[str]) -> int:
 
     # ---- 12. the deploy path ---------------------------------------------
     deploy_phase(torch, np, engine, fused_engine, images, n_fused, dev, gpu)
+
+    # ---- 13. the file stream and the grouping oracle ----------------------
+    stream_phase(torch, np, engine, inputs, dev, gpu)
     if args.profile:
         profile(torch, np, rng, engine, images, gpu)
 

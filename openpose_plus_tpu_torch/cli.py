@@ -3,6 +3,7 @@ subcommands and flags, plus `--device`, default cuda):
 
     python -m openpose_plus_tpu_torch infer  --images a.jpg --draw-dir out/
     python -m openpose_plus_tpu_torch stream --video clip.avi
+    python -m openpose_plus_tpu_torch stream --images 'photos/*.jpg' --loop
     python -m openpose_plus_tpu_torch camera --device 0
     python -m openpose_plus_tpu_torch eval   --annotations ... --images ...
     python -m openpose_plus_tpu_torch train  --model vgg19 ...
@@ -14,9 +15,11 @@ subcommands and flags, plus `--device`, default cuda):
 what `checkpoint` reads: a checkpoint directory of `train_loop`, or the
 JAX package's flat `.npz` (through the weight bridge). In `camera`,
 `--device` is the camera's index, as in the reference, and the torch device
-is `--torch-device`. Not ported yet: `bench` (the H100 benchmark, ROADMAP.md
-item 8) and `stream --images` (the native file loader, item 11); both
-return 2.
+is `--torch-device`. `stream` letterboxes on the port's thread pool
+(`loader.py`; with `--images` it decodes there too) and prints the host
+scopes' report (`utils.tracer`) where the reference prints its native
+tracer's. Not ported yet: `bench` (the H100 benchmark, ROADMAP.md item 8),
+which returns 2.
 """
 
 from __future__ import annotations
@@ -167,26 +170,35 @@ def _draw(path: str, humans, b: int, draw_dir: str) -> None:
 def cmd_stream(args) -> int:
     """Sustained pipelined throughput (example-stream-detector)."""
     from openpose_plus_tpu_torch.stream import StreamEstimator
+    from openpose_plus_tpu_torch.utils.tracer import GLOBAL_TRACER
 
-    if not args.video:
-        if args.images:
-            print("stream --images needs the native file loader, ROADMAP.md "
-                  "item 11; use --video", file=sys.stderr)
-        else:
-            print("no input (use --video)", file=sys.stderr)
+    paths = _expand(args.images or [])
+    if not args.video and not paths:
+        print("no input images (use --images or --video)", file=sys.stderr)
         return 2
     est = StreamEstimator(_build_engine(args), batch=args.batch,
                           workers=args.workers)
+    if args.video:
+        it = est.run_video(args.video)
+    else:
+        it = est.run_files(paths, loop=args.loop)
+    n_batches = args.repeat if args.loop else None
     frames = 0
     t0: Optional[float] = None
-    for i, r in enumerate(est.run_video(args.video)):
-        if i == 0:
-            t0 = time.perf_counter()   # skip the warm-up batch
-        else:
-            frames += r.n
+    try:
+        for i, r in enumerate(it):
+            if i == 0:
+                t0 = time.perf_counter()   # skip the warm-up batch
+            else:
+                frames += r.n
+            if n_batches is not None and i >= n_batches:
+                break
+    finally:
+        it.close()
     dt = time.perf_counter() - (t0 or time.perf_counter())
     if frames:
         print(f"{frames} frames in {dt:.2f}s = {frames / dt:.1f} FPS")
+    print(GLOBAL_TRACER.report())
     return 0
 
 
@@ -315,11 +327,11 @@ def main(argv: Optional[list[str]] = None) -> int:
     p = sub.add_parser("stream", help="pipelined stream throughput")
     _engine_flags(p)
     p.add_argument("--images", nargs="+", default=None,
-                   help="image files (the native loader, ROADMAP.md item "
-                        "11: returns 2)")
+                   help="image files or glob patterns")
     p.add_argument("--video", default=None, help="stream a video file")
     p.add_argument("--batch", type=int, default=8)
-    p.add_argument("--workers", type=int, default=8)
+    p.add_argument("--workers", type=int, default=8,
+                   help="host threads decoding and letterboxing")
     p.add_argument("--loop", action="store_true")
     p.add_argument("--repeat", type=int, default=50,
                    help="batches to time in --loop mode")

@@ -2,10 +2,11 @@
 packers.
 
 The packers are the numpy paths of `openpose_plus_tpu/native.py` (`s2d_u8`,
-`s2d2_u8`, `d2s_u8`), copied so that the port imports nothing of the JAX
-package (tests/test_torch_export.py pins them equal); byte for byte the
-layout `models.common.space_to_depth` produces on the device. The native C++
-loader they sit beside in the reference is ROADMAP.md item 11.
+`s2d2_u8`, `d2s_u8`; `s2d2_u8` here as one permutation), kept in the port so
+that it imports nothing of the JAX package (tests/test_torch_export.py pins
+them equal); byte for byte the layout `models.common.space_to_depth` produces
+on the device. The native C++ loader they sit beside in the reference has its
+counterpart in `loader.py`.
 """
 
 from __future__ import annotations
@@ -27,20 +28,17 @@ def s2d_u8(image: np.ndarray) -> np.ndarray:
         h // 2, w // 2, 12)
 
 
-def _once(a: np.ndarray) -> np.ndarray:
-    """One space-to-depth level of any channel count."""
-    hh, ww, c = a.shape
-    a = a.reshape(hh // 2, 2, ww // 2, 2, c).transpose(0, 2, 1, 3, 4)
-    return a.reshape(hh // 2, ww // 2, 4 * c)
-
-
 def s2d2_u8(image: np.ndarray) -> np.ndarray:
-    """(H, W, 3) uint8 -> (H/4, W/4, 48): space-to-depth applied twice."""
+    """(H, W, 3) uint8 -> (H/4, W/4, 48): space-to-depth applied twice
+    (channel ((vy*2+vx)*4 + wy*2+wx)*3 + c for pixel (4I+2vy+wy,
+    4J+2vx+wx)), as one permutation: one copy of the image, not two."""
     h, w, _ = image.shape
     if h % 4 or w % 4:
         raise ValueError(
             f"space-to-depth squared needs dims % 4 == 0, got {h}x{w}")
-    return np.ascontiguousarray(_once(_once(image)))
+    x = image.reshape(h // 4, 2, 2, w // 4, 2, 2, 3)
+    return np.ascontiguousarray(x.transpose(0, 3, 1, 4, 2, 5, 6)).reshape(
+        h // 4, w // 4, 48)
 
 
 def d2s_u8(image: np.ndarray) -> np.ndarray:

@@ -1,9 +1,10 @@
 """Shared numpy constants of the decoder, copied from the JAX package.
 
 `openpose_plus_tpu.postproc.common` cannot be imported without JAX (its
-package `__init__` pulls in the JAX decoder), so the three helpers the port
-needs are copied here verbatim. tests/test_torch_weights.py pins each copy
-equal to its original.
+package `__init__` pulls in the JAX decoder), so the helpers the port
+needs are copied here verbatim (`limb_score_with_prior` for the oracle,
+`postproc/oracle.py`). tests/test_torch_weights.py and
+tests/test_torch_oracle.py pin each copy equal to its original.
 """
 
 from __future__ import annotations
@@ -26,6 +27,19 @@ def line_sample_fracs(n_samples: int) -> np.ndarray:
     """Interpolation fractions t for the PAF line integral: `n` evenly
     spaced points from endpoint A to endpoint B inclusive."""
     return np.linspace(0.0, 1.0, n_samples).astype(np.float32)
+
+
+def limb_score_with_prior(mean_dot: float | np.ndarray,
+                          dist: float | np.ndarray,
+                          map_height: int) -> np.ndarray:
+    """Candidate-limb ranking score: mean PAF dot + height prior penalty.
+
+    score = mean_dot + min(0.5 * H / dist - 1, 0) — penalizes limbs longer
+    than half the map height.
+    """
+    dist = np.maximum(dist, 1e-4)
+    prior = np.minimum(0.5 * map_height / dist - 1.0, 0.0)
+    return mean_dot + prior
 
 
 def refine_peak_1d(center: np.ndarray, prev: np.ndarray,

@@ -11,13 +11,16 @@ after its last copy has finished, and a result is handed out after its own
 batch's event, not after a device-wide synchronize. Sustained throughput =
 max(host rate, device rate), the reference's law.
 
-The reference's file stream (`run_files`, `benchmark_stream`) runs on its
-native C++ loader, which the port does not have yet (ROADMAP.md item 11).
+The host side is `loader.py`: a pool of `workers` threads decodes (files),
+letterboxes and packs frames, at most `queue_capacity` batches ahead, in
+the reference's C++ loader's place (`run_files`, `benchmark_stream`) and
+for in-memory frames (`run_frames`, `run_video`).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Iterable, Iterator, Optional, Sequence
 
 import numpy as np
@@ -25,10 +28,9 @@ import torch
 
 from openpose_plus_tpu_torch import host
 from openpose_plus_tpu_torch.engine import Engine
+from openpose_plus_tpu_torch.loader import (FrameLoader, PooledBatches,
+                                            StreamLoader)
 from openpose_plus_tpu_torch.postproc import HumanBatch
-
-_NATIVE = ("the native image loader is ROADMAP.md item 11; stream in-memory "
-           "frames (run_frames) or a video (run_video)")
 
 
 @dataclasses.dataclass
@@ -47,7 +49,7 @@ class StreamEstimator:
                  queue_capacity: int = 4):
         self.engine = engine
         self.batch = batch
-        # the native file loader's settings (run_files, ROADMAP.md item 11)
+        # the host pool: threads, and batches read ahead (loader.py)
         self.workers = workers
         self.queue_capacity = queue_capacity
         # the engine's largest space-to-depth input layout: the host
@@ -59,37 +61,22 @@ class StreamEstimator:
 
     def run_files(self, paths: Sequence[str], loop: bool = False
                   ) -> Iterator[StreamResult]:
-        raise NotImplementedError(f"run_files: {_NATIVE}")
+        """Stream image files (decoded and letterboxed on the pool); with
+        `loop`, frame i is `paths[i % len(paths)]`, without end."""
+        m = self.engine.config.model
+        yield from self._pooled(StreamLoader(
+            paths, m.hin, m.win, batch=self.batch, workers=self.workers,
+            queue_capacity=self.queue_capacity, loop=loop, s2d=self.s2d))
 
     def run_frames(self, frames: Iterable[np.ndarray]
                    ) -> Iterator[StreamResult]:
         """Stream in-memory RGB frames (camera or video source), each
-        letterboxed to the engine's geometry."""
-        from openpose_plus_tpu_torch.data.augment import letterbox
-
+        letterboxed to the engine's geometry on the pool; `frames` may be
+        endless."""
         m = self.engine.config.model
-
-        def batch_of(images, scales, pads, idx) -> dict:
-            return {"images": np.stack(images),
-                    "scales": np.asarray(scales, np.float32),
-                    "pads": np.asarray(pads, np.float32),
-                    "indices": np.asarray(idx, np.int32)}
-
-        def batcher():
-            images, scales, pads, idx = [], [], [], []
-            for i, frame in enumerate(frames):
-                img, s, p = letterbox(frame, m.hin, m.win)
-                images.append(host.pack(img, self.s2d))
-                scales.append(s)
-                pads.append(p)
-                idx.append(i)
-                if len(images) == self.batch:
-                    yield batch_of(images, scales, pads, idx)
-                    images, scales, pads, idx = [], [], [], []
-            if images:
-                yield batch_of(images, scales, pads, idx)
-
-        yield from self._run(batcher())
+        yield from self._pooled(FrameLoader(
+            frames, m.hin, m.win, batch=self.batch, workers=self.workers,
+            queue_capacity=self.queue_capacity, s2d=self.s2d))
 
     def run_video(self, path: str) -> Iterator[StreamResult]:
         """Stream a video file (cv2.VideoCapture decode on the host)."""
@@ -115,6 +102,14 @@ class StreamEstimator:
 
     # ------------------------------------------------------------------ --
 
+    def _pooled(self, loader: PooledBatches) -> Iterator[StreamResult]:
+        """`_run` over a loader, closed (its threads joined) also when the
+        consumer stops early or the engine raises."""
+        try:
+            yield from self._run(iter(loader))
+        finally:
+            loader.close()
+
     def _run(self, batches: Iterator[dict]) -> Iterator[StreamResult]:
         """Keep one batch in flight; every batch padded to the compiled
         shape (zeros past the tail's frames)."""
@@ -132,8 +127,12 @@ class StreamEstimator:
                 if copied[slot] is not None:     # its last copy has run
                     copied[slot].synchronize()
                 buf = staging[slot]
-                buf[:n].copy_(torch.from_numpy(images))
-                buf[n:].zero_()
+                # numpy fills the pinned slot on this thread: a torch copy
+                # would wake torch's intra-op threads, whose spinning after
+                # it took cores from the loader's workers (PERF.md, streams)
+                host_view = buf.numpy()
+                host_view[:n] = images
+                host_view[n:] = 0
                 images = buf.to(self.engine.device, non_blocking=True)
                 copied[slot] = torch.cuda.Event()
                 copied[slot].record()
@@ -163,6 +162,16 @@ class StreamEstimator:
 
 
 def benchmark_stream(engine: Engine, paths: Sequence[str],
-                     n_batches: int = 20, batch: int = 8) -> dict:
-    """Sustained FPS over a looped file stream: needs `run_files`."""
-    raise NotImplementedError(f"benchmark_stream: {_NATIVE}")
+                     n_batches: int = 20, batch: int = 8,
+                     workers: int = 8) -> dict:
+    """Sustained FPS over a looped file stream, after one warm-up batch."""
+    it = StreamEstimator(engine, batch=batch, workers=workers).run_files(
+        paths, loop=True)
+    try:
+        next(it)                 # warm-up: fills the pool's read-ahead
+        t0 = time.perf_counter()
+        frames = sum(next(it).n for _ in range(n_batches))
+        dt = time.perf_counter() - t0
+    finally:
+        it.close()
+    return {"fps": frames / dt, "frames": frames, "seconds": dt}

@@ -1,12 +1,12 @@
 """The port's CLI (`python -m openpose_plus_tpu_torch`) on the CPU, the
 reference's cases (tests/test_cli.py) with `--device cpu`: infer, eval,
-missing images, export then `infer --engine-dir`, stream --video, no
-stream input; and what the port adds or leaves to later items: `bench`
-and `stream --images` return 2, `--engine-dir` refuses engine flags, an
-int8 export needs calibration images, `--checkpoint` reads a train_loop
-checkpoint directory and an .npz alike. Also the app helpers: the
-`Tracer`, `timeit`, `trace_device` and `draw_humans` (pixel-equal to the
-JAX package's)."""
+missing images, export then `infer --engine-dir`, stream --video and
+--images (once and looped), no stream input or no matching image; and what
+the port adds or leaves to later items: `bench` returns 2, `--engine-dir`
+refuses engine flags, an int8 export needs calibration images,
+`--checkpoint` reads a train_loop checkpoint directory and an .npz alike.
+Also the app helpers: the `Tracer`, `timeit`, `trace_device` and
+`draw_humans` (pixel-equal to the JAX package's)."""
 
 import dataclasses
 import json
@@ -139,16 +139,29 @@ def test_cli_stream_video(tmp_path, capsys):
     assert "3 frames in" in capsys.readouterr().out   # after the first batch
 
 
+@pytest.mark.parametrize("loop", [False, True])
+def test_cli_stream_images(images, loop, capsys):
+    argv = ["stream", *TINY, "--images", *images, "--batch", "2"]
+    if loop:
+        argv += ["--loop", "--repeat", "3"]
+    assert cli.main(argv) == 0
+    out = capsys.readouterr().out
+    # after the warm-up batch: the tail of one image, or 3 looped batches
+    assert f"{6 if loop else 1} frames in" in out
+    assert "decode" in out and "s2d" in out           # the host scopes
+
+
 @pytest.mark.parametrize("argv", [
     ["stream", *TINY],
     ["stream", *TINY, "--images", "a.jpg"],
     ["bench"],
 ])
 def test_cli_paths_not_ported_return_2(argv, capsys):
+    """No stream input, no image matching, and the unported bench."""
     assert cli.main(argv) == 2
     err = capsys.readouterr().err
-    if "--images" in argv:
-        assert "item 11" in err
+    if argv[0] == "stream":
+        assert "no input images" in err and "item 11" not in err
     if argv == ["bench"]:
         assert "item 8" in err
 

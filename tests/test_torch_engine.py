@@ -202,8 +202,12 @@ def test_bad_input_raises():
 _NO_JAX = """
 import dataclasses
 import importlib
+import os
 import pkgutil
 import sys
+import tempfile
+
+import cv2
 
 import numpy as np
 import torch
@@ -213,7 +217,8 @@ import openpose_plus_tpu_torch
 from openpose_plus_tpu_torch import Engine, default_config
 from openpose_plus_tpu_torch import (ap_bench, ap_oracle, checkpoint, cli,
                                      data, engine, eval_coco, export, host,
-                                     models, postproc, stream, train)
+                                     loader, models, postproc, stream, train)
+from openpose_plus_tpu_torch.postproc import oracle as grouping_oracle
 from openpose_plus_tpu_torch.utils import tracer, vis
 from openpose_plus_tpu_torch.models import hao28, vgg19, vggtiny
 from openpose_plus_tpu_torch.models.common import space_to_depth
@@ -241,6 +246,15 @@ assert quality.infer(s2d2).coords.shape == (2, 32, 18, 2)
 frames = [np.zeros((40, 50, 3), np.uint8)] * 3
 assert [r.n for r in stream.StreamEstimator(engine, batch=2).run_frames(
     frames)] == [2, 1]
+with tempfile.TemporaryDirectory() as tmp:
+    pngs = [os.path.join(tmp, f"{i}.png") for i in range(2)]
+    for path, image in zip(pngs, images):
+        cv2.imwrite(path, image)
+    assert [r.indices.tolist() for r in stream.StreamEstimator(
+        engine, batch=2).run_files(pngs)] == [[0, 1]]
+conf, paf = engine.forward(images[:1])
+assert isinstance(grouping_oracle.decode_oracle(
+    conf[0].float().numpy(), paf[0].float().numpy(), cfg.postproc), list)
 for name in ("vgg19", "vggtiny", "hao28"):
     zoo = default_config(name)
     zoo = zoo.replace(model=dataclasses.replace(
@@ -281,12 +295,13 @@ def test_port_never_imports_jax():
     """The card machine has no JAX, and the port keeps its own copies of
     what it needs: importing the port (engine, models and the zoo,
     postproc, eval_coco, ap_oracle, train, ap_bench, checkpoint, the
-    deploy modules cli, export, host, stream and utils.tracer, every
-    ops.cuda and data module), running CPU engines of every model through
-    it (int8 engines too), a stream of frames, a train step and the GT-map
-    oracle on 8 small-tier images loads no
-    module of jax, flax or the JAX package
-    `openpose_plus_tpu`, by chip_smoke.py's own end-of-run check."""
+    deploy modules cli, export, host, stream and utils.tracer, the loader
+    and the grouping oracle, every ops.cuda and data module), running CPU
+    engines of every model through it (int8 engines too), a stream of
+    frames and one of two PNG files, the numpy oracle, a train step and the
+    GT-map oracle on 8 small-tier images loads no module of jax, flax or
+    the JAX package `openpose_plus_tpu`, by chip_smoke.py's own end-of-run
+    check."""
     env = dict(os.environ, PYTHONPATH=REPO)
     proc = subprocess.run([sys.executable, "-c", _NO_JAX], cwd=REPO,
                           env=env, capture_output=True, text=True,
@@ -299,7 +314,8 @@ def test_port_never_imports_jax():
     for name in ("augment", "coco", "pipeline", "synthetic", "targets"):
         assert f"openpose_plus_tpu_torch.data.{name}'" in proc.stdout
     for name in ("train", "ap_bench", "checkpoint", "utils.vis", "cli",
-                 "export", "host", "stream", "utils.tracer"):
+                 "export", "host", "stream", "utils.tracer", "loader",
+                 "postproc.oracle"):
         assert f"openpose_plus_tpu_torch.{name}'" in proc.stdout
 
 

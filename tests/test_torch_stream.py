@@ -8,11 +8,18 @@
   pinned to its Python letterbox (`native.is_available` patched to False).
 - `run_video` on an MJPG clip written by cv2 (skipped without an encoder)
   equals `run_frames` on the clip's decoded frames.
-- `run_files` and `benchmark_stream` raise, naming the native loader's
-  ROADMAP item.
+- `run_files` over PNGs and JPEGs of mixed sizes and an unreadable file:
+  per batch the loader's indices, scales and pads, and the humans of
+  `Engine.infer` on the loader's batch exactly, and of the JAX
+  `Engine.infer` on it to the tolerance above; in loop mode the indices
+  cycle, and closing the stream leaves no loader thread alive.
+- `run_frames` over an endless frame source, stopped after two batches.
+- `benchmark_stream` times whole batches of a looped file stream.
 """
 
 import dataclasses
+import itertools
+import threading
 
 import jax
 import numpy as np
@@ -26,7 +33,7 @@ from openpose_plus_tpu import stream as jstream
 from openpose_plus_tpu.checkpoint import _flatten
 from openpose_plus_tpu.engine import Engine as JaxEngine
 from openpose_plus_tpu_torch import config as tconfig
-from openpose_plus_tpu_torch import host, stream
+from openpose_plus_tpu_torch import host, loader, stream
 from openpose_plus_tpu_torch.data.augment import letterbox
 from openpose_plus_tpu_torch.engine import Engine
 
@@ -36,6 +43,7 @@ torch.set_num_threads(2)
 
 SIZES = [(50, 70), (64, 64), (90, 40), (33, 81), (64, 100)]
 BATCH = 2
+JOIN_S = 30.0                    # the wait for the loader's threads to end
 
 
 def _cfg(config=tconfig):
@@ -144,10 +152,99 @@ def test_run_video_equals_run_frames(tmp_path):
         next(est.run_video(str(tmp_path / "missing.avi")))
 
 
-def test_file_stream_waits_for_the_native_loader():
+def _files(tmp_path):
+    """The frames as PNGs (lossless) and JPEGs, an unreadable file third."""
+    paths = []
+    for i, frame in enumerate(_frames(2)):
+        path = str(tmp_path / f"f{i}.{'jpg' if i % 2 else 'png'}")
+        cv2.imwrite(path, frame)
+        paths.append(path)
+    paths.insert(2, str(tmp_path / "missing.png"))
+    return paths
+
+
+def _loader_threads():
+    return [t for t in threading.enumerate()
+            if t.name.startswith("stream-loader-")]
+
+
+def _assert_humans_near(humans, ref):
+    for name in ("valid", "n_parts", "part_valid"):
+        np.testing.assert_array_equal(getattr(humans, name).numpy(),
+                                      np.asarray(getattr(ref, name)), name)
+    for name in ("coords", "part_scores", "score"):
+        np.testing.assert_allclose(
+            getattr(humans, name).numpy(), np.asarray(getattr(ref, name)),
+            rtol=0, atol=1e-5, err_msg=name)
+
+
+def test_file_stream_waits_for_the_native_loader(tmp_path):
+    """`run_files`: every batch is `infer` on the loader's batch."""
+    jax_engine, engine = _engines()
+    paths = _files(tmp_path)
+    est = stream.StreamEstimator(engine, batch=BATCH, workers=3)
+    out = list(est.run_files(paths))
+    m = engine.config.model
+    ref = list(loader.StreamLoader(paths, m.hin, m.win, batch=BATCH,
+                                   s2d=est.s2d))
+    assert [r.indices.tolist() for r in out] == [[0, 1], [3, 4], [5]]
+    humans = 0
+    for r, b in zip(out, ref):
+        for name in ("indices", "scales", "pads"):
+            np.testing.assert_array_equal(getattr(r, name), b[name], name)
+        served = np.zeros(est.shape, np.uint8)
+        served[:r.n] = b["images"]
+        own = engine.infer(served)
+        for f in dataclasses.fields(own):
+            assert torch.equal(getattr(r.humans, f.name),
+                               getattr(own, f.name)), f.name
+        _assert_humans_near(r.humans, jax_engine.infer(served))
+        humans += int(r.humans.num_humans[:r.n].sum())
+    assert humans >= 1                   # the grouping is exercised
+    assert not _loader_threads()
+
+
+def test_run_files_loops_and_closes(tmp_path):
     _, engine = _engines()
-    est = stream.StreamEstimator(engine, batch=BATCH)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        next(est.run_files(["a.jpg"]))
-    with pytest.raises(NotImplementedError, match="item 11"):
-        stream.benchmark_stream(engine, ["a.jpg"])
+    paths = [p for p in _files(tmp_path)[:4] if "missing" not in p]
+    est = stream.StreamEstimator(engine, batch=BATCH, workers=2,
+                                 queue_capacity=2)
+    it = est.run_files(paths, loop=True)
+    indices = list(itertools.chain(*(next(it).indices.tolist()
+                                     for _ in range(4))))
+    assert indices == [i % 3 for i in range(8)]
+    it.close()
+    for t in _loader_threads():
+        t.join(timeout=JOIN_S)
+    assert not _loader_threads()
+
+
+def test_run_frames_streams_an_endless_source():
+    _, engine = _engines()
+    frames = _frames(3)
+    est = stream.StreamEstimator(engine, batch=BATCH, workers=2,
+                                 queue_capacity=2)
+    it = est.run_frames(frames[i % len(frames)] for i in itertools.count())
+    first, second = next(it), next(it)
+    it.close()
+    assert first.indices.tolist() == [0, 1]
+    assert second.indices.tolist() == [2, 3]
+    own = engine.infer(_served_batch(engine, frames[2:4]))
+    for f in dataclasses.fields(own):
+        assert torch.equal(getattr(second.humans, f.name),
+                           getattr(own, f.name)), f.name
+    for t in _loader_threads():
+        t.join(timeout=JOIN_S)
+    assert not _loader_threads()
+
+
+def test_benchmark_stream_times_whole_batches(tmp_path):
+    _, engine = _engines()
+    res = stream.benchmark_stream(engine, _files(tmp_path), n_batches=3,
+                                  batch=BATCH, workers=2)
+    assert set(res) == {"fps", "frames", "seconds"}
+    assert res["frames"] == 3 * BATCH and res["seconds"] > 0
+    assert res["fps"] == pytest.approx(res["frames"] / res["seconds"])
+    for t in _loader_threads():
+        t.join(timeout=JOIN_S)
+    assert not _loader_threads()

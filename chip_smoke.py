@@ -210,7 +210,32 @@ raises on failure (the script then exits non-zero and prints no result):
    and the tracer's per-frame ms of `decode`, `resize` and `s2d2`;
    the consumer's per-batch stack and pinned copy, the compiled replay's
    event ms, and the machine's CPU count.
-14. With --profile only: batch scaling (1, 8, 32; decode also at the
+14. The distributed layer (`parallel_phase`; `openpose_plus_tpu_torch.
+   parallel`). (1) One NCCL rank on the card, started from torchrun's
+   environment by `sharding.init_distributed`: the sync-sgd step (its
+   gradient all_reduce over the rank) equals the plain
+   `make_train_step_on_batch` step bit for bit (cuDNN held to
+   deterministic algorithms; the plain step run twice first), and
+   `Engine(mesh=)` of size 1 equals `infer` and launches the decoder's
+   kernels. (2) PARALLEL_RANKS spawned ranks sharing the card over gloo
+   (NCCL takes one rank a device), MobileNet-thin at full width (368x432,
+   bf16, Adam at TRAIN_LR), a global batch of BATCH: PARALLEL_STEPS steps of
+   each of sync-sgd, sma and pair-avg leave the ranks' replicas bit-identical
+   (with two ranks pair-avg's one round pairs them); sync-sgd's first step
+   lies within phase 10's card-vs-CPU tolerances of one process stepping on
+   the global batch; `Engine(mesh=)` on phase 4's weights and images gives
+   every rank the whole HumanBatch, bit-equal to a batch-4 engine on each
+   rank's slice, its maps (`forward`) within 2e-2 of their scale of phase
+   4's batch-8 maps (cuDNN's batch-4 algorithms move bf16 ulps, which move
+   peaks: the decodes are not compared), and launches greedy, merge and
+   sample_paf on every rank (counts set to 0 before the call, read after);
+   distributed `evaluate_engine` over phase 9's bank gives phase 9's AP
+   within PARALLEL_EVAL_TOL and its detection count on every rank. A
+   `parallel` line ("two ranks on one card, not a scaling figure"): per
+   strategy the step's ms, the collective, its bytes and ms; the mesh
+   `infer` ms beside one process's; which collectives gloo takes on CUDA
+   tensors (`gloo_cuda_probe`).
+15. With --profile only: batch scaling (1, 8, 32; decode also at the
    fidelity() preset), the host's enqueue time per call, and the device's
    busy time per call from torch.profiler (see `profile`).
 
@@ -344,6 +369,14 @@ INT8_PHASE_SHAPES = ((8, 46, 54, 128, 128, 7, True),
                      (8, 368, 432, 64, 64, 3, True))
 # top-level packages the port must never load: JAX and the JAX package
 FOREIGN_PACKAGES = ("jax", "jaxlib", "flax", "openpose_plus_tpu")
+# phase 14, the distributed layer: PARALLEL_RANKS gloo ranks sharing the
+# card, PARALLEL_STEPS checked steps of each strategy on seeded global
+# batches of BATCH with PARALLEL_PEOPLE people an image
+PARALLEL_RANKS = 2
+PARALLEL_STEPS = 3
+PARALLEL_PEOPLE = 4
+PARALLEL_TIMEOUT_S = 300
+PARALLEL_EVAL_TOL = 1e-3
 SOURCES = {   # kernel: (source, the TPU kernel it replaces)
     "greedy_assign": ("openpose_plus_tpu_torch/csrc/greedy.cu",
                       "openpose_plus_tpu/ops/pallas/greedy.py:53"),
@@ -1278,9 +1311,10 @@ def oracle_phase(torch, counted, dev, gpu) -> None:
             log(json.dumps({"oracle": {**line, "gpu": gpu}}))
 
 
-def eval_phase(torch, engine, gpu) -> None:
+def eval_phase(torch, engine, gpu):
     """Phase 9 (module docstring): `evaluate_engine` over a seeded val bank
-    of EVAL_IMAGES serving-size images, on the card and on the CPU."""
+    of EVAL_IMAGES serving-size images, on the card and on the CPU; returns
+    the card's EvalResult."""
     import math
     import tempfile
 
@@ -1314,6 +1348,7 @@ def eval_phase(torch, engine, gpu) -> None:
         "bank_size": size, "card": card.as_dict(), "cpu": cpu.as_dict(),
         "card_seconds": card_s, "cpu_seconds": cpu_s,
         "tolerance": EVAL_CPU_TOL, "gpu": gpu}}))
+    return card
 
 
 def _rel_l2(torch, a, b) -> float:
@@ -2776,6 +2811,471 @@ def stream_phase(torch, np, engine, scenes, dev, gpu) -> None:
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------- 14. distributed ---
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def parallel_config(engine_config):
+    """Phase 14's training config: phase 4's MobileNet-thin at full width,
+    a global batch of BATCH, Adam at TRAIN_LR, no weight decay (as phase
+    10)."""
+    cfg = engine_config.replace(train=dataclasses.replace(
+        engine_config.train, batch_size=BATCH, lr_init=TRAIN_LR,
+        weight_decay=0.0, optimizer="adam"))
+    check_full_width(cfg)
+    return cfg
+
+
+def parallel_batches(np, mc, count: int) -> list:
+    """`count` seeded global batches: random images, PARALLEL_PEOPLE
+    people of 18 visible parts an image."""
+    rng = np.random.default_rng(14)
+    out = []
+    for _ in range(count):
+        kp = np.zeros((BATCH, PARALLEL_PEOPLE, 18, 3), np.float32)
+        kp[..., 0] = rng.uniform(16, mc.win - 16, kp.shape[:3])
+        kp[..., 1] = rng.uniform(16, mc.hin - 16, kp.shape[:3])
+        kp[..., 2] = 1.0
+        out.append({"images": rng.integers(0, 256, (BATCH, mc.hin, mc.win,
+                                                    3), dtype=np.uint8),
+                    "keypoints": kp,
+                    "mask": np.ones((BATCH, mc.hout, mc.wout, 1),
+                                    np.float32)})
+    return out
+
+
+def param_digest(model) -> str:
+    import hashlib
+    h = hashlib.sha256()
+    for p in model.parameters():
+        h.update(p.detach().float().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+@contextlib.contextmanager
+def rank_environment(rank: int, world: int, port: int):
+    """torchrun's variables for `rank` of `world` on this host (both ranks
+    on device 0), restored on exit."""
+    env = {"MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(port),
+           "RANK": str(rank), "WORLD_SIZE": str(world), "LOCAL_RANK": "0"}
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def nccl_world_of_one(torch, engine, images, batch, counted, dev) -> dict:
+    """Phase 14.1: one NCCL rank on the card, started from torchrun's
+    environment by `init_distributed`: the sync-sgd step (a gradient
+    all_reduce over the rank) equals the plain step bit for bit (cuDNN held
+    to deterministic algorithms, the plain step run twice first), and
+    Engine(mesh=) of size 1 equals `infer`."""
+    import torch.distributed as dist
+
+    from openpose_plus_tpu_torch import Engine
+    from openpose_plus_tpu_torch import train as T
+    from openpose_plus_tpu_torch.config import ParallelConfig
+    from openpose_plus_tpu_torch.parallel import kungfu as kf
+    from openpose_plus_tpu_torch.parallel import sharding as S
+
+    cfg = parallel_config(engine.config)
+    with rank_environment(0, 1, free_port()):
+        rank_dev = S.init_distributed(ParallelConfig(multihost=True),
+                                      device="cuda")
+        try:
+            backend = dist.get_backend()
+            if backend != "nccl" or rank_dev != dev:
+                raise AssertionError(f"world of one: {backend} on "
+                                     f"{rank_dev}, expected nccl on {dev}")
+            mesh = S.build_mesh(ParallelConfig())
+            flags = (torch.backends.cudnn.deterministic,
+                     torch.backends.cudnn.benchmark)
+            torch.backends.cudnn.deterministic = True
+            torch.backends.cudnn.benchmark = False
+            try:
+                steps = []
+                for label in ("plain", "plain again", "sync-sgd"):
+                    if label == "sync-sgd":
+                        state = kf.create_kungfu_state(cfg, mesh, 0, dev)
+                        (step,) = kf.make_kungfu_steps(cfg, mesh, label)
+                    else:
+                        state = T.create_train_state(cfg, 0, dev)
+                        step = T.make_train_step_on_batch(cfg)
+                    state, m = step(state, batch)
+                    steps.append((float(m["loss"]), param_digest(state.model)))
+            finally:
+                (torch.backends.cudnn.deterministic,
+                 torch.backends.cudnn.benchmark) = flags
+            if steps[0] != steps[1]:
+                raise AssertionError(f"the plain step is not deterministic "
+                                     f"under cudnn.deterministic: {steps}")
+            if steps[2] != steps[0]:
+                raise AssertionError(f"sync-sgd on one NCCL rank differs "
+                                     f"from the plain step: {steps}")
+            sharded = Engine(engine.config,
+                             params=engine.model.state_dict(), mesh=mesh,
+                             device=dev)
+            out, n = launches_during(torch, counted,
+                                     lambda: sharded.infer(images))
+            check_launches("Engine(mesh=) on one NCCL rank", n, 1, 0)
+            assert_batches_equal(torch, "Engine(mesh=) on one NCCL rank vs "
+                                 "infer", out, engine.infer(images))
+            mesh_ms = median_ms(torch, lambda: sharded.infer(images))
+        finally:
+            dist.destroy_process_group()
+    return {"backend": backend, "world": 1, "sync_sgd_loss": steps[2][0],
+            "sync_sgd_equals_plain_step": True,
+            "mesh_infer_equals_infer": True, "mesh_launches": n,
+            "mesh_infer_ms": mesh_ms}
+
+
+def gloo_cuda_probe(torch, dist, group, rank: int, world: int, dev) -> dict:
+    """Which collectives torch's gloo backend takes on CUDA tensors here:
+    each called once on a small tensor on `dev` in its own group; "ok"
+    when it ran and gave the right values, else what it raised."""
+    x = torch.full((4,), float(rank + 1), device=dev)
+    ranks = torch.arange(1, world + 1, device=dev, dtype=x.dtype)
+    total = float(ranks.sum())
+
+    def broadcast():
+        y = x.clone()
+        dist.broadcast(y, 0, group=group)
+        return bool((y == 1).all())
+
+    def all_reduce():
+        y = x.clone()
+        dist.all_reduce(y, group=group)
+        return bool((y == total).all())
+
+    def all_gather():
+        ys = [torch.empty_like(x) for _ in range(world)]
+        dist.all_gather(ys, x, group=group)
+        return bool((torch.stack(ys)[:, 0] == ranks).all())
+
+    def all_gather_into_tensor():
+        y = x.new_empty(4 * world)
+        dist.all_gather_into_tensor(y, x, group=group)
+        return bool((y.view(world, 4)[:, 0] == ranks).all())
+
+    def reduce_scatter_tensor():
+        y = x.new_empty(4 // world)
+        dist.reduce_scatter_tensor(y, x, group=group)
+        return bool((y == total).all())
+
+    def all_to_all_single():
+        y = torch.empty_like(x)
+        dist.all_to_all_single(y, x, group=group)
+        return bool((y.view(world, -1)[:, 0] == ranks).all())
+
+    out = {}
+    for call in (broadcast, all_reduce, all_gather, all_gather_into_tensor,
+                 reduce_scatter_tensor, all_to_all_single):
+        try:
+            out[call.__name__] = "ok" if call() else "wrong values"
+        except (RuntimeError, ValueError, NotImplementedError) as e:
+            out[call.__name__] = (f"raises {type(e).__name__}: "
+                                  f"{str(e).splitlines()[0][:120]}")
+    return out
+
+
+def parallel_rank(rank: int, world: int, port: int, payload: dict,
+                  results) -> None:
+    """A spawned rank of phase 14.2: its result, or its traceback, on the
+    `results` queue."""
+    import traceback
+    try:
+        results.put((rank, True, _parallel_rank(rank, world, port,
+                                                payload)))
+    except BaseException:
+        results.put((rank, False, traceback.format_exc()))
+
+
+def _parallel_rank(rank: int, world: int, port: int, p: dict) -> dict:
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    from openpose_plus_tpu_torch import Engine
+    from openpose_plus_tpu_torch.config import ParallelConfig
+    from openpose_plus_tpu_torch.data.coco import CocoPoseDataset
+    from openpose_plus_tpu_torch.eval_coco import evaluate_engine
+    from openpose_plus_tpu_torch.ops.cuda import (build, greedy, merge,
+                                                  paf_sample, sepconv)
+    from openpose_plus_tpu_torch.parallel import kungfu as kf
+    from openpose_plus_tpu_torch.parallel import sharding as S
+    from openpose_plus_tpu_torch.postproc import HumanBatch
+
+    torch.set_num_threads(4)
+    with rank_environment(rank, world, port):
+        dev = S.init_distributed(ParallelConfig(multihost=True),
+                                 backend="gloo", device=p["device"])
+    try:
+        build.load()
+        counted = {"greedy_assign": greedy, "assemble": merge,
+                   "sample_paf": paf_sample, "fused_sepconv": sepconv}
+        mesh = S.build_mesh(ParallelConfig())
+        _, n, group = S.data_axis(mesh)
+        cfg = p["train_cfg"]
+        out = {"device": str(dev), "strategies": {}}
+        for strategy in kf.STRATEGIES:
+            state = kf.create_kungfu_state(cfg, mesh, 0, dev)
+            fns = kf.make_kungfu_steps(cfg, mesh, strategy)
+            rec = {"losses": [], "digests": [], "checked_ms": []}
+            for i, batch in enumerate(p["batches"]):
+                local = S.shard_batch(batch, mesh)
+                t0 = time.perf_counter()
+                state, m = fns[i % len(fns)](state, local)
+                rec["losses"].append(float(m["loss"]))   # synchronises
+                rec["checked_ms"].append((time.perf_counter() - t0) * 1e3)
+                rec["digests"].append(param_digest(state.model))
+                if strategy == "sync-sgd" and i == 0 and rank == 0:
+                    out["sync_sgd_step1"] = {
+                        "loss": rec["losses"][0],
+                        "grads": {k: q.grad.float().cpu().numpy().copy()
+                                  for k, q in state.model.named_parameters()},
+                        "params": {k: q.detach().float().cpu().numpy().copy()
+                                   for k, q in
+                                   state.model.named_parameters()}}
+            local = S.shard_batch(p["batches"][0], mesh)
+            rec["step_ms"] = median_ms(torch, lambda: fns[0](state, local))
+            bufs = [q.detach().clone() for q in state.model.parameters()]
+            size = sum(b.numel() * b.element_size() for b in bufs)
+            if strategy == "pair-avg":
+                rec["collective"] = (f"all_reduce of an (n/2, P) buffer "
+                                     f"(pair_average), rank XOR 1")
+                rec["collective_bytes"] = n // 2 * size
+                rec["collective_ms"] = median_ms(
+                    torch, lambda: kf.pair_average(bufs, 0, group))
+            else:
+                rec["collective"] = ("all_reduce of the gradients"
+                                     if strategy == "sync-sgd" else
+                                     "all_reduce of the parameters")
+                rec["collective_bytes"] = size
+                rec["collective_ms"] = median_ms(
+                    torch, lambda: kf.all_reduce_mean(bufs, group))
+            out["strategies"][strategy] = rec
+        del state, bufs
+
+        images = torch.from_numpy(p["images"]).to(dev)
+        sharded = Engine(p["serve_cfg"], seed=0, mesh=mesh, device=dev)
+        plain = Engine(p["serve_cfg"], seed=0, device=dev)
+        for eng in (sharded, plain):
+            scale_heads(torch, eng, None, p["gains"])
+        sharded.infer(images)                           # warm-up
+        humans, launches = launches_during(torch, counted,
+                                           lambda: sharded.infer(images))
+        check_launches(f"rank {rank}: Engine(mesh=).infer", launches, 1, 0)
+        per = images.shape[0] // n
+        ref = HumanBatch.cat([plain.infer(images[r * per:(r + 1) * per])
+                              for r in range(n)])
+        assert_batches_equal(torch, f"rank {rank}: Engine(mesh=) vs batch-"
+                             f"{per} engines on the slices", humans, ref)
+        out["mesh"] = {f.name: getattr(humans, f.name).cpu().numpy()
+                       for f in dataclasses.fields(humans)}
+        out["mesh_maps"] = [t.cpu().numpy() for t in sharded.forward(images)]
+        out["mesh_launches"] = launches
+        out["mesh_infer_ms"] = median_ms(torch, lambda: sharded.infer(images))
+        out["slice_infer_ms"] = median_ms(
+            torch, lambda: plain.infer(images[rank * per:(rank + 1) * per]))
+
+        t0 = time.perf_counter()
+        res = evaluate_engine(plain, CocoPoseDataset(*p["bank"]),
+                              batch_size=BATCH, distributed=True)
+        out["eval"] = res.as_dict()
+        out["eval_seconds"] = time.perf_counter() - t0
+
+        probe = dist.new_group(backend="gloo",
+                               timeout=datetime.timedelta(seconds=30))
+        out["gloo_cuda"] = gloo_cuda_probe(torch, dist, probe, rank, n, dev)
+        return out
+    finally:
+        dist.destroy_process_group()
+
+
+def run_parallel_ranks(world: int, payload: dict) -> list:
+    """`parallel_rank` in `world` spawned processes; their results in rank
+    order. A rank that fails, or does not answer within PARALLEL_TIMEOUT_S,
+    fails the phase; every process is joined or killed first."""
+    import multiprocessing
+    import queue
+
+    ctx = multiprocessing.get_context("spawn")
+    results = ctx.Queue()
+    port = free_port()
+    procs = [ctx.Process(target=parallel_rank, daemon=True,
+                         args=(r, world, port, payload, results))
+             for r in range(world)]
+    for proc in procs:
+        proc.start()
+    out = {}
+    deadline = time.monotonic() + PARALLEL_TIMEOUT_S
+    try:
+        while len(out) < world:
+            try:
+                rank, ok, value = results.get(
+                    timeout=max(deadline - time.monotonic(), 0.01))
+            except queue.Empty:
+                raise AssertionError(
+                    f"parallel ranks {sorted(set(range(world)) - set(out))}"
+                    f" did not answer within {PARALLEL_TIMEOUT_S} s") from None
+            if not ok:
+                raise AssertionError(f"parallel rank {rank} failed:\n{value}")
+            out[rank] = value
+    finally:
+        for proc in procs:
+            proc.join(timeout=30)
+            if proc.is_alive():
+                proc.kill()
+                proc.join(timeout=10)
+    return [out[r] for r in range(world)]
+
+
+def parallel_phase(torch, np, engine, gains, images, eval_card, counted,
+                   dev, gpu) -> None:
+    """Phase 14 (module docstring): the distributed layer on the card."""
+    import tempfile
+
+    from openpose_plus_tpu_torch import train as T
+    from openpose_plus_tpu_torch.ap_oracle import GEOMETRIES
+    from openpose_plus_tpu_torch.data.synthetic import make_scene_bank
+    from openpose_plus_tpu_torch.parallel import kungfu as kf
+    from openpose_plus_tpu_torch.postproc import HumanBatch
+
+    t_phase = time.perf_counter()
+    cfg = parallel_config(engine.config)
+    batches = parallel_batches(np, cfg.model, PARALLEL_STEPS)
+    nccl = nccl_world_of_one(torch, engine, images, batches[0], counted, dev)
+    log(f"parallel: one NCCL rank: {nccl}")
+
+    # the reference of sync-sgd: one process stepping on the global batch
+    state = T.create_train_state(cfg, 0, dev)
+    state, m = T.make_train_step_on_batch(cfg)(state, batches[0])
+    one = {"loss": float(m["loss"]),
+           "grads": {k: q.grad.float().cpu().clone()
+                     for k, q in state.model.named_parameters()},
+           "params": {k: q.detach().float().cpu().clone()
+                      for k, q in state.model.named_parameters()}}
+    one_step_ms = median_ms(
+        torch, lambda: T.make_train_step_on_batch(cfg)(state, batches[0]))
+    del state
+    infer_ms = median_ms(torch, lambda: engine.infer(images))
+
+    size = GEOMETRIES["serving"]["size"]
+    with tempfile.TemporaryDirectory(dir=HERE, prefix=".smoke_bank_") as tmp:
+        bank = make_scene_bank(tmp, "val", EVAL_IMAGES, size)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        ranks = run_parallel_ranks(PARALLEL_RANKS, {
+            "device": str(dev), "train_cfg": cfg, "serve_cfg": engine.config,
+            "batches": batches, "images": images.cpu().numpy(),
+            "gains": gains, "bank": bank})
+
+    log("parallel ranks: " + json.dumps({
+        "gloo_cuda_collectives": ranks[0]["gloo_cuda"],
+        "strategies": {s: {k: v for k, v in rec.items() if k != "digests"}
+                       for s, rec in ranks[0]["strategies"].items()},
+        "mesh_infer_ms": [out["mesh_infer_ms"] for out in ranks],
+        "eval": [out["eval"] for out in ranks]}))
+    # replicas: with two ranks every strategy leaves them bit-identical
+    # (pair-avg's one round pairs rank 0 with rank 1)
+    for strategy in kf.STRATEGIES:
+        recs = [r["strategies"][strategy] for r in ranks]
+        if any(rec["digests"] != recs[0]["digests"] for rec in recs):
+            raise AssertionError(f"{strategy}: the ranks' replicas differ")
+        if not all(map(math.isfinite, recs[0]["losses"])):
+            raise AssertionError(f"{strategy}: losses {recs[0]['losses']}")
+    # sync-sgd's first step against one process on the global batch
+    step1 = ranks[0]["sync_sgd_step1"]
+    grads = {k: torch.from_numpy(v) for k, v in step1["grads"].items()}
+    leaf = {k: _rel_l2(torch, grads[k], g) for k, g in one["grads"].items()}
+    every = _rel_l2(torch, torch.cat([g.flatten() for g in grads.values()]),
+                    torch.cat([g.flatten() for g in one["grads"].values()]))
+    param_err = max(float((torch.from_numpy(step1["params"][k]) - q).abs()
+                          .max()) for k, q in one["params"].items())
+    step_bound = 2 * cfg.train.lr_init * (1 + 1e-3)
+    vs_one = {"loss_ranks": step1["loss"], "loss_one_process": one["loss"],
+              "loss_rel_err": abs(step1["loss"] - one["loss"]) / one["loss"],
+              "grad_rel_l2_all": every,
+              "grad_rel_l2_worst_leaf": max(leaf.values()),
+              "param_max_abs_err": param_err, "param_bound": step_bound}
+    if not (vs_one["loss_rel_err"] <= TRAIN_LOSS_RTOL
+            and every <= TRAIN_ALL_RTOL
+            and vs_one["grad_rel_l2_worst_leaf"] <= TRAIN_LEAF_RTOL
+            and param_err <= step_bound):
+        raise AssertionError(f"sync-sgd on {PARALLEL_RANKS} ranks vs one "
+                             f"process: {vs_one}")
+    # Engine(mesh=): every rank holds the whole batch, bit-equal to rank 0's
+    # (each rank checked it against batch-4 engines on the slices); against
+    # the batch-8 call: the maps within bf16 rounding of their scale, as
+    # phase 4 holds the fused maps (cuDNN's batch-4 algorithms move bf16
+    # ulps, which can move a peak: on an H100 one image's `valid` moved),
+    # and the humans each image decodes to, beside the batch-8 call's
+    held = [HumanBatch(**{k: torch.from_numpy(v)
+                          for k, v in out["mesh"].items()}) for out in ranks]
+    for r, out in enumerate(ranks[1:], 1):
+        assert_batches_equal(torch, f"Engine(mesh=) rank {r} vs rank 0",
+                             held[r], held[0])
+        assert_equal(torch, f"Engine(mesh=).forward rank {r} vs rank 0",
+                     [torch.from_numpy(m) for m in out["mesh_maps"]],
+                     [torch.from_numpy(m) for m in ranks[0]["mesh_maps"]])
+    map_ratios = check_map_scale(
+        torch, "Engine(mesh=).forward vs batch-8 forward",
+        [torch.from_numpy(m) for m in ranks[0]["mesh_maps"]],
+        [t.cpu() for t in engine.forward(images)], 2e-2)
+    batch8_humans = engine.infer(images).num_humans.tolist()
+    # distributed evaluate_engine against phase 9's unsharded call: each
+    # rank serves one batch of BATCH of phase 9's images, as phase 9 did,
+    # so the detections are the same ones
+    for out in ranks:
+        ev = out["eval"]
+        if not (ev["n_images"] == EVAL_IMAGES
+                and ev["n_dets"] == eval_card.n_dets
+                and abs(ev["ap"] - eval_card.ap) <= PARALLEL_EVAL_TOL):
+            raise AssertionError(f"distributed evaluate_engine {ev} vs "
+                                 f"phase 9's AP {eval_card.ap}")
+    line = {
+        "note": "two ranks on one card, not a scaling figure",
+        "backend": "gloo", "ranks": PARALLEL_RANKS,
+        "devices": [out["device"] for out in ranks],
+        "model": cfg.model.name, "hw": [cfg.model.hin, cfg.model.win],
+        "dtype": cfg.model.compute_dtype, "global_batch": BATCH,
+        "optimizer": cfg.train.optimizer, "lr": cfg.train.lr_init,
+        "strategies": {s: {k: ranks[0]["strategies"][s][k] for k in (
+            "step_ms", "checked_ms", "losses", "collective",
+            "collective_bytes", "collective_ms")}
+            for s in kf.STRATEGIES},
+        "one_process_step_ms": one_step_ms,
+        "sync_sgd_vs_one_process": vs_one,
+        "mesh_infer_ms": [out["mesh_infer_ms"] for out in ranks],
+        "slice_infer_ms": [out["slice_infer_ms"] for out in ranks],
+        "one_process_infer_ms": infer_ms,
+        "mesh_launches": [out["mesh_launches"] for out in ranks],
+        "mesh_maps_vs_batch8_rel_err": map_ratios,
+        "mesh_humans_per_image": held[0].num_humans.tolist(),
+        "batch8_humans_per_image": batch8_humans,
+        "eval_ap": [out["eval"]["ap"] for out in ranks],
+        "eval_ap_phase9": eval_card.ap,
+        "eval_n_dets": [out["eval"]["n_dets"] for out in ranks],
+        "eval_n_dets_phase9": eval_card.n_dets,
+        "eval_seconds": [out["eval_seconds"] for out in ranks],
+        "gloo_cuda_collectives": ranks[0]["gloo_cuda"],
+        "nccl_world_of_one": nccl,
+        "phase_seconds": time.perf_counter() - t_phase, "gpu": gpu}
+    log(json.dumps({"parallel": line}))
+
+
 def profile(torch, np, rng, engine, images, gpu) -> None:
     """--profile: where the time of the served call goes.
 
@@ -3314,7 +3814,7 @@ def main(argv: list[str]) -> int:
     # ---- 7-9. the zoo, the GT-map oracle, evaluate_engine -----------------
     zoo_paths(torch, images, counted, dev, gpu)
     oracle_phase(torch, counted, dev, gpu)
-    eval_phase(torch, engine, gpu)
+    eval_card = eval_phase(torch, engine, gpu)
 
     # ---- 10. training ------------------------------------------------------
     train_phase(torch, np, counted, dev, gpu)
@@ -3329,6 +3829,10 @@ def main(argv: list[str]) -> int:
 
     # ---- 13. the file stream and the grouping oracle ----------------------
     stream_phase(torch, np, engine, inputs, dev, gpu)
+
+    # ---- 14. the distributed layer ----------------------------------------
+    parallel_phase(torch, np, engine, gains, images, eval_card, counted,
+                   dev, gpu)
     if args.profile:
         profile(torch, np, rng, engine, images, gpu)
 

@@ -7,6 +7,10 @@ subcommands and flags, plus `--device`, default cuda):
     python -m openpose_plus_tpu_torch camera --device 0
     python -m openpose_plus_tpu_torch eval   --annotations ... --images ...
     python -m openpose_plus_tpu_torch train  --model vgg19 ...
+    torchrun --nproc-per-node N -m openpose_plus_tpu_torch train --parallel \
+        --kf-optimizer sma ...
+    torchrun --nproc-per-node N -m openpose_plus_tpu_torch eval \
+        --distributed ...
     python -m openpose_plus_tpu_torch export --out engine_dir/ --batch 8
     python -m openpose_plus_tpu_torch infer  --engine-dir engine_dir/ ...
 
@@ -247,7 +251,27 @@ def cmd_bench(args) -> int:
 
 
 def cmd_eval(args) -> int:
-    """COCO val AP."""
+    """COCO val AP. Under torchrun, `--distributed` starts the process
+    group: each rank evaluates its slice on its device and every rank
+    prints the AP of the whole set."""
+    import torch.distributed as dist
+
+    from openpose_plus_tpu_torch.config import ParallelConfig
+    from openpose_plus_tpu_torch.parallel.sharding import init_distributed
+
+    if args.distributed and "WORLD_SIZE" in os.environ:
+        started = not dist.is_initialized()
+        args.torch_device = init_distributed(ParallelConfig(multihost=True),
+                                             device=args.torch_device)
+        try:
+            return _eval(args)
+        finally:
+            if started:
+                dist.destroy_process_group()
+    return _eval(args)
+
+
+def _eval(args) -> int:
     from openpose_plus_tpu_torch.data.coco import CocoPoseDataset
     from openpose_plus_tpu_torch.eval_coco import evaluate_engine
 

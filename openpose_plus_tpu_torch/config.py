@@ -142,8 +142,7 @@ class TrainConfig:
     weight_decay: float = 5e-4
     optimizer: str = "adam"      # "adam" | "momentum"
     momentum: float = 0.9
-    # distributed strategy: "sync-sgd", "sma", "pair-avg" (only one device
-    # is ported: see train.train_loop)
+    # distributed strategy: "sync-sgd", "sma", "pair-avg" (parallel/kungfu.py)
     kf_optimizer: str = "sync-sgd"
     # "inv-sqrt-area": lr_init * sqrt(lr_ref_area / (hout * wout));
     # "none": lr_init as it is (train.effective_lr_init)

@@ -8,7 +8,8 @@ the space-to-depth input layouts, and calibrated int8 serving (`calibrate`,
 served step at one batch size and layout. The whole pipeline runs on the
 engine's device — uint8 frames in, `HumanBatch` out — with the decoder's
 serial tail in the hand-written CUDA kernels on a GPU. Calls that were not
-compiled run eagerly.
+compiled run eagerly. `Engine(mesh=)` serves a global batch across the
+ranks of a `DeviceMesh` (`parallel/sharding.py`).
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ from openpose_plus_tpu_torch.checkpoint import from_flax, load_model_state
 from openpose_plus_tpu_torch.config import Config, PostprocConfig, default_config
 from openpose_plus_tpu_torch.host import INPUT_LAYOUTS
 from openpose_plus_tpu_torch.models import common, get_model
+from openpose_plus_tpu_torch.parallel import sharding
 from openpose_plus_tpu_torch.postproc import (
     HumanBatch, decode_maps, merge_dedup)
 from openpose_plus_tpu_torch.postproc.flip import mirror_maps
@@ -192,6 +194,16 @@ class Engine:
         the seeded init is already cheap (an int8 engine's scales start at
         zero either way).
 
+    mesh: a `torch.distributed` `DeviceMesh` (`parallel.sharding.
+        build_mesh`) to serve a global batch over its data axis, the
+        reference's `Engine(mesh=)`: every rank calls with the same global
+        batch, runs its contiguous slice of batch / n images on its own
+        device, and gets the whole result back (the rows of every rank,
+        gathered by `sharding.all_gather_rows`), as a JAX caller gets a
+        global array. The parameters are rank 0's, broadcast at
+        construction; an int8 engine's calibration takes the max over the
+        ranks. A batch the data axis does not divide raises.
+
     `compile(batch_size, input_layout)` captures `infer` at that shape in a
     CUDA graph (see there); later `infer` calls at the shape replay it.
 
@@ -210,9 +222,6 @@ class Engine:
                  params: Optional[Mapping] = None, seed: int = 0,
                  fast_init: bool = False, mesh=None, chunk: int = 0,
                  device: str | torch.device = "cuda"):
-        if mesh is not None:
-            raise NotImplementedError(
-                "multi-device serving is ROADMAP.md item 'Distributed'")
         self.config = config or default_config()
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
@@ -229,12 +238,65 @@ class Engine:
                 params = from_flax(params)
             load_model_state(self.model, params)
         self.model.to(self.device).eval()
+        # (index on the data axis, its size, its group), or None
+        self._data_axis = self._mesh_axis(mesh)
+        if self._data_axis is not None:
+            sharding.replicate(self.model, self._data_axis[2])
         self._calib = [b for name, b in self.model.named_buffers()
                        if common.is_calib_leaf(name.rsplit(".", 1)[-1])]
         self._calibrated = False
         # compiled input shapes -> (graph, static input, static outputs),
         # or None until captured
         self._graphs: dict[tuple[int, ...], Optional[tuple]] = {}
+
+    @staticmethod
+    def _mesh_axis(mesh) -> Optional[tuple]:
+        if mesh is None:
+            return None
+        from torch.distributed.device_mesh import DeviceMesh
+
+        if not isinstance(mesh, DeviceMesh):
+            raise TypeError(f"mesh must be a torch.distributed DeviceMesh "
+                            f"(parallel.sharding.build_mesh), got "
+                            f"{type(mesh).__name__}")
+        for dim in range(1, mesh.ndim):
+            if mesh.size(dim) > 1:
+                raise NotImplementedError(
+                    f"mesh axis {mesh.mesh_dim_names[dim]!r} of size "
+                    f"{mesh.size(dim)}: serving shards the batch only "
+                    "(the spatial axis is ROADMAP.md item 'Distributed')")
+        return sharding.data_axis(mesh)
+
+    def _local_batch(self, batch: int) -> int:
+        """This rank's share of a global batch."""
+        if self._data_axis is None:
+            return batch
+        n = self._data_axis[1]
+        if batch % n:
+            raise ValueError(f"batch of {batch} images is not divisible by "
+                             f"the mesh's data axis ({n} ranks)")
+        return batch // n
+
+    def _local(self, images):
+        """This rank's contiguous rows of a global batch (the batch itself
+        without a mesh)."""
+        if self._data_axis is None:
+            return images
+        per = self._local_batch(images.shape[0])
+        r = self._data_axis[0]
+        return images[r * per:(r + 1) * per]
+
+    def _gather(self, *tensors: torch.Tensor) -> list[torch.Tensor]:
+        if self._data_axis is None:
+            return list(tensors)
+        return sharding.all_gather_rows(tensors, self._data_axis[2])
+
+    def _gather_humans(self, humans: HumanBatch) -> HumanBatch:
+        if self._data_axis is None:
+            return humans
+        names = [f.name for f in dataclasses.fields(humans)]
+        return HumanBatch(**dict(zip(names, self._gather(
+            *(getattr(humans, n) for n in names)))))
 
     def _images(self, images) -> torch.Tensor:
         images = torch.as_tensor(images, device=self.device)
@@ -253,11 +315,11 @@ class Engine:
         return images
 
     def _serving(self, images) -> torch.Tensor:
-        """The checked images, after the implicit calibration of an int8
-        engine on the first batch it serves."""
-        images = self._images(images)
+        """This rank's checked images, after the implicit calibration of an
+        int8 engine on the first batch it serves."""
+        images = self._images(self._local(images))
         if self._needs_calibration():
-            self.calibrate(images)
+            self._calibrate(images)
         return images
 
     @torch.inference_mode()
@@ -268,11 +330,13 @@ class Engine:
         image, mirrored back (2 forwards, 1 decode)."""
         images = self._serving(images)
         if flip_tta:
-            return infer_tta(self.model, images, self.config.postproc)
-        if tuple(images.shape) in self._graphs:
-            return self._replay(images)
-        return infer_step(self.model, images, self.config.postproc,
-                          self.chunk)
+            out = infer_tta(self.model, images, self.config.postproc)
+        elif tuple(images.shape) in self._graphs:
+            out = self._replay(images)
+        else:
+            out = infer_step(self.model, images, self.config.postproc,
+                             self.chunk)
+        return self._gather_humans(out)
 
     @torch.inference_mode()
     def infer_multiscale(self, images: np.ndarray | torch.Tensor,
@@ -290,14 +354,16 @@ class Engine:
                              f"got {combine!r}")
         impl = (infer_multiscale_avg if combine == "avg"
                 else infer_multiscale_dedup)
-        return impl(self.model, self._serving(images), self.config.postproc,
-                    tuple(scales), bool(flip_tta), self.config.model.stride)
+        return self._gather_humans(impl(
+            self.model, self._serving(images), self.config.postproc,
+            tuple(scales), bool(flip_tta), self.config.model.stride))
 
     @torch.inference_mode()
     def forward(self, images: np.ndarray | torch.Tensor
                 ) -> tuple[torch.Tensor, torch.Tensor]:
         """images -> (conf, paf) final-stage maps, NHWC float32."""
-        return _forward(self.model, self._serving(images))
+        return tuple(self._gather(*_forward(self.model,
+                                            self._serving(images))))
 
     @torch.inference_mode()
     def calibrate(self, images: np.ndarray | torch.Tensor) -> None:
@@ -305,15 +371,25 @@ class Engine:
         (the TensorRT int8 calibration step): one forward with every int8
         layer in calibration mode, running its bf16 float path and keeping
         the running max |activation|. Call again to widen coverage; scales
-        only grow. No-op for float compute modes."""
-        if not self._calib:
-            return
-        images = self._images(images)
+        only grow. No-op for float compute modes. With a mesh, each rank
+        runs its slice and the scales are the max over the ranks."""
+        if self._calib:
+            self._calibrate(self._images(self._local(images)))
+
+    def _calibrate(self, images: torch.Tensor) -> None:
         common.set_calibrating(self.model, True)
         try:
             self.model(preprocess_images(images))
         finally:
             common.set_calibrating(self.model, False)
+        if self._data_axis is not None:
+            flat = torch.cat([b.view(-1) for b in self._calib])
+            torch.distributed.all_reduce(
+                flat, torch.distributed.ReduceOp.MAX,
+                group=self._data_axis[2])
+            for b, v in zip(self._calib, flat.split(
+                    [b.numel() for b in self._calib])):
+                b.copy_(v.view_as(b))
         self._calibrated = True
         # the graphs hold int8 weights and rescales read at capture:
         # recapture at the next infer
@@ -367,11 +443,15 @@ class Engine:
         not seen by an int8 graph (its packed int8 weights are taken at
         capture): compile again.
 
+        With a mesh, `batch_size` is the global batch and each rank
+        captures its slice of it.
+
         On a CPU engine: the layout is validated and one warm-up call runs
         (the counterpart of XLA compiling for the CPU); `infer` stays
         eager."""
         m = self.config.model
-        shape = m.input_shape(batch_size, check_input_layout(m, input_layout))
+        shape = m.input_shape(self._local_batch(batch_size),
+                              check_input_layout(m, input_layout))
         if self.device.type != "cuda":
             with torch.inference_mode():
                 infer_step(self.model, torch.zeros(shape, dtype=torch.uint8,

@@ -12,7 +12,10 @@ implemented directly (no pycocotools):
     interpolated precision-recall integral; maxDets=20
   * AP50 / AP75 / AR and the medium / large area ranges also reported
 
-`evaluate_engine` runs a port `Engine` over a dataset on one process.
+`evaluate_engine` runs a port `Engine` over a dataset, on one process or,
+with `distributed=True`, each rank of the process group over its slice,
+the detections and ground truth gathered over gloo on the host
+(`_allgather_padded`).
 """
 
 from __future__ import annotations
@@ -270,19 +273,22 @@ def evaluate_engine(engine, dataset, batch_size: int = 8,
     (`openpose_plus_tpu.eval_coco.evaluate_engine`, the Python loader
     path: each image decoded with cv2 and letterboxed on the host).
 
-    flip_tta averages horizontally-flipped predictions; scales enables the
-    multi-scale search (e.g. (0.5, 1.0, 1.5)) with `ms_combine` "avg" or
-    "dedup" (see Engine.infer_multiscale). The reference's native C++
-    loader path waits for ROADMAP.md item 11 (stream mode), and
-    distributed=True for item 'Distributed'.
+    With distributed=True each rank evaluates its `process_local_slice`
+    (all of it without a process group) and the detections and ground
+    truth of every rank are gathered before the AP, so every rank returns
+    the AP of the whole slice. flip_tta averages horizontally-flipped
+    predictions; scales enables the multi-scale search (e.g. (0.5, 1.0,
+    1.5)) with `ms_combine` "avg" or "dedup" (see Engine.infer_multiscale).
+    The reference's native C++ loader path is not ported (ROADMAP.md item
+    11).
     """
-    if distributed:
-        raise NotImplementedError(
-            "distributed evaluation is ROADMAP.md item 'Distributed'")
     from openpose_plus_tpu_torch.data.augment import letterbox
     from openpose_plus_tpu_torch.data.pipeline import _load_image
+    from openpose_plus_tpu_torch.parallel.sharding import (
+        host_group, process_local_slice, rank_and_world)
 
     n = len(dataset) if limit is None else min(limit, len(dataset))
+    lo, hi = process_local_slice(n) if distributed else (0, n)
     m = engine.config.model
     dets: list[Detection] = []
     gt_by_image: dict[int, tuple] = {}
@@ -310,7 +316,7 @@ def evaluate_engine(engine, dataset, batch_size: int = 8,
                 humans, b, img_id, scale, pad, m.hin, m.win))
         batch_imgs, batch_meta = [], []
 
-    for i in range(n):
+    for i in range(lo, hi):
         s = dataset[i]
         img = _load_image(s.image_path)
         net_img, scale, pad = letterbox(img, m.hin, m.win)
@@ -322,4 +328,106 @@ def evaluate_engine(engine, dataset, batch_size: int = 8,
         if len(batch_imgs) == batch_size:
             flush()
     flush()
+    if distributed and rank_and_world()[1] > 1:
+        # every rank must see every detection AND every GT
+        with host_group() as group:
+            dets = _unpack_detections(_allgather_padded(
+                _pack_detections(dets), group))
+            gt_by_image = _unpack_gt(_allgather_padded(
+                _pack_gt(gt_by_image), group))
     return evaluate_detections_full(dets, gt_by_image)
+
+
+# ---------------------------------------------------- multihost packing ---
+
+def _allgather_padded(arr: np.ndarray, group=None) -> np.ndarray:
+    """All-gather of (N, W) float32 host payloads whose N and W vary per
+    rank, over a gloo `group` (the default group if None). The gather needs
+    IDENTICAL shapes on every rank, so the global (max N, max W) is agreed
+    first via a fixed-shape gather of the dims, payloads are padded with
+    -1-id sentinel rows / zero columns, and the result flattens to
+    (world * max N, max W)."""
+    import torch.distributed as dist
+
+    if not dist.is_initialized() or dist.get_world_size(group) == 1:
+        return arr
+    world = dist.get_world_size(group)
+    dims = torch.tensor(arr.shape, dtype=torch.int64)
+    all_dims = [torch.empty_like(dims) for _ in range(world)]
+    dist.all_gather(all_dims, dims, group=group)            # fixed shape
+    m = int(max(d[0] for d in all_dims))
+    w = int(max(d[1] for d in all_dims))
+    padded = np.full((m, w), 0.0, np.float32)
+    padded[:, 0] = -1.0                              # sentinel image ids
+    padded[: arr.shape[0], : arr.shape[1]] = arr
+    mine = torch.from_numpy(padded)
+    gathered = [torch.empty_like(mine) for _ in range(world)]
+    dist.all_gather(gathered, mine, group=group)
+    return torch.stack(gathered).numpy().reshape(-1, w)
+
+
+def _pack_detections(dets: list[Detection]) -> np.ndarray:
+    """Fixed-width float rows [image_id, score, 51x kp] for allgather."""
+    out = np.zeros((len(dets), 53), np.float32)
+    for i, d in enumerate(dets):
+        out[i, 0] = d.image_id
+        out[i, 1] = d.score
+        out[i, 2:] = d.keypoints.reshape(-1)
+    return out
+
+
+def _unpack_detections(arr: np.ndarray) -> list[Detection]:
+    arr = np.asarray(arr).reshape(-1, 53) if arr.size else \
+        np.zeros((0, 53), np.float32)
+    out = []
+    for row in arr:
+        if row[0] < 0:
+            continue
+        out.append(Detection(image_id=int(row[0]), score=float(row[1]),
+                             keypoints=row[2:].reshape(17, 3).copy()))
+    return out
+
+
+def _pack_gt(gt: dict[int, tuple]) -> np.ndarray:
+    """Variable-width rows [img_id, G, Q, G*(area+51), Q*4]; every rank's
+    rows are padded to the widest by _allgather_padded, and the per-row
+    G/Q counts make the unpack exact — no people cap, no dropped images,
+    ignore boxes preserved."""
+    rows = []
+    for img_id, value in gt.items():
+        kps, areas, ign = _gt_entry(value)
+        g, q = len(kps), len(ign)
+        row = np.zeros((3 + g * 52 + q * 4,), np.float32)
+        row[0], row[1], row[2] = img_id, g, q
+        for p in range(g):
+            base = 3 + p * 52
+            row[base] = areas[p] if p < len(areas) else 0.0
+            row[base + 1: base + 52] = np.asarray(kps[p]).reshape(-1)
+        for b in range(q):
+            base = 3 + g * 52 + b * 4
+            row[base: base + 4] = np.asarray(ign[b]).reshape(-1)[:4]
+        rows.append(row)
+    if not rows:
+        return np.zeros((0, 3), np.float32)
+    w = max(len(r) for r in rows)
+    out = np.zeros((len(rows), w), np.float32)
+    for i, r in enumerate(rows):
+        out[i, : len(r)] = r
+    return out
+
+
+def _unpack_gt(arr: np.ndarray) -> dict[int, tuple]:
+    out: dict[int, tuple] = {}
+    for row in np.asarray(arr):
+        if row.size < 3 or row[0] < 0:
+            continue
+        g, q = int(row[1]), int(row[2])
+        kps = row[3: 3 + g * 52].reshape(g, 52)
+        ign = row[3 + g * 52: 3 + g * 52 + q * 4].reshape(q, 4).copy() \
+            if q else np.zeros((0, 4), np.float32)
+        out[int(row[0])] = (
+            kps[:, 1:].reshape(g, 17, 3).copy(),
+            kps[:, 0].copy(),
+            ign,
+        )
+    return out

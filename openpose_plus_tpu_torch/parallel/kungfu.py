@@ -1,0 +1,156 @@
+"""The KungFu strategies of the reference's distributed trainer, one
+process a rank on `torch.distributed`.
+
+Port of `openpose_plus_tpu/parallel/kungfu.py`. The reference's
+`--kf-optimizer` wrappers (train.py :: parallel_train):
+
+  * sync-sgd -> SynchronousSGDOptimizer: the gradients are all-reduced as
+    a mean before every update; every rank holds identical parameters.
+  * sma      -> SynchronousAveragingOptimizer: each rank applies its own
+    gradients, then the parameters are all-reduced as a mean.
+  * pair-avg -> PairAveragingOptimizer, as the JAX package's deterministic
+    hypercube gossip: in round r each rank averages its parameters with
+    partner `rank XOR 2^r`, one round a step, log2(n) rounds.
+
+Every rank holds its own replica: its model, and an optimizer state that
+stays local (`create_kungfu_state` starts every rank from rank 0's
+parameters, where the JAX package stacks one replica a device). Rank 0's
+replica is the one `train.train_loop` checkpoints, as KungFu and
+`unstack_replica` do. Metrics are all-reduced as a mean.
+
+The collectives are explicit, each over one flattened buffer, where the
+JAX package has `pmean` / `ppermute` inside `shard_map`:
+
+  * sync-sgd: one `all_reduce` of the gradients a step (`all_reduce_mean`);
+  * sma: one `all_reduce` of the parameters;
+  * pair-avg: one `all_reduce` of an (n/2, P) buffer in which the two
+    ranks of each pair write half their parameters (`pair_average`): the
+    pair's row sums to (own + partner) * 0.5, bit for bit. It moves n/2
+    times the bytes of a point-to-point exchange, and needs only the
+    collective that every backend takes on CUDA tensors;
+  * the metrics: one `all_reduce` of three scalars.
+
+The update is `train._update`'s Adam or momentum step unchanged.
+"""
+
+from __future__ import annotations
+
+import functools
+from typing import Callable, Optional, Sequence
+
+import torch
+import torch.distributed as dist
+from torch._utils import _flatten_dense_tensors, _unflatten_dense_tensors
+
+from openpose_plus_tpu_torch.config import Config
+from openpose_plus_tpu_torch.parallel import sharding as S
+
+STRATEGIES = ("sync-sgd", "sma", "pair-avg")
+
+
+def all_reduce_mean(tensors: Sequence[torch.Tensor], group=None) -> None:
+    """Each tensor replaced in place by its mean over the ranks of `group`:
+    one all_reduce (sum) of the tensors flattened into one buffer, then a
+    division by the world size (pmean's psum / n)."""
+    flat = _flatten_dense_tensors(tensors)
+    dist.all_reduce(flat, group=group)
+    flat.div_(dist.get_world_size(group))
+    for t, r in zip(tensors, _unflatten_dense_tensors(flat, tensors)):
+        t.copy_(r)
+
+
+def pair_index(rank: int, rnd: int) -> int:
+    """The index of the pair {rank, rank XOR 2^rnd} among the n/2 pairs of
+    a round: the rank with bit `rnd` taken out."""
+    low = rank & ((1 << rnd) - 1)
+    return ((rank >> (rnd + 1)) << rnd) | low
+
+
+def pair_average(tensors: Sequence[torch.Tensor], rnd: int, group=None
+                 ) -> None:
+    """Each tensor replaced in place by (own + partner's) * 0.5, the
+    partner being rank XOR 2^rnd of `group` (a power-of-two world): the
+    ranks write half their flattened tensors into their pair's row of a
+    zeroed (n/2, P) buffer, which one all_reduce sums."""
+    n, me = dist.get_world_size(group), dist.get_rank(group)
+    flat = _flatten_dense_tensors(tensors)
+    rows = flat.new_zeros((n // 2, flat.numel()))
+    row = rows[pair_index(me, rnd)]
+    torch.mul(flat, 0.5, out=row)
+    dist.all_reduce(rows, group=group)
+    for t, r in zip(tensors, _unflatten_dense_tensors(row, tensors)):
+        t.copy_(r)
+
+
+def _mean_metrics(metrics: dict, group) -> dict:
+    keys = [k for k in metrics if k != "lr"]
+    values = torch.stack([metrics[k].float() for k in keys])
+    all_reduce_mean([values], group)
+    return dict(metrics, **dict(zip(keys, values.unbind())))
+
+
+def create_kungfu_state(config: Config, mesh=None, seed: int = 0,
+                        device: str | torch.device = "cuda"):
+    """`train.create_train_state` on this rank, with rank 0's parameters
+    broadcast over the mesh's data axis (KungFu's BroadcastGlobalVariables;
+    the seeded init already agrees)."""
+    from openpose_plus_tpu_torch.train import create_train_state
+
+    state = create_train_state(config, seed, device)
+    if mesh is not None:
+        S.replicate(state.model, S.data_axis(mesh)[2])
+    return state
+
+
+def make_kungfu_steps(config: Config, mesh, strategy: str
+                      ) -> list[Callable]:
+    """This rank's step functions for a strategy: step(state, batch) ->
+    (state, metrics), `batch` being this rank's slice of the global batch
+    (a pipeline batch, as `train.make_train_step_on_batch` takes).
+
+    Returns a list; the train loop cycles `fns[step % len(fns)]`: one
+    function for sync-sgd and sma, log2(n) for pair-avg (round r pairs the
+    ranks along bit r). `mesh` is the `DeviceMesh` of the ranks, or None
+    for a world of one without a process group (no collectives)."""
+    from openpose_plus_tpu_torch import train as T
+
+    if strategy not in STRATEGIES:
+        raise ValueError(f"unknown kf strategy {strategy!r}; "
+                         f"choose from {STRATEGIES}")
+    n, group = 1, None
+    if mesh is not None:
+        _, n, group = S.data_axis(mesh)
+        names = mesh.mesh_dim_names
+        for dim, other in enumerate(names[1:], 1):
+            if mesh.size(dim) != 1:
+                raise ValueError(
+                    f"kf strategy {strategy!r} shards over {names[0]!r} "
+                    f"only; mesh axis {other!r} has size {mesh.size(dim)} "
+                    f"— spatial partitioning is not supported with "
+                    f"decentralized strategies (use kf_optimizer="
+                    f"'sync-sgd')")
+    if strategy == "pair-avg" and (n & (n - 1) or n < 2):
+        raise ValueError(f"pair-avg hypercube gossip needs a power-of-two "
+                         f"device count, got {n}")
+    targets = T.batch_on_device(config)
+
+    def reduce_grads(model: torch.nn.Module) -> None:
+        all_reduce_mean([p.grad for p in model.parameters()], group)
+
+    def step(state, batch, *, rnd: int):
+        after_backward: Optional[Callable] = (
+            reduce_grads if strategy == "sync-sgd" and group is not None
+            else None)
+        state, metrics = T._update(state, *targets(state, batch),
+                                   after_backward=after_backward)
+        if group is None:
+            return state, metrics
+        params = [p.detach() for p in state.model.parameters()]
+        if strategy == "sma":
+            all_reduce_mean(params, group)
+        elif strategy == "pair-avg":
+            pair_average(params, rnd, group)
+        return state, _mean_metrics(metrics, group)
+
+    n_rounds = max(1, n.bit_length() - 1) if strategy == "pair-avg" else 1
+    return [functools.partial(step, rnd=r) for r in range(n_rounds)]

@@ -1,5 +1,5 @@
-"""Training on one device: deep-supervision loss, optimizer and schedule,
-the train step, the loop with resume, and the CLI.
+"""Training: deep-supervision loss, optimizer and schedule, the train
+step, the loop with resume on one device or several ranks, and the CLI.
 
 Port of `openpose_plus_tpu/train.py`, function for function:
 
@@ -15,13 +15,19 @@ Port of `openpose_plus_tpu/train.py`, function for function:
     warps images (`data.pipeline.TrainPipeline`)
   * checkpoints with resume (`checkpoint.save` / `restore`)
 
-Everything runs on one torch device, the card unless the caller passes
-`device="cpu"`; without a CUDA device the default raises. The distributed
-strategies (`kf_optimizer` "sma" / "pair-avg", multi-host, spatial
-sharding) raise `NotImplementedError` (ROADMAP.md item 'Distributed').
+A step runs on one torch device, the card unless the caller passes
+`device="cpu"`; without a CUDA device the default raises. `train_loop`
+runs on every rank of the process group it finds (or starts, with
+`config.parallel.multihost`: one process a rank under `torchrun`), with
+the KungFu strategy `config.train.kf_optimizer` ("sync-sgd", "sma",
+"pair-avg"; `parallel/kungfu.py`); `config.train.batch_size` is the global
+batch. Sharding the image height (`spatial_parallelism > 1`) raises
+`NotImplementedError` (ROADMAP.md item 'Distributed').
 
     python -m openpose_plus_tpu_torch.train --model mobilenet_thin \\
         --train-images DIR --train-annotations FILE --steps 1000
+    torchrun --nproc-per-node 8 -m openpose_plus_tpu_torch.train \\
+        --parallel --kf-optimizer sma ...
 """
 
 from __future__ import annotations
@@ -33,6 +39,7 @@ from typing import Any, Callable, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from openpose_plus_tpu_torch.config import Config, TrainConfig
@@ -173,14 +180,19 @@ def create_train_state(config: Config, seed: int = 0,
 
 
 def _update(state: TrainState, images: torch.Tensor, gt_conf: torch.Tensor,
-            gt_paf: torch.Tensor, mask: Optional[torch.Tensor]
+            gt_paf: torch.Tensor, mask: Optional[torch.Tensor],
+            after_backward: Optional[Callable[[nn.Module], None]] = None
             ) -> tuple[TrainState, dict]:
     """One optimizer step in place; metrics stay on the device (no sync)
-    but `lr`, the schedule's value at the step before its increment."""
+    but `lr`, the schedule's value at the step before its increment.
+    `after_backward(model)` runs between the backward pass and the update
+    (sync-sgd's gradient all-reduce)."""
     lr = state.optimizer.param_groups[0]["lr"]
     state.optimizer.zero_grad(set_to_none=True)
     loss, metrics = pose_loss(state.model(images), gt_conf, gt_paf, mask)
     loss.backward()
+    if after_backward is not None:
+        after_backward(state.model)
     state.optimizer.step()
     state.scheduler.step()
     state.step += 1
@@ -208,70 +220,90 @@ def _to_device(x: Any, device: torch.device) -> torch.Tensor:
     return t.to(device, non_blocking=True)
 
 
-def make_train_step_on_batch(config: Config):
-    """step(state, batch) -> (state, metrics) over a pipeline batch
-    {'images' uint8 (any input layout Engine takes), 'keypoints' (B, P,
-    18, 3), 'mask' (B, hout, wout, 1)}: the batch is copied to the state's
-    device once, normalised there (/255 - 0.5) and its GT maps synthesised
-    there at the model's output grid."""
+def batch_on_device(config: Config):
+    """targets(state, batch) -> (images, gt_conf, gt_paf, mask) of a
+    pipeline batch {'images' uint8 (any input layout Engine takes),
+    'keypoints' (B, P, 18, 3), 'mask' (B, hout, wout, 1)}: the batch is
+    copied to the state's device once, normalised there (/255 - 0.5) and
+    its GT maps synthesised there at the model's output grid."""
     _check_trainable(config)
     m, d = config.model, config.data
 
-    def step_fn(state: TrainState, batch: dict):
+    def targets(state: TrainState, batch: dict) -> tuple:
         dev = state.device
         images = preprocess_images(_to_device(batch["images"], dev))
         keypoints = _to_device(batch["keypoints"], dev)
         mask = _to_device(batch["mask"], dev)
         gt_conf, gt_paf = make_targets(keypoints, m.hout, m.wout, m.stride,
                                        d.sigma, d.limb_width)
-        return _update(state, images, gt_conf, gt_paf, mask)
+        return images, gt_conf, gt_paf, mask
 
-    return step_fn
+    return targets
 
 
-def _check_single_device(config: Config) -> None:
-    p = config.parallel
-    if (config.train.kf_optimizer != "sync-sgd" or p.multihost
-            or p.spatial_parallelism > 1):
-        raise NotImplementedError(
-            f"training across devices (kf_optimizer="
-            f"{config.train.kf_optimizer!r}, multihost={p.multihost}, "
-            f"spatial_parallelism={p.spatial_parallelism}) is ROADMAP.md "
-            "item 'Distributed'; the port trains on one device")
+def make_train_step_on_batch(config: Config):
+    """step(state, batch) -> (state, metrics) over a pipeline batch (see
+    `batch_on_device`)."""
+    targets = batch_on_device(config)
+    return lambda state, batch: _update(state, *targets(state, batch))
 
 
 def train_loop(config: Config, n_steps: Optional[int] = None,
                resume: bool = True, log=print,
                device: str | torch.device = "cuda") -> TrainState:
-    """The training loop on one device: the COCO dataset and the host
-    pipeline, on-device GT synthesis, resume from the newest checkpoint,
-    a log line and a metrics-CSV row every `log_every` steps, checkpoints
-    every `checkpoint_every` and heatmap dumps every `vis_every`."""
+    """The training loop on every rank of the world it finds (reference
+    train.py :: single_train / parallel_train): the COCO dataset and the
+    host pipeline, on-device GT synthesis, the KungFu strategy's steps,
+    resume from the newest checkpoint, a log line every `log_every` steps
+    and a metrics-CSV row, checkpoints every `checkpoint_every` and heatmap
+    dumps every `vis_every`.
+
+    With a process group running (or started from torchrun's environment
+    when `config.parallel.multihost`), rank r trains on its own shard of
+    the dataset (`shard_index=r`, seed + r) in batches of batch_size /
+    world, on cuda:LOCAL_RANK when `device` is "cuda"; every rank resumes
+    from the newest checkpoint, and rank 0 alone writes checkpoints, CSV
+    rows and dumps, from its replica. Returns this rank's state."""
     from openpose_plus_tpu_torch import checkpoint as ckpt
     from openpose_plus_tpu_torch.data.coco import CocoPoseDataset
     from openpose_plus_tpu_torch.data.pipeline import TrainPipeline
+    from openpose_plus_tpu_torch.parallel import kungfu as kf
+    from openpose_plus_tpu_torch.parallel import sharding as S
 
-    _check_single_device(config)
+    S.check_spatial(config.parallel)
+    dev = S.init_distributed(config.parallel, device=_device(device))
+    rank, world = S.rank_and_world()
+    if config.train.batch_size % world:
+        raise ValueError(
+            f"batch_size {config.train.batch_size} must be divisible by the "
+            f"data mesh axis ({world} devices)")
+    mesh = S.build_mesh(config.parallel) if dist.is_initialized() else None
     n_steps = n_steps or config.train.n_steps
-    state = create_train_state(config, config.train.seed, device)
+    state = kf.create_kungfu_state(config, mesh, config.train.seed, dev)
     ckpt_dir = config.train.checkpoint_dir
     if resume and ckpt.latest_step(ckpt_dir) is not None:
         state = ckpt.restore(ckpt_dir, state)
         log(f"resumed from step {state.step}")
+    step_fns = kf.make_kungfu_steps(config, mesh, config.train.kf_optimizer)
 
     dataset = CocoPoseDataset(config.data.train_annotations,
                               config.data.train_images)
-    pipeline = TrainPipeline(dataset, config, seed=config.train.seed)
-    step_fn = make_train_step_on_batch(config)
-    csv_writer = _metrics_csv_writer(config)
+    # the rank's disjoint shard (the reference's dataset.shard(cluster_size,
+    # rank)), in batches of its share of the global batch
+    local = config.replace(train=dataclasses.replace(
+        config.train, batch_size=config.train.batch_size // world))
+    pipeline = TrainPipeline(dataset, local, seed=config.train.seed + rank,
+                             shard_index=rank, shard_count=world)
+    csv_writer = (_metrics_csv_writer(config) if rank == 0
+                  else lambda *a: None)
     it = iter(pipeline)
     t0 = time.perf_counter()
     imgs_since = 0
     try:
         for i in range(state.step, n_steps):
             batch = next(it)
-            state, metrics = step_fn(state, batch)
-            imgs_since += batch["images"].shape[0]
+            state, metrics = step_fns[i % len(step_fns)](state, batch)
+            imgs_since += batch["images"].shape[0] * world
             if (i + 1) % config.train.log_every == 0:
                 loss = float(metrics["loss"])          # synchronises
                 dt = time.perf_counter() - t0
@@ -281,13 +313,16 @@ def train_loop(config: Config, n_steps: Optional[int] = None,
                 csv_writer(i + 1, metrics, imgs_since / dt)
                 t0 = time.perf_counter()
                 imgs_since = 0
-            if (i + 1) % config.train.checkpoint_every == 0:
+            if (i + 1) % config.train.checkpoint_every == 0 and rank == 0:
                 ckpt.save(ckpt_dir, state, i + 1)
             if (config.train.vis_every
-                    and (i + 1) % config.train.vis_every == 0):
+                    and (i + 1) % config.train.vis_every == 0
+                    and rank == 0):
                 _dump_vis(config, state, batch, i + 1)
     finally:
         pipeline.stop()
+    if mesh is not None:
+        dist.barrier()        # rank 0's last checkpoint is on disk
     return state
 
 
@@ -341,7 +376,8 @@ def _dump_vis(config: Config, state: TrainState, batch, step: int) -> None:
 
 
 def main(argv: Optional[list[str]] = None) -> None:
-    """CLI: the JAX package's flags, plus --device (default cuda)."""
+    """CLI: the JAX package's flags, plus --device (default cuda) and
+    --checkpoint-every."""
     import argparse
 
     p = argparse.ArgumentParser(description="Train a pose model (PyTorch)")
@@ -349,18 +385,22 @@ def main(argv: Optional[list[str]] = None) -> None:
     p.add_argument("--steps", type=int, default=None)
     p.add_argument("--batch-size", type=int, default=None)
     p.add_argument("--parallel", action="store_true",
-                   help="multi-host (ROADMAP.md item 'Distributed': raises)")
+                   help="one process a rank: start the process group from "
+                        "torchrun's environment")
     p.add_argument("--kf-optimizer", default="sync-sgd",
                    choices=["sync-sgd", "sma", "pair-avg"],
-                   help="distributed strategy (only sync-sgd on one device "
-                        "is ported)")
+                   help="distributed strategy (reference --kf-optimizer; "
+                        "pair-avg as hypercube gossip)")
     p.add_argument("--spatial", type=int, default=1,
-                   help="spatial-parallel shards of the image height")
+                   help="spatial-parallel shards of the image height (only "
+                        "1: ROADMAP.md item 'Distributed')")
     p.add_argument("--train-images", default=None)
     p.add_argument("--train-annotations", default=None)
     p.add_argument("--checkpoint-dir", default=None)
     p.add_argument("--metrics-csv", default=None,
                    help="append per-log-interval metrics rows here")
+    p.add_argument("--checkpoint-every", type=int, default=None,
+                   help="steps between checkpoints")
     p.add_argument("--lr-scaling", default=None,
                    choices=["none", "inv-sqrt-area"],
                    help="geometry-transfer lr rule: inv-sqrt-area scales "
@@ -381,6 +421,8 @@ def main(argv: Optional[list[str]] = None) -> None:
         tr = dataclasses.replace(tr, checkpoint_dir=args.checkpoint_dir)
     if args.metrics_csv:
         tr = dataclasses.replace(tr, metrics_csv=args.metrics_csv)
+    if args.checkpoint_every:
+        tr = dataclasses.replace(tr, checkpoint_every=args.checkpoint_every)
     da = cfg.data
     if args.train_images:
         da = dataclasses.replace(da, train_images=args.train_images)
@@ -389,7 +431,12 @@ def main(argv: Optional[list[str]] = None) -> None:
     pa = dataclasses.replace(cfg.parallel, multihost=args.parallel,
                              spatial_parallelism=args.spatial)
     cfg = cfg.replace(train=tr, data=da, parallel=pa)
-    train_loop(cfg, n_steps=args.steps, device=args.device)
+    started = not dist.is_initialized()
+    try:
+        train_loop(cfg, n_steps=args.steps, device=args.device)
+    finally:
+        if started and dist.is_initialized():
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

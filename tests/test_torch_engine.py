@@ -138,20 +138,35 @@ def test_seeded_init_is_reproducible():
                                   "calibrate_from_paths", "compile",
                                   "build_decoder"])
 def test_unported_paths_raise(call):
-    """The reference's API on the port: multi-device serving raises naming
-    its item; `compile` on a CPU engine validates the layout as the
+    """The reference's API on the port: `mesh=` takes a `DeviceMesh` (a
+    gloo group of one here: the engine serves as without it; other types
+    raise); `compile` on a CPU engine validates the layout as the
     reference does, runs one warm-up call and leaves `infer` unchanged (the
     CUDA-graph capture is the card's; tests/test_torch_cuda.py);
     `calibrate` and `calibrate_from_paths` are no-ops on a float engine, as
     in the reference; `fast_init` is accepted and changes nothing;
     `postproc.build_decoder` binds a config to `decode_maps`."""
     cfg = _tiny()
-    if call == "mesh":
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            Engine(cfg, mesh=object(), device="cpu")
-        return
     images = np.random.default_rng(0).integers(0, 256, (1, 64, 64, 3),
                                                dtype=np.uint8)
+    if call == "mesh":
+        import torch.distributed as dist
+
+        from openpose_plus_tpu_torch.parallel import sharding
+
+        with pytest.raises(TypeError, match="DeviceMesh"):
+            Engine(cfg, mesh=object(), device="cpu")
+        dist.init_process_group("gloo", store=dist.HashStore(), rank=0,
+                                world_size=1)
+        try:
+            mesh = sharding.build_mesh(cfg.parallel)
+            a = Engine(cfg, seed=1, mesh=mesh, device="cpu").infer(images)
+        finally:
+            dist.destroy_process_group()
+        b = Engine(cfg, seed=1, device="cpu").infer(images)
+        for f in dataclasses.fields(a):
+            assert torch.equal(getattr(a, f.name), getattr(b, f.name))
+        return
     if call == "build_decoder":
         from openpose_plus_tpu_torch.postproc import build_decoder, decode_maps
         _, engine, _ = _engines()
@@ -219,6 +234,7 @@ from openpose_plus_tpu_torch import (ap_bench, ap_oracle, checkpoint, cli,
                                      data, engine, eval_coco, export, host,
                                      loader, models, postproc, stream, train)
 from openpose_plus_tpu_torch.postproc import oracle as grouping_oracle
+from openpose_plus_tpu_torch.parallel import kungfu, sharding
 from openpose_plus_tpu_torch.utils import tracer, vis
 from openpose_plus_tpu_torch.models import hao28, vgg19, vggtiny
 from openpose_plus_tpu_torch.models.common import space_to_depth
@@ -275,6 +291,10 @@ state, metrics = train.make_train_step_on_batch(tcfg)(state, {
     "images": images, "keypoints": kp,
     "mask": np.ones((2, 8, 8, 1), np.float32)})
 assert np.isfinite(float(metrics["loss"])) and state.step == 1
+(sma,) = kungfu.make_kungfu_steps(tcfg, None, "sma")
+state, metrics = sma(state, {"images": images, "keypoints": kp,
+                             "mask": np.ones((2, 8, 8, 1), np.float32)})
+assert state.step == 2 and sharding.process_local_slice(4) == (0, 4)
 oracle = ap_oracle.run_oracle("small", device="cpu", limit=8)
 assert oracle["perfect"].ap == 1.0, oracle
 assert all(0.0 <= r.ap <= 1.0 for r in oracle.values()), oracle
@@ -296,10 +316,11 @@ def test_port_never_imports_jax():
     what it needs: importing the port (engine, models and the zoo,
     postproc, eval_coco, ap_oracle, train, ap_bench, checkpoint, the
     deploy modules cli, export, host, stream and utils.tracer, the loader
-    and the grouping oracle, every ops.cuda and data module), running CPU
+    and the grouping oracle, parallel's kungfu and sharding, every ops.cuda
+    and data module), running CPU
     engines of every model through it (int8 engines too), a stream of
-    frames and one of two PNG files, the numpy oracle, a train step and the
-    GT-map oracle on 8 small-tier images loads no module of jax, flax or
+    frames and one of two PNG files, the numpy oracle, a train step, an sma
+    step on a world of one and the GT-map oracle on 8 small-tier images loads no module of jax, flax or
     the JAX package `openpose_plus_tpu`, by chip_smoke.py's own end-of-run
     check."""
     env = dict(os.environ, PYTHONPATH=REPO)
@@ -315,7 +336,7 @@ def test_port_never_imports_jax():
         assert f"openpose_plus_tpu_torch.data.{name}'" in proc.stdout
     for name in ("train", "ap_bench", "checkpoint", "utils.vis", "cli",
                  "export", "host", "stream", "utils.tracer", "loader",
-                 "postproc.oracle"):
+                 "postproc.oracle", "parallel.kungfu", "parallel.sharding"):
         assert f"openpose_plus_tpu_torch.{name}'" in proc.stdout
 
 

@@ -375,9 +375,11 @@ def test_evaluate_engine_matches_reference(tmp_path, monkeypatch):
         assert abs(d.score - r.score) <= 1e-5
     for key, value in ref.as_dict().items():
         assert abs(out.as_dict()[key] - value) <= 1e-6, key
-    with pytest.raises(NotImplementedError, match="Distributed"):
-        TE.evaluate_engine(engine, coco.CocoPoseDataset(ann, imgs),
-                           distributed=True)
+    # distributed=True without a process group: the whole bank, as the
+    # reference on one process (tests/test_torch_parallel.py: 2 ranks)
+    assert TE.evaluate_engine(engine, coco.CocoPoseDataset(ann, imgs),
+                              batch_size=4, distributed=True).as_dict() == \
+        out.as_dict()
 
 
 # --------------------------------------------------------- the oracle ---

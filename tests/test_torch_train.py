@@ -9,8 +9,9 @@ the same bridged parameters and the same batch:
   and MobileNet-thin: the loss within 1e-5 relative, every gradient within
   1e-4 of its leaf's largest magnitude; the parameters after 3 steps with
   Adam + weight decay and with momentum (tolerances at the tests);
-- `remat_stages` gives the same gradients; the `fused_inference`, int8 and
-  distributed refusals;
+- `remat_stages` gives the same gradients; the `fused_inference` and int8
+  refusals; the strategies on a world of one (sma and multihost train,
+  pair-avg and the spatial axis raise);
 - checkpoints (`save` / `restore` / `latest_step`, keep=3), `save_npz`
   read back by the JAX package's `load_npz` with the same forward;
 - a 3-step `train_loop` with its CSV, checkpoint and resume, and `main()`.
@@ -404,13 +405,41 @@ def test_refusals():
     {"train": {"kf_optimizer": "pair-avg"}},
     {"parallel": {"multihost": True}},
     {"parallel": {"spatial_parallelism": 2}}], ids=str)
-def test_distributed_strategies_raise(change):
-    _, cfg = _configs()
+def test_distributed_strategies_raise(change, tmp_path, monkeypatch):
+    """train_loop on a world of one, as the reference on one device: sma
+    trains; pair-avg raises the reference's power-of-two error; multihost
+    starts a gloo group of one from torchrun's environment and trains; only
+    the spatial axis raises NotImplementedError, naming the item
+    (tests/test_torch_parallel.py runs the strategies on 2 and 4 ranks)."""
+    import torch.distributed as dist
+
+    from tests.torch_ranks import free_port
+
+    cfg = _loop_config(tmp_path)
     cfg = cfg.replace(**{section: dataclasses.replace(getattr(cfg, section),
                                                       **kw)
                          for section, kw in change.items()})
-    with pytest.raises(NotImplementedError, match="Distributed"):
-        T.train_loop(cfg, n_steps=1, device="cpu")
+    if cfg.parallel.spatial_parallelism > 1:
+        with pytest.raises(NotImplementedError, match="Distributed"):
+            T.train_loop(cfg, n_steps=1, device="cpu")
+        return
+    if cfg.train.kf_optimizer == "pair-avg":
+        with pytest.raises(ValueError,
+                           match="power-of-two device count, got 1"):
+            T.train_loop(cfg, n_steps=1, device="cpu")
+        return
+    for key, value in (("MASTER_ADDR", "127.0.0.1"),
+                       ("MASTER_PORT", str(free_port())), ("RANK", "0"),
+                       ("LOCAL_RANK", "0"), ("WORLD_SIZE", "1")):
+        monkeypatch.setenv(key, value)
+    try:
+        state = T.train_loop(cfg, n_steps=1, log=lambda _: None,
+                             device="cpu")
+        assert state.step == 1
+        assert dist.is_initialized() == cfg.parallel.multihost
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
 
 
 # ----------------------------------------------------------- checkpoints ---
@@ -523,6 +552,9 @@ def test_main_on_the_cpu(tmp_path):
             "--checkpoint-dir", ck, "--metrics-csv", csv,
             "--device", "cpu"])
     assert os.path.exists(csv)
-    with pytest.raises(NotImplementedError, match="Distributed"):
-        T.main(["--model", "vggtiny", "--steps", "1", "--kf-optimizer",
-                "sma", "--device", "cpu"])
+    ck_sma = str(tmp_path / "ck_sma")
+    T.main(["--model", "mobilenet_thin", "--steps", "1", "--batch-size", "1",
+            "--train-images", imgs, "--train-annotations", ann,
+            "--checkpoint-dir", ck_sma, "--checkpoint-every", "1",
+            "--kf-optimizer", "sma", "--device", "cpu"])
+    assert ckpt.latest_step(ck_sma) == 1

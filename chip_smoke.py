@@ -162,7 +162,9 @@ raises on failure (the script then exits non-zero and prints no result):
    (event and device ms, plain, bound, the tile plan, `torch._int_mm` on
    the 1x1 layers as `library_*`, the bf16 cuDNN conv of the shape as
    `cudnn_*`) and an `int8_forward_layers` line (the groups summed over a
-   forward, and the quantize passes).
+   forward, and the quantize passes; int8_conv's own device time summed
+   over the layers `torch._int_mm` was timed on, and the pair per shape
+   group, `library_pairs`).
 12. The deploy path (`deploy_phase`): copies of phase 4's two engines (same
    weights) and phase 11's VGG19 int8 engine, calibrated on the batch, each
    `compile`d at batch 8 (a CUDA-graph capture of `infer`): the replay
@@ -235,7 +237,35 @@ raises on failure (the script then exits non-zero and prints no result):
    strategy the step's ms, the collective, its bytes and ms; the mesh
    `infer` ms beside one process's; which collectives gloo takes on CUDA
    tensors (`gloo_cuda_probe`).
-15. With --profile only: batch scaling (1, 8, 32; decode also at the
+15. The bench (`bench_phase`; `openpose_plus_tpu_torch.bench`): the whole
+   `table` mode (bench.py's twelve rows at 368x656, each a CUDA graph of
+   the chained served step timed by the two-point slope, with its FLOPs
+   and bytes from shapes; `bench.table_rows`), each row held against its
+   plain versions at its own shapes (`bench_row_vs_plain`: the int8 conv
+   and quantize outputs of an int8 row bit-equal call by call, its maps
+   within INT8_PLAIN_TOL; the decode bit-equal to its plain-routed
+   version; the graph's HumanBatch against the plain one by
+   `compare_decodes`; a scene of people across the row's map grid decoded
+   bit-equal and in full). Then three checks: the headline's slope within
+   BENCH_SLOPE_TOL of `device_ms` of the same chained step, the median
+   ratio of BENCH_ROUNDS rounds in which five methods read the graph in
+   turn under sampled clocks (`bench_rounds`); the headline graph's
+   HumanBatch equal to `Engine.compile`d `infer` on the same images, bit
+   for bit; one torch.profiler session over a replay of the headline's
+   graph and of BENCH_INT8_ROW's names greedy, merge and sample_paf once
+   each, and one int8_conv_kernel per int8 layer and one quantize pass per
+   float input, and five of each decoder kernel in five headline replays;
+   no row may carry a cost error. Then
+   `python -m openpose_plus_tpu_torch bench` in a fresh process with
+   BENCH_HEADLINE_ONLY prints the headline line with bench.py's keys, and
+   the `train` mode, the `stream` mode (3000x4000 photos, 16 of them) and
+   the stream's `--loader-only` run at their defaults. A `bench` line:
+   every row's fps, ms, MFU, HBM share, spread, FLOPs an image and plain
+   check, the headline's rounds and its step's graphs of 20 and 1 calls,
+   the trace, the modes' lines (the streams with their host scopes' ms a
+   call) and the phase's seconds. The phase runs in a fresh process
+   (`--bench-phase`): its profiler session is that process's first.
+16. With --profile only: batch scaling (1, 8, 32; decode also at the
    fidelity() preset), the host's enqueue time per call, and the device's
    busy time per call from torch.profiler (see `profile`).
 
@@ -259,6 +289,7 @@ m16n8k32, bf16 m16n8k16) and `wgmma` rates from shared memory (s8
 m64n128k32, bf16 m64n128k16). `--int8-phases` only builds
 csrc/int8_conv.cu with its phase clocks and reads where a block of the
 int8 conv spends its time at the forwards' main shapes (`int8_phases`).
+`--bench-phase` only builds the kernels and runs phase 15.
 """
 
 from __future__ import annotations
@@ -377,6 +408,16 @@ PARALLEL_STEPS = 3
 PARALLEL_PEOPLE = 4
 PARALLEL_TIMEOUT_S = 300
 PARALLEL_EVAL_TOL = 1e-3
+# phase 15, the bench: the headline's slope against the device time of the
+# same chained step, the median ratio of BENCH_ROUNDS rounds (each method
+# read in turn: they agreed within 0.7% in a round, while the card's speed
+# for the graph moved 4.5% between rounds, run 92); the int8 row whose
+# replay is traced; the headline line's keys (bench.py's)
+BENCH_SLOPE_TOL = 0.02
+BENCH_ROUNDS = 3
+BENCH_INT8_ROW = "e2e_fps_vgg19_int8_368x656_bs8"
+BENCH_HEADLINE_KEYS = ["metric", "value", "unit", "vs_baseline", "mfu_pct",
+                       "hbm_pct_est", "spread_pct"]
 SOURCES = {   # kernel: (source, the TPU kernel it replaces)
     "greedy_assign": ("openpose_plus_tpu_torch/csrc/greedy.cu",
                       "openpose_plus_tpu/ops/pallas/greedy.py:53"),
@@ -1678,16 +1719,23 @@ def record_outputs(module, names, fn) -> dict:
     return calls
 
 
-def routed_plain(module, fn):
-    """fn() with the int8 conv and the quantize pass sent to their plain
-    versions (on the card)."""
-    kernel, quant = module.int8_conv, module.quantize_act
-    module.int8_conv = module.int8_conv_plain
-    module.quantize_act = module.quantize_act_plain
+def to_plain(ops, fn):
+    """fn() with each (module, name) of `ops` sent to its plain version,
+    module.<name>_plain (on the card)."""
+    saved = [(module, name, getattr(module, name)) for module, name in ops]
+    for module, name in ops:
+        setattr(module, name, getattr(module, name + "_plain"))
     try:
         return fn()
     finally:
-        module.int8_conv, module.quantize_act = kernel, quant
+        for module, name, kernel in saved:
+            setattr(module, name, kernel)
+
+
+def routed_plain(module, fn):
+    """fn() with the int8 conv and the quantize pass sent to their plain
+    versions (on the card)."""
+    return to_plain(((module, "int8_conv"), (module, "quantize_act")), fn)
 
 
 def int8_engines(torch, name, images, dev) -> tuple:
@@ -1921,6 +1969,10 @@ def int8_phase(torch, np, images, counted, dev, gpu) -> dict:
                                        "library_device_ms", "cudnn_ms",
                                        "cudnn_device_ms")}
         totals["library_layers"] = 0
+        # int8_conv's own device time on the layers torch._int_mm was timed
+        # on, the pair per shape group: [q, Cout, layers, kernel, _int_mm]
+        totals["library_layers_kernel_device_ms"] = 0.0
+        library_pairs = []
         for (shape, cin, cout, k, stride, bf16_out), (args, o, count) in (
                 sorted(groups.items())):
             t = time_int8_group(torch, common, int8_conv, args, o, cin)
@@ -1935,6 +1987,11 @@ def int8_phase(torch, np, images, counted, dev, gpu) -> dict:
                     totals[key] += count * t[key]
             if t["library_ms"] is not None:
                 totals["library_layers"] += count
+                totals["library_layers_kernel_device_ms"] += (
+                    count * t["device_ms"])
+                library_pairs.append([[*shape[:3], cin], cout, count,
+                                      t["device_ms"],
+                                      t["library_device_ms"]])
         quant = {"ms": 0.0, "plain_ms": 0.0, "device_ms": 0.0,
                  "bound_ms": 0.0}
         for args, _ in kern["quantize_act"]:
@@ -1944,6 +2001,7 @@ def int8_phase(torch, np, images, counted, dev, gpu) -> dict:
         log(json.dumps({"int8_forward_layers": {
             "model": name, "batch": BATCH, "layers": n_convs,
             "groups": len(groups), **totals,
+            "library_pairs": library_pairs,
             "pct_of_bound": 100.0 * totals["bound_ms"]
             / totals["device_ms"], "quantize_act": quant, "gpu": gpu}}))
         if name == INT8_MODELS[0]:
@@ -2302,7 +2360,8 @@ def replay_trace(torch, calls: dict) -> dict:
         out[label] = {
             "kernels": {k: sum(k in name for _, _, name in cluster)
                         for k in REPLAY_KERNELS},
-            "busy_ms": busy_us / 1e3, "device_events": len(cluster)}
+            "busy_ms": busy_us / 1e3, "device_events": len(cluster),
+            "span_ms": (end - cluster[0][0]) / 1e3}
     return out
 
 
@@ -3276,6 +3335,340 @@ def parallel_phase(torch, np, engine, gains, images, eval_card, counted,
     log(json.dumps({"parallel": line}))
 
 
+def replays_ms(torch, graph, n: int = TIMED_ITERS, warm: int = 0,
+               host: list | None = None) -> float:
+    """Device time per replay of `graph`: n replays back to back between
+    two CUDA events, the median of 5 such passes after a warm-up one. With
+    `warm`, each pass's events follow `warm` replays enqueued before them
+    (no synchronise between), so the card is busy when the pass starts.
+    `host` gets each timed pass's host time a replay (ms), the enqueue."""
+    times = []
+    for i in range(6):
+        for _ in range(warm):
+            graph.replay()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            graph.replay()
+        if host is not None and i:
+            host.append((time.perf_counter() - t0) * 1e3 / n)
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / n)
+    return statistics.median(times[1:])
+
+
+def event_slope_ms(torch, graph, small: int = 8, large: int = 40) -> float:
+    """The two-point slope of `replays_ms` passes of `small` and `large`
+    replays: device time a replay with each pass's fixed cost cancelled."""
+    t = {n: replays_ms(torch, graph, n) * n for n in (small, large)}
+    return (t[large] - t[small]) / (large - small)
+
+
+@contextlib.contextmanager
+def sm_clocks():
+    """nvidia-smi's SM and memory clocks (MHz) and power draw (W) sampled
+    every 10 ms in a subprocess while the block runs; the yielded dict gets
+    "mhz", "mem_mhz" and "watts", [min, median, max] of the samples taken
+    inside the block, and "samples", their count."""
+    import datetime
+
+    proc = subprocess.Popen(
+        ["nvidia-smi",
+         "--query-gpu=timestamp,clocks.sm,clocks.mem,power.draw",
+         "--format=csv,noheader,nounits", "-lms", "10"],
+        stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+    out: dict = {}
+    try:
+        time.sleep(1.0)                     # nvidia-smi's start
+        t0 = datetime.datetime.now()
+        yield out
+        t1 = datetime.datetime.now()
+    finally:
+        proc.terminate()
+        text, _ = proc.communicate(timeout=30)
+    mhz, mem_mhz, watts = [], [], []
+    for line in text.splitlines():
+        try:
+            stamp, *values = (f.strip() for f in line.split(","))
+            t = datetime.datetime.strptime(stamp, "%Y/%m/%d %H:%M:%S.%f")
+            clock, mem, power = map(float, values)
+        except ValueError:
+            continue
+        if t0 <= t <= t1:
+            mhz.append(clock)
+            mem_mhz.append(mem)
+            watts.append(power)
+    out["samples"] = len(mhz)
+    for key, vals in (("mhz", mhz), ("mem_mhz", mem_mhz), ("watts", watts)):
+        out[key] = ([min(vals), statistics.median(vals), max(vals)]
+                    if vals else None)
+
+
+def bench_rounds(torch, bench, chain, t_phase) -> list:
+    """The headline graph read by five methods in turn, BENCH_ROUNDS
+    times, each round under `sm_clocks`: the bench's slope; `device_ms`
+    of the step; `replays_ms` of 20 back-to-back replays (and the host's
+    enqueue time a replay); the same with 40 replays enqueued ahead of
+    each pass; `event_slope_ms`. Per round: seconds into the phase, each
+    method's ms, the clocks and power."""
+    out = []
+    for _ in range(BENCH_ROUNDS):
+        host: list = []
+        with sm_clocks() as clocks:
+            t = time.perf_counter() - t_phase
+            ms = {"slope": 1e3 * bench.fori_slope_seconds(chain.run,
+                                                         chain.carry),
+                  "device_ms": device_ms(torch, chain.step),
+                  "replays": replays_ms(torch, chain.graph, host=host),
+                  "replays_warm": replays_ms(torch, chain.graph, warm=40),
+                  "event_slope": event_slope_ms(torch, chain.graph)}
+        out.append({"t_s": t, **ms,
+                    "host_enqueue_ms": statistics.median(host), **clocks})
+    return out
+
+
+def graph_reading(torch, fn, calls: int) -> dict:
+    """`device_ms` of fn at `calls` calls a graph, with the memory its
+    capture reserved (MiB, the caching allocator's growth over the call
+    from an emptied cache)."""
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_reserved()
+    ms = device_ms(torch, fn, calls=calls)
+    return {"calls": calls, "ms": ms,
+            "reserved_mib": (torch.cuda.memory_reserved() - before) / 2**20}
+
+
+def bench_scene(torch, np, scenes, n: int, h: int, w: int) -> tuple:
+    """n images of standing people spread over the width of an (h, w) map
+    grid, each image its own arrangement (CPU): (conf, paf, people an
+    image)."""
+    people = int((w - 14) // 14.61) + 1
+    confs, pafs = [], []
+    for j in range(n):
+        conf, paf = scenes.make_maps([scenes.standing_person(
+            7.37 + 14.61 * i + 0.71 * (j % 5), 21.43 + 0.83 * (j % 3),
+            0.93 + 0.04 * i) for i in range(people)], h, w)
+        confs.append(conf)
+        pafs.append(paf)
+    return (torch.from_numpy(np.stack(confs)),
+            torch.from_numpy(np.stack(pafs)), people)
+
+
+def bench_row_vs_plain(torch, np, scenes, name, chain, dev) -> dict:
+    """Phase 15's check of one bench row at its own shapes: the chain's
+    images through the served step eagerly, chunk by chunk as `infer_step`
+    splits them, once through the hand kernels and once with each sent to
+    its plain version on the card. An int8 row's int8_conv and quantize_act
+    outputs equal the plain-routed forward's call by call and its maps lie
+    within INT8_PLAIN_TOL of their scale; the decode of the kernel maps
+    equals their plain-routed decode bit for bit; the graph's own
+    HumanBatch (`chain.out`) holds against the plain decode by
+    `compare_decodes` (masks equal, the rest within 1e-5); and a scene of
+    people across the row's map grid, at the row's decode batch, decodes
+    bit-equal through the kernels and the plain versions and finds every
+    person (random weights find few peaks)."""
+    from openpose_plus_tpu_torch.engine import _forward
+    from openpose_plus_tpu_torch.ops.cuda import (greedy, int8_conv, merge,
+                                                  paf_sample)
+    from openpose_plus_tpu_torch.postproc import HumanBatch, decode_maps
+
+    eng, images = chain.engine, chain.images
+    mc, postproc = eng.config.model, eng.config.postproc
+    b, chunk = images.shape[0], eng.chunk
+    size = chunk if chunk and b > chunk and b % chunk == 0 else b
+    names = ("int8_conv", "quantize_act")
+    decoder = ((greedy, "greedy_assign"), (merge, "assemble"),
+               (paf_sample, "sample_paf"))
+    out = {"pieces": b // size, "int8_calls": 0, "maps_rel_err": []}
+    plain = []
+    with torch.inference_mode():
+        for i in range(0, b, size):
+            x = images[i:i + size]
+            maps = {}
+            if mc.compute_dtype == "int8":
+                kern = record_outputs(int8_conv, names, lambda: maps.update(
+                    kernel=_forward(eng.model, x)))
+                ref = routed_plain(int8_conv, lambda: record_outputs(
+                    int8_conv, names, lambda: maps.update(
+                        plain=_forward(eng.model, x))))
+                for key in names:
+                    if not kern[key] or len(kern[key]) != len(ref[key]):
+                        raise AssertionError(f"bench {name}: {key} calls "
+                                             f"{len(kern[key])} against "
+                                             f"{len(ref[key])} plain")
+                    for (_, o), (_, r) in zip(kern[key], ref[key]):
+                        if not torch.equal(o, r):
+                            raise AssertionError(
+                                f"bench {name}: a {key} output differs from "
+                                "its plain version's")
+                    out["int8_calls"] += len(kern[key])
+                del kern, ref
+                out["maps_rel_err"] += check_map_scale(
+                    torch, f"bench {name} maps vs plain-routed",
+                    maps["kernel"], maps["plain"], INT8_PLAIN_TOL)
+            else:
+                maps["kernel"] = _forward(eng.model, x)
+            got = decode_maps(*maps["kernel"], postproc)
+            plain.append(to_plain(decoder, lambda: decode_maps(
+                *maps["kernel"], postproc)))
+            assert_batches_equal(torch, f"bench {name} decode vs plain",
+                                 got, plain[-1])
+        conf, paf, people = bench_scene(torch, np, scenes, size, mc.hout,
+                                        mc.wout)
+        conf, paf = conf.to(dev), paf.to(dev)
+        got = decode_maps(conf, paf, postproc)
+        ref = to_plain(decoder, lambda: decode_maps(conf, paf, postproc))
+    assert_batches_equal(torch, f"bench {name} scene decode vs plain", got,
+                         ref)
+    if not bool((got.num_humans == people).all()):
+        raise AssertionError(f"bench {name} scene: humans "
+                             f"{got.num_humans.tolist()}, {people} each")
+    plain = HumanBatch.cat(plain)
+    out["graph_bit_equal"] = all(
+        torch.equal(getattr(chain.out, f.name), getattr(plain, f.name))
+        for f in dataclasses.fields(plain))
+    compare_decodes(torch, f"bench {name} graph vs plain", chain.out,
+                    HumanBatch(**{f.name: getattr(plain, f.name).cpu()
+                                  for f in dataclasses.fields(plain)}), 1e-5)
+    out["humans"] = int(plain.num_humans.sum())
+    out["scene"] = [size, mc.hout, mc.wout, people]
+    return out
+
+
+def bench_phase(torch, np, dev, gpu) -> None:
+    """Phase 15 (module docstring): the bench's modes at full size, the
+    table held to its checks."""
+    from openpose_plus_tpu_torch import bench
+    from openpose_plus_tpu_torch.host import INPUT_LAYOUTS
+    from openpose_plus_tpu_torch.models import common
+    from openpose_plus_tpu_torch.utils.tracer import GLOBAL_TRACER
+
+    scenes = load_test_helper("kernel_inputs")
+    t_phase = time.perf_counter()
+    kept, line = {}, {"rows": {}}
+
+    def check_row(name, m):
+        row, chain, dt = m.row, m.chain, m.seconds
+        if "cost_analysis_error" in row:
+            raise AssertionError(f"bench {name}: {row['cost_analysis_error']}")
+        if chain.graph is None or chain.engine.device != dev:
+            raise AssertionError(f"bench {name}: not a CUDA graph on {dev}")
+        line["rows"][name] = {
+            "fps": row["fps"], "ms": dt * 1e3, "batch": row["batch"],
+            "mfu_pct": row["mfu_pct"], "hbm_pct_est": row["hbm_pct_est"],
+            "spread_pct": row["spread_pct"],
+            "flops_per_image": row["flops_per_image"],
+            "samples_ms": [t * 1e3 for t in m.samples]}
+        t0 = time.perf_counter()
+        line["rows"][name]["vs_plain"] = {
+            **bench_row_vs_plain(torch, np, scenes, name, chain, dev),
+            "s": time.perf_counter() - t0}
+        if name == bench.HEADLINE:
+            # (1) the slope against the device time of the same step, read
+            # in turn in BENCH_ROUNDS rounds (the card's speed for one graph
+            # moves between rounds); and `device_ms` of the step captured
+            # TIMED_ITERS times and once a graph, with their memory
+            rounds = bench_rounds(torch, bench, chain, t_phase)
+            ratio = statistics.median(r["slope"] / r["device_ms"]
+                                      for r in rounds)
+            line["headline_slope_ms"] = dt * 1e3
+            line["headline_rounds"] = rounds
+            line["headline_slope_over_device"] = ratio
+            line["headline_graphs"] = [graph_reading(torch, chain.step, n)
+                                       for n in (TIMED_ITERS, 1)]
+            if not abs(ratio - 1) <= BENCH_SLOPE_TOL:
+                raise AssertionError(
+                    f"bench headline: slope / device_ms {ratio:.4f} over "
+                    f"{len(rounds)} rounds (limit {BENCH_SLOPE_TOL})")
+            # (2) the graph's HumanBatch against compiled infer
+            chain.run(1)
+            torch.cuda.synchronize()
+            if not bool(torch.isfinite(chain.carry)):
+                raise AssertionError("bench headline: non-finite carry")
+            ref = {f.name: getattr(chain.out, f.name).clone()
+                   for f in dataclasses.fields(chain.out)}
+            eng = chain.engine
+            eng.compile(chain.images.shape[0], INPUT_LAYOUTS[
+                eng.config.model.preferred_input_layout()])
+            out = eng.infer(chain.images)
+            for f, t in ref.items():
+                if not torch.equal(getattr(out, f), t):
+                    raise AssertionError(f"bench headline: the graph's "
+                                         f"HumanBatch.{f} differs from "
+                                         "compiled infer's")
+            kept["headline"] = chain
+        elif name == BENCH_INT8_ROW:
+            kept["int8"] = chain
+
+    t0 = time.perf_counter()
+    for name, m in bench.table_rows(device=dev):
+        check_row(name, m)
+        del m
+    line["table_s"] = time.perf_counter() - t0
+    if list(line["rows"]) != [name for name, *_ in bench.ROWS]:
+        raise AssertionError(f"bench table rows {list(line['rows'])}")
+    log(f"bench: {len(line['rows'])} rows, each against its plain "
+        f"versions; headline slope {line['headline_slope_ms']:.4f} ms, "
+        f"slope / device_ms {line['headline_slope_over_device']:.4f} "
+        f"(median of {BENCH_ROUNDS} rounds, limit {BENCH_SLOPE_TOL:.0%}); "
+        "its graph == compiled infer")
+
+    # (3) one profiler session over a replay of each kept graph
+    calls = {label: functools.partial(chain.run, 1)
+             for label, chain in kept.items()}
+    calls["headline_x5"] = functools.partial(kept["headline"].run, 5)
+    trace = replay_trace(torch, calls)
+    n_convs, n_quant = int8_layers(common, kept["int8"].engine.model)
+    expect = {"headline": {"greedy_assign_kernel": 1, "assemble_kernel": 1,
+                           "sample_paf_kernel": 1},
+              "headline_x5": {"greedy_assign_kernel": 5,
+                              "assemble_kernel": 5, "sample_paf_kernel": 5},
+              "int8": {"greedy_assign_kernel": 1, "assemble_kernel": 1,
+                       "sample_paf_kernel": 1, "int8_conv_kernel": n_convs,
+                       "quantize": n_quant}}
+    for label, want in expect.items():
+        got = {k: trace[label]["kernels"][k] for k in want}
+        if got != want:
+            raise AssertionError(f"bench {label} replay trace: kernels "
+                                 f"{got}, expected {want}")
+    line["trace"] = trace
+    del kept
+    torch.cuda.empty_cache()
+
+    # the user's entry point, in a fresh process: the headline line
+    env = dict(os.environ, PYTHONPATH=HERE, BENCH_HEADLINE_ONLY="1")
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "openpose_plus_tpu_torch",
+                           "bench"], cwd=HERE, env=env, capture_output=True,
+                          text=True, timeout=600)
+    head = (json.loads(proc.stdout.splitlines()[-1])
+            if proc.returncode == 0 and proc.stdout.strip() else None)
+    if head is None or list(head) != BENCH_HEADLINE_KEYS or not (
+            head["value"] > 0):
+        raise AssertionError(f"python -m openpose_plus_tpu_torch bench: rc "
+                             f"{proc.returncode}\n{proc.stdout}\n"
+                             f"{proc.stderr}")
+    line["cli"] = {"headline": head, "s": time.perf_counter() - t0}
+
+    for label, fn in (("train", bench.train), ("stream", bench.stream),
+                      ("stream_loader_only", functools.partial(
+                          bench.stream, loader_only=True))):
+        t0 = time.perf_counter()
+        out = fn(device=dev)
+        if not out["value"] > 0:
+            raise AssertionError(f"bench {label}: {out}")
+        line[label] = {**out, "s": time.perf_counter() - t0}
+        if label != "train":       # the run's host scopes, ms a call
+            line[label]["scope_ms"] = {
+                scope: node.total_s * 1e3 / node.calls
+                for scope, node in GLOBAL_TRACER._root.children.items()}
+    line["phase_s"] = time.perf_counter() - t_phase
+    log(json.dumps({"bench": {**line, "gpu": gpu}}))
+
+
 def profile(torch, np, rng, engine, images, gpu) -> None:
     """--profile: where the time of the served call goes.
 
@@ -3382,6 +3775,10 @@ def main(argv: list[str]) -> int:
         help="only build csrc/int8_conv.cu with its phase clocks and print "
              "where a block of the int8 conv spends its time at the "
              "forwards' main shapes")
+    parser.add_argument(
+        "--bench-phase", action="store_true",
+        help="only build the kernels and run phase 15, the bench (the full "
+             "run starts it so, in a fresh process)")
     args = parser.parse_args(argv)
     if args.decoder_kernels_of and args.int8_kernels_of:
         parser.error("one of --decoder-kernels-of and --int8-kernels-of")
@@ -3414,6 +3811,13 @@ def main(argv: list[str]) -> int:
         return 0
     if args.int8_phases:
         int8_phases(torch, np, build, int8_conv, inputs, dev, gpu)
+        return 0
+    if args.bench_phase:
+        build.build()
+        build.load()
+        bench_phase(torch, np, dev, gpu)
+        if foreign_modules():
+            raise AssertionError(f"the port pulled in {foreign_modules()}")
         return 0
 
     # ---- 2. build -------------------------------------------------------
@@ -3833,6 +4237,17 @@ def main(argv: list[str]) -> int:
     # ---- 14. the distributed layer ----------------------------------------
     parallel_phase(torch, np, engine, gains, images, eval_card, counted,
                    dev, gpu)
+
+    # ---- 15. the bench, in a fresh process: its profiler session would be
+    # this process's seventh, and a seventh lost records (run 72) or crashed
+    # the process (run 88)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__),
+                           "--bench-phase"], cwd=HERE, timeout=900)
+    if proc.returncode != 0:
+        raise AssertionError(f"phase 15 (--bench-phase): rc {proc.returncode}")
+    log(f"phase 15: {time.perf_counter() - t0:.1f} s in a fresh process")
     if args.profile:
         profile(torch, np, rng, engine, images, gpu)
 

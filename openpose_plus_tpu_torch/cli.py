@@ -13,6 +13,7 @@ subcommands and flags, plus `--device`, default cuda):
         --distributed ...
     python -m openpose_plus_tpu_torch export --out engine_dir/ --batch 8
     python -m openpose_plus_tpu_torch infer  --engine-dir engine_dir/ ...
+    python -m openpose_plus_tpu_torch bench
 
 `export` writes a torch.export artifact (weights baked in) that `infer
 --engine-dir` runs without the model-building code. `--checkpoint` takes
@@ -22,8 +23,8 @@ JAX package's flat `.npz` (through the weight bridge). In `camera`,
 is `--torch-device`. `stream` letterboxes on the port's thread pool
 (`loader.py`; with `--images` it decodes there too) and prints the host
 scopes' report (`utils.tracer`) where the reference prints its native
-tracer's. Not ported yet: `bench` (the H100 benchmark, ROADMAP.md item 8),
-which returns 2.
+tracer's. `bench` runs the benchmark table (`bench.py`; its other modes:
+`python -m openpose_plus_tpu_torch.bench {one,train,stream}`).
 """
 
 from __future__ import annotations
@@ -71,6 +72,14 @@ def _build_engine(args):
     return Engine(cfg, params=params, device=args.torch_device)
 
 
+def add_device_flag(p: argparse.ArgumentParser, flag: str = "--device",
+                    dest: str = "torch_device") -> None:
+    """The torch device flag (default cuda: without a card only the CPU,
+    asked for by name, runs)."""
+    p.add_argument(flag, dest=dest, default="cuda",
+                   help="torch device to run on (default cuda)")
+
+
 def _engine_flags(p: argparse.ArgumentParser,
                   device_flag: str = "--device") -> None:
     p.add_argument("--model", default="mobilenet_thin")
@@ -87,8 +96,7 @@ def _engine_flags(p: argparse.ArgumentParser,
                    help="fragment-merge repair pass: re-join disjoint-part "
                         "skeletons closer than REL x the larger fragment's "
                         "bbox diagonal (0 = off; 0.5 = tuned setting)")
-    p.add_argument(device_flag, dest="torch_device", default="cuda",
-                   help="torch device to run on (default cuda)")
+    add_device_flag(p, device_flag)
 
 
 def _load(path: str, hin: int, win: int):
@@ -245,9 +253,12 @@ def cmd_camera(args) -> int:
 
 
 def cmd_bench(args) -> int:
-    print("the H100 engine benchmark is ROADMAP.md item 8 (not ported yet)",
-          file=sys.stderr)
-    return 2
+    """The device benchmark's table (`bench.table`), as the reference runs
+    its `bench.main()`."""
+    from openpose_plus_tpu_torch import bench
+
+    bench.table(device=args.device)
+    return 0
 
 
 def cmd_eval(args) -> int:
@@ -366,8 +377,9 @@ def main(argv: Optional[list[str]] = None) -> int:
     p.add_argument("--save-dir", default=None,
                    help="write rendered skeleton frames here")
 
-    sub.add_parser("bench", help="device benchmark (ROADMAP.md item 8: "
-                                 "returns 2)")
+    p = sub.add_parser("bench", help="device benchmark: the table of "
+                                     "bench.py's rows")
+    add_device_flag(p, dest="device")
 
     p = sub.add_parser("eval", help="COCO keypoint AP evaluation")
     _engine_flags(p)

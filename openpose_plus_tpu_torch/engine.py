@@ -15,7 +15,7 @@ ranks of a `DeviceMesh` (`parallel/sharding.py`).
 from __future__ import annotations
 
 import dataclasses
-from typing import Mapping, Optional
+from typing import Any, Callable, Mapping, Optional
 
 import numpy as np
 import torch
@@ -101,6 +101,24 @@ def infer_step(model: torch.nn.Module, images: torch.Tensor,
             infer_step(model, images[i:i + chunk], postproc_cfg)
             for i in range(0, b, chunk)])
     return decode_maps(*_forward(model, images), postproc_cfg)
+
+
+def capture_graph(step: Callable[[], Any], device: torch.device
+                  ) -> tuple[torch.cuda.CUDAGraph, Any]:
+    """`step()` captured in a CUDA graph on `device`: CAPTURE_WARMUP eager
+    calls on a side stream first (they build the kernels and fill every
+    lazy cache, an int8 engine's packed weights among them); returns the
+    graph and its own output, which each replay overwrites."""
+    side = torch.cuda.Stream(device)
+    side.wait_stream(torch.cuda.current_stream(device))
+    with torch.cuda.stream(side):
+        for _ in range(CAPTURE_WARMUP):
+            step()
+    torch.cuda.current_stream(device).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = step()
+    return graph, out
 
 
 def _flip_average(model: torch.nn.Module, x: torch.Tensor
@@ -464,22 +482,10 @@ class Engine:
 
     @torch.inference_mode()
     def _capture(self, shape: tuple[int, ...]) -> None:
-        dev = self.device
-        static_in = torch.zeros(shape, dtype=torch.uint8, device=dev)
-
-        def step() -> HumanBatch:
-            return infer_step(self.model, static_in, self.config.postproc,
-                              self.chunk)
-
-        side = torch.cuda.Stream(dev)
-        side.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(side):
-            for _ in range(CAPTURE_WARMUP):
-                step()
-        torch.cuda.current_stream(dev).wait_stream(side)
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
-            out = step()
+        static_in = torch.zeros(shape, dtype=torch.uint8, device=self.device)
+        graph, out = capture_graph(lambda: infer_step(
+            self.model, static_in, self.config.postproc, self.chunk),
+            self.device)
         self._graphs[shape] = (graph, static_in, out)
 
     def _replay(self, images: torch.Tensor) -> HumanBatch:

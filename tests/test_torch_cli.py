@@ -2,13 +2,14 @@
 reference's cases (tests/test_cli.py) with `--device cpu`: infer, eval,
 missing images, export then `infer --engine-dir`, stream --video and
 --images (once and looped), no stream input or no matching image; and what
-the port adds or leaves to later items: `bench` returns 2, `--engine-dir`
-refuses engine flags, an int8 export needs calibration images,
+the port adds or leaves to later items: `bench` runs on `--device cpu`,
+`--engine-dir` refuses engine flags, an int8 export needs calibration images,
 `--checkpoint` reads a train_loop checkpoint directory and an .npz alike.
 Also the app helpers: the `Tracer`, `timeit`, `trace_device` and
 `draw_humans` (pixel-equal to the JAX package's)."""
 
 import dataclasses
+import functools
 import json
 import os
 import subprocess
@@ -154,16 +155,32 @@ def test_cli_stream_images(images, loop, capsys):
 @pytest.mark.parametrize("argv", [
     ["stream", *TINY],
     ["stream", *TINY, "--images", "a.jpg"],
-    ["bench"],
 ])
 def test_cli_paths_not_ported_return_2(argv, capsys):
-    """No stream input, no image matching, and the unported bench."""
+    """No stream input and no image matching return 2."""
     assert cli.main(argv) == 2
     err = capsys.readouterr().err
-    if argv[0] == "stream":
-        assert "no input images" in err and "item 11" not in err
-    if argv == ["bench"]:
-        assert "item 8" in err
+    assert "no input images" in err and "item 11" not in err
+
+
+def test_cli_bench_on_the_cpu(capsys, monkeypatch, tmp_path):
+    """`bench` (`bench.table`) runs on the CPU on a tiny row and returns 0
+    with the reference's headline line and the details file."""
+    from openpose_plus_tpu_torch import bench
+
+    # one valid slope sample: 70 calls of the plain decoder, not 160
+    monkeypatch.setattr(bench, "table",
+                        functools.partial(bench.table, repeats=1))
+    monkeypatch.setattr(bench, "ROWS", (
+        ("tiny_head", "mobilenet_thin", 64, 64, 1, "float32", 0),))
+    monkeypatch.setenv("BENCH_DETAILS_PATH", str(tmp_path / "d.json"))
+    assert cli.main(["bench", "--device", "cpu"]) == 0
+    line = json.loads(capsys.readouterr().out.splitlines()[-1])
+    assert list(line) == ["metric", "value", "unit", "vs_baseline",
+                          "mfu_pct", "hbm_pct_est", "spread_pct"]
+    assert line["metric"] == "tiny_head" and line["value"] > 0
+    assert list(json.loads((tmp_path / "d.json").read_text())) == [
+        "tiny_head"]
 
 
 def test_cli_camera_that_does_not_open_returns_2(monkeypatch, capsys):
@@ -182,10 +199,10 @@ def test_cli_camera_that_does_not_open_returns_2(monkeypatch, capsys):
 
 def test_module_entry_point_runs_the_cli():
     proc = subprocess.run([sys.executable, "-m", "openpose_plus_tpu_torch",
-                           "bench"], cwd=REPO, capture_output=True,
+                           "stream", *TINY], cwd=REPO, capture_output=True,
                           text=True, timeout=120,
                           env=dict(os.environ, PYTHONPATH=REPO))
-    assert proc.returncode == 2 and "item 8" in proc.stderr
+    assert proc.returncode == 2 and "no input images" in proc.stderr
 
 
 # -------------------------------------------------------- app helpers ---

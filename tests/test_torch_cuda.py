@@ -632,6 +632,36 @@ def test_calibrate_drops_the_graph(cuda):
     assert _same_humans(out, eager())
 
 
+@pytest.mark.parametrize("dtype,chunk", [("bfloat16", 0), ("int8", 0),
+                                         ("bfloat16", 1)])
+def test_bench_chained_graph_on_the_card(cuda, dtype, chunk):
+    """The bench's chained step (`bench.ChainedStep`) captured on the card:
+    each replay serves the images as eager `infer_step` does (an int8
+    engine calibrated first; a chunked engine's loop inside the graph),
+    launches no kernel from Python, leaves the score sum in the carry, and
+    its cost count sees the convolutions."""
+    from openpose_plus_tpu_torch import bench
+    from openpose_plus_tpu_torch.engine import infer_step
+
+    engine = _deploy_engine(cuda, dtype=dtype)
+    engine.chunk = chunk
+    images = _deploy_images(cuda, 5)
+    engine.calibrate(images)
+    with torch.inference_mode():
+        eager = infer_step(engine.model, images, engine.config.postproc,
+                           chunk)
+    chain = bench.ChainedStep(engine, images)
+    assert chain.graph is not None
+    before = (greedy.launches, merge.launches, int8_conv.launches)
+    carry = chain.run(3)
+    torch.cuda.synchronize()
+    assert (greedy.launches, merge.launches, int8_conv.launches) == before
+    assert _same_humans(chain.out, eager)
+    assert float(carry) == float(eager.score.sum())
+    flops, nbytes = bench.program_cost(engine, chain.images)
+    assert flops > 0 and nbytes > 0
+
+
 def test_stream_and_export_on_the_card(cuda, tmp_path):
     """StreamEstimator compiles the engine and stages frames through its
     pinned buffers: each result equals infer on the letterboxed batch. An

@@ -230,9 +230,10 @@ import torch
 import chip_smoke
 import openpose_plus_tpu_torch
 from openpose_plus_tpu_torch import Engine, default_config
-from openpose_plus_tpu_torch import (ap_bench, ap_oracle, checkpoint, cli,
-                                     data, engine, eval_coco, export, host,
-                                     loader, models, postproc, stream, train)
+from openpose_plus_tpu_torch import (ap_bench, ap_oracle, bench, checkpoint,
+                                     cli, data, engine, eval_coco, export,
+                                     host, loader, models, postproc, stream,
+                                     train)
 from openpose_plus_tpu_torch.postproc import oracle as grouping_oracle
 from openpose_plus_tpu_torch.parallel import kungfu, sharding
 from openpose_plus_tpu_torch.utils import tracer, vis
@@ -259,6 +260,9 @@ s2d2 = space_to_depth(space_to_depth(torch.from_numpy(images)))
 quality = Engine(cfg.replace(postproc=cfg.postproc.quality()), seed=0,
                  device="cpu")
 assert quality.infer(s2d2).coords.shape == (2, 32, 18, 2)
+chain = bench.ChainedStep(engine, torch.from_numpy(images))
+assert chain.run(1).shape == () and bench.program_cost(
+    engine, chain.images)[0] > 0
 frames = [np.zeros((40, 50, 3), np.uint8)] * 3
 assert [r.n for r in stream.StreamEstimator(engine, batch=2).run_frames(
     frames)] == [2, 1]
@@ -316,8 +320,8 @@ def test_port_never_imports_jax():
     what it needs: importing the port (engine, models and the zoo,
     postproc, eval_coco, ap_oracle, train, ap_bench, checkpoint, the
     deploy modules cli, export, host, stream and utils.tracer, the loader
-    and the grouping oracle, parallel's kungfu and sharding, every ops.cuda
-    and data module), running CPU
+    and the grouping oracle, parallel's kungfu and sharding, the bench,
+    every ops.cuda and data module), running CPU
     engines of every model through it (int8 engines too), a stream of
     frames and one of two PNG files, the numpy oracle, a train step, an sma
     step on a world of one and the GT-map oracle on 8 small-tier images loads no module of jax, flax or
@@ -336,7 +340,8 @@ def test_port_never_imports_jax():
         assert f"openpose_plus_tpu_torch.data.{name}'" in proc.stdout
     for name in ("train", "ap_bench", "checkpoint", "utils.vis", "cli",
                  "export", "host", "stream", "utils.tracer", "loader",
-                 "postproc.oracle", "parallel.kungfu", "parallel.sharding"):
+                 "postproc.oracle", "parallel.kungfu", "parallel.sharding",
+                 "bench"):
         assert f"openpose_plus_tpu_torch.{name}'" in proc.stdout
 
 

@@ -236,7 +236,21 @@ raises on failure (the script then exits non-zero and prints no result):
    `parallel` line ("two ranks on one card, not a scaling figure"): per
    strategy the step's ms, the collective, its bytes and ms; the mesh
    `infer` ms beside one process's; which collectives gloo takes on CUDA
-   tensors (`gloo_cuda_probe`).
+   tensors (`gloo_cuda_probe`, all_to_all_single with uneven splits
+   included). (3) The spatial axis (`parallel.spatial`): the same two ranks
+   as a 1 data x 2 spatial mesh, each running the model on its band of
+   image rows with halo-exchanged convs, sync-sgd from the seeded state:
+   MobileNet-thin PARALLEL_STEPS steps, VGG19 (368x432, bf16; its 7x7
+   refine convs read 3 rows of the other band) SPATIAL_VGG_STEPS; both
+   replicas bit-identical after every step, the first step within phase
+   10's card-vs-CPU tolerances of one process stepping on the global
+   batch. The `parallel` line's `spatial` object ("two ranks on one card,
+   not a scaling figure"): per model and rank the step ms, the halo
+   exchanges' calls, bytes and ms a step and the map gather's bytes and
+   ms (ms from one more step synchronised around each collective), and
+   each rank's `max_memory_allocated` in its first step, and what it
+   allocated beyond what it held before, beside one process's.
+   `--spatial-phase` runs (3) alone and prints a `spatial` line.
 15. The bench (`bench_phase`; `openpose_plus_tpu_torch.bench`): the whole
    `table` mode (bench.py's twelve rows at 368x656, each a CUDA graph of
    the chained served step timed by the two-point slope, with its FLOPs
@@ -408,6 +422,12 @@ PARALLEL_STEPS = 3
 PARALLEL_PEOPLE = 4
 PARALLEL_TIMEOUT_S = 300
 PARALLEL_EVAL_TOL = 1e-3
+# phase 14's spatial axis: the same ranks as a 1 data x PARALLEL_RANKS
+# spatial mesh, PARALLEL_STEPS sync-sgd steps of MobileNet-thin and
+# SPATIAL_VGG_STEPS of VGG19 (its 7x7 refine convs' 3-row halos), both at
+# 368x432, bf16, Adam at TRAIN_LR, a global batch of BATCH
+SPATIAL_MODELS = ("mobilenet_thin", "vgg19")
+SPATIAL_VGG_STEPS = 1
 # phase 15, the bench: the headline's slope against the device time of the
 # same chained step, the median ratio of BENCH_ROUNDS rounds (each method
 # read in turn: they agreed within 0.7% in a round, while the card's speed
@@ -3037,9 +3057,22 @@ def gloo_cuda_probe(torch, dist, group, rank: int, world: int, dev) -> dict:
         dist.all_to_all_single(y, x, group=group)
         return bool((y.view(world, -1)[:, 0] == ranks).all())
 
+    def all_to_all_single_uneven():
+        # rank r sends r + 1 + j bytes to rank j (the halo exchange's splits)
+        send = [r + 1 + j for j in range(world) for r in (rank,)]
+        recv = [r + 1 + rank for r in range(world)]
+        y = torch.empty(sum(recv), dtype=torch.uint8, device=dev)
+        dist.all_to_all_single(
+            y, torch.full((sum(send),), rank, dtype=torch.uint8, device=dev),
+            recv, send, group=group)
+        want = torch.cat([torch.full((n,), r, dtype=torch.uint8, device=dev)
+                          for r, n in enumerate(recv)])
+        return bool(torch.equal(y, want))
+
     out = {}
     for call in (broadcast, all_reduce, all_gather, all_gather_into_tensor,
-                 reduce_scatter_tensor, all_to_all_single):
+                 reduce_scatter_tensor, all_to_all_single,
+                 all_to_all_single_uneven):
         try:
             out[call.__name__] = "ok" if call() else "wrong values"
         except (RuntimeError, ValueError, NotImplementedError) as e:
@@ -3081,6 +3114,8 @@ def _parallel_rank(rank: int, world: int, port: int, p: dict) -> dict:
         dev = S.init_distributed(ParallelConfig(multihost=True),
                                  backend="gloo", device=p["device"])
     try:
+        if p.get("only_spatial"):
+            return {"spatial": _spatial_rank(torch, p, rank, world, dev)}
         build.load()
         counted = {"greedy_assign": greedy, "assemble": merge,
                    "sample_paf": paf_sample, "fused_sepconv": sepconv}
@@ -3158,6 +3193,7 @@ def _parallel_rank(rank: int, world: int, port: int, p: dict) -> dict:
         probe = dist.new_group(backend="gloo",
                                timeout=datetime.timedelta(seconds=30))
         out["gloo_cuda"] = gloo_cuda_probe(torch, dist, probe, rank, n, dev)
+        out["spatial"] = _spatial_rank(torch, p, rank, world, dev)
         return out
     finally:
         dist.destroy_process_group()
@@ -3201,6 +3237,213 @@ def run_parallel_ranks(world: int, payload: dict) -> list:
     return [out[r] for r in range(world)]
 
 
+def spatial_configs() -> tuple:
+    """Phase 14's spatial configs: MobileNet-thin as the strategies train
+    it (`parallel_config`) and VGG19 at its default 368x432 bf16, both with
+    phase 10's optimizer and the global batch of BATCH."""
+    from openpose_plus_tpu_torch import default_config
+
+    mobilenet = parallel_config(default_config("mobilenet_thin"))
+    vgg = default_config("vgg19")
+    vgg = vgg.replace(train=mobilenet.train)
+    mc = vgg.model
+    if (mc.hin, mc.win, mc.compute_dtype) != (368, 432, "bfloat16"):
+        raise AssertionError(f"spatial: not the full-width VGG19 {mc}")
+    return mobilenet, vgg
+
+
+def one_process_step(torch, T, cfg, batch, dev, timed: bool = True
+                     ) -> tuple:
+    """One process's first step on the global batch from the seeded state:
+    its loss, gradients, parameters, `max_memory_allocated` in the step and
+    what it allocates at its peak beyond what was held before it;
+    and, `timed`, the median ms of a step (else the first step's)."""
+    state = T.create_train_state(cfg, 0, dev)
+    step = T.make_train_step_on_batch(cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    before = torch.cuda.memory_allocated(dev)
+    start, end = (torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True))
+    start.record()
+    state, m = step(state, batch)
+    end.record()
+    end.synchronize()
+    one = {"loss": float(m["loss"]),
+           "grads": {k: q.grad.float().cpu().clone()
+                     for k, q in state.model.named_parameters()},
+           "params": {k: q.detach().float().cpu().clone()
+                      for k, q in state.model.named_parameters()},
+           "peak_step_bytes": torch.cuda.max_memory_allocated(dev) - before,
+           "max_memory_allocated": torch.cuda.max_memory_allocated(dev)}
+    ms = (median_ms(torch, lambda: step(state, batch)) if timed
+          else start.elapsed_time(end))
+    del state
+    torch.cuda.empty_cache()
+    return one, ms
+
+
+def step_vs_one_process(torch, cfg, step1, one, what: str) -> dict:
+    """A rank's first step (loss, gradients, parameters after it) against
+    one process's on the global batch, under phase 10's card-vs-CPU
+    tolerances and a bound of two lr steps on any parameter."""
+    grads = {k: torch.from_numpy(v) for k, v in step1["grads"].items()}
+    leaf = {k: _rel_l2(torch, grads[k], g) for k, g in one["grads"].items()}
+    every = _rel_l2(torch, torch.cat([g.flatten() for g in grads.values()]),
+                    torch.cat([g.flatten() for g in one["grads"].values()]))
+    param_err = max(float((torch.from_numpy(step1["params"][k]) - q).abs()
+                          .max()) for k, q in one["params"].items())
+    step_bound = 2 * cfg.train.lr_init * (1 + 1e-3)
+    vs_one = {"loss_ranks": step1["loss"], "loss_one_process": one["loss"],
+              "loss_rel_err": abs(step1["loss"] - one["loss"]) / one["loss"],
+              "grad_rel_l2_all": every,
+              "grad_rel_l2_worst_leaf": max(leaf.values()),
+              "param_max_abs_err": param_err, "param_bound": step_bound}
+    if not (vs_one["loss_rel_err"] <= TRAIN_LOSS_RTOL
+            and every <= TRAIN_ALL_RTOL
+            and vs_one["grad_rel_l2_worst_leaf"] <= TRAIN_LEAF_RTOL
+            and param_err <= step_bound):
+        raise AssertionError(f"{what} vs one process: {vs_one}")
+    return vs_one
+
+
+def _spatial_rank(torch, p: dict, rank: int, world: int, dev) -> dict:
+    """This rank's part of the spatial axis: sync-sgd on a 1 x world
+    (data, spatial) mesh, each model of SPATIAL_MODELS from the seeded
+    state on its band of p["batches"]. Per model: each step's loss, wall
+    ms and parameter digest; the first step's gradients and parameters
+    (rank 0), its traffic (`spatial.STATS`) and the memory it allocated at
+    its peak beyond what was held before; the median step ms
+    (MobileNet-thin); and one more step with the exchanges and gathers
+    timed (the device synchronised around each)."""
+    from openpose_plus_tpu_torch.config import ParallelConfig
+    from openpose_plus_tpu_torch.parallel import kungfu as kf
+    from openpose_plus_tpu_torch.parallel import sharding as S
+    from openpose_plus_tpu_torch.parallel import spatial
+
+    mesh = S.build_mesh(ParallelConfig(spatial_parallelism=world))
+    out = {"axes": [S.data_axis(mesh)[:2], S.spatial_axis(mesh)[:2]]}
+    for name, cfg in zip(SPATIAL_MODELS, p["spatial_cfgs"]):
+        steps = PARALLEL_STEPS if name == "mobilenet_thin" \
+            else SPATIAL_VGG_STEPS
+        state = kf.create_kungfu_state(cfg, mesh, 0, dev)
+        (step,) = kf.make_kungfu_steps(cfg, mesh, "sync-sgd")
+        rec = {"losses": [], "digests": [], "checked_ms": []}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        before = torch.cuda.memory_allocated(dev)
+        for i, batch in enumerate(p["batches"][:steps]):
+            local = S.shard_batch(batch, mesh, stride=cfg.model.stride)
+            spatial.reset_stats()
+            t0 = time.perf_counter()
+            state, m = step(state, local)
+            rec["losses"].append(float(m["loss"]))     # synchronises
+            rec["checked_ms"].append((time.perf_counter() - t0) * 1e3)
+            rec["digests"].append(param_digest(state.model))
+            if i == 0:
+                rec["max_memory_allocated"] = torch.cuda.max_memory_allocated(
+                    dev)
+                rec["peak_step_bytes"] = rec["max_memory_allocated"] - before
+                rec["stats"] = dict(spatial.STATS)
+                rec["band_rows"] = list(local["images"].shape[1:3])
+                if rank == 0:
+                    rec["step1"] = {
+                        "loss": rec["losses"][0],
+                        "grads": {k: q.grad.float().cpu().numpy().copy()
+                                  for k, q in state.model.named_parameters()},
+                        "params": {k: q.detach().float().cpu().numpy().copy()
+                                   for k, q in
+                                   state.model.named_parameters()}}
+        local = S.shard_batch(p["batches"][0], mesh, stride=cfg.model.stride)
+        if name == "mobilenet_thin":
+            rec["step_ms"] = median_ms(torch, lambda: step(state, local))
+        spatial.reset_stats(timed=True)
+        try:
+            step(state, local)
+            torch.cuda.synchronize()
+        finally:
+            rec["timed_stats"] = dict(spatial.STATS)
+            spatial.reset_stats()
+        out[name] = rec
+        del state
+        torch.cuda.empty_cache()
+    return out
+
+
+def spatial_check(torch, ranks: list, refs: dict) -> dict:
+    """The spatial axis across the ranks: both replicas bit-identical after
+    every step, finite losses, the first step within `step_vs_one_process`
+    of one process's (refs: model -> (one, one-process step ms)); returns
+    the `spatial` object of the `parallel` line."""
+    cfgs = dict(zip(SPATIAL_MODELS, spatial_configs()))
+    models = {}
+    for name in SPATIAL_MODELS:
+        recs = [r["spatial"][name] for r in ranks]
+        if any(rec["digests"] != recs[0]["digests"] for rec in recs):
+            raise AssertionError(f"spatial {name}: the ranks' replicas "
+                                 "differ")
+        if not all(map(math.isfinite, recs[0]["losses"])):
+            raise AssertionError(f"spatial {name}: losses "
+                                 f"{recs[0]['losses']}")
+        one, one_ms = refs[name]
+        vs_one = step_vs_one_process(
+            torch, cfgs[name], recs[0]["step1"], one,
+            f"spatial sync-sgd {name} on {len(ranks)} ranks")
+        models[name] = {
+            "steps": len(recs[0]["losses"]), "losses": recs[0]["losses"],
+            "band_rows_hw": [rec["band_rows"] for rec in recs],
+            "step_ms": [rec.get("step_ms") for rec in recs],
+            "checked_ms": [rec["checked_ms"] for rec in recs],
+            "one_process_step_ms": one_ms,
+            "halo_calls_a_step": [rec["stats"]["halo_calls"] for rec in recs],
+            "halo_bytes_a_step": [rec["stats"]["halo_bytes"] for rec in recs],
+            "halo_ms_a_step": [rec["timed_stats"]["halo_seconds"] * 1e3
+                               for rec in recs],
+            "gather_bytes_a_step": [rec["stats"]["gather_bytes"]
+                                    for rec in recs],
+            "gather_ms_a_step": [rec["timed_stats"]["gather_seconds"] * 1e3
+                                 for rec in recs],
+            "timed_step_note": "halo/gather ms from one more step with the "
+                               "device synchronised around each exchange",
+            "max_memory_allocated": [rec["max_memory_allocated"]
+                                     for rec in recs],
+            "one_process_max_memory_allocated": one["max_memory_allocated"],
+            "peak_step_bytes": [rec["peak_step_bytes"] for rec in recs],
+            "one_process_peak_step_bytes": one["peak_step_bytes"],
+            "memory_note": "peak_step_bytes: max_memory_allocated in the "
+                           "first step less what the process held before "
+                           "it",
+            "vs_one_process": vs_one}
+    return {"note": "two ranks on one card, not a scaling figure",
+            "backend": "gloo", "mesh": {"data": 1, "spatial": len(ranks)},
+            "axes": [r["spatial"]["axes"] for r in ranks],
+            "global_batch": BATCH, "models": models}
+
+
+def spatial_phase(torch, np, dev, gpu) -> None:
+    """Phase 14's spatial axis alone (`--spatial-phase`): the one-process
+    references, PARALLEL_RANKS spawned gloo ranks sharing the card as a 1 x
+    PARALLEL_RANKS mesh, the checks; a `spatial` line."""
+    from openpose_plus_tpu_torch import train as T
+
+    t_phase = time.perf_counter()
+    cfgs = spatial_configs()
+    batches = parallel_batches(np, cfgs[0].model, PARALLEL_STEPS)
+    dev_refs = {}
+    for name, cfg in zip(SPATIAL_MODELS, cfgs):
+        dev_refs[name] = one_process_step(torch, T, cfg, batches[0], dev,
+                                          timed=name == "mobilenet_thin")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    ranks = run_parallel_ranks(PARALLEL_RANKS, {
+        "device": str(dev), "batches": batches, "spatial_cfgs": cfgs,
+        "only_spatial": True})
+    line = spatial_check(torch, ranks, dev_refs)
+    line["phase_seconds"] = time.perf_counter() - t_phase
+    line["gpu"] = gpu
+    log(json.dumps({"spatial": line}))
+
+
 def parallel_phase(torch, np, engine, gains, images, eval_card, counted,
                    dev, gpu) -> None:
     """Phase 14 (module docstring): the distributed layer on the card."""
@@ -3218,17 +3461,11 @@ def parallel_phase(torch, np, engine, gains, images, eval_card, counted,
     nccl = nccl_world_of_one(torch, engine, images, batches[0], counted, dev)
     log(f"parallel: one NCCL rank: {nccl}")
 
-    # the reference of sync-sgd: one process stepping on the global batch
-    state = T.create_train_state(cfg, 0, dev)
-    state, m = T.make_train_step_on_batch(cfg)(state, batches[0])
-    one = {"loss": float(m["loss"]),
-           "grads": {k: q.grad.float().cpu().clone()
-                     for k, q in state.model.named_parameters()},
-           "params": {k: q.detach().float().cpu().clone()
-                      for k, q in state.model.named_parameters()}}
-    one_step_ms = median_ms(
-        torch, lambda: T.make_train_step_on_batch(cfg)(state, batches[0]))
-    del state
+    # the reference of sync-sgd and of the spatial axis: one process
+    # stepping on the global batch
+    one, one_step_ms = one_process_step(torch, T, cfg, batches[0], dev)
+    one_vgg, one_vgg_ms = one_process_step(
+        torch, T, spatial_configs()[1], batches[0], dev, timed=False)
     infer_ms = median_ms(torch, lambda: engine.infer(images))
 
     size = GEOMETRIES["serving"]["size"]
@@ -3239,7 +3476,8 @@ def parallel_phase(torch, np, engine, gains, images, eval_card, counted,
         ranks = run_parallel_ranks(PARALLEL_RANKS, {
             "device": str(dev), "train_cfg": cfg, "serve_cfg": engine.config,
             "batches": batches, "images": images.cpu().numpy(),
-            "gains": gains, "bank": bank})
+            "gains": gains, "bank": bank,
+            "spatial_cfgs": (cfg, spatial_configs()[1])})
 
     log("parallel ranks: " + json.dumps({
         "gloo_cuda_collectives": ranks[0]["gloo_cuda"],
@@ -3256,25 +3494,12 @@ def parallel_phase(torch, np, engine, gains, images, eval_card, counted,
         if not all(map(math.isfinite, recs[0]["losses"])):
             raise AssertionError(f"{strategy}: losses {recs[0]['losses']}")
     # sync-sgd's first step against one process on the global batch
-    step1 = ranks[0]["sync_sgd_step1"]
-    grads = {k: torch.from_numpy(v) for k, v in step1["grads"].items()}
-    leaf = {k: _rel_l2(torch, grads[k], g) for k, g in one["grads"].items()}
-    every = _rel_l2(torch, torch.cat([g.flatten() for g in grads.values()]),
-                    torch.cat([g.flatten() for g in one["grads"].values()]))
-    param_err = max(float((torch.from_numpy(step1["params"][k]) - q).abs()
-                          .max()) for k, q in one["params"].items())
-    step_bound = 2 * cfg.train.lr_init * (1 + 1e-3)
-    vs_one = {"loss_ranks": step1["loss"], "loss_one_process": one["loss"],
-              "loss_rel_err": abs(step1["loss"] - one["loss"]) / one["loss"],
-              "grad_rel_l2_all": every,
-              "grad_rel_l2_worst_leaf": max(leaf.values()),
-              "param_max_abs_err": param_err, "param_bound": step_bound}
-    if not (vs_one["loss_rel_err"] <= TRAIN_LOSS_RTOL
-            and every <= TRAIN_ALL_RTOL
-            and vs_one["grad_rel_l2_worst_leaf"] <= TRAIN_LEAF_RTOL
-            and param_err <= step_bound):
-        raise AssertionError(f"sync-sgd on {PARALLEL_RANKS} ranks vs one "
-                             f"process: {vs_one}")
+    vs_one = step_vs_one_process(torch, cfg, ranks[0]["sync_sgd_step1"],
+                                 one, f"sync-sgd on {PARALLEL_RANKS} ranks")
+    # the spatial axis: the same against one process, replicas bit-identical
+    spatial_line = spatial_check(torch, ranks, {
+        "mobilenet_thin": (one, one_step_ms),
+        "vgg19": (one_vgg, one_vgg_ms)})
     # Engine(mesh=): every rank holds the whole batch, bit-equal to rank 0's
     # (each rank checked it against batch-4 engines on the slices); against
     # the batch-8 call: the maps within bf16 rounding of their scale, as
@@ -3330,7 +3555,7 @@ def parallel_phase(torch, np, engine, gains, images, eval_card, counted,
         "eval_n_dets_phase9": eval_card.n_dets,
         "eval_seconds": [out["eval_seconds"] for out in ranks],
         "gloo_cuda_collectives": ranks[0]["gloo_cuda"],
-        "nccl_world_of_one": nccl,
+        "nccl_world_of_one": nccl, "spatial": spatial_line,
         "phase_seconds": time.perf_counter() - t_phase, "gpu": gpu}
     log(json.dumps({"parallel": line}))
 
@@ -3779,6 +4004,12 @@ def main(argv: list[str]) -> int:
         "--bench-phase", action="store_true",
         help="only build the kernels and run phase 15, the bench (the full "
              "run starts it so, in a fresh process)")
+    parser.add_argument(
+        "--spatial-phase", action="store_true",
+        help="only run phase 14's spatial axis (no kernel is on its path): "
+             "sync-sgd of MobileNet-thin and VGG19 on two gloo ranks "
+             "sharing the card as a 1 x 2 (data, spatial) mesh, against "
+             "one process")
     args = parser.parse_args(argv)
     if args.decoder_kernels_of and args.int8_kernels_of:
         parser.error("one of --decoder-kernels-of and --int8-kernels-of")
@@ -3811,6 +4042,11 @@ def main(argv: list[str]) -> int:
         return 0
     if args.int8_phases:
         int8_phases(torch, np, build, int8_conv, inputs, dev, gpu)
+        return 0
+    if args.spatial_phase:
+        spatial_phase(torch, np, dev, gpu)
+        if foreign_modules():
+            raise AssertionError(f"the port pulled in {foreign_modules()}")
         return 0
     if args.bench_phase:
         build.build()

@@ -7,9 +7,10 @@ and the decoder's serial tail in hand-written Hopper kernels; calibrated
 int8 serving (`compute_dtype="int8"`, `Engine.calibrate`) with the int8
 convs in a hand-written int8 tensor-core kernel; COCO
 keypoint evaluation (`eval_coco`, the GT-map oracle in `ap_oracle`); and
-single-device training (`train`: loss, Adam or momentum, the host
-pipeline in `data.pipeline`, `train_loop` with resume; `ap_bench` trains
-on the seeded scene bank and measures AP).
+training (`train`: loss, Adam or momentum, the host pipeline in
+`data.pipeline`, `train_loop` with resume, on one device or on a (data,
+spatial) mesh of ranks in `parallel`; `ap_bench` trains on the seeded
+scene bank and measures AP).
 Imports `torch`, never `jax`, and nothing of the JAX package: `config`,
 `skeleton` and `data` are the port's own copies, pinned equal to the
 originals by the tests. `Engine` runs on the card unless it is given

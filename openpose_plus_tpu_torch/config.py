@@ -3,8 +3,8 @@
 imports nothing of the JAX package. Field names, defaults and the
 `fidelity()` / `quality()` presets are the JAX package's;
 `tests/test_torch_config.py` pins them equal to the originals. The mesh
-section is read only to refuse what is not ported (ROADMAP.md item
-'Distributed').
+section lays out the ranks of `parallel/` (a data axis and a spatial axis
+that shards the image height).
 """
 
 from __future__ import annotations

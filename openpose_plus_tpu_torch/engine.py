@@ -218,9 +218,13 @@ class Engine:
         batch, runs its contiguous slice of batch / n images on its own
         device, and gets the whole result back (the rows of every rank,
         gathered by `sharding.all_gather_rows`), as a JAX caller gets a
-        global array. The parameters are rank 0's, broadcast at
-        construction; an int8 engine's calibration takes the max over the
-        ranks. A batch the data axis does not divide raises.
+        global array. On a (data, spatial) mesh the batch goes over the
+        data axis and is replicated over the spatial one, as the
+        reference's `in_shardings` place it: the ranks of a spatial row
+        serve the same slice whole. The parameters are the mesh's first
+        rank's, broadcast at construction; an int8 engine's calibration
+        takes the max over the data axis. A batch the data axis does not
+        divide raises.
 
     `compile(batch_size, input_layout)` captures `infer` at that shape in a
     CUDA graph (see there); later `infer` calls at the shape replay it.
@@ -258,8 +262,8 @@ class Engine:
         self.model.to(self.device).eval()
         # (index on the data axis, its size, its group), or None
         self._data_axis = self._mesh_axis(mesh)
-        if self._data_axis is not None:
-            sharding.replicate(self.model, self._data_axis[2])
+        if mesh is not None:
+            sharding.replicate(self.model, sharding.mesh_group(mesh))
         self._calib = [b for name, b in self.model.named_buffers()
                        if common.is_calib_leaf(name.rsplit(".", 1)[-1])]
         self._calibrated = False
@@ -277,12 +281,6 @@ class Engine:
             raise TypeError(f"mesh must be a torch.distributed DeviceMesh "
                             f"(parallel.sharding.build_mesh), got "
                             f"{type(mesh).__name__}")
-        for dim in range(1, mesh.ndim):
-            if mesh.size(dim) > 1:
-                raise NotImplementedError(
-                    f"mesh axis {mesh.mesh_dim_names[dim]!r} of size "
-                    f"{mesh.size(dim)}: serving shards the batch only "
-                    "(the spatial axis is ROADMAP.md item 'Distributed')")
         return sharding.data_axis(mesh)
 
     def _local_batch(self, batch: int) -> int:

@@ -36,6 +36,7 @@ import torch.utils.checkpoint
 from torch import nn
 
 from openpose_plus_tpu_torch.ops.cuda import int8_conv, sepconv
+from openpose_plus_tpu_torch.parallel import spatial
 
 # "int8" carries bf16 between the convs (`common.py::_dtype`)
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
@@ -156,7 +157,11 @@ class _Int8Layer(nn.Module):
 def maxpool2x2(x):
     """2x2 stride-2 max pool (VALID: an odd last row or column is
     dropped); a QAct pools its int8 plane (max commutes with the positive
-    scale), exactly."""
+    scale), exactly. Under a spatial band it pools the rank's rows: the
+    bands above the output grid start and end on even rows."""
+    band = spatial.active()
+    if band is not None:
+        spatial.check_pool(band, x.q if isinstance(x, QAct) else x)
     if isinstance(x, QAct):
         q = _nhwc(x.q)
         b, h, w, c = q.shape
@@ -179,8 +184,19 @@ def same_padding(size: int, kernel: int, stride: int) -> tuple[int, int]:
 
 def conv2d_same(x: torch.Tensor, weight: torch.Tensor, stride: int = 1,
                 groups: int = 1) -> torch.Tensor:
-    """NCHW conv with "SAME" padding, no bias."""
-    top, bottom = same_padding(x.shape[-2], weight.shape[-2], stride)
+    """NCHW conv with "SAME" padding, no bias. Under a spatial band
+    (`parallel.spatial.use`) x is the rank's band of rows: the padding is
+    that of the global tensor, and the rows the band's outputs read come
+    from the neighbouring ranks (`spatial.conv_rows`)."""
+    band = spatial.active()
+    k = weight.shape[-2]
+    if band is None:
+        top, bottom = same_padding(x.shape[-2], k, stride)
+    else:
+        height = band.hout * band.scale(x.shape[-2])
+        x = spatial.conv_rows(band, x, k, stride,
+                              same_padding(height, k, stride)[0])
+        top = bottom = 0
     left, right = same_padding(x.shape[-1], weight.shape[-1], stride)
     if top == bottom and left == right:
         return F.conv2d(x, weight, None, stride, (top, left), 1, groups)
@@ -410,8 +426,11 @@ class MultiStageHead(nn.Module):
     def _branch(self, name: str, x) -> torch.Tensor:
         branch = getattr(self, name)
         if self.remat and torch.is_grad_enabled():
-            return torch.utils.checkpoint.checkpoint(branch, x,
-                                                     use_reentrant=False)
+            # the recompute runs in the backward pass, under the band of
+            # the forward (its halo exchanges in the same order on every
+            # rank)
+            return torch.utils.checkpoint.checkpoint(
+                spatial.keep_band(branch), x, use_reentrant=False)
         return branch(x)
 
 

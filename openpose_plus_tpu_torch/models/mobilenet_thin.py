@@ -16,7 +16,6 @@ reference, which refuses the s2d layouts there.
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from openpose_plus_tpu_torch.config import ModelConfig
@@ -76,7 +75,7 @@ class MobileNetThinPose(nn.Module):
         x = self.dw4(feat_s4)                          # stride 8
         for block in (self.dw5, self.dw6, self.dw7, self.dw8, self.dw9):
             x = block(x)
-        pooled = F.max_pool2d(feat_s4, 2, 2)
+        pooled = common.maxpool2x2(feat_s4)
         feature = torch.cat([pooled, x], dim=1)
         confs, pafs = self.stages(feature)
 

@@ -30,7 +30,10 @@ JAX package has `pmean` / `ppermute` inside `shard_map`:
     collective that every backend takes on CUDA tensors;
   * the metrics: one `all_reduce` of three scalars.
 
-The update is `train._update`'s Adam or momentum step unchanged.
+The update is `train._update`'s Adam or momentum step unchanged. On a
+(data, spatial) mesh, sync-sgd runs each rank on its band of the images
+(`parallel.spatial`); sma and pair-avg refuse a spatial axis, as the
+reference does.
 """
 
 from __future__ import annotations
@@ -44,17 +47,20 @@ from torch._utils import _flatten_dense_tensors, _unflatten_dense_tensors
 
 from openpose_plus_tpu_torch.config import Config
 from openpose_plus_tpu_torch.parallel import sharding as S
+from openpose_plus_tpu_torch.parallel import spatial
 
 STRATEGIES = ("sync-sgd", "sma", "pair-avg")
 
 
-def all_reduce_mean(tensors: Sequence[torch.Tensor], group=None) -> None:
+def all_reduce_mean(tensors: Sequence[torch.Tensor], group=None,
+                    divisor: Optional[int] = None) -> None:
     """Each tensor replaced in place by its mean over the ranks of `group`:
     one all_reduce (sum) of the tensors flattened into one buffer, then a
-    division by the world size (pmean's psum / n)."""
+    division by the world size (pmean's psum / n), or by `divisor` (a
+    (data, spatial) mesh sums its bands' shares and averages over data)."""
     flat = _flatten_dense_tensors(tensors)
     dist.all_reduce(flat, group=group)
-    flat.div_(dist.get_world_size(group))
+    flat.div_(divisor or dist.get_world_size(group))
     for t, r in zip(tensors, _unflatten_dense_tensors(flat, tensors)):
         t.copy_(r)
 
@@ -91,22 +97,29 @@ def _mean_metrics(metrics: dict, group) -> dict:
 
 def create_kungfu_state(config: Config, mesh=None, seed: int = 0,
                         device: str | torch.device = "cuda"):
-    """`train.create_train_state` on this rank, with rank 0's parameters
-    broadcast over the mesh's data axis (KungFu's BroadcastGlobalVariables;
-    the seeded init already agrees)."""
+    """`train.create_train_state` on this rank, with the mesh's first
+    rank's parameters broadcast over the mesh (KungFu's
+    BroadcastGlobalVariables; the seeded init already agrees)."""
     from openpose_plus_tpu_torch.train import create_train_state
 
     state = create_train_state(config, seed, device)
     if mesh is not None:
-        S.replicate(state.model, S.data_axis(mesh)[2])
+        S.replicate(state.model, S.mesh_group(mesh))
     return state
 
 
 def make_kungfu_steps(config: Config, mesh, strategy: str
                       ) -> list[Callable]:
     """This rank's step functions for a strategy: step(state, batch) ->
-    (state, metrics), `batch` being this rank's slice of the global batch
-    (a pipeline batch, as `train.make_train_step_on_batch` takes).
+    (state, metrics), `batch` being this rank's part of the global batch
+    (a pipeline batch, as `train.make_train_step_on_batch` takes;
+    `sharding.shard_batch`).
+
+    On a mesh with a spatial axis (sync-sgd only: the reference's
+    decentralized strategies refuse it) the model runs on the rank's band
+    of the images (`spatial.band_forward`), the loss on the full maps, and
+    one all_reduce over the mesh sums the bands' gradient shares and
+    averages them over the data axis.
 
     Returns a list; the train loop cycles `fns[step % len(fns)]`: one
     function for sync-sgd and sma, log2(n) for pair-avg (round r pairs the
@@ -117,12 +130,12 @@ def make_kungfu_steps(config: Config, mesh, strategy: str
     if strategy not in STRATEGIES:
         raise ValueError(f"unknown kf strategy {strategy!r}; "
                          f"choose from {STRATEGIES}")
-    n, group = 1, None
+    n, group, reduce_group, forward = 1, None, None, None
     if mesh is not None:
         _, n, group = S.data_axis(mesh)
         names = mesh.mesh_dim_names
         for dim, other in enumerate(names[1:], 1):
-            if mesh.size(dim) != 1:
+            if mesh.size(dim) != 1 and strategy != "sync-sgd":
                 raise ValueError(
                     f"kf strategy {strategy!r} shards over {names[0]!r} "
                     f"only; mesh axis {other!r} has size {mesh.size(dim)} "
@@ -132,17 +145,26 @@ def make_kungfu_steps(config: Config, mesh, strategy: str
     if strategy == "pair-avg" and (n & (n - 1) or n < 2):
         raise ValueError(f"pair-avg hypercube gossip needs a power-of-two "
                          f"device count, got {n}")
+    if mesh is not None:
+        reduce_group = S.mesh_group(mesh)
+        if S.spatial_axis(mesh)[1] > 1:
+            m = config.model
+            forward = functools.partial(
+                spatial.band_forward,
+                spatial.axis_band(mesh, m.hin, m.stride))
     targets = T.batch_on_device(config)
 
     def reduce_grads(model: torch.nn.Module) -> None:
-        all_reduce_mean([p.grad for p in model.parameters()], group)
+        all_reduce_mean([p.grad for p in model.parameters()], reduce_group,
+                        divisor=n)
 
     def step(state, batch, *, rnd: int):
         after_backward: Optional[Callable] = (
             reduce_grads if strategy == "sync-sgd" and group is not None
             else None)
         state, metrics = T._update(state, *targets(state, batch),
-                                   after_backward=after_backward)
+                                   after_backward=after_backward,
+                                   forward=forward)
         if group is None:
             return state, metrics
         params = [p.detach() for p in state.model.parameters()]

@@ -9,20 +9,25 @@ the JAX package runs one controller over a mesh of devices:
     torchrun's environment (RANK, WORLD_SIZE, LOCAL_RANK, MASTER_ADDR,
     MASTER_PORT), NCCL for CUDA devices and gloo on the CPU unless the
     caller names the backend; a failed init raises;
-  * `build_mesh`: a `DeviceMesh` with the dims (data, spatial). The spatial
-    axis (GSPMD height sharding with halo exchange in the JAX package) is
-    not ported: `spatial_parallelism > 1` raises `NotImplementedError`;
+  * `build_mesh`: a `DeviceMesh` with the dims (data, spatial); the
+    spatial axis shards the image height (`parallel/spatial.py`, where the
+    JAX package has GSPMD's halo exchange);
   * `replicated` / `shard_params` -> `replicate`: rank 0's parameters and
     buffers broadcast to every rank (KungFu's BroadcastGlobalVariables);
   * `batch_sharding` / `map_sharding` -> `shard_batch`, this rank's
-    contiguous slice of a global host batch (a rank holds no view of the
-    other ranks' rows);
+    contiguous slice of a global host batch along the data axis, and of
+    the images its band of rows along the spatial axis (`band_batch`; a
+    rank holds no view of the other ranks' rows); `broadcast_batch` hands
+    the batch one rank of a data row read to the row's other spatial
+    ranks;
   * `process_local_slice`: the same arithmetic on the rank and world size.
 
 The collectives on device tensors are `broadcast` (`replicate`,
-`all_gather_rows`) and `all_reduce` (`parallel.kungfu`): the two that
-torch's gloo backend takes on CUDA tensors as well as NCCL. Gathers of
-host data run on a gloo group (`host_group`).
+`all_gather_rows`, `broadcast_batch`), `all_reduce` (`parallel.kungfu`)
+and, on the spatial axis, `all_to_all_single` and
+`all_gather_into_tensor` (`parallel.spatial`): torch's gloo backend takes
+each of them on CUDA tensors as well as NCCL. Gathers of host data run on
+a gloo group (`host_group`).
 """
 
 from __future__ import annotations
@@ -36,16 +41,6 @@ import torch.distributed as dist
 from torch import nn
 
 from openpose_plus_tpu_torch.config import ParallelConfig
-
-
-def check_spatial(cfg: ParallelConfig) -> None:
-    """Only the data axis is ported: a spatial axis raises."""
-    if cfg.spatial_parallelism > 1:
-        raise NotImplementedError(
-            f"spatial_parallelism={cfg.spatial_parallelism}: sharding the "
-            "image height across ranks needs a halo-exchanged conv, "
-            "ROADMAP.md item 'Distributed' (the spatial axis); the port "
-            "shards the batch only")
 
 
 def init_distributed(cfg: ParallelConfig, backend: Optional[str] = None,
@@ -87,6 +82,12 @@ def rank_and_world() -> tuple[int, int]:
     return dist.get_rank(), dist.get_world_size()
 
 
+def check_divisible(n: int, spatial: int) -> None:
+    """The reference's check of a mesh of `n` devices."""
+    if n % spatial != 0:
+        raise ValueError(f"{n} devices not divisible by spatial={spatial}")
+
+
 def build_mesh(cfg: Optional[ParallelConfig] = None,
                devices: Optional[Sequence[int]] = None):
     """(data, spatial) `DeviceMesh` over the given ranks (every rank of the
@@ -103,9 +104,7 @@ def build_mesh(cfg: Optional[ParallelConfig] = None,
         devices = range(dist.get_world_size())
     ranks = list(devices)
     n, sp = len(ranks), cfg.spatial_parallelism
-    if n % sp != 0:
-        raise ValueError(f"{n} devices not divisible by spatial={sp}")
-    check_spatial(cfg)
+    check_divisible(n, sp)
     device_type = "cuda" if dist.get_backend() == "nccl" else "cpu"
     return DeviceMesh(device_type, torch.tensor(ranks).reshape(n // sp, sp),
                       mesh_dim_names=(cfg.data_axis, cfg.spatial_axis))
@@ -115,6 +114,27 @@ def data_axis(mesh) -> tuple[int, int, Any]:
     """(this rank's index on the mesh's data axis, the axis size, its
     process group)."""
     return mesh.get_local_rank(0), mesh.size(0), mesh.get_group(0)
+
+
+def spatial_axis(mesh) -> tuple[int, int, Any]:
+    """(this rank's index on the mesh's spatial axis, the axis size, its
+    process group); (0, 1, None) for a mesh of the data axis alone."""
+    if mesh.ndim < 2:
+        return 0, 1, None
+    return mesh.get_local_rank(1), mesh.size(1), mesh.get_group(1)
+
+
+def mesh_group(mesh):
+    """A process group over every rank of the mesh: the data axis's group
+    when the spatial axis has size 1, else the default group, which a mesh
+    with a spatial axis must span."""
+    if spatial_axis(mesh)[1] == 1:
+        return data_axis(mesh)[2]
+    if mesh.size() != dist.get_world_size():
+        raise ValueError(f"a mesh with a spatial axis spans every rank of "
+                         f"the process group: {mesh.size()} of "
+                         f"{dist.get_world_size()}")
+    return None
 
 
 def replicate(module: nn.Module, group=None) -> nn.Module:
@@ -127,10 +147,14 @@ def replicate(module: nn.Module, group=None) -> nn.Module:
     return module
 
 
-def shard_batch(batch: dict, mesh) -> dict:
-    """This rank's contiguous rows [r*B/n, (r+1)*B/n) of every leaf of a
-    global batch along the data axis; rank-0 leaves (step counters,
-    scalars) are kept whole. B must be divisible by n."""
+def shard_batch(batch: dict, mesh, spatial_leaves: tuple[str, ...] = (
+        "images",), stride: int = 8) -> dict:
+    """This rank's part of a global batch: the contiguous rows
+    [r*B/n, (r+1)*B/n) of every leaf along the data axis (rank-0 leaves,
+    step counters and scalars, are kept whole; B must be divisible by n),
+    then of the 4-D leaves named in `spatial_leaves` (NHWC images) this
+    rank's band of rows along the spatial axis (`band_batch`). The maps,
+    mask and keypoints are sliced over data only (`map_sharding`)."""
     r, n, _ = data_axis(mesh)
     out = {}
     for k, v in batch.items():
@@ -142,6 +166,61 @@ def shard_batch(batch: dict, mesh) -> dict:
             raise ValueError(f"batch leaf {k!r} has {b} rows, not divisible "
                              f"by the data axis ({n} ranks)")
         out[k] = v[r * b // n:(r + 1) * b // n]
+    return band_batch(out, mesh, spatial_leaves, stride)
+
+
+def band_batch(batch: dict, mesh, spatial_leaves: tuple[str, ...] = (
+        "images",), stride: int = 8) -> dict:
+    """The 4-D leaves of `batch` named in `spatial_leaves` cut to this
+    rank's band of rows (dim 1) on the mesh's spatial axis, the bands of
+    `parallel.spatial` for an output grid `stride` times smaller than a
+    plain image (an s2d layout's rows are taken at its own scale); every
+    other leaf as it is."""
+    from openpose_plus_tpu_torch.parallel import spatial
+
+    s, n, _ = spatial_axis(mesh)
+    if n == 1:
+        return batch
+    out = dict(batch)
+    for k in spatial_leaves:
+        v = batch.get(k)
+        if getattr(v, "ndim", 0) != 4:
+            continue
+        per = stride // {3: 1, 12: 2, 48: 4}.get(v.shape[-1], 1)
+        lo, hi = spatial.bands(spatial.check_geometry(v.shape[1], per, n),
+                               n)[s]
+        out[k] = v[:, lo * per:hi * per]
+    return out
+
+
+def broadcast_batch(batch: Optional[dict], mesh,
+                    device: torch.device) -> dict:
+    """The batch of a data row on every spatial rank of the row: spatial
+    rank 0 passes the dict of arrays it read, the others None; every rank
+    returns the leaves on `device` (two broadcasts on the spatial axis:
+    the leaves' names, shapes and dtypes, then their bytes)."""
+    s, _, group = spatial_axis(mesh)
+    src = dist.get_global_rank(group, 0)
+
+    def nbytes(shape, dtype) -> int:     # each leaf on a 16-byte boundary
+        return -(-torch.Size(shape).numel() * dtype.itemsize // 16) * 16
+
+    if s == 0:
+        leaves = {k: torch.as_tensor(v) for k, v in batch.items()}
+        meta = [[(k, tuple(t.shape), t.dtype) for k, t in leaves.items()]]
+    else:
+        meta = [None]
+    dist.broadcast_object_list(meta, src, group=group, device=device)
+    buf = torch.zeros(sum(nbytes(*m[1:]) for m in meta[0]),
+                      dtype=torch.uint8, device=device)
+    out, offset = {}, 0
+    for k, shape, dtype in meta[0]:
+        out[k] = buf[offset:offset + nbytes(shape, dtype)].view(dtype)[
+            :torch.Size(shape).numel()].view(shape)
+        if s == 0:
+            out[k].copy_(leaves[k])
+        offset += nbytes(shape, dtype)
+    dist.broadcast(buf, src, group=group)
     return out
 
 

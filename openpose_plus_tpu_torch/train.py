@@ -21,13 +21,18 @@ runs on every rank of the process group it finds (or starts, with
 `config.parallel.multihost`: one process a rank under `torchrun`), with
 the KungFu strategy `config.train.kf_optimizer` ("sync-sgd", "sma",
 "pair-avg"; `parallel/kungfu.py`); `config.train.batch_size` is the global
-batch. Sharding the image height (`spatial_parallelism > 1`) raises
-`NotImplementedError` (ROADMAP.md item 'Distributed').
+batch. `config.parallel.spatial_parallelism > 1` shards the image height
+too: the ranks form a (data, spatial) mesh, each rank runs the model on
+its band of rows with halo-exchanged convs (`parallel/spatial.py`), and
+sync-sgd sums the bands' gradients (sma and pair-avg refuse the axis, as
+in the reference).
 
     python -m openpose_plus_tpu_torch.train --model mobilenet_thin \\
         --train-images DIR --train-annotations FILE --steps 1000
     torchrun --nproc-per-node 8 -m openpose_plus_tpu_torch.train \\
         --parallel --kf-optimizer sma ...
+    torchrun --nproc-per-node 8 -m openpose_plus_tpu_torch.train \\
+        --parallel --spatial 2 ...
 """
 
 from __future__ import annotations
@@ -181,15 +186,19 @@ def create_train_state(config: Config, seed: int = 0,
 
 def _update(state: TrainState, images: torch.Tensor, gt_conf: torch.Tensor,
             gt_paf: torch.Tensor, mask: Optional[torch.Tensor],
-            after_backward: Optional[Callable[[nn.Module], None]] = None
-            ) -> tuple[TrainState, dict]:
+            after_backward: Optional[Callable[[nn.Module], None]] = None,
+            forward: Optional[Callable[[nn.Module, torch.Tensor], dict]]
+            = None) -> tuple[TrainState, dict]:
     """One optimizer step in place; metrics stay on the device (no sync)
     but `lr`, the schedule's value at the step before its increment.
-    `after_backward(model)` runs between the backward pass and the update
-    (sync-sgd's gradient all-reduce)."""
+    `forward(model, images)` replaces the model call (the spatial axis's
+    band forward); `after_backward(model)` runs between the backward pass
+    and the update (sync-sgd's gradient all-reduce)."""
     lr = state.optimizer.param_groups[0]["lr"]
     state.optimizer.zero_grad(set_to_none=True)
-    loss, metrics = pose_loss(state.model(images), gt_conf, gt_paf, mask)
+    outputs = (state.model(images) if forward is None
+               else forward(state.model, images))
+    loss, metrics = pose_loss(outputs, gt_conf, gt_paf, mask)
     loss.backward()
     if after_backward is not None:
         after_backward(state.model)
@@ -259,25 +268,35 @@ def train_loop(config: Config, n_steps: Optional[int] = None,
     dumps every `vis_every`.
 
     With a process group running (or started from torchrun's environment
-    when `config.parallel.multihost`), rank r trains on its own shard of
-    the dataset (`shard_index=r`, seed + r) in batches of batch_size /
-    world, on cuda:LOCAL_RANK when `device` is "cuda"; every rank resumes
-    from the newest checkpoint, and rank 0 alone writes checkpoints, CSV
-    rows and dumps, from its replica. Returns this rank's state."""
+    when `config.parallel.multihost`), the ranks form a (data, spatial)
+    mesh (`config.parallel.spatial_parallelism` ranks a data row). Data
+    row d trains on its own shard of the dataset (`shard_index=d`, seed +
+    d) in batches of batch_size / rows: the row's spatial rank 0 reads
+    them and hands each to the row's other spatial ranks, which take their
+    bands of its rows. A rank runs on cuda:LOCAL_RANK when `device` is
+    "cuda"; every rank resumes from the newest checkpoint, and rank 0
+    alone writes checkpoints, CSV rows and dumps, from its replica.
+    Returns this rank's state."""
     from openpose_plus_tpu_torch import checkpoint as ckpt
     from openpose_plus_tpu_torch.data.coco import CocoPoseDataset
     from openpose_plus_tpu_torch.data.pipeline import TrainPipeline
     from openpose_plus_tpu_torch.parallel import kungfu as kf
     from openpose_plus_tpu_torch.parallel import sharding as S
 
-    S.check_spatial(config.parallel)
     dev = S.init_distributed(config.parallel, device=_device(device))
-    rank, world = S.rank_and_world()
-    if config.train.batch_size % world:
+    rank = S.rank_and_world()[0]
+    if dist.is_initialized():
+        mesh = S.build_mesh(config.parallel)
+        row, rows = S.data_axis(mesh)[:2]
+        reader = S.spatial_axis(mesh)[0] == 0
+        spatial = S.spatial_axis(mesh)[1] > 1
+    else:
+        S.check_divisible(1, config.parallel.spatial_parallelism)
+        mesh, row, rows, reader, spatial = None, 0, 1, True, False
+    if config.train.batch_size % rows:
         raise ValueError(
             f"batch_size {config.train.batch_size} must be divisible by the "
-            f"data mesh axis ({world} devices)")
-    mesh = S.build_mesh(config.parallel) if dist.is_initialized() else None
+            f"data mesh axis ({rows} devices)")
     n_steps = n_steps or config.train.n_steps
     state = kf.create_kungfu_state(config, mesh, config.train.seed, dev)
     ckpt_dir = config.train.checkpoint_dir
@@ -288,22 +307,29 @@ def train_loop(config: Config, n_steps: Optional[int] = None,
 
     dataset = CocoPoseDataset(config.data.train_annotations,
                               config.data.train_images)
-    # the rank's disjoint shard (the reference's dataset.shard(cluster_size,
-    # rank)), in batches of its share of the global batch
+    # the data row's disjoint shard (the reference's dataset.shard(
+    # cluster_size, rank)), in batches of its share of the global batch,
+    # read once a row: the spatial ranks of a row step on one batch
     local = config.replace(train=dataclasses.replace(
-        config.train, batch_size=config.train.batch_size // world))
-    pipeline = TrainPipeline(dataset, local, seed=config.train.seed + rank,
-                             shard_index=rank, shard_count=world)
+        config.train, batch_size=config.train.batch_size // rows))
+    pipeline = (TrainPipeline(dataset, local, seed=config.train.seed + row,
+                              shard_index=row, shard_count=rows)
+                if reader else None)
     csv_writer = (_metrics_csv_writer(config) if rank == 0
                   else lambda *a: None)
-    it = iter(pipeline)
+    it = iter(pipeline) if reader else None
     t0 = time.perf_counter()
     imgs_since = 0
     try:
         for i in range(state.step, n_steps):
-            batch = next(it)
+            full = next(it) if reader else None
+            batch = full
+            if spatial:
+                full = S.broadcast_batch(full, mesh, dev)
+                batch = S.band_batch(full, mesh,
+                                     stride=config.model.stride)
             state, metrics = step_fns[i % len(step_fns)](state, batch)
-            imgs_since += batch["images"].shape[0] * world
+            imgs_since += batch["images"].shape[0] * rows
             if (i + 1) % config.train.log_every == 0:
                 loss = float(metrics["loss"])          # synchronises
                 dt = time.perf_counter() - t0
@@ -318,9 +344,10 @@ def train_loop(config: Config, n_steps: Optional[int] = None,
             if (config.train.vis_every
                     and (i + 1) % config.train.vis_every == 0
                     and rank == 0):
-                _dump_vis(config, state, batch, i + 1)
+                _dump_vis(config, state, full, i + 1)
     finally:
-        pipeline.stop()
+        if pipeline is not None:
+            pipeline.stop()
     if mesh is not None:
         dist.barrier()        # rank 0's last checkpoint is on disk
     return state
@@ -392,8 +419,8 @@ def main(argv: Optional[list[str]] = None) -> None:
                    help="distributed strategy (reference --kf-optimizer; "
                         "pair-avg as hypercube gossip)")
     p.add_argument("--spatial", type=int, default=1,
-                   help="spatial-parallel shards of the image height (only "
-                        "1: ROADMAP.md item 'Distributed')")
+                   help="spatial-parallel shards of the image height "
+                        "(ranks a data row; sync-sgd)")
     p.add_argument("--train-images", default=None)
     p.add_argument("--train-annotations", default=None)
     p.add_argument("--checkpoint-dir", default=None)

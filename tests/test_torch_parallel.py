@@ -318,9 +318,10 @@ def test_process_local_slice_matches_jax(monkeypatch):
     assert S.process_local_slice(7) == (0, 7)      # no process group
 
 
-def test_build_mesh_errors():
-    """The reference's `n % spatial` error, then the spatial axis itself
-    (not ported), and a mesh without a process group."""
+def test_build_mesh_errors(strategies):
+    """The reference's `n % spatial` error, a 1 x 2 (data, spatial) mesh
+    over ranks 0-1 of the strategies' world, and a mesh without a process
+    group."""
     jcfg, cfg = _configs()
     sp = dataclasses.replace(cfg.parallel, spatial_parallelism=2)
     with pytest.raises(ValueError) as ref:
@@ -330,8 +331,10 @@ def test_build_mesh_errors():
     with pytest.raises(ValueError) as out:
         S.build_mesh(sp, devices=[0, 1, 2])
     assert str(out.value) == str(ref.value)
-    with pytest.raises(NotImplementedError, match="Distributed"):
-        S.build_mesh(sp, devices=[0, 1])
+    port = strategies[0]
+    assert [port[r].get("spatial_mesh") for r in range(N)] == [
+        ([[0, 1]], ("data", "spatial"), (0, 1), (s, 2)) for s in (0, 1)] \
+        + [None, None]
     with pytest.raises(RuntimeError, match="init_distributed"):
         S.build_mesh(cfg.parallel)
     # without multihost, a world of one: no group is started
@@ -542,8 +545,13 @@ def test_cli_train_parallel_under_torchrun(tmp_path):
     assert os.listdir(ck) == ["2"]
     assert open(csv).read().splitlines() == [
         "step,loss,loss_conf_last,loss_paf_last,lr,imgs_per_sec"]
-    with pytest.raises(NotImplementedError, match="Distributed"):
+    with pytest.raises(ValueError) as ref:
+        JS.build_mesh(JS.ParallelConfig(spatial_parallelism=2),
+                      devices=jax.devices()[:1])
+    with pytest.raises(ValueError) as out:
         cli.main(["train", "--spatial", "2", "--device", "cpu"])
+    assert str(out.value) == str(ref.value) == \
+        "1 devices not divisible by spatial=2"
 
 
 def test_cli_eval_distributed_under_torchrun(tmp_path):

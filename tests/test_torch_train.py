@@ -408,9 +408,10 @@ def test_refusals():
 def test_distributed_strategies_raise(change, tmp_path, monkeypatch):
     """train_loop on a world of one, as the reference on one device: sma
     trains; pair-avg raises the reference's power-of-two error; multihost
-    starts a gloo group of one from torchrun's environment and trains; only
-    the spatial axis raises NotImplementedError, naming the item
-    (tests/test_torch_parallel.py runs the strategies on 2 and 4 ranks)."""
+    starts a gloo group of one from torchrun's environment and trains; a
+    spatial axis of 2 raises the reference's mesh error, one device not
+    being divisible by 2 (tests/test_torch_parallel.py runs the strategies
+    on 2 and 4 ranks, tests/test_torch_spatial.py the spatial axis)."""
     import torch.distributed as dist
 
     from tests.torch_ranks import free_port
@@ -420,7 +421,8 @@ def test_distributed_strategies_raise(change, tmp_path, monkeypatch):
                                                       **kw)
                          for section, kw in change.items()})
     if cfg.parallel.spatial_parallelism > 1:
-        with pytest.raises(NotImplementedError, match="Distributed"):
+        with pytest.raises(ValueError,
+                           match="^1 devices not divisible by spatial=2$"):
             T.train_loop(cfg, n_steps=1, device="cpu")
         return
     if cfg.train.kf_optimizer == "pair-avg":

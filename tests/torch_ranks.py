@@ -106,7 +106,8 @@ def kungfu_rank(rank, world, flat_params, batches, runs):
     moved by offset * rank, and one step a global batch of `batches` (the
     rank's slice); the parameters at the start, and per step the mean loss
     and this rank's parameters and digest. Also: the error of pair-avg on
-    a mesh of ranks 0-2 (ranks outside it skip)."""
+    a mesh of ranks 0-2 (ranks outside it skip), and a 1 x 2 (data,
+    spatial) mesh of ranks 0-1: its ranks, names and each rank's axes."""
     from openpose_plus_tpu_torch.checkpoint import from_flax
     from openpose_plus_tpu_torch.parallel import kungfu as kf
     from openpose_plus_tpu_torch.parallel import sharding as S
@@ -136,6 +137,12 @@ def kungfu_rank(rank, world, flat_params, batches, runs):
             kf.make_kungfu_steps(cfg, three, "pair-avg")
         except ValueError as e:
             out["three"] = str(e)
+    two = S.build_mesh(dataclasses.replace(cfg.parallel,
+                                           spatial_parallelism=2),
+                       devices=[0, 1])
+    if rank < 2:
+        out["spatial_mesh"] = (two.mesh.tolist(), two.mesh_dim_names,
+                               S.data_axis(two)[:2], S.spatial_axis(two)[:2])
     return out
 
 
@@ -251,3 +258,169 @@ def scene_bank(n_images: int = 12, size: int = 128):
     ann, imgs = make_scene_bank(os.path.join(tmp, "bank"), "val", n_images,
                                 size)
     return ann, imgs, tmp
+
+
+# ------------------------------------------------------ the spatial axis ---
+
+def spatial_ops_rank(rank, world, cases):
+    """Each of `cases` (name, x, weight, stride, groups, hout, g) on this
+    rank's band: x a global NCHW float32 array of height hout * scale,
+    `weight` a conv's (None: the 2x2 max pool), `g` the output's global
+    cotangent. Returns per case the output band, the gradients of the band
+    and of the weight (this rank's share), and the elements the exchanges
+    brought (forward, backward)."""
+    from openpose_plus_tpu_torch.models import common
+    from openpose_plus_tpu_torch.parallel import spatial
+
+    out = {}
+    for name, x, weight, stride, groups, hout, g in cases:
+        band = spatial.Band(rank, world, None, hout, 8)
+        per = x.shape[2] // hout
+        xs = torch.from_numpy(x[:, :, band.lo * per:band.hi * per]
+                              ).requires_grad_()
+        w = (None if weight is None
+             else torch.from_numpy(weight).requires_grad_())
+        spatial.reset_stats()
+        with spatial.use(band):
+            y = (common.maxpool2x2(xs) if w is None
+                 else common.conv2d_same(xs, w, stride, groups))
+        forward = spatial.STATS["halo_elements"]
+        out_scale = y.shape[2] // (band.hi - band.lo)
+        gs = torch.from_numpy(g[:, :, band.lo * out_scale:
+                                band.hi * out_scale])
+        (y * gs).sum().backward()
+        out[name] = {"y": y.detach().numpy(), "dx": xs.grad.numpy(),
+                     "dw": None if w is None else w.grad.numpy(),
+                     "elements": (forward,
+                                  spatial.STATS["halo_elements"] - forward),
+                     "calls": spatial.STATS["halo_calls"]}
+    return out
+
+
+def spatial_model_rank(rank, world, runs):
+    """Each of `runs` (key, model config, state dict, images, cotangents):
+    the model on this rank's band of the images on a 1 x world mesh
+    (`spatial.band_forward`), every stage's gathered maps, then the
+    backward of sum(maps * cotangents) and the parameter gradients summed
+    over the ranks. Returns per run the final stage's full maps, the summed
+    gradients and the traffic counts."""
+    from openpose_plus_tpu_torch.config import ParallelConfig
+    from openpose_plus_tpu_torch.models import get_model
+    from openpose_plus_tpu_torch.parallel import sharding as S
+    from openpose_plus_tpu_torch.parallel import spatial
+
+    mesh = S.build_mesh(ParallelConfig(spatial_parallelism=world))
+    out = {}
+    for key, cfg, state_dict, images, cots in runs:
+        model = get_model(cfg)
+        model.load_state_dict(state_dict)
+        band = spatial.axis_band(mesh, cfg.hin, cfg.stride)
+        x = torch.from_numpy(images[:, band.lo * cfg.stride:
+                                    band.hi * cfg.stride])
+        spatial.reset_stats()
+        maps = spatial.band_forward(band, model, x)
+        loss = sum((m * torch.from_numpy(c)).sum() for m, c in zip(
+            maps["conf"] + maps["paf"], cots))
+        loss.backward()
+        grads = [p.grad for p in model.parameters()]
+        flat = torch.cat([gr.reshape(-1) for gr in grads])
+        dist.all_reduce(flat)
+        out[key] = {"conf": maps["conf"][-1].detach().numpy(),
+                    "paf": maps["paf"][-1].detach().numpy(),
+                    "grads": {n: t.view_as(gr).numpy() for (n, _), gr, t in
+                              zip(model.named_parameters(), grads,
+                                  flat.split([gr.numel() for gr in grads]))},
+                    "stats": dict(spatial.STATS)}
+    return out
+
+
+def spatial_train_rank(rank, world, flat_params, batches, cfg):
+    """sync-sgd on the (data, spatial) mesh of `cfg.parallel` from the
+    given (Flax-flat) parameters, one step a global batch (the rank's data
+    slice and band of rows): per step the mean loss, this rank's
+    parameters and digest; and the errors sma and pair-avg raise on the
+    mesh."""
+    from openpose_plus_tpu_torch.checkpoint import from_flax
+    from openpose_plus_tpu_torch.parallel import kungfu as kf
+    from openpose_plus_tpu_torch.parallel import sharding as S
+
+    mesh = S.build_mesh(cfg.parallel)
+    state = kf.create_kungfu_state(cfg, mesh, device="cpu")
+    state.model.load_state_dict(from_flax(flat_params))
+    (step,) = kf.make_kungfu_steps(cfg, mesh, "sync-sgd")
+    steps = []
+    for batch in batches:
+        state, metrics = step(state, S.shard_batch(batch, mesh))
+        steps.append({"loss": float(metrics["loss"]),
+                      "params": params_np(state.model),
+                      "digest": digest(state.model)})
+    errors = {}
+    for strategy in ("sma", "pair-avg"):
+        try:
+            kf.make_kungfu_steps(cfg, mesh, strategy)
+        except ValueError as e:
+            errors[strategy] = str(e)
+    return {"steps": steps, "errors": errors,
+            "axes": (S.data_axis(mesh)[:2], S.spatial_axis(mesh)[:2])}
+
+
+def spatial_engine_rank(rank, world, cfg, state_dict, images):
+    """Engine(mesh=) on the (data, spatial) mesh of `cfg.parallel`: its
+    infer and forward of the global batch, and beside them an unsharded
+    engine's on each data row's slice (in this process: the CPU's conv
+    results depend on its thread count)."""
+    from openpose_plus_tpu_torch import Engine
+    from openpose_plus_tpu_torch.parallel import sharding as S
+    from openpose_plus_tpu_torch.postproc import HumanBatch
+
+    def host(hb):
+        return {f.name: getattr(hb, f.name).numpy().copy()
+                for f in dataclasses.fields(hb)}
+
+    mesh = S.build_mesh(cfg.parallel)
+    engine = Engine(cfg, params=state_dict, mesh=mesh, device="cpu")
+    plain = Engine(cfg, params=state_dict, device="cpu")
+    rows = S.data_axis(mesh)[1]
+    per = len(images) // rows
+    slices = [images[d * per:(d + 1) * per] for d in range(rows)]
+    maps = [plain.forward(x) for x in slices]
+    return {"humans": host(engine.infer(images)),
+            "maps": [t.numpy().copy() for t in engine.forward(images)],
+            "slices": host(HumanBatch.cat([plain.infer(x) for x in slices])),
+            "slice_maps": [torch.cat(t).numpy() for t in zip(*maps)]}
+
+
+def spatial_loop_rank(rank, world, cfg, n_steps):
+    """train_loop on this rank, recording every batch its step function
+    was handed (after the row's batch broadcast and the band cut);
+    returns them with the state's step and digest."""
+    from openpose_plus_tpu_torch import train as T
+    from openpose_plus_tpu_torch.parallel import kungfu as kf
+
+    seen = []
+    real = kf.make_kungfu_steps
+
+    def recording(*args, **kw):
+        def wrap(fn):
+            def step(state, batch):
+                seen.append({k: np.asarray(v).copy()
+                             for k, v in batch.items()})
+                return fn(state, batch)
+            return step
+        return [wrap(fn) for fn in real(*args, **kw)]
+
+    kf.make_kungfu_steps = recording
+    try:
+        state = T.train_loop(cfg, n_steps=n_steps, log=lambda _: None,
+                             device="cpu")
+    finally:
+        kf.make_kungfu_steps = real
+    return {"batches": seen, "step": state.step,
+            "digest": digest(state.model)}
+
+
+def spatial_world_rank(rank, world, parts):
+    """Each (key, function name, arguments) of `parts` on this rank, in
+    order: one spawn runs every spatial case of a world size."""
+    return {key: globals()[name](rank, world, *args)
+            for key, name, args in parts}

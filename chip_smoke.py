@@ -282,6 +282,30 @@ raises on failure (the script then exits non-zero and prints no result):
 16. With --profile only: batch scaling (1, 8, 32; decode also at the
    fidelity() preset), the host's enqueue time per call, and the device's
    busy time per call from torch.profiler (see `profile`).
+17. The accuracy studies (`studies_phase`; `ap_bench`, `ap_oracle`,
+   `tune_fragment_merge`, `analyze_oracle_misses`, `synthetic_e2e`), in a
+   temporary `.smoke_bank_studies_*` directory of the checkout, each
+   decode and evaluation counted (greedy, merge and sample_paf must
+   launch at least once a batch, fused_sepconv never): (a) `ap_bench
+   --oracle`'s rows "oracle@368#s4", "oracle@368#sig4", "oracle" and
+   "oracle#s4" on the 96-image val banks ("perfect" AP 1.0, each map
+   variant within ORACLE_AP_TOL of ap_benchmark.json, and the card within
+   ORACLE_CPU_TOL of the CPU on the first ORACLE_CPU_IMAGES images); (b)
+   the fragment-merge sweep on the serving tier's 256-image train bank,
+   rels 0, 0.3 and 0.5 within ORACLE_AP_TOL of STUDIES_SWEEP_RECORD; (c)
+   the miss audit at the serving tier with and without fragment-merge
+   within STUDIES_AUDIT_TOL people of STUDIES_AUDIT_RECORD, its counts on
+   the first ORACLE_CPU_IMAGES images equal on the card and the CPU; (d)
+   MobileNet-thin at full width: `run_curve` to STUDIES_CURVE at the
+   serving tier (both snapshots under the JAX names and different, a
+   second call with --force evaluates without training), `run_model
+   (ms_study=True)` at the serving tier (ms15 and msdd, no msup) and
+   `run_large` (the seven val_large variants, msup's 2.0 scale included),
+   STUDIES_STEPS steps each, every row finite; (e) `ap_bench --table` on
+   that directory and (f) `synthetic_e2e --steps 50 --n-images 16` in
+   fresh processes. A `studies` line per probe, the sweep, each audit,
+   each model study and the processes, every figure beside its record.
+   `--studies-phase` builds the kernels and runs this phase alone.
 
 The line before the last is the nvidia-smi name/power-limit line, the one
 before it the per-kernel JSON record; the last line is
@@ -303,7 +327,8 @@ m16n8k32, bf16 m16n8k16) and `wgmma` rates from shared memory (s8
 m64n128k32, bf16 m64n128k16). `--int8-phases` only builds
 csrc/int8_conv.cu with its phase clocks and reads where a block of the
 int8 conv spends its time at the forwards' main shapes (`int8_phases`).
-`--bench-phase` only builds the kernels and runs phase 15.
+`--bench-phase` only builds the kernels and runs phase 15,
+`--studies-phase` phase 17.
 """
 
 from __future__ import annotations
@@ -438,6 +463,22 @@ BENCH_ROUNDS = 3
 BENCH_INT8_ROW = "e2e_fps_vgg19_int8_368x656_bs8"
 BENCH_HEADLINE_KEYS = ["metric", "value", "unit", "vs_baseline", "mfu_pct",
                        "hbm_pct_est", "spread_pct"]
+# phase 17, the accuracy studies: the oracle probes (tier, out_stride,
+# label_sigma) against ap_benchmark.json, the fragment-merge sweep on the
+# serving tier's train bank against docs/ARCHITECTURE.md:411-412, the miss
+# audit against BASELINE.md:293-299,311-312 (within STUDIES_AUDIT_TOL
+# people), and the model studies at full width with STUDIES_STEPS steps
+STUDIES_PROBES = (("serving", 4, None), ("serving", 8, 4.0),
+                  ("small", 8, None), ("small", 4, None))
+STUDIES_MAP_VARIANTS = ("base", "fidelity", "fidelity_fm")
+STUDIES_SWEEP_RECORD = {0.0: 0.5686, 0.3: 0.6268, 0.5: 0.6569}
+STUDIES_AUDIT_RECORD = {False: {"misses": 55, "scattered": 42,
+                                "disconnected": 43},
+                        True: {"misses": 21}}
+STUDIES_AUDIT_RECOVERY = 0.66     # printed beside the card's, not a gate
+STUDIES_AUDIT_TOL = 1
+STUDIES_STEPS = 40
+STUDIES_CURVE = (20, 40)
 SOURCES = {   # kernel: (source, the TPU kernel it replaces)
     "greedy_assign": ("openpose_plus_tpu_torch/csrc/greedy.cu",
                       "openpose_plus_tpu/ops/pallas/greedy.py:53"),
@@ -1370,6 +1411,278 @@ def oracle_phase(torch, counted, dev, gpu) -> None:
             log(f"oracle {variant}: AP {res.ap:.4f} (recorded {want}, delta "
                 f"{res.ap - want:+.5f}), {seconds:.2f} s")
             log(json.dumps({"oracle": {**line, "gpu": gpu}}))
+
+
+def counting(torch, counted, module, name: str, seen: list):
+    """A context in which every call of module.<name> runs between kernel
+    counts set to 0 and read (`launches_during`); each call appends
+    (its positional arguments, {kernel: launches}, seconds) to `seen`."""
+    original = getattr(module, name)
+
+    def wrapper(*args, **kwargs):
+        t0 = time.perf_counter()
+        out, n = launches_during(torch, counted,
+                                 lambda: original(*args, **kwargs))
+        seen.append((args, n, time.perf_counter() - t0))
+        return out
+
+    @contextlib.contextmanager
+    def patched():
+        setattr(module, name, wrapper)
+        try:
+            yield seen
+        finally:
+            setattr(module, name, original)
+    return patched()
+
+
+def studies_oracle(torch, counted, dev, tmp, record, gpu) -> None:
+    """Phase 17 (a)-(c): the oracle probes, the sweep and the audit, each
+    decode counted, beside their records; the card against the CPU on the
+    first ORACLE_CPU_IMAGES images."""
+    from openpose_plus_tpu_torch import (analyze_oracle_misses, ap_bench,
+                                         ap_oracle, tune_fragment_merge)
+
+    decodes = []
+    with counting(torch, counted, ap_oracle, "decode_detections", decodes):
+        for tier, stride, sigma in STUDIES_PROBES:
+            key = ap_oracle.oracle_key(tier, stride, sigma)
+            batches = ap_oracle.GEOMETRIES[tier]["n_val"] // ap_oracle.BATCH
+            decodes.clear()
+            t0 = time.perf_counter()
+            row = ap_bench.run_oracle(True, tier, stride, sigma, device=dev,
+                                      bank_dir=tmp)
+            seconds = time.perf_counter() - t0
+            if row["perfect"]["ap"] != 1.0:
+                raise AssertionError(f"studies {key}: perfect AP "
+                                     f"{row['perfect']['ap']}")
+            runs = dict(zip(STUDIES_MAP_VARIANTS, decodes))
+            first = {where: ap_oracle.run_oracle(
+                tier, STUDIES_MAP_VARIANTS, where, limit=ORACLE_CPU_IMAGES,
+                out_stride=stride, label_sigma=sigma)
+                for where in (dev, "cpu")}
+            line = {}
+            for v in STUDIES_MAP_VARIANTS:
+                _, n, decode_s = runs[v]
+                check_launches(f"studies {key} {v}", n, batches, 0)
+                ap, want = row[v]["ap"], record[key][v]["ap"]
+                card, cpu = first[dev][v].ap, first["cpu"][v].ap
+                line[v] = {"ap": ap, "record_ap": want, "delta": ap - want,
+                           "launches": n, "decode_seconds": decode_s,
+                           "first_ap_card": card, "first_ap_cpu": cpu}
+                if not abs(ap - want) <= ORACLE_AP_TOL:
+                    raise AssertionError(
+                        f"studies {key} {v}: AP {ap} on the card, recorded "
+                        f"{want} (tolerance {ORACLE_AP_TOL})")
+                if not abs(card - cpu) <= ORACLE_CPU_TOL:
+                    raise AssertionError(
+                        f"studies {key} {v}, first {ORACLE_CPU_IMAGES} "
+                        f"images: AP {card} on the card, {cpu} on the CPU "
+                        f"(tolerance {ORACLE_CPU_TOL})")
+            log(json.dumps({"studies": {
+                "study": "oracle", "key": key, "images": batches
+                * ap_oracle.BATCH, "variants": line, "seconds": seconds,
+                "tolerance": ORACLE_AP_TOL, "cpu_tolerance": ORACLE_CPU_TOL,
+                "gpu": gpu}}))
+
+        # (b) the sweep on the serving tier's train bank
+        decodes.clear()
+        t0 = time.perf_counter()
+        sweep = tune_fragment_merge.sweep("serving", device=dev)
+        seconds = time.perf_counter() - t0
+        batches = ap_oracle.GEOMETRIES["serving"]["n_train"] // ap_oracle.BATCH
+        line = {}
+        for (rel, r), (_, n, decode_s) in zip(sweep.items(), decodes):
+            check_launches(f"studies sweep rel={rel:g}", n, batches, 0)
+            want = STUDIES_SWEEP_RECORD.get(rel)
+            line[f"{rel:g}"] = {"ap": r.ap, "ap50": r.ap50, "ar": r.ar,
+                                "record_ap": want, "launches": n,
+                                "decode_seconds": decode_s}
+            if want is not None and not abs(r.ap - want) <= ORACLE_AP_TOL:
+                raise AssertionError(
+                    f"studies sweep rel={rel:g}: AP {r.ap} on the card, "
+                    f"recorded {want} (tolerance {ORACLE_AP_TOL})")
+        log(json.dumps({"studies": {
+            "study": "sweep", "bank": "train", "tier": "serving",
+            "images": batches * ap_oracle.BATCH, "rels": line,
+            "seconds": seconds, "tolerance": ORACLE_AP_TOL, "gpu": gpu}}))
+
+        # (c) the miss audit, with and without the fragment-merge pass
+        for frag_merge, want in STUDIES_AUDIT_RECORD.items():
+            decodes.clear()
+            t0 = time.perf_counter()
+            counts = analyze_oracle_misses.audit("serving",
+                                                 frag_merge=frag_merge,
+                                                 device=dev)
+            seconds = time.perf_counter() - t0
+            (_, n, _), = decodes
+            check_launches(f"studies audit frag_merge={frag_merge}", n,
+                           ap_oracle.GEOMETRIES["serving"]["n_val"]
+                           // ap_oracle.BATCH, 0)
+            for name, value in want.items():
+                if not abs(counts[name] - value) <= STUDIES_AUDIT_TOL:
+                    raise AssertionError(
+                        f"studies audit frag_merge={frag_merge}: {name} "
+                        f"{counts[name]} on the card, recorded {value} "
+                        f"(tolerance {STUDIES_AUDIT_TOL})")
+            first = [analyze_oracle_misses.audit(
+                "serving", frag_merge=frag_merge, device=where,
+                limit=ORACLE_CPU_IMAGES) for where in (dev, "cpu")]
+            whole = ("gt_people", "misses", "scattered", "disconnected")
+            card, cpu = ({k: c[k] for k in whole} for c in first)
+            if card != cpu:
+                raise AssertionError(
+                    f"studies audit frag_merge={frag_merge}, first "
+                    f"{ORACLE_CPU_IMAGES} images: {first[0]} on the card, "
+                    f"{first[1]} on the CPU")
+            log(json.dumps({"studies": {
+                "study": "audit", "frag_merge": frag_merge, **counts,
+                "record": want, "record_recovery": (
+                    None if frag_merge else STUDIES_AUDIT_RECOVERY),
+                "tolerance": STUDIES_AUDIT_TOL, "launches": n,
+                "first_card": first[0], "first_cpu": first[1],
+                "seconds": seconds, "gpu": gpu}}))
+
+
+def studies_models(torch, counted, dev, tmp, gpu) -> None:
+    """Phase 17 (d): the convergence curve, the scale-set study and the
+    val_large bank at full width with a few steps, every evaluation
+    counted."""
+    from openpose_plus_tpu_torch import ap_bench
+    from openpose_plus_tpu_torch import checkpoint as ckpt
+    from openpose_plus_tpu_torch import train as T
+
+    serving = ap_bench.GEOMETRIES["serving"]
+    batches = {tier: geo["n_val"] // BATCH
+               for tier, geo in ap_bench.GEOMETRIES.items()}
+    evals = []
+
+    def check_evals(what, variants, tier):
+        done = [args[2] for args, _, _ in evals]     # eval_variant's variant
+        if done != list(variants):
+            raise AssertionError(f"studies {what}: evaluated {done}, "
+                                 f"expected {list(variants)}")
+        for v, (_, n, s) in zip(done, evals):
+            check_launches(f"studies {what} {v}", n, batches[tier], 0)
+        return [{"variant": v, "launches": n, "seconds": s}
+                for v, (_, n, s) in zip(done, evals)]
+
+    def finite_rows(what, row, cells):
+        for cell in cells:
+            if not math.isfinite(row[cell]["ap"]):
+                raise AssertionError(f"studies {what} {cell}: {row[cell]}")
+        return {c: {k: row[c].get(k) for k in (
+            "ap", "ap50", "ar", "record_ap", "eval_seconds", "train_seconds",
+            "imgs_per_sec", "loss_first", "loss_last")} for c in cells}
+
+    with counting(torch, counted, ap_bench, "eval_variant", evals):
+        # the curve: snapshots under the JAX names, a second call reuses them
+        t0 = time.perf_counter()
+        row = ap_bench.run_curve("mobilenet_thin", STUDIES_CURVE,
+                                 geometry="serving", device=dev,
+                                 bank_dir=tmp)
+        seconds = time.perf_counter() - t0
+        line = {"rows": finite_rows("curve", row,
+                                    [str(s) for s in STUDIES_CURVE]),
+                "evals": check_evals("curve", ["fidelity_tta"] * 2,
+                                     "serving"), "seconds": seconds}
+        snaps = [ckpt.load_npz(ap_bench.snapshot_path(
+            tmp, "mobilenet_thin", s, 1e-3, serving,
+            schedule_steps=max(STUDIES_CURVE))) for s in STUDIES_CURVE]
+        if not any((snaps[0][k] != snaps[1][k]).any() for k in snaps[0]):
+            raise AssertionError("studies curve: the snapshots are equal")
+        make_step = T.make_train_step_on_batch
+
+        def no_training(cfg):
+            raise AssertionError("studies curve: the second call trained")
+        T.make_train_step_on_batch = no_training
+        evals.clear()
+        try:
+            again = ap_bench.run_curve("mobilenet_thin", STUDIES_CURVE,
+                                       force=True, geometry="serving",
+                                       device=dev, bank_dir=tmp)
+        finally:
+            T.make_train_step_on_batch = make_step
+        check_evals("curve again", ["fidelity_tta"] * 2, "serving")
+        line["again_ap"] = {s: again[str(s)]["ap"] for s in STUDIES_CURVE}
+        log(json.dumps({"studies": {"study": "curve", "key": (
+            "mobilenet_thin@368#curve"), **line, "gpu": gpu}}))
+
+        # the scale-set study at the serving tier: ms15 and msdd, no msup
+        evals.clear()
+        t0 = time.perf_counter()
+        row = ap_bench.run_model("mobilenet_thin", STUDIES_STEPS, 1e-3, False,
+                                 geometry="serving", device=dev,
+                                 ms_study=True, bank_dir=tmp)
+        variants = ap_bench.VARIANTS + ("fidelity_tta_ms15",
+                                        "fidelity_tta_msdd")
+        variants = ([v for v in variants if "ms" not in v]
+                    + [v for v in variants if "ms" in v])
+        log(json.dumps({"studies": {
+            "study": "ms_study", "key": "mobilenet_thin@368",
+            "steps": STUDIES_STEPS,
+            "rows": finite_rows("ms_study", row, variants),
+            "evals": check_evals("ms_study", variants, "serving"),
+            "seconds": time.perf_counter() - t0, "gpu": gpu}}))
+
+        # the val_large bank at the small tier: the seven variants
+        evals.clear()
+        t0 = time.perf_counter()
+        row = ap_bench.run_large("mobilenet_thin", STUDIES_STEPS, device=dev,
+                                 bank_dir=tmp)
+        if row["fidelity_tta_msup"]["scales"] != [1.0, 1.5, 2.0]:
+            raise AssertionError(f"studies large: {row['fidelity_tta_msup']}")
+        log(json.dumps({"studies": {
+            "study": "large", "key": "mobilenet_thin+large",
+            "steps": STUDIES_STEPS,
+            "rows": finite_rows("large", row, ap_bench.LARGE_VARIANTS),
+            "evals": check_evals("large", ap_bench.LARGE_VARIANTS, "small"),
+            "seconds": time.perf_counter() - t0, "gpu": gpu}}))
+
+
+def studies_phase(torch, counted, dev, gpu) -> None:
+    """Phase 17 (module docstring): the accuracy studies on the card."""
+    import tempfile
+
+    t_phase = time.perf_counter()
+    with open(os.path.join(HERE, "ap_benchmark.json")) as f:
+        record = json.load(f)
+    with tempfile.TemporaryDirectory(dir=HERE,
+                                     prefix=".smoke_bank_studies_") as tmp:
+        studies_oracle(torch, counted, dev, tmp, record, gpu)
+        studies_models(torch, counted, dev, tmp, gpu)
+        # (e), (f): the table and the end-to-end demo in fresh processes
+        t0 = time.perf_counter()
+        table = subprocess.run(
+            [sys.executable, "-m", "openpose_plus_tpu_torch.ap_bench",
+             "--table", "--bank-dir", tmp], cwd=HERE, capture_output=True,
+            text=True, timeout=300)
+        table_s = time.perf_counter() - t0
+        if table.returncode != 0 or not all(key in table.stdout for key in (
+                "oracle@368#s4", "oracle@368#sig4", "serving tier",
+                "val_large bank", "mobilenet_thin@368#curve")):
+            raise AssertionError(f"studies --table: rc {table.returncode}\n"
+                                 f"{table.stdout}\n{table.stderr}")
+        log(table.stdout)
+        t0 = time.perf_counter()
+        e2e = subprocess.run(
+            [sys.executable, "-m", "openpose_plus_tpu_torch.synthetic_e2e",
+             "--steps", "50", "--n-images", "16", "--workdir",
+             os.path.join(tmp, "e2e")], cwd=HERE, capture_output=True,
+            text=True, timeout=600)
+        e2e_s = time.perf_counter() - t0
+        if e2e.returncode != 0:
+            raise AssertionError(f"studies synthetic_e2e: rc "
+                                 f"{e2e.returncode}\n{e2e.stdout}\n"
+                                 f"{e2e.stderr}")
+        demo = json.loads(e2e.stdout.strip().splitlines()[-1])
+        if not all(math.isfinite(demo[k]) for k in (
+                "ap_before", "ap_after", "loss_first", "loss_last")):
+            raise AssertionError(f"studies synthetic_e2e: {demo}")
+    log(json.dumps({"studies": {
+        "study": "processes", "table_seconds": table_s,
+        "synthetic_e2e": demo, "synthetic_e2e_seconds": e2e_s,
+        "phase_seconds": time.perf_counter() - t_phase, "gpu": gpu}}))
 
 
 def eval_phase(torch, engine, gpu):
@@ -4005,6 +4318,9 @@ def main(argv: list[str]) -> int:
         help="only build the kernels and run phase 15, the bench (the full "
              "run starts it so, in a fresh process)")
     parser.add_argument(
+        "--studies-phase", action="store_true",
+        help="only build the kernels and run phase 17, the accuracy studies")
+    parser.add_argument(
         "--spatial-phase", action="store_true",
         help="only run phase 14's spatial axis (no kernel is on its path): "
              "sync-sgd of MobileNet-thin and VGG19 on two gloo ranks "
@@ -4052,6 +4368,15 @@ def main(argv: list[str]) -> int:
         build.build()
         build.load()
         bench_phase(torch, np, dev, gpu)
+        if foreign_modules():
+            raise AssertionError(f"the port pulled in {foreign_modules()}")
+        return 0
+    if args.studies_phase:
+        build.build()
+        build.load()
+        studies_phase(torch, {"greedy_assign": greedy, "assemble": merge,
+                              "sample_paf": paf_sample,
+                              "fused_sepconv": sepconv}, dev, gpu)
         if foreign_modules():
             raise AssertionError(f"the port pulled in {foreign_modules()}")
         return 0
@@ -4484,6 +4809,11 @@ def main(argv: list[str]) -> int:
     if proc.returncode != 0:
         raise AssertionError(f"phase 15 (--bench-phase): rc {proc.returncode}")
     log(f"phase 15: {time.perf_counter() - t0:.1f} s in a fresh process")
+
+    # ---- 17. the accuracy studies -----------------------------------------
+    t0 = time.perf_counter()
+    studies_phase(torch, counted, dev, gpu)
+    log(f"phase 17: {time.perf_counter() - t0:.1f} s")
     if args.profile:
         profile(torch, np, rng, engine, images, gpu)
 

@@ -33,6 +33,33 @@ _CANONICAL: dict[int, tuple[float, float]] = {
 _SEEDS = {"train": 1000, "val": 2000, "val_large": 3000}
 
 
+def standing_person(cx: float, cy: float, scale: float = 1.0
+                    ) -> dict[int, tuple[float, float]]:
+    """A full 18-part stick figure centered near (cx, cy) (the scene of
+    `synthetic_e2e`; `tests/maputil.py`'s figure)."""
+    s = scale
+    return {
+        0: (cx, cy - 10 * s),          # nose
+        1: (cx, cy - 7 * s),           # neck
+        2: (cx - 3 * s, cy - 7 * s),   # r shoulder
+        3: (cx - 4 * s, cy - 3 * s),   # r elbow
+        4: (cx - 5 * s, cy + 1 * s),   # r wrist
+        5: (cx + 3 * s, cy - 7 * s),   # l shoulder
+        6: (cx + 4 * s, cy - 3 * s),   # l elbow
+        7: (cx + 5 * s, cy + 1 * s),   # l wrist
+        8: (cx - 2 * s, cy),           # r hip
+        9: (cx - 2 * s, cy + 5 * s),   # r knee
+        10: (cx - 2 * s, cy + 9 * s),  # r ankle
+        11: (cx + 2 * s, cy),          # l hip
+        12: (cx + 2 * s, cy + 5 * s),  # l knee
+        13: (cx + 2 * s, cy + 9 * s),  # l ankle
+        14: (cx - 1 * s, cy - 11 * s),  # r eye
+        15: (cx + 1 * s, cy - 11 * s),  # l eye
+        16: (cx - 2 * s, cy - 10.5 * s),  # r ear
+        17: (cx + 2 * s, cy - 10.5 * s),  # l ear
+    }
+
+
 def _sample_person(rng: np.random.Generator, cx: float, cy: float,
                    s: float) -> dict[int, tuple[float, float]]:
     """Articulated figure: global rotation + per-joint jitter at scale s."""

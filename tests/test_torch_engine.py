@@ -230,10 +230,11 @@ import torch
 import chip_smoke
 import openpose_plus_tpu_torch
 from openpose_plus_tpu_torch import Engine, default_config
-from openpose_plus_tpu_torch import (ap_bench, ap_oracle, bench, checkpoint,
-                                     cli, data, engine, eval_coco, export,
-                                     host, loader, models, postproc, stream,
-                                     train)
+from openpose_plus_tpu_torch import (analyze_oracle_misses, ap_bench,
+                                     ap_oracle, bench, checkpoint, cli, data,
+                                     engine, eval_coco, export, host, loader,
+                                     models, postproc, stream, synthetic_e2e,
+                                     train, tune_fragment_merge)
 from openpose_plus_tpu_torch.postproc import oracle as grouping_oracle
 from openpose_plus_tpu_torch.parallel import kungfu, sharding
 from openpose_plus_tpu_torch.utils import tracer, vis
@@ -302,6 +303,9 @@ assert state.step == 2 and sharding.process_local_slice(4) == (0, 4)
 oracle = ap_oracle.run_oracle("small", device="cpu", limit=8)
 assert oracle["perfect"].ap == 1.0, oracle
 assert all(0.0 <= r.ap <= 1.0 for r in oracle.values()), oracle
+probe = ap_oracle.run_oracle("small", ("fidelity",), device="cpu", limit=8,
+                             out_stride=4)
+assert 0.0 < probe["fidelity"].ap <= 1.0, probe
 cuda_modules = "openpose_plus_tpu_torch.ops.cuda."
 print("CUDA_MODULES", sorted(m for m in sys.modules
                              if m.startswith(cuda_modules)))
@@ -324,7 +328,9 @@ def test_port_never_imports_jax():
     every ops.cuda and data module), running CPU
     engines of every model through it (int8 engines too), a stream of
     frames and one of two PNG files, the numpy oracle, a train step, an sma
-    step on a world of one and the GT-map oracle on 8 small-tier images loads no module of jax, flax or
+    step on a world of one, the GT-map oracle on 8 small-tier images and
+    its stride-4 probe, and importing the studies (tune_fragment_merge,
+    analyze_oracle_misses, synthetic_e2e) loads no module of jax, flax or
     the JAX package `openpose_plus_tpu`, by chip_smoke.py's own end-of-run
     check."""
     env = dict(os.environ, PYTHONPATH=REPO)
@@ -341,7 +347,8 @@ def test_port_never_imports_jax():
     for name in ("train", "ap_bench", "checkpoint", "utils.vis", "cli",
                  "export", "host", "stream", "utils.tracer", "loader",
                  "postproc.oracle", "parallel.kungfu", "parallel.sharding",
-                 "bench"):
+                 "bench", "tune_fragment_merge", "analyze_oracle_misses",
+                 "synthetic_e2e"):
         assert f"openpose_plus_tpu_torch.{name}'" in proc.stdout
 
 

@@ -113,11 +113,22 @@ raises on failure (the script then exits non-zero and prints no result):
    variant's seconds, one batch's decode and map rendering (event and
    device ms).
 9. `evaluate_engine` on the card (`eval_phase`): a seeded val bank of
-   EVAL_IMAGES serving-size images drawn with cv2 into a temporary
-   directory of the checkout, letterboxed to 368x432 and served by phase
-   4's scaled-head MobileNet-thin engine: the run must complete with
-   detections and a finite AP, and a CPU engine on the same weights must
-   give the same AP within EVAL_CPU_TOL (an `evaluate_engine` line).
+   EVAL_IMAGES serving-size (736 px) JPEGs drawn with cv2 into a temporary
+   directory of the checkout, streamed through the pooled loader
+   (`loader.StreamLoader`: decoded DCT-scaled, here at 1/2, to a 368x368
+   plane, letterboxed to 368x432, packed s2d^2) at batch 8 and served by
+   phase 4's scaled-head MobileNet-thin bf16 engine: the run must complete
+   with detections and a finite AP, launching greedy, merge and sample_paf
+   once a batch, and a CPU engine on the same weights must give the same
+   AP within EVAL_CPU_TOL. Then the same on EVAL_TIMED_IMAGES images (the
+   studies' 96-image serving val bank) on the card alone, timed. An
+   `evaluate_engine` line: both APs, the plane the loader decoded to, the
+   launches and seconds of each run. Then the legacy checkpoint layout:
+   the card engine's weights written as a pre-flattening npz (ConvRelu
+   convs under 'Conv_0') and as the current one, each served through
+   `Engine(cfg, params=checkpoint.load_npz(path))` on phase 4's batch: both
+   HumanBatches must equal the card engine's bit for bit (a
+   `legacy_checkpoint` line).
 10. Training (`train_phase`): MobileNet-thin at full width (368x432,
    width 0.75, 6 stages, bf16, batch 8, lr 1e-3, no weight decay,
    ap_benchmark.py's moderate augmentation: `ap_bench.build_config`) on a
@@ -277,8 +288,10 @@ raises on failure (the script then exits non-zero and prints no result):
    every row's fps, ms, MFU, HBM share, spread, FLOPs an image and plain
    check, the headline's rounds and its step's graphs of 20 and 1 calls,
    the trace, the modes' lines (the streams with their host scopes' ms a
-   call) and the phase's seconds. The phase runs in a fresh process
-   (`--bench-phase`): its profiler session is that process's first.
+   call and the plane a photo decodes to: 1/8, 375x500, since the loader
+   decodes DCT-scaled) and the phase's seconds. The phase runs in a fresh
+   process (`--bench-phase`): its profiler session is that process's
+   first.
 16. With --profile only: batch scaling (1, 8, 32; decode also at the
    fidelity() preset), the host's enqueue time per call, and the device's
    busy time per call from torch.profiler (see `profile`).
@@ -376,6 +389,7 @@ ORACLE_AP_TOL = 0.005
 ORACLE_CPU_TOL = 1e-3
 ORACLE_CPU_IMAGES = 16
 EVAL_IMAGES = 16              # evaluate_engine's bank, serving size
+EVAL_TIMED_IMAGES = 96        # the timed run: the studies' serving val bank
 # its AP, card vs CPU: both bf16 engines, whose maps differ by bf16 rounding
 # (cuDNN vs oneDNN), which can move a few random-weight skeletons
 EVAL_CPU_TOL = 2e-2
@@ -1685,44 +1699,104 @@ def studies_phase(torch, counted, dev, gpu) -> None:
         "phase_seconds": time.perf_counter() - t_phase, "gpu": gpu}}))
 
 
-def eval_phase(torch, engine, gpu):
-    """Phase 9 (module docstring): `evaluate_engine` over a seeded val bank
-    of EVAL_IMAGES serving-size images, on the card and on the CPU; returns
-    the card's EvalResult."""
+def eval_phase(torch, engine, counted, gpu):
+    """Phase 9 (module docstring): `evaluate_engine` through the pooled
+    loader over a seeded val bank of EVAL_IMAGES serving-size images, on
+    the card and on the CPU, then on EVAL_TIMED_IMAGES images on the card;
+    returns the card's EvalResult on the first bank."""
     import math
     import tempfile
 
-    from openpose_plus_tpu_torch import Engine
+    from openpose_plus_tpu_torch import Engine, loader
     from openpose_plus_tpu_torch.ap_oracle import GEOMETRIES
     from openpose_plus_tpu_torch.data.coco import CocoPoseDataset
     from openpose_plus_tpu_torch.data.synthetic import make_scene_bank
     from openpose_plus_tpu_torch.eval_coco import evaluate_engine
 
+    mc = engine.config.model
     size = GEOMETRIES["serving"]["size"]
+    line = {"model": mc.name, "dtype": mc.compute_dtype,
+            "input": [mc.hin, mc.win], "batch": BATCH, "bank_size": size,
+            "tolerance": EVAL_CPU_TOL}
     with tempfile.TemporaryDirectory(dir=HERE, prefix=".smoke_bank_") as tmp:
-        ann, imgs = make_scene_bank(tmp, "val", EVAL_IMAGES, size)
+        ann, imgs = make_scene_bank(tmp, "val", EVAL_TIMED_IMAGES, size)
         dataset = CocoPoseDataset(ann, imgs)
+        line["plane"] = list(loader.decode(dataset[0].image_path, mc.hin,
+                                           mc.win)[0].shape)
         cpu_engine = Engine(engine.config, params=engine.model.state_dict(),
                             device="cpu")
         runs = []
-        for eng in (engine, cpu_engine):
+        for eng, limit in ((engine, EVAL_IMAGES), (cpu_engine, EVAL_IMAGES),
+                           (engine, EVAL_TIMED_IMAGES)):
             t0 = time.perf_counter()
-            runs.append((evaluate_engine(eng, dataset, batch_size=BATCH),
-                         time.perf_counter() - t0))
-    (card, card_s), (cpu, cpu_s) = runs
-    if not (card.n_images == EVAL_IMAGES and card.n_dets > 0
-            and math.isfinite(card.ap)):
-        raise AssertionError(f"evaluate_engine on the card: {card}")
+            res, n = launches_during(torch, counted, lambda: evaluate_engine(
+                eng, dataset, batch_size=BATCH, limit=limit))
+            runs.append((res, n, time.perf_counter() - t0))
+    (card, card_n, card_s), (cpu, _, cpu_s), (timed, timed_n, timed_s) = runs
+    for what, res, n, images in (("card", card, card_n, EVAL_IMAGES),
+                                 ("timed", timed, timed_n,
+                                  EVAL_TIMED_IMAGES)):
+        if not (res.n_images == images and res.n_dets > 0
+                and math.isfinite(res.ap)):
+            raise AssertionError(f"evaluate_engine ({what}): {res}")
+        check_launches(f"evaluate_engine ({what})", n,
+                       -(-images // BATCH), 0)
     if not abs(card.ap - cpu.ap) <= EVAL_CPU_TOL:
         raise AssertionError(f"evaluate_engine: AP {card.ap} on the card, "
                              f"{cpu.ap} on the CPU (tolerance "
                              f"{EVAL_CPU_TOL})")
+    d = loader.dct_reduction(size, size, mc.hin, mc.win)
+    if d == 1 or line["plane"] != [-(-size // d)] * 2 + [3]:
+        raise AssertionError(f"the loader decoded a {size}px JPEG to "
+                             f"{line['plane']}, expected a 1/{d} plane")
     log(json.dumps({"evaluate_engine": {
-        "model": engine.config.model.name, "images": EVAL_IMAGES,
-        "bank_size": size, "card": card.as_dict(), "cpu": cpu.as_dict(),
-        "card_seconds": card_s, "cpu_seconds": cpu_s,
-        "tolerance": EVAL_CPU_TOL, "gpu": gpu}}))
+        **line, "images": EVAL_IMAGES, "card": card.as_dict(),
+        "cpu": cpu.as_dict(), "card_seconds": card_s, "cpu_seconds": cpu_s,
+        "launches": card_n, "timed": {
+            "images": EVAL_TIMED_IMAGES, **timed.as_dict(),
+            "seconds": timed_s, "launches": timed_n}, "gpu": gpu}}))
     return card
+
+
+def legacy_checkpoint(torch, engine, images, dev, gpu) -> None:
+    """Phase 9's legacy checkpoint layout (module docstring): the card
+    engine's weights as a pre-flattening npz and as the current one, each
+    served through `Engine(params=load_npz(path))`: both HumanBatches equal
+    the card engine's bit for bit."""
+    import tempfile
+
+    import numpy as np
+
+    from openpose_plus_tpu_torch import Engine
+    from openpose_plus_tpu_torch import checkpoint as ckpt
+
+    flat = ckpt.to_flax(engine.model.state_dict())
+    legacy = {}
+    for key, value in flat.items():
+        parts = key.split("/")
+        if parts[-1] in ("kernel", "bias") and "ConvRelu" in parts[-2]:
+            key = "/".join(parts[:-1] + ["Conv_0", parts[-1]])
+        legacy[key] = value
+    renamed = len(set(legacy) - set(flat))
+    want = engine.infer(images)
+    with tempfile.TemporaryDirectory(dir=HERE,
+                                     prefix=".smoke_bank_npz_") as tmp:
+        for label, layout in (("legacy", legacy), ("current", flat)):
+            path = os.path.join(tmp, f"{label}.npz")
+            np.savez(path, **layout)
+            t0 = time.perf_counter()
+            served = Engine(engine.config, params=ckpt.load_npz(path),
+                            device=dev)
+            load_s = time.perf_counter() - t0
+            assert_batches_equal(torch, f"{label} npz engine",
+                                 served.infer(images), want)
+            log(f"{label} npz: {len(layout)} keys ({renamed} renamed in the "
+                f"legacy layout), loaded in {load_s:.2f} s, HumanBatch == "
+                "the card engine's")
+    log(json.dumps({"legacy_checkpoint": {
+        "model": engine.config.model.name, "keys": len(flat),
+        "renamed": renamed, "batch": list(images.shape),
+        "humans_equal": True, "gpu": gpu}}))
 
 
 def _rel_l2(torch, a, b) -> float:
@@ -4079,7 +4153,7 @@ def bench_row_vs_plain(torch, np, scenes, name, chain, dev) -> dict:
 def bench_phase(torch, np, dev, gpu) -> None:
     """Phase 15 (module docstring): the bench's modes at full size, the
     table held to its checks."""
-    from openpose_plus_tpu_torch import bench
+    from openpose_plus_tpu_torch import bench, loader
     from openpose_plus_tpu_torch.host import INPUT_LAYOUTS
     from openpose_plus_tpu_torch.models import common
     from openpose_plus_tpu_torch.utils.tracer import GLOBAL_TRACER
@@ -4203,6 +4277,11 @@ def bench_phase(torch, np, dev, gpu) -> None:
             line[label]["scope_ms"] = {
                 scope: node.total_s * 1e3 / node.calls
                 for scope, node in GLOBAL_TRACER._root.children.items()}
+            # the plane a photo decodes to (bench.stream's defaults)
+            photos = bench.make_photo_set(3000, 4000, 16)
+            first = min(f for f in os.listdir(photos) if f.endswith(".jpg"))
+            line[label]["plane"] = list(loader.decode(
+                os.path.join(photos, first), 368, 656)[0].shape)
     line["phase_s"] = time.perf_counter() - t_phase
     log(json.dumps({"bench": {**line, "gpu": gpu}}))
 
@@ -4779,7 +4858,8 @@ def main(argv: list[str]) -> int:
     # ---- 7-9. the zoo, the GT-map oracle, evaluate_engine -----------------
     zoo_paths(torch, images, counted, dev, gpu)
     oracle_phase(torch, counted, dev, gpu)
-    eval_card = eval_phase(torch, engine, gpu)
+    eval_card = eval_phase(torch, engine, counted, gpu)
+    legacy_checkpoint(torch, engine, images, dev, gpu)
 
     # ---- 10. training ------------------------------------------------------
     train_phase(torch, np, counted, dev, gpu)

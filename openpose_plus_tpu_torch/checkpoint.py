@@ -21,6 +21,15 @@ serves all three kernel kinds:
     dense      (k, k, Cin, Cout) -> (Cout, Cin, k, k)
     depthwise  (3, 3, 1, C)      -> (C, 1, 3, 3)     (groups=C)
     pointwise  (1, 1, C, F)      -> (F, C, 1, 1)
+
+A checkpoint loads driven by the model's names, as the reference's
+`load_npz(path, template)` rebuilds its template (`from_flax(flat,
+like=model.state_dict())`): each parameter is taken under its flattened
+name, or else under the legacy name of checkpoints from before the ConvRelu
+flattening, which held the conv in an nn.Conv child ('.../ConvRelu_1/
+Conv_0/kernel' for '.../ConvRelu_1/kernel'); npz entries the model does not
+have are ignored. A rule on the model's names never rewrites a current
+'Conv_0' scope (the stage heads' 'stages/stage2_conf/Conv_0').
 """
 
 from __future__ import annotations
@@ -52,22 +61,73 @@ def load_npz(path: str) -> dict[str, np.ndarray]:
         return dict(f)
 
 
-def from_flax(flat: Mapping[str, np.ndarray]) -> dict[str, torch.Tensor]:
+def _to_torch(value) -> torch.Tensor:
+    arr = np.array(value, dtype=np.float32)            # an owned copy
+    if arr.ndim == 4:
+        arr = np.ascontiguousarray(arr.transpose(3, 2, 0, 1))
+    return torch.from_numpy(arr)
+
+
+def _flax_key(name: str) -> str:
+    """A torch state_dict name -> its flat Flax key."""
+    scopes = name.split(".")
+    if is_calib_leaf(scopes[-1]):
+        return "/".join([_CALIB] + scopes)
+    if scopes[-1] not in _TORCH_TO_LEAF:
+        raise KeyError(f"not a model parameter: {name!r}")
+    return "/".join([_COLLECTION] + scopes[:-1]
+                    + [_TORCH_TO_LEAF[scopes[-1]]])
+
+
+def _flax_shape(tensor: torch.Tensor) -> tuple[int, ...]:
+    shape = tuple(tensor.shape)
+    return (shape[2], shape[3], shape[1], shape[0]) if len(shape) == 4 \
+        else shape
+
+
+def from_flax(flat: Mapping[str, np.ndarray],
+              like: Optional[Mapping[str, torch.Tensor]] = None
+              ) -> dict[str, torch.Tensor]:
     """Flat Flax dict -> torch state_dict (float32, OIHW kernels; the
-    calib scales as 0-d buffers)."""
+    calib scales as 0-d buffers).
+
+    Without `like`, every key of `flat` is converted (KeyError for one that
+    is neither a parameter nor a calib scale). With `like` (a model's
+    state_dict), the model's names drive the load, as the reference's
+    `load_npz` does: each name is taken under its Flax key or its legacy
+    'Conv_0' key (module docstring); KeyError if both are absent (a calib
+    scale may be: an int8 model then keeps its zero scale), ValueError
+    naming both shapes if they differ; entries the model lacks are
+    ignored."""
     out: dict[str, torch.Tensor] = {}
-    for key, value in flat.items():
-        scopes = key.split("/")
-        arr = np.array(value, dtype=np.float32)       # an owned copy
-        if scopes[0] == _CALIB and is_calib_leaf(scopes[-1]):
-            out[".".join(scopes[1:])] = torch.from_numpy(arr)
-            continue
-        if scopes[0] != _COLLECTION or scopes[-1] not in _LEAF_TO_TORCH:
-            raise KeyError(f"not a model parameter or calib scale: {key!r}")
-        if arr.ndim == 4:
-            arr = np.ascontiguousarray(arr.transpose(3, 2, 0, 1))
-        name = ".".join(scopes[1:-1] + [_LEAF_TO_TORCH[scopes[-1]]])
-        out[name] = torch.from_numpy(arr)
+    if like is None:
+        for key, value in flat.items():
+            scopes = key.split("/")
+            if scopes[0] == _CALIB and is_calib_leaf(scopes[-1]):
+                name = ".".join(scopes[1:])
+            elif scopes[0] == _COLLECTION and scopes[-1] in _LEAF_TO_TORCH:
+                name = ".".join(scopes[1:-1] + [_LEAF_TO_TORCH[scopes[-1]]])
+            else:
+                raise KeyError(
+                    f"not a model parameter or calib scale: {key!r}")
+            out[name] = _to_torch(value)
+        return out
+    for name, tensor in like.items():
+        key = _flax_key(name)
+        if key not in flat:
+            scopes = key.split("/")
+            legacy = "/".join(scopes[:-1] + ["Conv_0", scopes[-1]])
+            if legacy in flat:
+                key = legacy
+            elif is_calib_leaf(scopes[-1]):
+                continue
+            else:
+                raise KeyError(f"npz missing parameter {key!r}")
+        shape = np.shape(flat[key])
+        if shape != _flax_shape(tensor):
+            raise ValueError(f"shape mismatch for {key!r}: npz {shape} vs "
+                             f"model {_flax_shape(tensor)}")
+        out[name] = _to_torch(flat[key])
     return out
 
 
@@ -75,18 +135,10 @@ def to_flax(state_dict: Mapping[str, torch.Tensor]) -> dict[str, np.ndarray]:
     """torch state_dict -> flat Flax dict (inverse of `from_flax`)."""
     out: dict[str, np.ndarray] = {}
     for name, tensor in state_dict.items():
-        scopes = name.split(".")
         arr = tensor.detach().to("cpu", torch.float32).numpy()
-        if is_calib_leaf(scopes[-1]):
-            out["/".join([_CALIB] + scopes)] = arr.copy()   # stays 0-d
-            continue
-        if scopes[-1] not in _TORCH_TO_LEAF:
-            raise KeyError(f"not a model parameter: {name!r}")
         if arr.ndim == 4:
             arr = arr.transpose(2, 3, 1, 0)
-        key = "/".join([_COLLECTION] + scopes[:-1]
-                       + [_TORCH_TO_LEAF[scopes[-1]]])
-        out[key] = np.ascontiguousarray(arr)
+        out[_flax_key(name)] = arr.copy()        # C order; 0-d stays 0-d
     return out
 
 

@@ -101,11 +101,14 @@ def _engine_flags(p: argparse.ArgumentParser,
 
 def _load(path: str, hin: int, win: int):
     """An image file letterboxed to the network input: (image, scale,
-    pad)."""
-    from openpose_plus_tpu_torch.data.augment import letterbox
-    from openpose_plus_tpu_torch.data.pipeline import _load_image
+    pad), a large JPEG decoded DCT-scaled (`loader.load_image`, the
+    reference's native decode). FileNotFoundError if it cannot be read."""
+    from openpose_plus_tpu_torch.loader import load_image
 
-    return letterbox(_load_image(path), hin, win)
+    loaded = load_image(path, hin, win)
+    if loaded is None:
+        raise FileNotFoundError(path)
+    return loaded
 
 
 # engine-building flags and their defaults: an artifact fixes them

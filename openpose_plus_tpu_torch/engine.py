@@ -201,8 +201,9 @@ class Engine:
     config: full Config (model + postproc sections are used).
     params: the port's state_dict, or a flat Flax dict
         ('params/conv1/kernel' -> array, as `checkpoint.load_npz` returns)
-        which goes through the weight bridge; random init from `seed`
-        otherwise.
+        which goes through the weight bridge (`checkpoint.from_flax` on
+        the model's names, so the legacy ConvRelu layout loads too);
+        random init from `seed` otherwise.
     device: where the model, the decoder and the results live; the card
         by default. A CPU run asks for it (`device="cpu"`): without a CUDA
         device the default raises rather than falling back to the CPU.
@@ -257,7 +258,9 @@ class Engine:
             common.init_params(self.model, gen)
         else:
             if any("/" in key for key in params):
-                params = from_flax(params)
+                # driven by the model's names: legacy 'Conv_0' keys load,
+                # entries the model lacks are ignored
+                params = from_flax(params, like=self.model.state_dict())
             load_model_state(self.model, params)
         self.model.to(self.device).eval()
         # (index on the data axis, its size, its group), or None

@@ -270,8 +270,14 @@ def evaluate_engine(engine, dataset, batch_size: int = 8,
                     scales: Optional[tuple] = None,
                     ms_combine: str = "avg") -> EvalResult:
     """Run the engine over a CocoPoseDataset slice and compute AP
-    (`openpose_plus_tpu.eval_coco.evaluate_engine`, the Python loader
-    path: each image decoded with cv2 and letterboxed on the host).
+    (`openpose_plus_tpu.eval_coco.evaluate_engine`, its loader path).
+
+    The images stream through `loader.StreamLoader` (the reference's
+    native loader: a pool of threads decodes, a large JPEG DCT-scaled,
+    letterboxes and packs each image in the model's space-to-depth input
+    layout). GT is registered for every sample of the slice first, so an
+    image the loader cannot decode is skipped and its people count against
+    AP.
 
     With distributed=True each rank evaluates its `process_local_slice`
     (all of it without a process group) and the detections and ground
@@ -279,11 +285,8 @@ def evaluate_engine(engine, dataset, batch_size: int = 8,
     the AP of the whole slice. flip_tta averages horizontally-flipped
     predictions; scales enables the multi-scale search (e.g. (0.5, 1.0,
     1.5)) with `ms_combine` "avg" or "dedup" (see Engine.infer_multiscale).
-    The reference's native C++ loader path is not ported (ROADMAP.md item
-    11).
     """
-    from openpose_plus_tpu_torch.data.augment import letterbox
-    from openpose_plus_tpu_torch.data.pipeline import _load_image
+    from openpose_plus_tpu_torch.loader import StreamLoader
     from openpose_plus_tpu_torch.parallel.sharding import (
         host_group, process_local_slice, rank_and_world)
 
@@ -316,18 +319,26 @@ def evaluate_engine(engine, dataset, batch_size: int = 8,
                 humans, b, img_id, scale, pad, m.hin, m.win))
         batch_imgs, batch_meta = [], []
 
-    for i in range(lo, hi):
-        s = dataset[i]
-        img = _load_image(s.image_path)
-        net_img, scale, pad = letterbox(img, m.hin, m.win)
-        batch_imgs.append(net_img)
-        batch_meta.append((s.image_id, scale, pad))
+    samples = [dataset[i] for i in range(lo, hi)]
+    for s in samples:
         gt_by_image[s.image_id] = (
             s.keypoints_coco, s.areas,
             getattr(s, "ignore_boxes", np.zeros((0, 4), np.float32)))
-        if len(batch_imgs) == batch_size:
-            flush()
-    flush()
+    loader = StreamLoader([s.image_path for s in samples], m.hin, m.win,
+                          batch=batch_size, s2d=m.preferred_input_layout())
+    try:
+        for nb in loader:
+            for b in range(nb["images"].shape[0]):
+                s = samples[int(nb["indices"][b])]
+                batch_imgs.append(nb["images"][b])
+                batch_meta.append((s.image_id, float(nb["scales"][b]),
+                                   (float(nb["pads"][b, 0]),
+                                    float(nb["pads"][b, 1]))))
+                if len(batch_imgs) == batch_size:
+                    flush()
+        flush()
+    finally:
+        loader.close()
     if distributed and rank_and_world()[1] > 1:
         # every rank must see every detection AND every GT
         with host_group() as group:

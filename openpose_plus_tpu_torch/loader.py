@@ -4,9 +4,10 @@
 
 The reference runs this stage in C++ (`native/src/stream.cpp`). Here a pool
 of `workers` threads does the same work with cv2 and numpy, which release
-the GIL: each frame is decoded (`data.pipeline._load_image`), letterboxed
-(`data.augment.letterbox`, bit for bit the JAX package's Python letterbox)
-and packed into the engine's space-to-depth layout (`host.pack`). At most
+the GIL: each file is decoded (`decode`, below) and letterboxed, each
+in-memory frame letterboxed (`data.augment.letterbox`, bit for bit the JAX
+package's Python letterbox), and packed into the engine's space-to-depth
+layout (`host.pack`). At most
 `queue_capacity` batches are read ahead of the consumer. Batches come in
 source order (the native loader yields in completion order; source order is
 one of the orders it allows), a file that cannot be decoded is skipped, the
@@ -21,8 +22,23 @@ worker already runs its own cv2 calls, and cv2 fanning every `warpAffine`
 and `cvtColor` out over all cores as well oversubscribed them (PERF.md,
 streams).
 
-Decode is at full resolution: the native loader's DCT-scaled JPEG decode is
-not ported (ROADMAP.md).
+A file decodes as the native loader decodes it (`native/src/image.cpp`):
+a JPEG (first bytes FF D8) headed for a letterbox smaller than itself is
+decoded DCT-scaled, a PNG or any other file at full size. The native decode
+takes libjpeg's coarsest M/8 scale that still covers the letterboxed
+content, M = ceil(8 ts) with ts = min(win / W, hin / H) in float32; cv2
+offers 1/8, 1/4 and 1/2 (`IMREAD_REDUCED_COLOR_{8,4,2}`), so the port
+decodes at the largest of those with 8/d >= M, else at full size. That is
+the native plane for M in {1, 2, 4}; for M in {3, 5, 6, 7} the port's plane
+is one cv2 step finer (1/2 for 3/8, full size for 5/8-7/8). The scale and
+pads are always those of the original (H, W), read from the JPEG's SOF
+marker, so `(p - pad) / scale` maps back to original pixels whatever the
+decode: a reduced plane is sampled through its plane-to-original ratio with
+the native letterbox's pixel centres, and a full-size decode letterboxes as
+`data.augment.letterbox` does (bit for bit the reference's Python path).
+cv2 applies a JPEG's EXIF orientation and libjpeg does not: the port takes
+the original dims in the orientation cv2 returns (EXIF 5-8 swap them), so
+that scale and pads are those of a full cv2 decode.
 """
 
 from __future__ import annotations
@@ -31,7 +47,9 @@ import collections
 import concurrent.futures
 import functools
 import itertools
+import math
 import queue
+import struct
 import threading
 from typing import Callable, Iterable, Iterator, Optional, Sequence
 
@@ -39,21 +57,139 @@ import numpy as np
 
 from openpose_plus_tpu_torch import host
 from openpose_plus_tpu_torch.data import augment
-from openpose_plus_tpu_torch.data.pipeline import _load_image
 from openpose_plus_tpu_torch.utils.tracer import scope
 
 Loaded = tuple[np.ndarray, float, tuple[float, float]]
 
+# start-of-frame markers: C0-CF but DHT (C4), JPG (C8) and DAC (CC)
+_SOF = frozenset(range(0xC0, 0xD0)) - {0xC4, 0xC8, 0xCC}
+_SOS = 0xDA
+_APP1 = 0xE1
+_TRANSPOSING = frozenset((5, 6, 7, 8))      # EXIF orientations
+
+
+def _exif_orientation(data: np.ndarray, start: int, end: int) -> int:
+    """The EXIF orientation tag of an APP1 payload data[start:end] (1, the
+    identity, when there is none or it cannot be read)."""
+    if bytes(data[start:start + 6]) != b"Exif\0\0" or end - start < 14:
+        return 1
+    tiff = start + 6
+    order = {b"II": "<", b"MM": ">"}.get(bytes(data[tiff:tiff + 2]))
+    if order is None:
+        return 1
+    ifd = tiff + struct.unpack_from(order + "I", data, tiff + 4)[0]
+    if ifd + 2 > end:
+        return 1
+    count = struct.unpack_from(order + "H", data, ifd)[0]
+    for entry in range(ifd + 2, min(ifd + 2 + 12 * count, end - 11), 12):
+        tag, kind = struct.unpack_from(order + "HH", data, entry)
+        if tag == 0x0112 and kind == 3:                 # SHORT
+            return struct.unpack_from(order + "H", data, entry + 8)[0]
+    return 1
+
+
+def jpeg_dims(data: np.ndarray) -> Optional[tuple[int, int]]:
+    """The (H, W) of a JPEG's bytes from its SOF marker, in the orientation
+    cv2 decodes it to; None if `data` is not a JPEG (it does not start FF
+    D8, as `native/src/image.cpp` tests it) or no frame header comes before
+    the first scan."""
+    if len(data) < 4 or data[0] != 0xFF or data[1] != 0xD8:
+        return None
+    i, orientation = 2, 1
+    while i + 4 <= len(data):
+        if data[i] != 0xFF:
+            return None
+        marker = int(data[i + 1])
+        if marker == 0xFF:                              # a fill byte
+            i += 1
+            continue
+        if marker == 0x01 or 0xD0 <= marker <= 0xD7:    # no length field
+            i += 2
+            continue
+        length = struct.unpack_from(">H", data, i + 2)[0]
+        if marker in _SOF and i + 9 <= len(data):
+            h, w = struct.unpack_from(">HH", data, i + 5)
+            if h == 0 or w == 0:
+                return None
+            return (w, h) if orientation in _TRANSPOSING else (h, w)
+        if marker == _SOS:
+            return None
+        if marker == _APP1 and orientation == 1:
+            orientation = _exif_orientation(data, i + 4,
+                                            min(i + 2 + length, len(data)))
+        i += 2 + length
+    return None
+
+
+def dct_reduction(h: int, w: int, hin: int, win: int) -> int:
+    """The cv2 reduction d in {1, 2, 4, 8} for an (h, w) JPEG headed for a
+    (hin, win) letterbox: the largest d with 8/d >= M, M the native decode's
+    ceil(8 ts) in float32 (`image.cpp`), 1 when ts >= 1."""
+    ts = min(np.float32(win) / np.float32(w), np.float32(hin) / np.float32(h))
+    if ts >= 1:
+        return 1
+    m = min(max(math.ceil(ts * np.float32(8)), 1), 8)
+    return next((d for d in (8, 4, 2) if 8 // d >= m), 1)
+
+
+def decode(path: str, hin: int, win: int
+           ) -> Optional[tuple[np.ndarray, tuple[int, int]]]:
+    """A file decoded for a (hin, win) letterbox: (RGB plane, the original
+    (H, W)), the plane DCT-scaled for a large JPEG (module docstring), or
+    None when the file cannot be read or decoded."""
+    import cv2
+
+    try:
+        data = np.fromfile(path, np.uint8)
+    except OSError:
+        return None
+    if not data.size:                   # cv2.imdecode raises on no bytes
+        return None
+    dims = jpeg_dims(data)
+    d = dct_reduction(*dims, hin, win) if dims is not None else 1
+    bgr = cv2.imdecode(data, {1: cv2.IMREAD_COLOR,
+                              2: cv2.IMREAD_REDUCED_COLOR_2,
+                              4: cv2.IMREAD_REDUCED_COLOR_4,
+                              8: cv2.IMREAD_REDUCED_COLOR_8}[d])
+    if bgr is None:
+        return None
+    plane = cv2.cvtColor(bgr, cv2.COLOR_BGR2RGB)
+    return plane, (dims if d > 1 else plane.shape[:2])
+
+
+def letterbox_plane(plane: np.ndarray, dims: tuple[int, int], hin: int,
+                    win: int) -> Loaded:
+    """Letterbox of a decoded plane whose original image was `dims` (H, W):
+    scale and pads are the original's, as `data.augment.letterbox` computes
+    them; a reduced plane is sampled through the plane-to-original ratio
+    with the native letterbox's pixel centres (`image.cpp`
+    `letterbox_resize`)."""
+    h, w = dims
+    if plane.shape[:2] == (h, w):
+        return augment.letterbox(plane, hin, win)
+    import cv2
+
+    scale = min(win / w, hin / h)
+    pad_x = win / 2 - scale * w / 2
+    pad_y = hin / 2 - scale * h / 2
+    sx, sy = scale * w / plane.shape[1], scale * h / plane.shape[0]
+    m = np.array([[sx, 0.0, pad_x + 0.5 * sx - 0.5],
+                  [0.0, sy, pad_y + 0.5 * sy - 0.5]])
+    img = cv2.warpAffine(plane, m, (win, hin), flags=cv2.INTER_LINEAR,
+                         borderMode=cv2.BORDER_CONSTANT, borderValue=0)
+    return img, scale, (pad_x, pad_y)
+
 
 def load_image(path: str, hin: int, win: int) -> Optional[Loaded]:
-    """Decode + letterbox: (image (hin, win, 3) uint8, scale, pads), or None
-    when the file cannot be decoded."""
-    try:
-        with scope("decode"):
-            rgb = _load_image(path)
-    except FileNotFoundError:          # cv2 could not read or decode it
+    """Decode (DCT-scaled for a large JPEG) + letterbox: (image (hin, win,
+    3) uint8, scale, pads) against the original dims, or None when the
+    file cannot be decoded (`native.load_image`)."""
+    with scope("decode"):
+        decoded = decode(path, hin, win)
+    if decoded is None:
         return None
-    return letterbox(rgb, hin, win)
+    with scope("resize"):
+        return letterbox_plane(*decoded, hin, win)
 
 
 def letterbox(rgb: np.ndarray, hin: int, win: int) -> Loaded:

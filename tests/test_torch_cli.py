@@ -1,6 +1,7 @@
 """The port's CLI (`python -m openpose_plus_tpu_torch`) on the CPU, the
 reference's cases (tests/test_cli.py) with `--device cpu`: infer, eval,
-missing images, export then `infer --engine-dir`, stream --video and
+missing images, a large JPEG served as the loader decodes it
+(DCT-scaled), export then `infer --engine-dir`, stream --video and
 --images (once and looped), no stream input or no matching image; and what
 the port adds or leaves to later items: `bench` runs on `--device cpu`,
 `--engine-dir` refuses engine flags, an int8 export needs calibration images,
@@ -73,6 +74,27 @@ def test_cli_eval(images, tmp_path, capsys):
                    str(tmp_path), "--batch", "2"])
     assert rc == 0
     assert "ap" in json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+
+
+def test_cli_infer_feeds_the_loaders_scaled_decode(tmp_path, monkeypatch):
+    """A large JPEG reaches the engine as `loader.load_image` letterboxes
+    it (decoded at 1/8, as the reference's native decode), bit for bit."""
+    from openpose_plus_tpu_torch import loader
+    from openpose_plus_tpu_torch.engine import Engine
+
+    path = str(tmp_path / "photo.jpg")
+    coarse = np.random.default_rng(1).integers(0, 256, (5, 7, 3), np.uint8)
+    cv2.imwrite(path, cv2.resize(coarse, (700, 520),
+                                 interpolation=cv2.INTER_CUBIC))
+    assert loader.decode(path, 64, 64)[0].shape == (65, 88, 3)
+    fed = []
+    infer = Engine.infer
+    monkeypatch.setattr(Engine, "infer", lambda self, images, **kw: (
+        fed.append(np.array(images)) or infer(self, images, **kw)))
+    assert cli.main(["infer", *TINY, "--images", path, "--batch", "1"]) == 0
+    assert len(fed) == 1
+    np.testing.assert_array_equal(fed[0][0],
+                                  loader.load_image(path, 64, 64)[0])
 
 
 def test_cli_missing_images(tmp_path):

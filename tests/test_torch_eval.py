@@ -10,7 +10,11 @@
   files.
 - `data.coco.CocoPoseDataset`, `data.augment.letterbox` and
   `data.pipeline._load_image` equal the reference's.
-- `evaluate_engine` with a port CPU engine equals the JAX engine's.
+- `evaluate_engine` with a port CPU engine equals the JAX engine's; on a
+  bank that the loaders decode DCT-scaled (256 px into 64x64: a 1/4
+  decode) with an unreadable file, the port's pooled path and the JAX
+  package's native one feed the engines the same images (within the
+  loader's bound), scales and pads, and count the same images.
 - The GT-map oracle (`ap_oracle`) equals the JAX pipeline (JAX
   `make_targets`, `build_decoder`, `evaluate_detections_full`) on 16
   small-tier images.
@@ -380,6 +384,63 @@ def test_evaluate_engine_matches_reference(tmp_path, monkeypatch):
     assert TE.evaluate_engine(engine, coco.CocoPoseDataset(ann, imgs),
                               batch_size=4, distributed=True).as_dict() == \
         out.as_dict()
+
+
+def _spy_served(monkeypatch, module, engine):
+    """image_id -> (plain image, scale, pad) as `evaluate_engine` serves
+    them: each `infer` batch, and the row, scale and pad each
+    `humans_to_detections` call reads."""
+    from openpose_plus_tpu import native
+
+    served, batches = {}, []
+    infer, to_dets = engine.infer, module.humans_to_detections
+
+    def spy_infer(images, *args, **kwargs):
+        batches.append(np.asarray(images))
+        return infer(images, *args, **kwargs)
+
+    def spy_dets(humans, b, image_id, scale, pad, *args):
+        served[image_id] = (native.d2s_u8(batches[-1][b]), scale, pad)
+        return to_dets(humans, b, image_id, scale, pad, *args)
+
+    monkeypatch.setattr(engine, "infer", spy_infer)
+    monkeypatch.setattr(module, "humans_to_detections", spy_dets)
+    return served
+
+
+def test_evaluate_engine_streams_scaled_jpegs_as_the_reference(tmp_path,
+                                                               monkeypatch):
+    """Both packages' loader paths (the JAX one native, not patched) over a
+    6-image bank of 256 px JPEGs served at 64x64 (the native decode's 2/8,
+    cv2's 1/4: the same plane), the third file unreadable: the same images
+    reach `infer`, pixels within 1 level inside the frame's first and last
+    row and column, equal scales, pads within 1e-4; the unreadable image
+    is never served and its GT still counts in `n_images`."""
+    from openpose_plus_tpu import native
+
+    if not native.is_available():
+        pytest.skip("libpose_host.so not built")
+    ann, imgs = synthetic.make_scene_bank(str(tmp_path), "val", 6, 256)
+    dataset = coco.CocoPoseDataset(ann, imgs)
+    with open(dataset[2].image_path, "wb") as f:
+        f.write(b"\xff\xd8 not a jpeg")
+    jax_engine, engine = _engine_pair()
+    results, served = {}, {}
+    for mod, eng, ds in ((JE, jax_engine, jcoco.CocoPoseDataset(ann, imgs)),
+                         (TE, engine, dataset)):
+        served[mod] = _spy_served(monkeypatch, mod, eng)
+        results[mod] = mod.evaluate_engine(eng, ds, batch_size=4)
+    ids = [dataset[i].image_id for i in range(6)]
+    assert sorted(served[TE]) == sorted(served[JE]) == sorted(
+        ids[:2] + ids[3:])
+    for image_id, (img, scale, pad) in served[TE].items():
+        ref, rscale, rpad = served[JE][image_id]
+        assert img.shape == ref.shape == (64, 64, 3)
+        assert np.float32(scale) == np.float32(rscale) == np.float32(0.25)
+        np.testing.assert_allclose(pad, rpad, rtol=0, atol=1e-4)
+        diff = np.abs(img.astype(int) - ref.astype(int))[1:-1, 1:-1]
+        assert diff.max() <= 1, (image_id, diff.max())
+    assert results[TE].n_images == results[JE].n_images == 6
 
 
 # --------------------------------------------------------- the oracle ---

@@ -10,6 +10,16 @@ loader.py`) against the JAX package's loaders, on the CPU.
   scales, pads within 1e-4 px (float32 in C++), pixels within the
   reference's own native-vs-cv2 bound (median |d| <= 2,
   tests/test_native_stream.py).
+- DCT-scaled JPEG decode, against the native loader (`native/src/
+  image.cpp`): photo-like JPEGs sized so that into 64x64 the native decode
+  takes M/8 = 1/8, 2/8, 4/8 (cv2's 1/8, 1/4, 1/2: the same plane) and 3/8,
+  6/8 (the port one cv2 step finer): equal scales, pads within 1e-4, and
+  inside the content (its first and last row and column excluded, where
+  the two letterboxes' edges differ even unscaled) pixels within 1 level
+  for the same plane, the median bound above otherwise; by `load_image`
+  and through both stream loaders. A PNG is never scaled (the first bytes
+  decide, not the name); an EXIF-rotated JPEG letterboxes against the dims
+  cv2 turns it to.
 - The pool: loop mode indexes `i % n`, read-ahead is bounded by
   `queue_capacity` batches, a worker's exception reaches the consumer,
   closing (or stopping early, or reaching the end) joins every worker, a
@@ -115,6 +125,187 @@ def test_loader_within_the_native_loaders_bounds(files, level):
     diff = np.abs(ours["images"].astype(int) - ref["images"].astype(int))
     for row, d in enumerate(diff):
         assert np.median(d) <= 2, (ours["indices"][row], np.median(d))
+
+
+# ---------------------------------------------- DCT-scaled JPEG decode ---
+
+# (h, w) into 64x64, and the native decode's M (libjpeg's M/8 scale)
+SCALED = [((512, 448), 1), ((320, 700), 1), ((256, 224), 2), ((150, 300), 2),
+          ((128, 112), 4), ((100, 160), 4), ((200, 180), 3), ((100, 90), 6)]
+CV2_REDUCTION = {1: 8, 2: 4, 3: 2, 4: 2, 6: 1}     # 8/d >= M, d in 8/4/2/1
+
+
+def _photo(rng, h, w):
+    """Photo-like content: the smooth field plus seeded pixel noise."""
+    noisy = _smooth(rng, h, w) + rng.normal(0.0, 3.0, (h, w, 3))
+    return np.clip(noisy, 0, 255).astype(np.uint8)
+
+
+@pytest.fixture
+def photos(tmp_path):
+    rng = np.random.default_rng(2)
+    paths = []
+    for i, ((h, w), _) in enumerate(SCALED):
+        paths.append(str(tmp_path / f"photo{i}.jpg"))
+        cv2.imwrite(paths[-1], _photo(rng, h, w))
+    return paths
+
+
+def _native_m(h, w):
+    """M of `image.cpp`'s decode_jpeg, in float32 as there."""
+    ts = min(np.float32(WIN) / np.float32(w), np.float32(HIN) / np.float32(h))
+    return min(max(int(np.ceil(ts * np.float32(8))), 1), 8)
+
+
+def _content(scale, pads, h, w):
+    """The native letterbox's content rectangle (image.cpp), its first and
+    last row and column dropped: (rows, cols) slices."""
+    x0, y0 = max(0, int(pads[0])), max(0, int(pads[1]))
+    x1 = min(WIN, int(np.float32(pads[0] + scale * w + 0.999)))
+    y1 = min(HIN, int(np.float32(pads[1] + scale * h + 0.999)))
+    return slice(y0 + 1, y1 - 1), slice(x0 + 1, x1 - 1)
+
+
+def _check_against_native(ours, ref, m, h, w, what):
+    img, scale, pads = ours
+    assert np.float32(scale) == np.float32(ref[1]), what
+    np.testing.assert_allclose(pads, ref[2], rtol=0, atol=1e-4,
+                               err_msg=what)
+    diff = np.abs(img.astype(int) - ref[0].astype(int))
+    if m in (1, 2, 4):                  # the native plane itself
+        inner = diff[_content(ref[1], ref[2], h, w)]
+        assert inner.size and inner.max() <= 1, (what, inner.max())
+    else:
+        assert np.median(diff) <= 2, (what, np.median(diff))
+
+
+@pytest.mark.parametrize("case", range(len(SCALED)))
+def test_reduction_is_the_native_decodes_scale(photos, case):
+    (h, w), m = SCALED[case]
+    assert _native_m(h, w) == m
+    d = loader.dct_reduction(h, w, HIN, WIN)
+    assert d == CV2_REDUCTION[m]
+    assert loader.jpeg_dims(np.fromfile(photos[case], np.uint8)) == (h, w)
+    plane, dims = loader.decode(photos[case], HIN, WIN)
+    assert dims == (h, w)
+    assert plane.shape == (-(-h // d), -(-w // d), 3)
+
+
+@pytest.mark.parametrize("case", range(len(SCALED)))
+def test_scaled_decode_matches_the_native_loader(photos, case):
+    if not native.is_available():
+        pytest.skip("libpose_host.so not built")
+    (h, w), m = SCALED[case]
+    ours = loader.load_image(photos[case], HIN, WIN)
+    _check_against_native(ours, native.load_image(photos[case], HIN, WIN),
+                          m, h, w, photos[case])
+
+
+@pytest.mark.parametrize("level", [0, 2])
+def test_scaled_stream_matches_the_native_stream(photos, level):
+    if not native.is_available():
+        pytest.skip("libpose_host.so not built")
+    paths = photos + [photos[0] + ".missing"]
+    ours = _collect(loader.StreamLoader(paths, HIN, WIN, batch=3, workers=2,
+                                        s2d=level))[1]
+    ref_loader = native.NativeStreamLoader(paths, HIN, WIN, batch=3,
+                                           workers=2, s2d=level)
+    try:
+        ref = _collect(ref_loader)[1]
+    finally:
+        ref_loader.close()
+    order = np.argsort(ref["indices"])
+    ref = {k: v[order] for k, v in ref.items()}
+    np.testing.assert_array_equal(ours["indices"], np.arange(len(SCALED)))
+    np.testing.assert_array_equal(ref["indices"], ours["indices"])
+    for row, i in enumerate(ours["indices"]):
+        (h, w), m = SCALED[i]
+        _check_against_native(
+            (native.d2s_u8(ours["images"][row]), ours["scales"][row],
+             ours["pads"][row]),
+            (native.d2s_u8(ref["images"][row]), ref["scales"][row],
+             ref["pads"][row]), m, h, w, paths[i])
+
+
+def test_a_png_is_never_scaled(tmp_path):
+    """The first two bytes decide: a large PNG (under either name) decodes
+    at full size and equals the JAX Python path bit for bit; a JPEG named
+    .png is scaled."""
+    img = _photo(np.random.default_rng(3), 512, 448)
+    png = str(tmp_path / "big.png")
+    cv2.imwrite(png, img)
+    jpeg_named_png = str(tmp_path / "big_jpeg.png")
+    with open(jpeg_named_png, "wb") as f:
+        f.write(cv2.imencode(".jpg", img)[1].tobytes())
+    png_named_jpg = str(tmp_path / "big_png.jpg")
+    with open(png, "rb") as src, open(png_named_jpg, "wb") as dst:
+        dst.write(src.read())
+    for path in (png, png_named_jpg):
+        plane, dims = loader.decode(path, HIN, WIN)
+        assert plane.shape == (512, 448, 3) and dims == (512, 448)
+        out, scale, pads = loader.load_image(path, HIN, WIN)
+        ref, rscale, rpads = jletterbox(jload_image(path), HIN, WIN)
+        np.testing.assert_array_equal(out, ref)
+        assert (scale, pads) == (rscale, rpads)
+    plane, dims = loader.decode(jpeg_named_png, HIN, WIN)
+    assert plane.shape == (64, 56, 3) and dims == (512, 448)
+
+
+@pytest.mark.parametrize("content", [None, b"", b"\xff\xd8",
+                                     b"\xff\xd8\xff\xc0\x00\x11\x08",
+                                     b"\x89PNG\r\n"])
+def test_unreadable_files_load_as_none(tmp_path, content):
+    """A missing file, a directory, an empty file, a bare or truncated JPEG
+    header and a bare PNG signature: None (the stream skips them), as
+    `native.load_image` gives."""
+    path = str(tmp_path / "x.jpg")
+    if content is not None:
+        with open(path, "wb") as f:
+            f.write(content)
+    assert loader.load_image(path, HIN, WIN) is None
+    assert loader.load_image(str(tmp_path), HIN, WIN) is None
+    if native.is_available():
+        assert native.load_image(path, HIN, WIN) is None
+
+
+def _with_orientation(jpeg: bytes, orientation: int, order: str) -> bytes:
+    """`jpeg` with an APP1 EXIF segment holding one orientation tag."""
+    import struct
+
+    mark = {"<": b"II", ">": b"MM"}[order]
+    tiff = (mark + struct.pack(order + "HIH", 42, 8, 1)
+            + struct.pack(order + "HHIHH", 0x0112, 3, 1, orientation, 0)
+            + struct.pack(order + "I", 0))
+    payload = b"Exif\0\0" + tiff
+    return (jpeg[:2] + b"\xff\xe1" + struct.pack(">H", len(payload) + 2)
+            + payload + jpeg[2:])
+
+
+@pytest.mark.parametrize("orientation, order", [(6, ">"), (8, "<"),
+                                                (3, "<"), (1, ">")])
+def test_exif_rotated_jpeg_letterboxes_as_cv2_turns_it(tmp_path, orientation,
+                                                       order):
+    """cv2 applies EXIF orientation (libjpeg does not): scale and pads are
+    those of a full cv2 decode of the file, the plane is reduced in that
+    orientation, and the pixels keep the median bound against it."""
+    jpeg = cv2.imencode(".jpg", _photo(np.random.default_rng(4), 256,
+                                       448))[1].tobytes()
+    path = str(tmp_path / f"exif{orientation}.jpg")
+    with open(path, "wb") as f:
+        f.write(_with_orientation(jpeg, orientation, order))
+    full = jload_image(path)
+    turned = orientation in (5, 6, 7, 8)
+    assert full.shape[:2] == ((448, 256) if turned else (256, 448))
+    assert loader.jpeg_dims(np.fromfile(path, np.uint8)) == full.shape[:2]
+    d = loader.dct_reduction(*full.shape[:2], HIN, WIN)
+    assert d > 1
+    plane, dims = loader.decode(path, HIN, WIN)
+    assert dims == full.shape[:2]
+    assert plane.shape[:2] == (-(-dims[0] // d), -(-dims[1] // d))
+    out, scale, pads = loader.load_image(path, HIN, WIN)
+    ref, rscale, rpads = jletterbox(full, HIN, WIN)
+    assert (scale, pads) == (rscale, rpads)
+    assert np.median(np.abs(out.astype(int) - ref.astype(int))) <= 2
 
 
 @pytest.mark.parametrize("requested, hw, level", [

@@ -54,19 +54,27 @@ raises on failure (the script then exits non-zero and prints no result):
    three full skeletons, identically on the card (with TF32 allowed for
    matmuls) and on the CPU.
 5. Accuracy paths, on both engines of phase 4 and its images (see
-   `accuracy_paths`): the s2d and s2d^2 forms of the images give HumanBatches
-   equal to the plain call's, with and without flip-TTA; `infer(flip_tta=
-   True)` launches the decoder's kernels (and fused_sepconv 41 x 2 times on
-   the fused engine) and finds a human in every image; `mirror_maps` twice
-   is the identity; the three-person scene decoded from its mirrored maps
-   is the scene mirrored, card == CPU; `infer_multiscale` at scales (0.5,
-   1.0, 1.5) with flip, "avg" and "dedup", launches the kernels on every
-   decode (fused_sepconv 41 x 6), gives sorted finite HumanBatches of 32
-   and 96 rows, and the fused maps lie within 2e-2 of the unfused ones at
-   each scale's grid (23x27, 46x54, 69x81); the `quality()` decoder on a
-   scene of truncated people agrees card vs CPU and merges fragments
-   (fewer, fuller skeletons than `fidelity()`); `merge_dedup` on the card
-   equals the CPU's.
+   `accuracy_paths`): `infer(flip_tta=True)` and `infer_multiscale` are
+   captured in a CUDA graph at their first call and replayed after
+   (`replayed_path`): the eager module functions (`infer_tta`,
+   `infer_multiscale_avg`, `infer_multiscale_dedup`) launch the decoder's
+   kernels (and fused_sepconv 41 x 2 / 41 x 6 times on the fused engine),
+   the capturing call launches CAPTURE_WARMUP + 1 times as many from Python
+   (its warm-ups and the capture), the replay none, and both give the eager
+   HumanBatch bit for bit (phase 12's trace shows the replays' kernels by
+   name); the memory each graph keeps is recorded (`graph_bytes`). The s2d
+   and s2d^2 forms of the images give HumanBatches equal to the plain
+   call's, with and without flip-TTA; flip-TTA finds a human in every
+   image; `mirror_maps` twice is the identity; the three-person scene
+   decoded from its mirrored maps is the scene mirrored, card == CPU; the
+   scale search at scales (0.5, 1.0, 1.5) with flip, "avg" and "dedup",
+   gives sorted finite HumanBatches of 32 and 96 rows, and the fused maps
+   lie within 2e-2 of the unfused ones at each scale's grid (23x27, 46x54,
+   69x81); the `quality()` decoder on a scene of truncated people agrees
+   card vs CPU and merges fragments (fewer, fuller skeletons than
+   `fidelity()`); `merge_dedup` on the card equals the CPU's; flip-TTA and
+   the scale search (dedup, no flip) under the fidelity() and quality()
+   decoders replay equal to their eager calls.
 6. Timings (CUDA events, median of 20 after warm-up; device times from a
    CUDA-graph replay, `device_ms`, which leave out the host's dispatch that
    the event time of one small call is made of): `infer` at batch 8, its
@@ -85,8 +93,9 @@ raises on failure (the script then exits non-zero and prints no result):
    produces, beside their chain estimate (`decoder_kernel_times`), and the
    decode's own device time (`decode_device_ms`). The accuracy paths
    (`accuracy_timings`):
-   `infer` on plain, s2d and s2d^2 input, flip-TTA, scale search avg and
-   dedup, the quality decode and its fragment merge alone, `merge_dedup`
+   `infer` on plain, s2d and s2d^2 input, flip-TTA and the scale search avg
+   and dedup replayed and eager (the module functions), with their graphs'
+   bytes, the quality decode and its fragment merge alone, `merge_dedup`
    alone, and batch 32 with and without `chunk=8`.
 7. The rest of the zoo (`zoo_paths`): for each of VGG19, VGG-tiny and
    hao28, Engine(default_config(name), seed=0, device="cuda") at full
@@ -141,8 +150,9 @@ raises on failure (the script then exits non-zero and prints no result):
    `train_loop` with the real pipeline for TRAIN_STEPS steps (a loss and a
    metrics-CSV row every step, a checkpoint every TRAIN_CKPT): every loss
    finite, the mean of the last 50 below TRAIN_FALL x the mean of the
-   first 10, no hand kernel launched; then a resume to TRAIN_RESUME_TO
-   that logs "resumed from step TRAIN_STEPS". (3) The trained state_dict
+   first 10, no hand kernel launched, the steps through one captured CUDA
+   graph; then a resume to TRAIN_RESUME_TO that logs "resumed from step
+   TRAIN_STEPS" and captures again. (3) The trained state_dict
    served by an Engine: `infer` launches the decoder's kernels and gives
    a finite, compacted HumanBatch. (4) A `train` line: the step's event
    median on a batch already on the card, its device-busy time
@@ -150,7 +160,14 @@ raises on failure (the script then exits non-zero and prints no result):
    every 100 steps), the batches/s of `TrainPipeline` alone and which of
    the two sets the pace, peak memory, and the step's FLOP bound (3 x the
    forward's conv flops, `conv_flops`, over the bf16 tensor-core peak)
-   with the share of it the step reaches.
+   with the share of it the step reaches. (5) A `train_graph` line: the
+   step eager (`train._update`) and replayed, event ms, device-busy ms and
+   idle share from one torch.profiler session (the calls
+   TRAIN_TRACE_GAP_S apart), the graphed `train_loop`'s imgs/s beside the
+   pipeline's, the captured step's memory, and the graph against eager
+   (`train_graph_spread`): two eager runs and one graphed run of
+   TRAIN_SPREAD_STEPS steps from the seeded state, the graphed within the
+   eager runs' spread.
 11. Calibrated int8 (`int8_phase`): first `int8_conv` and the quantize
    pass against their plain versions on seeded edge cases (Cin 3, 185 and
    537, stride 2 on even and odd sizes, s_out 1e-6, both output modes):
@@ -185,17 +202,26 @@ raises on failure (the script then exits non-zero and prints no result):
    assemble_kernel and sample_paf_kernel, 41 fused_sepconv_kernel on the
    fused engine, and on the int8 engine one int8_conv_kernel per int8 layer
    and one quantize pass per float input, as phase 11 counts them; a
-   result held by the caller is unchanged after the next call. Both float
-   engines are exported at batch 8 (`export.save_engine`) and reloaded in
-   a fresh process, which must give the eager HumanBatch, raise the
-   launch counts (41 fused_sepconv) and import neither `models` nor
-   `engine`. `StreamEstimator.run_frames` over DEPLOY_FRAMES frames of
+   result held by the caller is unchanged after the next call. The int8
+   engine's flip-TTA is captured and replayed equal to its eager call
+   (`replayed_path`), and the same trace shows one replay of each of phase
+   5's flip-TTA and scale-search graphs (the decoder's kernels once a
+   decode, 41 x 2 / 41 x 6 fused_sepconv) and of the int8 flip-TTA (2 x
+   the int8 layers). The three compiled engines are exported at batch 8
+   (`export.save_engine`) and reloaded in a fresh process: each artifact's
+   first call captures (CAPTURE_WARMUP + 1 Python launches of each of its
+   kernels), its replays launch none from Python and give the compiled
+   engine's HumanBatch, and a trace of one replay (that process's only
+   profiler session) names the compiled engine's kernels; the process
+   imports neither `models` nor `engine`. `StreamEstimator.run_frames` over DEPLOY_FRAMES frames of
    mixed sizes gives, batch by batch, `infer` on the letterboxed batch;
    `python -m openpose_plus_tpu_torch infer`, `export` and `infer
    --engine-dir` on cv2-written JPEGs exit 0. A `deploy` line: `infer`
    event ms eager and compiled (median of 20) at batch 8 (each engine) and
    1 (MobileNet-thin), the compiled call's device-busy ms and idle share,
-   the artifacts' export, load and infer times, and `run_frames`
+   each graph's bytes, the artifacts' export, load, replayed and eager
+   call times, device events a replay beside the compiled engine's, and
+   `run_frames`
    sustained frames/s on VGA frames beside the host's letterbox time.
 13. The file stream and the grouping oracle (`stream_phase`): a seeded
    set of STREAM_JPEGS 640x480 JPEGs, STREAM_PNGS PNGs of mixed sizes and
@@ -299,7 +325,10 @@ raises on failure (the script then exits non-zero and prints no result):
    `tune_fragment_merge`, `analyze_oracle_misses`, `synthetic_e2e`), in a
    temporary `.smoke_bank_studies_*` directory of the checkout, each
    decode and evaluation counted (greedy, merge and sample_paf must
-   launch at least once a batch, fused_sepconv never): (a) `ap_bench
+   launch at least once a batch, fused_sepconv never; a flip-TTA or
+   scale-search evaluation captures its graph at the first batch and
+   replays it after: CAPTURE_WARMUP + 1 launches of each a decode of one
+   call): (a) `ap_bench
    --oracle`'s rows "oracle@368#s4", "oracle@368#sig4", "oracle" and
    "oracle#s4" on the 96-image val banks ("perfect" AP 1.0, each map
    variant within ORACLE_AP_TOL of ap_benchmark.json, and the card within
@@ -320,8 +349,9 @@ raises on failure (the script then exits non-zero and prints no result):
    each model study and the processes, every figure beside its record.
    `--studies-phase` builds the kernels and runs this phase alone.
 
-The line before the last is the nvidia-smi name/power-limit line, the one
-before it the per-kernel JSON record; the last line is
+Each phase logs its seconds as it ends, and a `phase_seconds` line sums
+them before the results. The line before the last is the nvidia-smi
+name/power-limit line, the one before it the per-kernel JSON record; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 `python3 chip_smoke.py --decoder-kernels-of DIR` instead builds the kernels
@@ -413,6 +443,8 @@ TRAIN_LEAF_RTOL = 0.15
 TRAIN_ALL_RTOL = 5e-2
 TRAIN_FALL = 0.7              # mean of the last 50 losses / first 10
 TRAIN_PIPELINE_BATCHES = 40   # TrainPipeline alone, after 5 of warm-up
+TRAIN_SPREAD_STEPS = 6        # graph against eager: steps of each run
+TRAIN_TRACE_GAP_S = 0.25      # an eager step's own gaps stay below half
 # phase 11, int8: the two full-width engines; their conf maps against the
 # bf16 engine's on the same weights (tests/test_quant.py's criterion); the
 # kernel forward against the plain-routed one (equal int8 outputs, so only
@@ -1007,6 +1039,52 @@ def check_launches(what, launches, at_least, fused_sepconv) -> None:
                              f"{fused_sepconv}")
 
 
+def graph_bytes(torch, fn):
+    """fn() (a call that captures a CUDA graph) and the device memory the
+    graph keeps: the memory reserved after fn() less that before it, each
+    read after `empty_cache` (a live graph's private pool stays
+    reserved). Returns (fn's result, bytes)."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_reserved()
+    out = fn()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return out, torch.cuda.memory_reserved() - before
+
+
+def replayed_path(torch, counted, what, call, eager, at_least,
+                  fused_sepconv) -> dict:
+    """One path that a CUDA engine captures at its first call (flip-TTA, a
+    scale search): the module function's eager call launches the kernels
+    (`check_launches`); the engine's first call launches CAPTURE_WARMUP + 1
+    times as many from Python (its warm-ups, then the capture, which
+    records them) and keeps its graph's memory; the next call is a replay:
+    no launch from Python. Both calls' HumanBatches equal the eager one bit
+    for bit. Returns the replay's HumanBatch, the eager launches and the
+    graph's bytes."""
+    from openpose_plus_tpu_torch.graphs import CAPTURE_WARMUP
+
+    with torch.inference_mode():
+        ref, n = launches_during(torch, counted, eager)
+    check_launches(f"{what}, eager", n, at_least, fused_sepconv)
+    (first, n_first), nbytes = graph_bytes(
+        torch, lambda: launches_during(torch, counted, call))
+    k = CAPTURE_WARMUP + 1
+    if n_first != {name: k * v for name, v in n.items()}:
+        raise AssertionError(f"{what}: the capturing call launched "
+                             f"{n_first}, expected {k} x the eager call's "
+                             f"{n}")
+    out, n_replay = launches_during(torch, counted, call)
+    if any(n_replay.values()):
+        raise AssertionError(f"{what}: the replay launched {n_replay} from "
+                             "Python")
+    assert_batches_equal(torch, f"{what}: capturing call vs eager", first,
+                         ref)
+    assert_batches_equal(torch, f"{what}: replay vs eager", out, ref)
+    return {"out": out, "eager_launches": n, "graph_bytes": nbytes}
+
+
 def assert_batches_equal(torch, what, a, b) -> None:
     for f in dataclasses.fields(a):
         if not torch.equal(getattr(a, f.name), getattr(b, f.name)):
@@ -1112,23 +1190,31 @@ def accuracy_paths(torch, np, scenes, engines, images, counted, n_fused,
     mc, m = cfg.model, cfg.postproc.max_humans
     s2d = common.space_to_depth(images)
     layouts = {"s2d": s2d, "s2d2": common.space_to_depth(s2d)}
+    graphs = {}
     for label, eng in engines.items():
+        # flip-TTA: the first call captures, later calls replay
+        rec = replayed_path(
+            torch, counted, f"{label} flip-TTA",
+            lambda: eng.infer(images, flip_tta=True),
+            lambda: engine_mod.infer_tta(eng.model, images,
+                                         eng.config.postproc),
+            1, 2 * n_fused if label == "fused" else 0)
+        out, n = rec["out"], rec["eager_launches"]
+        graphs[f"{label}_flip_tta"] = rec["graph_bytes"]
+        check_humans(torch, f"{label} flip-TTA", out, m, dev)
+        if not bool((out.num_humans > 0).all()):
+            raise AssertionError(f"{label} flip-TTA decoded an image to no "
+                                 "humans")
         for tta in (False, True):
             ref = eng.infer(images, flip_tta=tta)
             for name, x in layouts.items():
                 assert_batches_equal(torch, f"{label} {name} flip_tta={tta}",
                                      eng.infer(x, flip_tta=tta), ref)
-        out, n = launches_during(
-            torch, counted, lambda: eng.infer(images, flip_tta=True))
-        check_launches(f"{label} flip-TTA", n, 1,
-                       2 * n_fused if label == "fused" else 0)
-        check_humans(torch, f"{label} flip-TTA", out, m, dev)
-        if not bool((out.num_humans > 0).all()):
-            raise AssertionError(f"{label} flip-TTA decoded an image to no "
-                                 "humans")
-        log(f"accuracy ({label}): s2d and s2d^2 inputs equal to plain, with "
-            f"and without flip-TTA; flip-TTA launches {n}, humans per image "
-            f"{out.num_humans.tolist()}")
+        log(f"accuracy ({label}): flip-TTA captured at its first call "
+            f"({graphs[f'{label}_flip_tta']} bytes of graph), replayed == "
+            f"eager, no Python launch; s2d and s2d^2 inputs equal to plain, "
+            f"with and without flip-TTA; eager flip-TTA launches {n}, humans "
+            f"per image {out.num_humans.tolist()}")
     conf, paf = engine.forward(images)
     twice = flip.mirror_maps(*flip.mirror_maps(conf, paf))
     if not (torch.equal(twice[0], conf) and torch.equal(twice[1], paf)):
@@ -1138,20 +1224,28 @@ def accuracy_paths(torch, np, scenes, engines, images, counted, n_fused,
     log("mirror_maps twice == identity on the card; mirrored scene decodes "
         "as the scene mirrored (x -> 1 - x, L/R swapped), card == cpu")
 
-    # scale search, both combiners, both engines
+    # scale search, both combiners, both engines: captured at the first
+    # call, replayed after
     for label, eng in engines.items():
         for combine, rows, at_least in (("avg", m, 1),
                                         ("dedup", m * len(SCALES), 3)):
-            out, n = launches_during(torch, counted, lambda: (
-                eng.infer_multiscale(images, SCALES, flip_tta=True,
-                                     combine=combine)))
-            check_launches(f"{label} scale search {combine}", n, at_least,
-                           6 * n_fused if label == "fused" else 0)
+            impl = (engine_mod.infer_multiscale_avg if combine == "avg"
+                    else engine_mod.infer_multiscale_dedup)
+            r = replayed_path(
+                torch, counted, f"{label} scale search {combine}",
+                lambda: eng.infer_multiscale(images, SCALES, flip_tta=True,
+                                             combine=combine),
+                lambda: impl(eng.model, images, eng.config.postproc, SCALES,
+                             True, mc.stride),
+                at_least, 6 * n_fused if label == "fused" else 0)
+            out, n = r["out"], r["eager_launches"]
+            graphs[f"{label}_multiscale_{combine}"] = r["graph_bytes"]
             check_humans(torch, f"{label} scale search {combine}", out, rows,
                          dev)
             log(f"scale search ({label}, {combine}, scales {SCALES} + "
-                f"flip): launches {n}, humans per image "
-                f"{out.num_humans.tolist()}")
+                f"flip): replayed == eager, no Python launch "
+                f"({r['graph_bytes']} bytes of graph); eager launches {n}, "
+                f"humans per image {out.num_humans.tolist()}")
         # one scale with the flip is flip-TTA, operation for operation
         assert_batches_equal(
             torch, f"{label} scale search at (1.0,) + flip vs flip-TTA",
@@ -1209,8 +1303,29 @@ def accuracy_paths(torch, np, scenes, engines, images, counted, n_fused,
         f"{q_dev.n_parts[0, :2].tolist()} parts vs fidelity() "
         f"{int(f_dev.num_humans[0])} of {f_dev.n_parts[0, :3].tolist()}...; "
         "merge_dedup card == cpu")
+    # the fidelity() and quality() decoders inside the graphs, on phase 4's
+    # weights: flip-TTA and the scale search without the flip
+    from openpose_plus_tpu_torch import Engine
+
+    for post in ("fidelity", "quality"):
+        pcfg = getattr(cfg.postproc, post)()
+        eng = Engine(cfg.replace(postproc=pcfg),
+                     params=engine.model.state_dict(), device=dev)
+        for what, call, eager, at_least in (
+                ("flip-TTA", lambda: eng.infer(images, flip_tta=True),
+                 lambda: engine_mod.infer_tta(eng.model, images, pcfg), 1),
+                ("scale search dedup", lambda: eng.infer_multiscale(
+                    images, SCALES, combine="dedup"),
+                 lambda: engine_mod.infer_multiscale_dedup(
+                     eng.model, images, pcfg, SCALES, False, mc.stride), 3)):
+            r = replayed_path(torch, counted, f"{post}() {what}", call, eager,
+                              at_least, 0)
+            graphs[f"{post}_{what.replace(' ', '_')}"] = r["graph_bytes"]
+        del eng
+    log(f"accuracy: fidelity() and quality() flip-TTA and scale search "
+        f"(dedup, no flip) replayed == eager; graph bytes {graphs}")
     return {"layouts": layouts, "quality": quality,
-            "truncated": (conf_dev, paf_dev)}
+            "truncated": (conf_dev, paf_dev), "graph_bytes": graphs}
 
 
 def accuracy_timings(torch, np, rng, engines, images, acc, gpu) -> None:
@@ -1219,21 +1334,40 @@ def accuracy_timings(torch, np, rng, engines, images, acc, gpu) -> None:
     from openpose_plus_tpu_torch import engine as engine_mod
     from openpose_plus_tpu_torch.postproc import decode
 
+    def eager(eng, fn, *args):
+        def call():
+            with torch.inference_mode():
+                return fn(eng.model, images, eng.config.postproc, *args)
+        return call
+
     for label, eng in engines.items():
+        stride = eng.config.model.stride
+        # flip-TTA and the scale search replay their graphs (phase 5
+        # captured them); the `_eager` calls are the module functions
         calls = {"plain": lambda: eng.infer(images),
                  **{name: (lambda x=x: eng.infer(x))
                     for name, x in acc["layouts"].items()},
-                 "flip_tta": lambda: eng.infer(images, flip_tta=True)}
+                 "flip_tta": lambda: eng.infer(images, flip_tta=True),
+                 "flip_tta_eager": eager(eng, engine_mod.infer_tta)}
         for combine in ("avg", "dedup"):
             calls[f"multiscale_{combine}"] = (
                 lambda c=combine: eng.infer_multiscale(
                     images, SCALES, flip_tta=True, combine=c))
+            calls[f"multiscale_{combine}_eager"] = eager(
+                eng, getattr(engine_mod, f"infer_multiscale_{combine}"), SCALES,
+                True, stride)
         # plain once more: the spread of one program between the calls
         calls["plain_again"] = calls["plain"]
+        times = {f"{key}_ms": median_ms(torch, fn)
+                 for key, fn in calls.items()}
         log(json.dumps({"accuracy_infer": {
-            "engine": label, "batch": BATCH, "scales": SCALES,
-            **{f"{key}_ms": median_ms(torch, fn)
-               for key, fn in calls.items()}, "gpu": gpu}}))
+            "engine": label, "batch": BATCH, "scales": SCALES, **times,
+            **{f"{key}_eager_over_replayed": times[f"{key}_eager_ms"]
+               / times[f"{key}_ms"] for key in (
+                   "flip_tta", "multiscale_avg", "multiscale_dedup")},
+            "graph_bytes": {k: v for k, v in acc["graph_bytes"].items()
+                            if k.startswith(label)},
+            "gpu": gpu}}))
 
     quality = acc["quality"]
     conf, paf = acc["truncated"]
@@ -1242,8 +1376,9 @@ def accuracy_timings(torch, np, rng, engines, images, acc, gpu) -> None:
         decode, "merge_fragments",
         lambda: decode.decode_maps(conf, paf, quality))
     (dedup_args, _), = record_calls(
-        engine_mod, "merge_dedup", lambda: engines["default"]
-        .infer_multiscale(images, SCALES, flip_tta=True, combine="dedup"))
+        engine_mod, "merge_dedup", eager(
+            engines["default"], engine_mod.infer_multiscale_dedup, SCALES,
+            True, engines["default"].config.model.stride))
     log(json.dumps({"accuracy_decode": {
         "batch": BATCH, "max_peaks": quality.max_peaks,
         "upsample": quality.upsample_factor,
@@ -1565,10 +1700,14 @@ def studies_models(torch, counted, dev, tmp, gpu) -> None:
     from openpose_plus_tpu_torch import ap_bench
     from openpose_plus_tpu_torch import checkpoint as ckpt
     from openpose_plus_tpu_torch import train as T
+    from openpose_plus_tpu_torch.graphs import CAPTURE_WARMUP
 
     serving = ap_bench.GEOMETRIES["serving"]
     batches = {tier: geo["n_val"] // BATCH
                for tier, geo in ap_bench.GEOMETRIES.items()}
+    # the batch shapes an evaluation serves: a ragged last batch is another
+    shapes = {tier: 1 + bool(geo["n_val"] % BATCH)
+              for tier, geo in ap_bench.GEOMETRIES.items()}
     evals = []
 
     def check_evals(what, variants, tier):
@@ -1577,7 +1716,22 @@ def studies_models(torch, counted, dev, tmp, gpu) -> None:
             raise AssertionError(f"studies {what}: evaluated {done}, "
                                  f"expected {list(variants)}")
         for v, (_, n, s) in zip(done, evals):
-            check_launches(f"studies {what} {v}", n, batches[tier], 0)
+            if "tta" not in v:       # eager infer: a decode a batch
+                check_launches(f"studies {what} {v}", n, batches[tier], 0)
+                continue
+            # flip-TTA and the scale search: one graph a call, captured at
+            # the first batch (its warm-ups and the capture launch from
+            # Python), every later batch a replay
+            decodes = (len(ap_bench.MS_SCALES[v]) if "msdd" in v else 1)
+            want = {**dict.fromkeys(("greedy_assign", "assemble",
+                                     "sample_paf"),
+                                    (CAPTURE_WARMUP + 1) * decodes
+                                    * shapes[tier]),
+                    "fused_sepconv": 0}
+            if n != want:
+                raise AssertionError(f"studies {what} {v}: launches {n}, "
+                                     f"expected {want} (one capture, then "
+                                     "replays)")
         return [{"variant": v, "launches": n, "seconds": s}
                 for v, (_, n, s) in zip(done, evals)]
 
@@ -1941,9 +2095,17 @@ def train_phase(torch, np, counted, dev, gpu) -> None:
                                  f"{TRAIN_FALL} x")
         if saved != [TRAIN_CKPT, TRAIN_STEPS]:
             raise AssertionError(f"train_loop checkpoints {saved}")
+        if [type(g).__name__ for g in state.graphs.values()] != ["_Captured"]:
+            raise AssertionError(f"train_loop's steps: {state.graphs}, "
+                                 "expected one captured step")
         state = T.train_loop(cfg, n_steps=TRAIN_RESUME_TO, log=logs.append,
                              device=dev)
         resumed_to = state.step
+        # the resumed run restored, warmed up and captured again
+        if [type(g).__name__ for g in state.graphs.values()] != ["_Captured"]:
+            raise AssertionError(f"resumed train_loop's steps: "
+                                 f"{state.graphs}, expected one captured "
+                                 "step")
         if (f"resumed from step {TRAIN_STEPS}" not in logs
                 or state.step != TRAIN_RESUME_TO
                 or len(_csv_rows(cfg.train.metrics_csv)) != TRAIN_RESUME_TO
@@ -1965,16 +2127,36 @@ def train_phase(torch, np, counted, dev, gpu) -> None:
         check_humans(torch, "train handoff", humans,
                      base.postproc.max_humans, dev)
 
-        # 4. timings: the step on a batch on the card, the loop with the
-        # pipeline, the pipeline alone, memory and the FLOP bound
+        # 4. timings: the step on a batch on the card, eager and replayed
+        # (the state's captured step: the batch has the pipeline's shapes),
+        # the loop with the pipeline, the pipeline alone, memory and the
+        # FLOP bound
         step_fn = T.make_train_step_on_batch(cfg)
+        targets = T.batch_on_device(cfg)
         on_card = {k: torch.as_tensor(v).to(dev) for k, v in batch.items()}
+
+        def eager_step():
+            return T._update(state, *targets(state, on_card))
+
+        def graph_step():
+            return step_fn(state, on_card)
+
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        step_ms = median_ms(torch, lambda: step_fn(state, on_card))
+        eager_ms = median_ms(torch, eager_step)
         peak = torch.cuda.max_memory_allocated()
-        busy_ms, kernels, _ = device_busy(torch,
-                                          lambda: step_fn(state, on_card))
+        step_ms = median_ms(torch, graph_step)
+        trace = replay_trace(torch, {
+            f"{kind}_{i}": fn for i in range(PROFILED_CALLS)
+            for kind, fn in (("eager", eager_step), ("graph", graph_step))},
+            gap_s=TRAIN_TRACE_GAP_S)
+        busy = {(kind, key): statistics.mean(
+            trace[f"{kind}_{i}"][key] for i in range(PROFILED_CALLS))
+            for kind in ("eager", "graph")
+            for key in ("busy_ms", "device_events")}
+        busy_ms, kernels = busy["graph", "busy_ms"], busy["graph",
+                                                          "device_events"]
+        spread = train_graph_spread(torch, T, cfg, on_card, dev)
         timed = cfg.replace(train=dataclasses.replace(
             cfg.train, log_every=100, checkpoint_every=10 ** 9,
             checkpoint_dir=os.path.join(tmp, "ck_timed"),
@@ -2015,7 +2197,7 @@ def train_phase(torch, np, counted, dev, gpu) -> None:
             "step_ms": step_ms, "step_imgs_per_sec": step_imgs,
             "step_device_busy_ms": busy_ms,
             "step_device_idle_share": 1.0 - busy_ms / step_ms,
-            "step_kernels": kernels,
+            "step_kernels": kernels, "step_replays_a_graph": True,
             "loop_imgs_per_sec": loop_imgs,
             "pipeline_batches_per_sec": pipe_bps,
             "pipeline_imgs_per_sec": pipe_bps * BATCH,
@@ -2026,6 +2208,65 @@ def train_phase(torch, np, counted, dev, gpu) -> None:
             "step_bound_ms": bound_ms, "step_bound_by": "operations",
             "step_pct_of_bound": 100.0 * bound_ms / step_ms,
             "gpu": gpu}}))
+        log(json.dumps({"train_graph": {
+            "model": mc.name, "batch": BATCH, "hw": [mc.hin, mc.win],
+            "optimizer": cfg.train.optimizer,
+            "eager_step_ms": eager_ms, "graph_step_ms": step_ms,
+            "eager_over_graph": eager_ms / step_ms,
+            "eager_busy_ms": busy["eager", "busy_ms"],
+            "graph_busy_ms": busy["graph", "busy_ms"],
+            "eager_idle_share": 1.0 - busy["eager", "busy_ms"] / eager_ms,
+            "graph_idle_share": 1.0 - busy["graph", "busy_ms"] / step_ms,
+            "eager_device_events": busy["eager", "device_events"],
+            "graph_device_events": busy["graph", "device_events"],
+            "loop_imgs_per_sec": loop_imgs,
+            "pipeline_batches_per_sec": pipe_bps,
+            "pipeline_imgs_per_sec": pipe_bps * BATCH,
+            "eager_peak_memory_bytes": peak, **spread,
+            "loop_and_resume_through_graph": True, "gpu": gpu}}))
+
+
+def train_graph_spread(torch, T, cfg, batch, dev) -> dict:
+    """Phase 10's graph against eager: two eager runs and one graphed run
+    (CAPTURE_WARMUP eager steps, the capture, replays) of
+    TRAIN_SPREAD_STEPS steps from the seeded state on the same batch; the
+    graphed run's parameters must lie within the eager runs' spread
+    (cuDNN's backward is not bit-reproducible). Also the memory the
+    captured step's graph keeps."""
+    from openpose_plus_tpu_torch.graphs import CAPTURE_WARMUP
+
+    targets = T.batch_on_device(cfg)
+    out = {}
+
+    def run(graphed: bool):
+        state = T.create_train_state(cfg, seed=0, device=dev)
+        step = T.make_train_step_on_batch(cfg)
+        for i in range(TRAIN_SPREAD_STEPS):
+            if not graphed:
+                T._update(state, *targets(state, batch))
+            elif i == CAPTURE_WARMUP:
+                _, out["graph_bytes"] = graph_bytes(
+                    torch, lambda: step(state, batch))
+            else:
+                step(state, batch)
+        torch.cuda.synchronize()
+        if state.step != TRAIN_SPREAD_STEPS:
+            raise AssertionError(f"train: {state.step} updates in "
+                                 f"{TRAIN_SPREAD_STEPS} steps")
+        return {n: p.detach().float().clone()
+                for n, p in state.model.named_parameters()}
+
+    def max_diff(a, b):
+        return max(float((a[n] - b[n]).abs().max()) for n in a)
+
+    eager = [run(False), run(False)]
+    graphed = run(True)
+    out.update(spread_steps=TRAIN_SPREAD_STEPS,
+               eager_vs_eager_max_abs=max_diff(*eager),
+               graph_vs_eager_max_abs=max_diff(graphed, eager[0]))
+    if out["graph_vs_eager_max_abs"] > out["eager_vs_eager_max_abs"]:
+        raise AssertionError(f"train step, graph vs eager: {out}")
+    return out
 
 
 def kernel_breakdown(prof, calls: int, top: int = 8) -> dict:
@@ -2682,41 +2923,73 @@ def int8_phases(torch, np, build, int8_conv, inputs, dev, gpu) -> None:
 
 
 # a fresh process: load the artifacts phase 12 exported, serve the batch
+# (the first call captures, the next replays), time the replays and trace
+# one replay of each artifact in this process's only profiler session
 _LOAD_ARTIFACTS = """
 import json, statistics, sys, time
 import numpy as np
 import torch
+from chip_smoke import graph_bytes, replay_trace
 from openpose_plus_tpu_torch import export
-from openpose_plus_tpu_torch.ops.cuda import greedy, merge, paf_sample, sepconv
+from openpose_plus_tpu_torch.ops.cuda import (greedy, int8_conv, merge,
+                                              paf_sample, sepconv)
 tmp = sys.argv[1]
 images = torch.from_numpy(np.load(tmp + "/images.npy"))
 counted = {"greedy_assign": greedy, "assemble": merge,
-           "sample_paf": paf_sample, "fused_sepconv": sepconv}
-res = {}
-for label in sys.argv[2:]:
-    t0 = time.perf_counter()
-    engine = export.load_engine(tmp + "/" + label)
-    load_s = time.perf_counter() - t0
-    x = images.to(engine.device)
+           "sample_paf": paf_sample, "fused_sepconv": sepconv,
+           "int8_conv": int8_conv}
+
+
+def launches(fn):
+    torch.cuda.synchronize()
     for module in counted.values():
         module.launches = 0
-    out = engine.infer(x)
+    out = fn()
     torch.cuda.synchronize()
-    launches = {k: m.launches for k, m in counted.items()}
-    ref = np.load(tmp + "/" + label + "/eager.npz")
-    equal = all(np.array_equal(getattr(out, f).cpu().numpy(), ref[f])
-                for f in export.FIELDS)
+    return out, {k: m.launches for k, m in counted.items()}
+
+
+def event_ms(fn):
     times = []
     for _ in range(23):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        engine.infer(x)
+        fn()
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
-    res[label] = {"load_s": load_s, "launches": launches, "equal": equal,
-                  "infer_ms": statistics.median(times[3:])}
+    return statistics.median(times[3:])
+
+
+res, engines = {}, {}
+for label in sys.argv[2:]:
+    t0 = time.perf_counter()
+    engine = engines[label] = export.load_engine(tmp + "/" + label)
+    load_s = time.perf_counter() - t0
+    x = images.to(engine.device)
+    (out, n), nbytes = graph_bytes(torch, lambda: launches(
+        lambda: engine.infer(x)))
+    again, n_replay = launches(lambda: engine.infer(x))
+    ref = np.load(tmp + "/" + label + "/eager.npz")
+    with torch.inference_mode():
+        eager_ms = event_ms(lambda: engine._call(x))
+    res[label] = {
+        "load_s": load_s, "launches": n, "replay_launches": n_replay,
+        "equal": all(np.array_equal(getattr(out, f).cpu().numpy(), ref[f])
+                     for f in export.FIELDS),
+        "equal_replay": all(np.array_equal(getattr(again, f).cpu().numpy(),
+                                           ref[f]) for f in export.FIELDS),
+        "graph_bytes": nbytes, "infer_ms": event_ms(lambda: engine.infer(x)),
+        "eager_call_ms": eager_ms}
+on_device = {label: images.to(e.device) for label, e in engines.items()}
+trace = replay_trace(torch, {label: (lambda e=e, x=on_device[label]:
+                                     e.infer(x))
+                             for label, e in engines.items()})
+for label, got in trace.items():
+    res[label].update(kernels_per_replay=got["kernels"],
+                      device_events_per_replay=got["device_events"],
+                      busy_ms=got["busy_ms"])
 res["port_modules"] = sorted(
     m for m in sys.modules if m.startswith(("openpose_plus_tpu_torch.models",
                                             "openpose_plus_tpu_torch.engine")))
@@ -2729,10 +3002,10 @@ REPLAY_KERNELS = ("greedy_assign_kernel", "assemble_kernel",
                   "int8_conv_kernel", "quantize")
 
 
-def replay_trace(torch, calls: dict) -> dict:
+def replay_trace(torch, calls: dict, gap_s: float = TRACE_GAP_S) -> dict:
     """One torch.profiler session over one call of each of `calls` ({label:
-    fn}), TRACE_GAP_S apart on an idle card, so each call's device events
-    form one cluster of the timeline (one session: records went missing in
+    fn}), `gap_s` apart on an idle card, so each call's device events form
+    one cluster of the timeline (one session: records went missing in
     later sessions of one process). Per label: {"kernels": {name: device
     kernels whose name contains it, for REPLAY_KERNELS}, "busy_ms": the
     union of its device intervals, "device_events": their count}."""
@@ -2744,14 +3017,14 @@ def replay_trace(torch, calls: dict) -> dict:
     with torch_profile(activities=[ProfilerActivity.CPU,
                                    ProfilerActivity.CUDA]) as prof:
         for fn in calls.values():
-            time.sleep(TRACE_GAP_S)
+            time.sleep(gap_s)
             fn()
             torch.cuda.synchronize()
     spans = sorted((e.time_range.start, e.time_range.end, e.name)
                    for e in prof.events() if e.device_type == DeviceType.CUDA)
     clusters, end = [], float("-inf")
     for a, b, name in spans:                # time_range in microseconds
-        if a - end > TRACE_GAP_S * 1e6 / 2:
+        if a - end > gap_s * 1e6 / 2:
             clusters.append([])
         clusters[-1].append((a, b, name))
         end = max(end, b)
@@ -2788,8 +3061,7 @@ def compiled_case(torch, label, engine, images, other) -> dict:
                                  engine.config.postproc)
     eager_ms = median_ms(torch, lambda: engine.infer(images))
     t0 = time.perf_counter()
-    engine.compile(images.shape[0])
-    torch.cuda.synchronize()
+    _, nbytes = graph_bytes(torch, lambda: engine.compile(images.shape[0]))
     compile_s = time.perf_counter() - t0
     for module in counted:
         module.launches = 0
@@ -2818,7 +3090,7 @@ def compiled_case(torch, label, engine, images, other) -> dict:
         "result intact")
     return {"eager_ms": eager_ms, "compiled_ms": compiled_ms,
             "eager_over_compiled": eager_ms / compiled_ms,
-            "compile_s": compile_s}
+            "compile_s": compile_s, "graph_bytes": nbytes}
 
 
 def deploy_phase(torch, np, engine, fused_engine, images, n_fused, dev,
@@ -2830,8 +3102,11 @@ def deploy_phase(torch, np, engine, fused_engine, images, n_fused, dev,
     import cv2
 
     from openpose_plus_tpu_torch import Engine, export, host, stream
+    from openpose_plus_tpu_torch import engine as engine_mod
     from openpose_plus_tpu_torch.data.augment import letterbox
     from openpose_plus_tpu_torch.models import common
+    from openpose_plus_tpu_torch.ops.cuda import (greedy, int8_conv, merge,
+                                                  paf_sample, sepconv)
 
     rng = np.random.default_rng(12)
     other = torch.from_numpy(rng.integers(0, 256, tuple(images.shape),
@@ -2854,34 +3129,80 @@ def deploy_phase(torch, np, engine, fused_engine, images, n_fused, dev,
     for label, (eng, imgs, _) in cases.items():
         line[label] = compiled_case(torch, label, eng, imgs,
                                     other[:imgs.shape[0]])
-    # the kernels of one replay of each graph, by name, in one trace
+    # the int8 engine's flip-TTA: captured at its first call, replayed
+    # bit-equal to the eager call, launching nothing from Python
+    int8_counted = {"greedy_assign": greedy, "assemble": merge,
+                    "sample_paf": paf_sample, "fused_sepconv": sepconv,
+                    "int8_conv": int8_conv}
+    rec = replayed_path(
+        torch, int8_counted, "int8 VGG19 flip-TTA",
+        lambda: int8.infer(images, flip_tta=True),
+        lambda: engine_mod.infer_tta(int8.model, images,
+                                     int8.config.postproc), 1, 0)
+    if rec["eager_launches"]["int8_conv"] != 2 * n_convs:
+        raise AssertionError(f"int8 VGG19 flip-TTA launches "
+                             f"{rec['eager_launches']}")
+    line["int8_vgg19_flip_tta"] = {
+        "graph_bytes": rec["graph_bytes"],
+        "replayed_ms": median_ms(torch, lambda: int8.infer(
+            images, flip_tta=True))}
+    # the kernels of one replay of each graph, by name, in one trace: the
+    # compiled engines, and phase 5's flip-TTA and scale-search graphs of
+    # phase 4's engines (phase 5 captured them) and the int8 flip-TTA
+    per_decode = dict.fromkeys(REPLAY_KERNELS[:3], 1)
+    accuracy = {
+        "flip_tta_default": (lambda: engine.infer(images, flip_tta=True),
+                             per_decode),
+        "flip_tta_fused": (lambda: fused_engine.infer(images, flip_tta=True),
+                           {**per_decode,
+                            "fused_sepconv_kernel": 2 * n_fused}),
+        "multiscale_avg_fused": (lambda: fused_engine.infer_multiscale(
+            images, SCALES, flip_tta=True, combine="avg"),
+            {**per_decode, "fused_sepconv_kernel": 6 * n_fused}),
+        "multiscale_dedup_fused": (lambda: fused_engine.infer_multiscale(
+            images, SCALES, flip_tta=True, combine="dedup"),
+            {**dict.fromkeys(REPLAY_KERNELS[:3], len(SCALES)),
+             "fused_sepconv_kernel": 6 * n_fused}),
+        "int8_vgg19_flip_tta": (lambda: int8.infer(images, flip_tta=True),
+                                {**per_decode,
+                                 "int8_conv_kernel": 2 * n_convs,
+                                 "quantize": 2 * n_quant})}
     trace = replay_trace(torch, {
-        label: functools.partial(eng.infer, imgs)
-        for label, (eng, imgs, _) in cases.items()})
-    for label, (_, _, expect) in cases.items():
+        **{label: functools.partial(eng.infer, imgs)
+           for label, (eng, imgs, _) in cases.items()},
+        **{label: fn for label, (fn, _) in accuracy.items()}})
+    expected = {**{label: expect for label, (_, _, expect) in cases.items()},
+                **{label: expect for label, (_, expect) in accuracy.items()}}
+    for label, expect in expected.items():
         want = {**dict.fromkeys(REPLAY_KERNELS[:3], 1),
                 **dict.fromkeys(REPLAY_KERNELS[3:], 0), **expect}
         got = trace[label]
         if got["kernels"] != want:
             raise AssertionError(f"deploy {label}: kernels of one replay "
                                  f"{got['kernels']}, expected {want}")
-        line[label].update(
-            kernels_per_replay=got["kernels"],
-            device_events_per_replay=got["device_events"],
-            compiled_busy_ms=got["busy_ms"],
-            compiled_idle_share=1.0 - got["busy_ms"]
-            / line[label]["compiled_ms"])
+        record = {"kernels_per_replay": got["kernels"],
+                  "device_events_per_replay": got["device_events"],
+                  "busy_ms": got["busy_ms"]}
+        if label in cases:
+            record["compiled_busy_ms"] = record.pop("busy_ms")
+            record["compiled_idle_share"] = (
+                1.0 - got["busy_ms"] / line[label]["compiled_ms"])
+        line.setdefault(label, {}).update(record)
     log(f"deploy: one replay of each graph traced, kernels by name "
         f"{ {k: v['kernels'] for k, v in trace.items()} }")
-    del cases, int8
+    del cases
     torch.cuda.empty_cache()
 
     env = dict(os.environ, PYTHONPATH=HERE)
     with tempfile.TemporaryDirectory(dir=HERE,
                                      prefix=".smoke_bank_deploy_") as tmp:
-        # export at batch 8, reload in a fresh process
+        # export at batch 8 (the int8 engine calibrated), reload in a fresh
+        # process; each reloaded artifact is held against the compiled
+        # engine's HumanBatch
         line["export"] = {}
-        labels = {"default": (default, 0), "fused": (fused, n_fused)}
+        labels = {"default": (default, {}),
+                  "fused": (fused, {"fused_sepconv": n_fused}),
+                  "int8_vgg19": (int8, {"int8_conv": n_convs})}
         for label, (eng, _) in labels.items():
             t0 = time.perf_counter()
             export.save_engine(eng, os.path.join(tmp, label),
@@ -2902,19 +3223,36 @@ def deploy_phase(torch, np, engine, fused_engine, images, n_fused, dev,
         if loaded.pop("port_modules"):
             raise AssertionError("loading an artifact imported the model "
                                  "code")
-        for label, (_, fused_n) in labels.items():
+        from openpose_plus_tpu_torch.graphs import CAPTURE_WARMUP
+
+        k = CAPTURE_WARMUP + 1
+        for label, (_, expect) in labels.items():
             got = loaded[label]
             n = got["launches"]
-            if not got["equal"] or min(
-                    n[k] for k in ("greedy_assign", "assemble",
-                                   "sample_paf")) < 1 or (
-                    n["fused_sepconv"] != fused_n):
+            want = {**{name: k for name in ("greedy_assign", "assemble",
+                                            "sample_paf")},
+                    "fused_sepconv": 0, "int8_conv": 0,
+                    **{name: k * v for name, v in expect.items()}}
+            if not (got["equal"] and got["equal_replay"]) or n != want or any(
+                    got["replay_launches"].values()):
                 raise AssertionError(f"artifact {label} in a fresh process: "
-                                     f"{got}")
+                                     f"{got}, expected first-call launches "
+                                     f"{want} and none in the replay")
+            compiled = line[{"default": "batch8", "fused": "fused_batch8",
+                             "int8_vgg19": "int8_vgg19_batch8"}[label]]
+            got["compiled_device_events_per_replay"] = compiled[
+                "device_events_per_replay"]
+            got["compiled_ms"] = compiled["compiled_ms"]
+            if got["kernels_per_replay"] != compiled["kernels_per_replay"]:
+                raise AssertionError(f"artifact {label}: kernels of one "
+                                     f"replay {got['kernels_per_replay']}, "
+                                     f"the compiled engine's "
+                                     f"{compiled['kernels_per_replay']}")
             line["export"][label].update(got)
-        log(f"deploy: artifacts reloaded in a fresh process equal the eager "
-            f"calls, launches {[loaded[k]['launches'] for k in labels]}, no "
-            "model code imported")
+        log(f"deploy: artifacts reloaded in a fresh process replay one graph "
+            f"a call equal to the compiled engines', first-call launches "
+            f"{[loaded[k]['launches'] for k in labels]}, no model code "
+            "imported")
 
         # run_frames: every batch equals infer on its letterboxed batch
         est = stream.StreamEstimator(default, batch=BATCH)
@@ -4461,6 +4799,15 @@ def main(argv: list[str]) -> int:
         return 0
 
     # ---- 2. build -------------------------------------------------------
+    phase_s, last = {}, [time.perf_counter()]
+
+    def phase_done(name: str) -> None:
+        """Log and keep the seconds since the previous phase ended."""
+        now = time.perf_counter()
+        phase_s[name] = now - last[0]
+        last[0] = now
+        log(f"phase {name}: {phase_s[name]:.1f} s")
+
     t0 = time.perf_counter()
     lib_path = build.build()
     build.load()
@@ -4511,6 +4858,8 @@ def main(argv: list[str]) -> int:
                              f"{2 * len(int8_conv.PLANS)} int8_conv "
                              "instances and the two quantize passes, each "
                              "with 0 bytes of stack and spills")
+
+    phase_done("2_build")
 
     # ---- 3. kernel phases ----------------------------------------------
     rng = np.random.default_rng(0)
@@ -4639,6 +4988,8 @@ def main(argv: list[str]) -> int:
     if launches != {"dw3x3_relu": 2, "copy_bias": 2}:
         raise AssertionError(f"probe path launches {launches}")
 
+    phase_done("3_kernels")
+
     # ---- 4. main paths ---------------------------------------------------
     engine = Engine(cfg, seed=0, device=dev)
     images = torch.from_numpy(rng.integers(
@@ -4722,10 +5073,13 @@ def main(argv: list[str]) -> int:
     log(f"scene: 3 standing people -> {n_humans[0]} humans x 18 parts, "
         f"card == cpu")
 
+    phase_done("4_main_paths")
+
     # ---- 5. accuracy paths ------------------------------------------------
     engines = {"default": engine, "fused": fused_engine}
     acc = accuracy_paths(torch, np, inputs, engines, images, counted,
                          n_fused, dev)
+    phase_done("5_accuracy_paths")
 
     # ---- 6. timings -------------------------------------------------------
     decode_device = {}
@@ -4854,48 +5208,59 @@ def main(argv: list[str]) -> int:
                                          "shape": shape_of[name],
                                          "gpu": gpu}}))
     accuracy_timings(torch, np, rng, engines, images, acc, gpu)
+    phase_done("6_timings")
 
     # ---- 7-9. the zoo, the GT-map oracle, evaluate_engine -----------------
     zoo_paths(torch, images, counted, dev, gpu)
+    phase_done("7_zoo")
     oracle_phase(torch, counted, dev, gpu)
+    phase_done("8_oracle")
     eval_card = eval_phase(torch, engine, counted, gpu)
     legacy_checkpoint(torch, engine, images, dev, gpu)
+    phase_done("9_evaluate_engine")
 
     # ---- 10. training ------------------------------------------------------
     train_phase(torch, np, counted, dev, gpu)
+    phase_done("10_training")
 
     # ---- 11. calibrated int8 ----------------------------------------------
     for name, t in int8_phase(torch, np, images, counted, dev, gpu).items():
         timing[name], launches[name], errs[name] = (t, t["launches"],
                                                     t["max_abs_err"])
+    phase_done("11_int8")
 
     # ---- 12. the deploy path ---------------------------------------------
     deploy_phase(torch, np, engine, fused_engine, images, n_fused, dev, gpu)
+    phase_done("12_deploy")
 
     # ---- 13. the file stream and the grouping oracle ----------------------
     stream_phase(torch, np, engine, inputs, dev, gpu)
+    phase_done("13_stream")
 
     # ---- 14. the distributed layer ----------------------------------------
     parallel_phase(torch, np, engine, gains, images, eval_card, counted,
                    dev, gpu)
+    phase_done("14_parallel")
 
     # ---- 15. the bench, in a fresh process: its profiler session would be
     # this process's seventh, and a seventh lost records (run 72) or crashed
     # the process (run 88)
     torch.cuda.empty_cache()
-    t0 = time.perf_counter()
     proc = subprocess.run([sys.executable, os.path.abspath(__file__),
                            "--bench-phase"], cwd=HERE, timeout=900)
     if proc.returncode != 0:
         raise AssertionError(f"phase 15 (--bench-phase): rc {proc.returncode}")
-    log(f"phase 15: {time.perf_counter() - t0:.1f} s in a fresh process")
+    phase_done("15_bench")
 
     # ---- 17. the accuracy studies -----------------------------------------
-    t0 = time.perf_counter()
     studies_phase(torch, counted, dev, gpu)
-    log(f"phase 17: {time.perf_counter() - t0:.1f} s")
+    phase_done("17_studies")
     if args.profile:
         profile(torch, np, rng, engine, images, gpu)
+        phase_done("16_profile")
+    log(json.dumps({"phase_seconds": {**phase_s,
+                                      "total": sum(phase_s.values()),
+                                      "gpu": gpu}}))
 
     if foreign_modules():
         raise AssertionError(f"the port pulled in {foreign_modules()}")

@@ -220,7 +220,7 @@ def train_model(model: str, steps: int, lr: float, ann: str, imgs: str,
                     f.write(f"{i + 1},{loss:.6g},"
                             f"{float(metrics['loss_conf_last']):.6g},"
                             f"{float(metrics['loss_paf_last']):.6g},"
-                            f"{metrics['lr']:.6g},{seconds:.3f}\n")
+                            f"{float(metrics['lr']):.6g},{seconds:.3f}\n")
                     f.flush()
                     print(f"[{model}] step {i + 1}/{steps}: loss "
                           f"{loss:.2f} ({seconds:.0f}s)", flush=True)

@@ -261,7 +261,7 @@ class ChainedStep:
     The scores are finite, so every iteration serves `images`, but the
     card cannot start one before the last has written the carry. On a CUDA
     engine `step` is captured in a CUDA graph as `Engine.compile` captures
-    (`engine.capture_graph`: its warm-up calls fill the lazy caches, an
+    (`graphs.capture_graph`: its warm-up calls fill the lazy caches, an
     int8 engine's packed weights among them, so an int8 engine must be
     calibrated first); `run(n)` replays it n times, and `out` is the
     graph's own HumanBatch, overwritten by each replay. On the CPU `run`
@@ -291,7 +291,7 @@ class ChainedStep:
 
     @torch.inference_mode()
     def _capture(self) -> None:
-        from openpose_plus_tpu_torch.engine import capture_graph
+        from openpose_plus_tpu_torch.graphs import capture_graph
 
         self.graph, self.out = capture_graph(self.step, self.engine.device)
 
@@ -462,8 +462,10 @@ def train(model: str = "mobilenet_thin", batch: int = 8, hin: int = 368,
     make_train_step_on_batch`: uint8 normalize, `make_targets` on the
     device, forward, loss, backward, update) by the same slope, each step's
     mask perturbed by the previous loss (+ loss * 1e-12) so the steps run in
-    order. The step is eager (no graph), so the figure includes the host's
-    launch time, as the port's training pays it."""
+    order. On the card the step is one CUDA-graph replay (after its warm-up
+    steps and the capture), the program the JAX package's `bench_train`
+    times: the figure is the device's, with the batch's copy into the
+    graph's buffers."""
     from openpose_plus_tpu_torch import train as T
     from openpose_plus_tpu_torch.config import default_config
 

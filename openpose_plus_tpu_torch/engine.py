@@ -7,15 +7,18 @@ the space-to-depth input layouts, and calibrated int8 serving (`calibrate`,
 `compile`, the reference's ahead-of-time build: a CUDA-graph capture of the
 served step at one batch size and layout. The whole pipeline runs on the
 engine's device — uint8 frames in, `HumanBatch` out — with the decoder's
-serial tail in the hand-written CUDA kernels on a GPU. Calls that were not
-compiled run eagerly. `Engine(mesh=)` serves a global batch across the
-ranks of a `DeviceMesh` (`parallel/sharding.py`).
+serial tail in the hand-written CUDA kernels on a GPU. On a GPU, flip-TTA
+and the scale search are captured at their first call of a shape (the
+reference jits them), so later calls replay one CUDA graph each; plain
+`infer` replays a graph at the shapes `compile` built and runs eagerly at
+others. A CPU engine runs every call eagerly. `Engine(mesh=)` serves a
+global batch across the ranks of a `DeviceMesh` (`parallel/sharding.py`).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Mapping, Optional
+from typing import Callable, Mapping, Optional
 
 import numpy as np
 import torch
@@ -23,6 +26,7 @@ import torch.nn.functional as F
 
 from openpose_plus_tpu_torch.checkpoint import from_flax, load_model_state
 from openpose_plus_tpu_torch.config import Config, PostprocConfig, default_config
+from openpose_plus_tpu_torch.graphs import capture_graph
 from openpose_plus_tpu_torch.host import INPUT_LAYOUTS
 from openpose_plus_tpu_torch.models import common, get_model
 from openpose_plus_tpu_torch.parallel import sharding
@@ -31,7 +35,6 @@ from openpose_plus_tpu_torch.postproc import (
 from openpose_plus_tpu_torch.postproc.flip import mirror_maps
 
 _CHANNELS = (3, 12, 48)          # per INPUT_LAYOUTS level
-CAPTURE_WARMUP = 2               # eager calls before a CUDA-graph capture
 
 
 def check_input_layout(model_cfg, input_layout: str) -> int:
@@ -101,24 +104,6 @@ def infer_step(model: torch.nn.Module, images: torch.Tensor,
             infer_step(model, images[i:i + chunk], postproc_cfg)
             for i in range(0, b, chunk)])
     return decode_maps(*_forward(model, images), postproc_cfg)
-
-
-def capture_graph(step: Callable[[], Any], device: torch.device
-                  ) -> tuple[torch.cuda.CUDAGraph, Any]:
-    """`step()` captured in a CUDA graph on `device`: CAPTURE_WARMUP eager
-    calls on a side stream first (they build the kernels and fill every
-    lazy cache, an int8 engine's packed weights among them); returns the
-    graph and its own output, which each replay overwrites."""
-    side = torch.cuda.Stream(device)
-    side.wait_stream(torch.cuda.current_stream(device))
-    with torch.cuda.stream(side):
-        for _ in range(CAPTURE_WARMUP):
-            step()
-    torch.cuda.current_stream(device).wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        out = step()
-    return graph, out
 
 
 def _flip_average(model: torch.nn.Module, x: torch.Tensor
@@ -228,7 +213,14 @@ class Engine:
         divide raises.
 
     `compile(batch_size, input_layout)` captures `infer` at that shape in a
-    CUDA graph (see there); later `infer` calls at the shape replay it.
+    CUDA graph (see there); later `infer` calls at the shape replay it. On a
+    CUDA engine `infer(flip_tta=True)` and `infer_multiscale` capture at
+    their first call of an input shape (and, for the scale search, of its
+    (scales, flip, combine)): CAPTURE_WARMUP eager calls, the capture, one
+    replay; later calls copy their images in and replay that graph. Each
+    graph has its own memory pool and every call returns fresh copies of
+    its outputs. On a mesh only the rank's own slice is captured; the
+    gather runs after the replay.
 
     An int8 engine (`compute_dtype="int8"`) takes float parameters with or
     without its calibration scales (a float state_dict, or a Flax dict
@@ -273,6 +265,10 @@ class Engine:
         # compiled input shapes -> (graph, static input, static outputs),
         # or None until captured
         self._graphs: dict[tuple[int, ...], Optional[tuple]] = {}
+        # flip-TTA and the scale search, captured at their first call:
+        # ("tta", shape) or ("multiscale", shape, scales, flip, combine)
+        # -> (graph, static input, static outputs)
+        self._accuracy_graphs: dict[tuple, tuple] = {}
 
     @staticmethod
     def _mesh_axis(mesh) -> Optional[tuple]:
@@ -346,10 +342,13 @@ class Engine:
               flip_tta: bool = False) -> HumanBatch:
         """images (uint8, any of INPUT_LAYOUTS) -> skeletons (on `device`).
         flip_tta averages the maps with those of the horizontally flipped
-        image, mirrored back (2 forwards, 1 decode)."""
+        image, mirrored back (2 forwards, 1 decode); on a CUDA engine it
+        replays one graph a call (captured at the shape's first call)."""
         images = self._serving(images)
         if flip_tta:
-            out = infer_tta(self.model, images, self.config.postproc)
+            out = self._accuracy(("tta", tuple(images.shape)), images,
+                                 lambda x: infer_tta(
+                                     self.model, x, self.config.postproc))
         elif tuple(images.shape) in self._graphs:
             out = self._replay(images)
         else:
@@ -367,15 +366,20 @@ class Engine:
         combine="avg" resizes every map stack to the base output grid,
         averages and decodes once; "dedup" decodes each scale at its own
         resolution and merges the skeletons by OKS-NMS (`merge_dedup`;
-        (B, M * len(scales), ...) rows)."""
+        (B, M * len(scales), ...) rows). On a CUDA engine one graph replay
+        a call, captured at the first call of the shape and (scales, flip,
+        combine)."""
         if combine not in ("avg", "dedup"):
             raise ValueError(f"combine must be 'avg' or 'dedup', "
                              f"got {combine!r}")
         impl = (infer_multiscale_avg if combine == "avg"
                 else infer_multiscale_dedup)
-        return self._gather_humans(impl(
-            self.model, self._serving(images), self.config.postproc,
-            tuple(scales), bool(flip_tta), self.config.model.stride))
+        images = self._serving(images)
+        scales, flip = tuple(scales), bool(flip_tta)
+        key = ("multiscale", tuple(images.shape), scales, flip, combine)
+        return self._gather_humans(self._accuracy(key, images, lambda x: impl(
+            self.model, x, self.config.postproc, scales, flip,
+            self.config.model.stride)))
 
     @torch.inference_mode()
     def forward(self, images: np.ndarray | torch.Tensor
@@ -411,8 +415,9 @@ class Engine:
                 b.copy_(v.view_as(b))
         self._calibrated = True
         # the graphs hold int8 weights and rescales read at capture:
-        # recapture at the next infer
+        # recapture at the next call
         self._graphs = dict.fromkeys(self._graphs)
+        self._accuracy_graphs.clear()
 
     def calibrate_from_paths(self, paths, batch_size: int = 8) -> None:
         """Calibrate from image files, the TensorRT protocol's held-out
@@ -454,9 +459,10 @@ class Engine:
         `_infer`) captured in a `torch.cuda.CUDAGraph` over a static uint8
         input. A later `infer` of that shape copies its images in, replays
         the graph and returns fresh copies of its outputs (the next replay
-        overwrites the graph's own). Other shapes and flip-TTA run
-        eagerly. An int8 engine that still needs calibration captures at
-        its first `infer` of the shape, after calibrating; `calibrate`
+        overwrites the graph's own). Other shapes run eagerly; flip-TTA and
+        the scale search capture at their own first call. An int8 engine
+        that still needs calibration captures at its first `infer` of the
+        shape, after calibrating; `calibrate`
         drops the graphs, which are captured again at the next `infer`. A
         capture that fails raises. Weights changed after a capture are
         not seen by an int8 graph (its packed int8 weights are taken at
@@ -493,8 +499,28 @@ class Engine:
         shape = tuple(images.shape)
         if self._graphs[shape] is None:
             self._capture(shape)
-        graph, static_in, out = self._graphs[shape]
-        static_in.copy_(images)
-        graph.replay()
-        return HumanBatch(**{f.name: getattr(out, f.name).clone()
-                             for f in dataclasses.fields(out)})
+        return _run_graph(self._graphs[shape], images)
+
+    def _accuracy(self, key: tuple, images: torch.Tensor,
+                  step: Callable[[torch.Tensor], HumanBatch]) -> HumanBatch:
+        """step(images) eagerly on a CPU engine; on a CUDA engine through
+        the graph of `key`, captured over a static copy of the images at
+        the key's first call."""
+        if self.device.type != "cuda":
+            return step(images)
+        if key not in self._accuracy_graphs:
+            static_in = images.clone()
+            graph, out = capture_graph(lambda: step(static_in), self.device)
+            self._accuracy_graphs[key] = (graph, static_in, out)
+        return _run_graph(self._accuracy_graphs[key], images)
+
+
+def _run_graph(entry: tuple, images: torch.Tensor) -> HumanBatch:
+    """(graph, static input, static outputs): the images copied in, one
+    replay, fresh copies of the outputs (the next replay overwrites the
+    graph's own)."""
+    graph, static_in, out = entry
+    static_in.copy_(images)
+    graph.replay()
+    return HumanBatch(**{f.name: getattr(out, f.name).clone()
+                         for f in dataclasses.fields(out)})

@@ -8,9 +8,11 @@ project's frozen graph. Here the same step goes through
 `torch.export.export` into an ExportedProgram (`engine.pt2`, written by
 `torch.export.save`): the graph's nodes are ATen ops and the port's
 `openpose_plus_tpu_torch::` kernel ops, and its state holds the weights.
-Loading imports the op registrations, `config`, `host` and
+Loading imports the op registrations, `config`, `host`, `graphs` and
 `postproc.HumanBatch`, never `openpose_plus_tpu_torch.models` or `engine`;
-on the card the loaded graph launches the same hand-written kernels.
+on the card the loaded graph launches the same hand-written kernels, and
+`ExportedEngine.infer` replays it as one CUDA graph a call (the reference
+jits the loaded artifact).
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ import os
 import numpy as np
 import torch
 
+from openpose_plus_tpu_torch.graphs import capture_graph
 from openpose_plus_tpu_torch.postproc import HumanBatch
 
 _MANIFEST = "manifest.json"
@@ -50,12 +53,14 @@ def save_engine(engine, path: str, batch_size: int = 1,
                 input_layout: str = "plain") -> None:
     """Export the engine for a fixed batch size to `path/` (a directory):
     `engine.pt2` (torch.export.save of the traced step, weights baked in,
-    on the engine's device) and `manifest.json`.
+    on the engine's device; an int8 engine's packed int8 weights, so the
+    artifact never quantizes a weight) and `manifest.json`.
 
     input_layout: "plain" (B,hin,win,3), "s2d" (B,hin/2,win/2,12) or
     "s2d2" (B,hin/4,win/4,48), baked into the program's input signature
     and recorded in the manifest."""
     from openpose_plus_tpu_torch.engine import check_input_layout
+    from openpose_plus_tpu_torch.models.common import frozen_int8_weights
 
     if engine._needs_calibration():
         raise ValueError(
@@ -65,7 +70,7 @@ def save_engine(engine, path: str, batch_size: int = 1,
     m = engine.config.model
     shape = m.input_shape(batch_size, check_input_layout(m, input_layout))
     example = torch.zeros(shape, dtype=torch.uint8, device=engine.device)
-    with torch.no_grad():
+    with torch.no_grad(), frozen_int8_weights(engine.model):
         program = torch.export.export(
             _InferStep(engine.model, engine.config.postproc), (example,),
             strict=False)
@@ -96,7 +101,13 @@ class ExportedEngine:
     model code. Accepts plain (B, hin, win, 3) images whatever the
     artifact's baked input_layout (the space-to-depth permutation is
     applied on the host when the signature needs it), or the baked layout
-    directly."""
+    directly.
+
+    On a CUDA artifact the first `infer` captures the program in a CUDA
+    graph over a static input of the artifact's batch shape (the warm-up
+    calls, the capture, one replay); every call copies its images in,
+    replays the graph and returns fresh copies of its outputs. A CPU
+    artifact runs the program eagerly."""
 
     def __init__(self, path: str):
         # the kernel ops the program calls must be registered before load
@@ -111,6 +122,9 @@ class ExportedEngine:
         self.device = torch.device(self.manifest["device"])
         self._program = torch.export.load(os.path.join(path, _ARTIFACT))
         self._call = self._program.module()
+        if self.device.type == "cuda":
+            _constants_to(self._call, self.device)
+        self._graph = None       # (graph, static input, static outputs)
 
     @property
     def config(self):
@@ -134,8 +148,52 @@ class ExportedEngine:
         if level and images.shape[-1] == 3:       # plain images: pack them
             images = np.stack([host.pack(f, level) for f in np.asarray(
                 torch.as_tensor(images, dtype=torch.uint8).cpu())])
-        out = self._call(torch.as_tensor(images, device=self.device))
-        return HumanBatch(**dict(zip(FIELDS, out)))
+        x = torch.as_tensor(images, device=self.device)
+        if self.device.type != "cuda":
+            return HumanBatch(**dict(zip(FIELDS, self._call(x))))
+        if self._graph is None:
+            static_in = x.clone()
+            graph, out = capture_graph(lambda: self._call(static_in),
+                                       self.device)
+            self._graph = (graph, static_in, out)
+        graph, static_in, out = self._graph
+        if x.shape != static_in.shape or x.dtype != static_in.dtype:
+            raise ValueError(f"expected {static_in.dtype} images of shape "
+                             f"{tuple(static_in.shape)}, the artifact's, "
+                             f"got {x.dtype} {tuple(x.shape)}")
+        static_in.copy_(x)
+        graph.replay()
+        return HumanBatch(**{name: t.clone() for name, t in zip(FIELDS, out)})
+
+
+def _constants_to(module: torch.fx.GraphModule, device: torch.device
+                  ) -> None:
+    """The program's host-made constants (the decoder's smoothing operator
+    and tables, built from numpy while it was traced: `lift_fresh_copy`
+    of a CPU tensor, a check that it is on the CPU, a copy to the card)
+    moved to `device` once, with their CPU checks dropped: left on the CPU
+    they are copied over at every call, which a CUDA-graph capture
+    refuses."""
+    copy, check = (torch.ops.aten.lift_fresh_copy.default,
+                   torch.ops.aten._assert_tensor_metadata.default)
+    graph = module.graph
+    for node in list(graph.nodes):
+        if node.op != "get_attr":
+            continue
+        owner, _, name = node.target.rpartition(".")
+        parent = module.get_submodule(owner)
+        value = getattr(parent, name)
+        if (not isinstance(value, torch.Tensor)
+                or isinstance(value, torch.nn.Parameter)
+                or value.device.type != "cpu"):
+            continue
+        setattr(parent, name, value.to(device))
+        copies = [u for u in node.users if u.target is copy]
+        for user in [*node.users, *(u for c in copies for u in c.users)]:
+            if user.target is check:
+                graph.erase_node(user)
+    graph.lint()
+    module.recompile()
 
 
 def load_engine(path: str) -> ExportedEngine:

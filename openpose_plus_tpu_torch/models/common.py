@@ -27,8 +27,9 @@ bf16 float path and grow the scales instead (`Engine.calibrate`).
 
 from __future__ import annotations
 
+import contextlib
 import math
-from typing import NamedTuple
+from typing import Iterator, NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -100,10 +101,12 @@ class _Int8Layer(nn.Module):
     """The int8 state of a quantized layer: the calib buffers, the
     calibration flag, and the int8 weights cached per float weight (the
     inference weights do not change; an in-place update or a
-    `load_state_dict` bumps the weight's version and drops the cache)."""
+    `load_state_dict` bumps the weight's version and drops the cache).
+    `int8_weight_name` names the float weight the int8 conv runs on."""
 
-    def _init_int8(self, dtype: str) -> None:
+    def _init_int8(self, dtype: str, weight_name: str) -> None:
         self.int8 = dtype == "int8"
+        self.int8_weight_name = weight_name
         if self.int8:
             self.calibrating = False
             self.register_buffer("act_scale", torch.zeros(()))
@@ -111,7 +114,9 @@ class _Int8Layer(nn.Module):
         self._qcache: tuple | None = None
 
     def _int8_weights(self, weight: torch.Tensor) -> tuple:
-        if torch.compiler.is_compiling():   # traced: fake weights, no cache
+        if torch.compiler.is_compiling():   # traced: no cache
+            if "packed_weight" in self._buffers:     # frozen_int8_weights
+                return self.packed_weight, self.weight_max
             qw, wmax = int8_conv.quantize_weight(weight)
             return int8_conv.pack_weight(qw), wmax
         key = (weight.data_ptr(), weight._version, weight.device)
@@ -152,6 +157,26 @@ class _Int8Layer(nn.Module):
                                 stride, pads,
                                 s_out).permute(0, 3, 1, 2)
         return QAct(y, s_out) if emit_q else y
+
+
+@contextlib.contextmanager
+def frozen_int8_weights(model: nn.Module) -> Iterator[None]:
+    """While `model` is traced (`torch.export`): each int8 layer's packed
+    weights and weight maximum as non-persistent buffers, which the traced
+    layer reads as they are, so the program holds them as constants
+    instead of quantizing and packing the float weights at every call."""
+    layers = [m for m in model.modules()
+              if isinstance(m, _Int8Layer) and m.int8]
+    for layer in layers:
+        packed, wmax = layer._int8_weights(getattr(layer,
+                                                   layer.int8_weight_name))
+        layer.register_buffer("packed_weight", packed, persistent=False)
+        layer.register_buffer("weight_max", wmax, persistent=False)
+    try:
+        yield
+    finally:
+        for layer in layers:
+            del layer._buffers["packed_weight"], layer._buffers["weight_max"]
 
 
 def maxpool2x2(x):
@@ -258,7 +283,7 @@ class ConvRelu(_Int8Layer):
         self.weight = nn.Parameter(
             torch.empty(features, in_features, kernel, kernel))
         self.bias = nn.Parameter(torch.zeros(features))
-        self._init_int8(dtype)
+        self._init_int8(dtype, "weight")
 
     def forward(self, x):
         if self.int8:
@@ -294,7 +319,7 @@ class SepConvRelu(_Int8Layer):
         self.pw_weight = nn.Parameter(
             torch.empty(features, in_features, 1, 1))
         self.pw_bias = nn.Parameter(torch.zeros(features))
-        self._init_int8(dtype)
+        self._init_int8(dtype, "pw_weight")
 
     def forward(self, x):
         x = dequant(x)
@@ -428,9 +453,11 @@ class MultiStageHead(nn.Module):
         if self.remat and torch.is_grad_enabled():
             # the recompute runs in the backward pass, under the band of
             # the forward (its halo exchanges in the same order on every
-            # rank)
+            # rank); the branches draw no random numbers, so no RNG state
+            # is stashed (reading it is not allowed in a CUDA-graph capture)
             return torch.utils.checkpoint.checkpoint(
-                spatial.keep_band(branch), x, use_reentrant=False)
+                spatial.keep_band(branch), x, use_reentrant=False,
+                preserve_rng_state=False)
         return branch(x)
 
 

@@ -30,10 +30,12 @@ JAX package has `pmean` / `ppermute` inside `shard_map`:
     collective that every backend takes on CUDA tensors;
   * the metrics: one `all_reduce` of three scalars.
 
-The update is `train._update`'s Adam or momentum step unchanged. On a
-(data, spatial) mesh, sync-sgd runs each rank on its band of the images
-(`parallel.spatial`); sma and pair-avg refuse a spatial axis, as the
-reference does.
+The update is `train._update`'s Adam or momentum step unchanged, eager:
+gloo's collectives cannot be captured in a CUDA graph. A world of one (no
+mesh) takes `train.make_train_step_on_batch`'s step, one CUDA-graph replay
+a step on the card. On a (data, spatial) mesh, sync-sgd runs each rank on
+its band of the images (`parallel.spatial`); sma and pair-avg refuse a
+spatial axis, as the reference does.
 """
 
 from __future__ import annotations
@@ -124,7 +126,8 @@ def make_kungfu_steps(config: Config, mesh, strategy: str
     Returns a list; the train loop cycles `fns[step % len(fns)]`: one
     function for sync-sgd and sma, log2(n) for pair-avg (round r pairs the
     ranks along bit r). `mesh` is the `DeviceMesh` of the ranks, or None
-    for a world of one without a process group (no collectives)."""
+    for a world of one without a process group (no collectives: the
+    single-device step, a CUDA-graph replay on the card)."""
     from openpose_plus_tpu_torch import train as T
 
     if strategy not in STRATEGIES:
@@ -153,20 +156,20 @@ def make_kungfu_steps(config: Config, mesh, strategy: str
                 spatial.band_forward,
                 spatial.axis_band(mesh, m.hin, m.stride))
     targets = T.batch_on_device(config)
+    single = T.make_train_step_on_batch(config) if mesh is None else None
 
     def reduce_grads(model: torch.nn.Module) -> None:
         all_reduce_mean([p.grad for p in model.parameters()], reduce_group,
                         divisor=n)
 
     def step(state, batch, *, rnd: int):
+        if single is not None:
+            return single(state, batch)
         after_backward: Optional[Callable] = (
-            reduce_grads if strategy == "sync-sgd" and group is not None
-            else None)
+            reduce_grads if strategy == "sync-sgd" else None)
         state, metrics = T._update(state, *targets(state, batch),
                                    after_backward=after_backward,
                                    forward=forward)
-        if group is None:
-            return state, metrics
         params = [p.detach() for p in state.model.parameters()]
         if strategy == "sma":
             all_reduce_mean(params, group)

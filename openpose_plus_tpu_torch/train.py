@@ -16,7 +16,18 @@ Port of `openpose_plus_tpu/train.py`, function for function:
   * checkpoints with resume (`checkpoint.save` / `restore`)
 
 A step runs on one torch device, the card unless the caller passes
-`device="cpu"`; without a CUDA device the default raises. `train_loop`
+`device="cpu"`; without a CUDA device the default raises. On the card the
+single-device step is one CUDA-graph replay (the reference jits it): the
+first CAPTURE_WARMUP steps of a batch shape run eagerly, each a real step
+on its own batch, the next is captured and replayed, and every later step
+copies its batch into the graph's buffers and replays (`make_train_step`,
+`make_train_step_on_batch`, the world-of-one step of
+`kungfu.make_kungfu_steps`, so `train_loop`, `ap_bench` and `bench
+train`). The lr lives in a float32 tensor on the parameters' device that
+the schedule fills before each step, so a replay reads this step's lr. On
+the CPU, and for the multi-rank strategies, the spatial forward and
+`_update`'s hooks, the step runs eagerly, as do the heatmap dumps
+(`_dump_vis`). `train_loop`
 runs on every rank of the process group it finds (or starts, with
 `config.parallel.multihost`: one process a rank under `torchrun`), with
 the KungFu strategy `config.train.kf_optimizer` ("sync-sgd", "sma",
@@ -50,19 +61,37 @@ from torch import nn
 from openpose_plus_tpu_torch.config import Config, TrainConfig
 from openpose_plus_tpu_torch.data.targets import make_targets
 from openpose_plus_tpu_torch.engine import preprocess_images
+from openpose_plus_tpu_torch.graphs import (CAPTURE_WARMUP, capture_graph,
+                                            on_side_stream)
 from openpose_plus_tpu_torch.models import common, get_model
+
+
+@dataclasses.dataclass
+class _Captured:
+    """A captured train step: its graph, the static device buffers the
+    batch is copied into, and the graph's own metrics (each replay
+    overwrites them)."""
+
+    graph: torch.cuda.CUDAGraph
+    inputs: tuple
+    metrics: dict
 
 
 @dataclasses.dataclass
 class TrainState:
     """The step count and the objects a step updates in place: the model
-    (in train mode), its optimizer and its lr schedule."""
+    (in train mode), its optimizer and its lr schedule. `graphs` holds the
+    state's captured steps on the card, keyed by the step's kind and the
+    batch's shapes and dtypes: the count of eager warm-up steps taken so
+    far, then the `_Captured` step."""
 
     step: int
     model: nn.Module
     optimizer: torch.optim.Optimizer
     scheduler: torch.optim.lr_scheduler.LambdaLR
     device: torch.device
+    graphs: dict = dataclasses.field(default_factory=dict, repr=False,
+                                     compare=False)
 
     def state_dict(self) -> dict:
         return {"step": self.step, "model": self.model.state_dict(),
@@ -70,10 +99,15 @@ class TrainState:
                 "scheduler": self.scheduler.state_dict()}
 
     def load_state_dict(self, state: dict) -> None:
+        """Load in place. The optimizer's state tensors and lr are new
+        objects afterwards, so the captured steps are dropped: the next
+        steps warm up and capture again."""
         self.step = int(state["step"])
         self.model.load_state_dict(state["model"])
         self.optimizer.load_state_dict(state["optimizer"])
         self.scheduler.load_state_dict(state["scheduler"])
+        _device_lr(self.optimizer)
+        self.graphs.clear()
 
 
 def effective_lr_init(cfg: TrainConfig, out_area: Optional[int] = None
@@ -101,6 +135,64 @@ def lr_schedule(cfg: TrainConfig, out_area: Optional[int] = None
     return lambda count: init * decay(count)
 
 
+class MomentumSGD(torch.optim.SGD):
+    """`torch.optim.SGD` (momentum, no dampening, not Nesterov) that takes
+    a tensor lr on the card: buf = momentum * buf + g (g with the coupled
+    L2 added; buf = g at the first step), then p -= lr * buf. torch's SGD
+    reads a tensor lr as a Python scalar, which a CUDA-graph capture cannot
+    do; here a CUDA lr is read on the device (the product lr * buf rounded
+    on its own), a CPU one as torch's SGD reads it (one rounding, as the
+    reference's fused update)."""
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        if closure is not None:
+            raise ValueError("MomentumSGD takes no closure")
+        for group in self.param_groups:
+            params = [p for p in group["params"] if p.grad is not None]
+            if not params:
+                continue
+            grads = [p.grad for p in params]
+            if group["weight_decay"]:
+                grads = torch._foreach_add(grads, params,
+                                           alpha=group["weight_decay"])
+            states = [self.state[p] for p in params]
+            if all("momentum_buffer" in st for st in states):
+                bufs = [st["momentum_buffer"] for st in states]
+                torch._foreach_mul_(bufs, group["momentum"])
+                torch._foreach_add_(bufs, grads)
+            else:
+                bufs = [g.detach().clone() for g in grads]
+                for st, buf in zip(states, bufs):
+                    st["momentum_buffer"] = buf
+            lr = group["lr"]
+            if lr.device.type == "cuda":
+                torch._foreach_sub_(params, torch._foreach_mul(bufs, lr))
+            else:
+                torch._foreach_add_(params, bufs, alpha=-float(lr))
+
+
+def _device_lr(optimizer: torch.optim.Optimizer) -> None:
+    """Each group's lr as a float32 tensor on its parameters' device (the
+    schedule fills it in place; a captured step reads it at replay), and
+    Adam capturable on a card, its step counts there (a checkpoint written
+    on another device loads so too)."""
+    for group in optimizer.param_groups:
+        dev = group["params"][0].device if group["params"] else (
+            torch.device("cpu"))
+        lr = group["lr"]
+        if not (isinstance(lr, torch.Tensor) and lr.device == dev
+                and lr.dtype == torch.float32):
+            group["lr"] = torch.tensor(float(lr), dtype=torch.float32,
+                                       device=dev)
+        if isinstance(optimizer, torch.optim.Adam):
+            group["capturable"] = dev.type == "cuda"
+            for p in group["params"]:
+                st = optimizer.state.get(p, {})
+                if "step" in st and group["capturable"]:
+                    st["step"] = st["step"].to(dev, torch.float32)
+
+
 def make_optimizer(cfg: TrainConfig, model: nn.Module,
                    out_area: Optional[int] = None
                    ) -> tuple[torch.optim.Optimizer,
@@ -108,7 +200,10 @@ def make_optimizer(cfg: TrainConfig, model: nn.Module,
     """The optimizer over `model`'s parameters and its lr schedule, a
     LambdaLR stepped once after each optimizer step. Two parameter groups:
     the kernels (ndim >= 2) with `weight_decay` as coupled L2, the biases
-    with none."""
+    with none. Each group's lr is a float32 tensor on the parameters'
+    device, which the schedule fills with its float64 value (one rounding);
+    on a card Adam is `capturable` and momentum is `MomentumSGD`, so the
+    step can be captured in a CUDA graph."""
     params = list(model.parameters())
     groups = [{"params": [p for p in params if p.ndim >= 2],
                "weight_decay": cfg.weight_decay},
@@ -118,11 +213,14 @@ def make_optimizer(cfg: TrainConfig, model: nn.Module,
     if cfg.optimizer == "adam":
         opt = torch.optim.Adam(groups, lr=lr, betas=(0.9, 0.999), eps=1e-8)
     elif cfg.optimizer == "momentum":
-        opt = torch.optim.SGD(groups, lr=lr, momentum=cfg.momentum,
-                              dampening=0.0, nesterov=False)
+        opt = MomentumSGD(groups, lr=lr, momentum=cfg.momentum,
+                          dampening=0.0, nesterov=False)
     else:
         raise ValueError(f"unknown optimizer {cfg.optimizer!r}")
-    return opt, torch.optim.lr_scheduler.LambdaLR(opt, _decay(cfg))
+    # the schedule keeps float base lrs; the groups then get their tensors
+    sched = torch.optim.lr_scheduler.LambdaLR(opt, _decay(cfg))
+    _device_lr(opt)
+    return opt, sched
 
 
 def pose_loss(outputs: dict, gt_conf: torch.Tensor, gt_paf: torch.Tensor,
@@ -184,17 +282,13 @@ def create_train_state(config: Config, seed: int = 0,
                       device=dev)
 
 
-def _update(state: TrainState, images: torch.Tensor, gt_conf: torch.Tensor,
-            gt_paf: torch.Tensor, mask: Optional[torch.Tensor],
-            after_backward: Optional[Callable[[nn.Module], None]] = None,
-            forward: Optional[Callable[[nn.Module, torch.Tensor], dict]]
-            = None) -> tuple[TrainState, dict]:
-    """One optimizer step in place; metrics stay on the device (no sync)
-    but `lr`, the schedule's value at the step before its increment.
-    `forward(model, images)` replaces the model call (the spatial axis's
-    band forward); `after_backward(model)` runs between the backward pass
-    and the update (sync-sgd's gradient all-reduce)."""
-    lr = state.optimizer.param_groups[0]["lr"]
+def _apply(state: TrainState, images: torch.Tensor, gt_conf: torch.Tensor,
+           gt_paf: torch.Tensor, mask: Optional[torch.Tensor],
+           after_backward: Optional[Callable[[nn.Module], None]] = None,
+           forward: Optional[Callable[[nn.Module, torch.Tensor], dict]]
+           = None) -> dict:
+    """The device work of one step: forward, loss, backward, update (what
+    a captured step replays); returns the metrics on the device."""
     state.optimizer.zero_grad(set_to_none=True)
     outputs = (state.model(images) if forward is None
                else forward(state.model, images))
@@ -203,19 +297,89 @@ def _update(state: TrainState, images: torch.Tensor, gt_conf: torch.Tensor,
     if after_backward is not None:
         after_backward(state.model)
     state.optimizer.step()
+    return dict({k: v.detach() for k, v in metrics.items()},
+                loss=loss.detach())
+
+
+def _lr_metric(state: TrainState) -> torch.Tensor:
+    """The lr of this step, copied before the schedule refills it."""
+    return state.optimizer.param_groups[0]["lr"].clone()
+
+
+def _update(state: TrainState, images: torch.Tensor, gt_conf: torch.Tensor,
+            gt_paf: torch.Tensor, mask: Optional[torch.Tensor],
+            after_backward: Optional[Callable[[nn.Module], None]] = None,
+            forward: Optional[Callable[[nn.Module, torch.Tensor], dict]]
+            = None) -> tuple[TrainState, dict]:
+    """One optimizer step in place, eagerly; metrics stay on the device (no
+    sync), `lr` too: the schedule's value at the step before its
+    increment. `forward(model, images)` replaces the model call (the
+    spatial axis's band forward); `after_backward(model)` runs between the
+    backward pass and the update (sync-sgd's gradient all-reduce)."""
+    lr = _lr_metric(state)
+    return _finish(state, _apply(state, images, gt_conf, gt_paf, mask,
+                                 after_backward, forward), lr)
+
+
+def _graphed(state: TrainState, kind: str,
+             inputs: tuple[Optional[torch.Tensor], ...],
+             body: Callable[..., dict]) -> tuple[TrainState, dict]:
+    """One step of `body(state, *inputs)` (device tensors in, metrics out),
+    eagerly on the CPU; on the card one CUDA-graph replay a step, keyed by
+    `kind` and the inputs' shapes and dtypes. A key's first CAPTURE_WARMUP
+    steps run eagerly on a side stream (each a real step on its own
+    batch); the next captures `body` over static copies of its inputs
+    (the capture executes nothing) and replays it; later steps copy their
+    inputs in and replay. The lr metric and the schedule's step stay
+    outside the graph, so a run of n steps makes n updates either way."""
+    lr = _lr_metric(state)
+    if state.device.type != "cuda":
+        return _finish(state, body(state, *inputs), lr)
+    key = (kind, *((None if t is None else (tuple(t.shape), t.dtype))
+                   for t in inputs))
+    entry = state.graphs.get(key, 0)
+    if isinstance(entry, int) and entry < CAPTURE_WARMUP:
+        state.graphs[key] = entry + 1
+        metrics = on_side_stream(lambda: body(state, *inputs), state.device)
+        return _finish(state, metrics, lr)
+    if isinstance(entry, int):
+        static = tuple(None if t is None else t.clone() for t in inputs)
+        graph, out = capture_graph(lambda: body(state, *static),
+                                   state.device, warmup=0)
+        entry = state.graphs[key] = _Captured(graph, static, out)
+    for dst, src in zip(entry.inputs, inputs):
+        if dst is not None:
+            dst.copy_(src)
+    entry.graph.replay()
+    return _finish(state, {k: v.clone() for k, v in entry.metrics.items()},
+                   lr)
+
+
+def _finish(state: TrainState, metrics: dict, lr: torch.Tensor
+            ) -> tuple[TrainState, dict]:
+    """The host's part of a step: the schedule, the count, the lr metric
+    (taken before the schedule steps)."""
     state.scheduler.step()
     state.step += 1
-    metrics = {k: v.detach() for k, v in metrics.items()}
-    return state, dict(metrics, loss=loss.detach(), lr=lr)
+    return state, dict(metrics, lr=lr)
 
 
 def make_train_step(config: Config):
     """step(state, images, gt_conf, gt_paf, mask) -> (state, metrics):
     `images` are preprocessed float images on the state's device, the GT
     maps (B, hout, wout, 19 / 38) and the mask (B, hout, wout, 1) too. The
-    state is updated in place and returned."""
+    state is updated in place and returned. On the card a step is one
+    CUDA-graph replay (after the warm-up steps and the capture of its
+    shapes; see `_graphed`)."""
     _check_trainable(config)
-    return _update
+
+    def step(state: TrainState, images: torch.Tensor, gt_conf: torch.Tensor,
+             gt_paf: torch.Tensor, mask: Optional[torch.Tensor] = None
+             ) -> tuple[TrainState, dict]:
+        return _graphed(state, "maps", (images, gt_conf, gt_paf, mask),
+                        _apply)
+
+    return step
 
 
 def _to_device(x: Any, device: torch.device) -> torch.Tensor:
@@ -229,6 +393,23 @@ def _to_device(x: Any, device: torch.device) -> torch.Tensor:
     return t.to(device, non_blocking=True)
 
 
+_BATCH_KEYS = ("images", "keypoints", "mask")
+
+
+def _targets_fn(config: Config):
+    """(images uint8, keypoints, mask) on the device -> (images, gt_conf,
+    gt_paf, mask): normalised (/255 - 0.5), GT maps at the output grid."""
+    m, d = config.model, config.data
+
+    def on_device(images: torch.Tensor, keypoints: torch.Tensor,
+                  mask: torch.Tensor) -> tuple:
+        gt_conf, gt_paf = make_targets(keypoints, m.hout, m.wout, m.stride,
+                                       d.sigma, d.limb_width)
+        return preprocess_images(images), gt_conf, gt_paf, mask
+
+    return on_device
+
+
 def batch_on_device(config: Config):
     """targets(state, batch) -> (images, gt_conf, gt_paf, mask) of a
     pipeline batch {'images' uint8 (any input layout Engine takes),
@@ -236,25 +417,31 @@ def batch_on_device(config: Config):
     copied to the state's device once, normalised there (/255 - 0.5) and
     its GT maps synthesised there at the model's output grid."""
     _check_trainable(config)
-    m, d = config.model, config.data
+    on_device = _targets_fn(config)
 
     def targets(state: TrainState, batch: dict) -> tuple:
-        dev = state.device
-        images = preprocess_images(_to_device(batch["images"], dev))
-        keypoints = _to_device(batch["keypoints"], dev)
-        mask = _to_device(batch["mask"], dev)
-        gt_conf, gt_paf = make_targets(keypoints, m.hout, m.wout, m.stride,
-                                       d.sigma, d.limb_width)
-        return images, gt_conf, gt_paf, mask
+        return on_device(*(_to_device(batch[k], state.device)
+                           for k in _BATCH_KEYS))
 
     return targets
 
 
 def make_train_step_on_batch(config: Config):
     """step(state, batch) -> (state, metrics) over a pipeline batch (see
-    `batch_on_device`)."""
-    targets = batch_on_device(config)
-    return lambda state, batch: _update(state, *targets(state, batch))
+    `batch_on_device`). On the card the batch is copied to the device and
+    into the graph's buffers, and one CUDA-graph replay normalises it,
+    synthesises its GT maps and makes the step (`_graphed`)."""
+    _check_trainable(config)
+    on_device = _targets_fn(config)
+
+    def body(state: TrainState, images, keypoints, mask) -> dict:
+        return _apply(state, *on_device(images, keypoints, mask))
+
+    def step(state: TrainState, batch: dict) -> tuple[TrainState, dict]:
+        return _graphed(state, "batch", tuple(
+            _to_device(batch[k], state.device) for k in _BATCH_KEYS), body)
+
+    return step
 
 
 def train_loop(config: Config, n_steps: Optional[int] = None,

@@ -18,7 +18,13 @@ sampler at K = 1...32 with corner coordinates, the depthwise probe, the
 int8 conv (kernel sizes 1, 3 and 7, stride 2 on even and odd sizes, Cin
 of 3, 185, 537 and 576, both output modes, M and N edges, both tile plans'
 pixel counts and several N tiles) and the int8 quantize pass, empty
-batches, and the wrappers' refusals on the card.
+batches, and the wrappers' refusals on the card. Then the compiled
+programs: `Engine.compile`, flip-TTA and the scale search replayed as CUDA
+graphs (bit-equal to their eager calls on the default, fused and int8
+engines, under the default, fidelity() and quality() decoders), the train
+step as one CUDA-graph replay a step (Adam and momentum across a staircase
+boundary, remat_stages, a resume; held to the eager step within the
+eager-against-eager spread measured first), and loaded export artifacts.
 
 The separable kernels are held to their plain versions as
 tests/test_torch_sepconv.py states: `kernel_inputs.bf16_mismatch` at most 2
@@ -32,6 +38,7 @@ import torch
 # pytest puts this directory on sys.path; `from tests import ...` would
 # break where an installed package named `tests` shadows it
 import kernel_inputs
+from openpose_plus_tpu_torch.graphs import CAPTURE_WARMUP
 from openpose_plus_tpu_torch.ops.cuda import (dw_probe, greedy, int8_conv,
                                               merge, paf_sample, sepconv)
 
@@ -569,7 +576,8 @@ def _same_humans(a, b):
 def test_compiled_replay_equals_eager(cuda, fused):
     """compile captures infer in a CUDA graph: the replay launches no
     kernel from Python (the counts stay) and gives the eager HumanBatch;
-    the s2d^2 layout compiles too; other shapes and flip-TTA stay eager."""
+    the s2d^2 layout compiles too; other shapes stay eager, and flip-TTA
+    (its own graph since its first call) gives its first call's result."""
     from openpose_plus_tpu_torch.models.common import space_to_depth
 
     engine = _deploy_engine(cuda, fused=fused)
@@ -686,7 +694,255 @@ def test_stream_and_export_on_the_card(cuda, tmp_path):
     loaded = export.load_engine(str(tmp_path / "a"))
     images = _deploy_images(cuda, 6)
     before = greedy.launches
-    out = loaded.infer(images)
+    out = loaded.infer(images)           # warm-ups and the capture
     torch.cuda.synchronize()
-    assert greedy.launches == before + 1
+    assert greedy.launches == before + CAPTURE_WARMUP + 1
     assert _same_humans(out, engine.infer(images))
+
+
+# --------------------------------- flip-TTA and the scale search replayed ---
+
+_ACC_ENGINES = {}
+_ACC_PATHS = ["tta", "avg", "avg_flip", "dedup", "dedup_flip"]
+_ACC_SCALES = (0.5, 1.0, 1.5)
+
+
+def _acc_engine(cuda, kind, post):
+    """_deploy_engine as bf16 ("default"), fused or int8 (calibrated), with
+    the default, fidelity() or quality() decoder; one per (kind, post)."""
+    if (kind, post) not in _ACC_ENGINES:
+        from openpose_plus_tpu_torch import Engine
+
+        base = _deploy_engine(cuda, dtype="int8" if kind == "int8"
+                              else "bfloat16", fused=kind == "fused")
+        cfg = base.config
+        if post != "default":
+            cfg = cfg.replace(postproc=getattr(cfg.postproc, post)())
+        engine = Engine(cfg, params=base.model.state_dict(), device=cuda)
+        engine.calibrate(_deploy_images(cuda, 8))
+        _ACC_ENGINES[kind, post] = engine
+    return _ACC_ENGINES[kind, post]
+
+
+def _acc_calls(engine, path):
+    """(the engine call, the module function's eager call) of a path."""
+    from openpose_plus_tpu_torch import engine as engine_mod
+
+    cfg = engine.config
+    if path == "tta":
+        return (lambda x: engine.infer(x, flip_tta=True),
+                lambda x: engine_mod.infer_tta(engine.model, x,
+                                               cfg.postproc))
+    combine, _, flip = path.partition("_")
+    fn = (engine_mod.infer_multiscale_avg if combine == "avg"
+          else engine_mod.infer_multiscale_dedup)
+    return (lambda x: engine.infer_multiscale(
+                x, _ACC_SCALES, flip_tta=bool(flip), combine=combine),
+            lambda x: fn(engine.model, x, cfg.postproc, _ACC_SCALES,
+                         bool(flip), cfg.model.stride))
+
+
+def _python_launches():
+    return (greedy.launches, merge.launches, paf_sample.launches,
+            sepconv.launches, int8_conv.launches)
+
+
+@pytest.mark.parametrize("kind", ["default", "fused", "int8"])
+@pytest.mark.parametrize("post", ["default", "fidelity", "quality"])
+@pytest.mark.parametrize("path", _ACC_PATHS)
+def test_accuracy_replay_equals_eager(cuda, kind, post, path):
+    """flip-TTA and the scale search ("avg" and "dedup", with and without
+    the flip) capture at their first call and replay one graph a call (no
+    kernel launched from Python): each HumanBatch equals the eager module
+    function's on the same images bit for bit, and a held result survives
+    the next call."""
+    engine = _acc_engine(cuda, kind, post)
+    call, eager = _acc_calls(engine, path)
+    a, b = _deploy_images(cuda, 9), _deploy_images(cuda, 10)
+    with torch.inference_mode():
+        eager_a, eager_b = eager(a), eager(b)
+    n_graphs = len(engine._accuracy_graphs)
+    first = call(a)
+    assert len(engine._accuracy_graphs) == n_graphs + 1
+    torch.cuda.synchronize()
+    before = _python_launches()
+    held = call(a)
+    other = call(b)
+    torch.cuda.synchronize()
+    assert _python_launches() == before
+    assert len(engine._accuracy_graphs) == n_graphs + 1
+    assert _same_humans(first, eager_a) and _same_humans(held, eager_a)
+    assert _same_humans(other, eager_b)
+
+
+def test_calibrate_drops_the_accuracy_graphs(cuda):
+    """An int8 engine's flip-TTA and scale search graphs hold its scales:
+    calibrate() drops them, and the next calls capture again and equal the
+    eager calls of the engine as it then is."""
+    engine = _deploy_engine(cuda, dtype="int8")
+    images = _deploy_images(cuda, 11)
+    tta, tta_eager = _acc_calls(engine, "tta")
+    avg, avg_eager = _acc_calls(engine, "avg_flip")
+    tta(images)                  # calibrates on its batch, then captures
+    avg(images)
+    assert len(engine._accuracy_graphs) == 2
+    engine.calibrate(_deploy_images(cuda, 12) // 2 + 128)
+    assert engine._accuracy_graphs == {}
+    out, out_avg = tta(images), avg(images)
+    assert len(engine._accuracy_graphs) == 2
+    with torch.inference_mode():
+        assert _same_humans(out, tta_eager(images))
+        assert _same_humans(out_avg, avg_eager(images))
+
+
+# ------------------------------------------------ the train step replayed ---
+
+def _train_cfg(optimizer, remat=False):
+    """A small bf16 MobileNet-thin (64x80, 2 stages, batch 2), the lr
+    halved every 3 steps, coupled L2."""
+    import dataclasses
+
+    from openpose_plus_tpu_torch import default_config
+
+    cfg = default_config("mobilenet_thin")
+    return cfg.replace(
+        model=dataclasses.replace(cfg.model, hin=64, win=80, n_stages=2,
+                                  remat_stages=remat),
+        train=dataclasses.replace(cfg.train, batch_size=2,
+                                  optimizer=optimizer, lr_init=1e-3,
+                                  lr_decay_every=3, lr_decay_factor=0.5,
+                                  weight_decay=5e-4))
+
+
+def _train_batches(cfg, n):
+    """n pipeline batches: three people an image, some parts hidden."""
+    rng = np.random.default_rng(0)
+    m = cfg.model
+    out = []
+    for _ in range(n):
+        kp = np.zeros((2, 3, 18, 3), np.float32)
+        kp[..., 0] = rng.uniform(3, m.win - 3, (2, 3, 18))
+        kp[..., 1] = rng.uniform(3, m.hin - 3, (2, 3, 18))
+        kp[..., 2] = rng.uniform(0, 1, (2, 3, 18)) < 0.8
+        out.append({"images": rng.integers(0, 256, (2, m.hin, m.win, 3),
+                                           dtype=np.uint8),
+                    "keypoints": kp,
+                    "mask": np.ones((2, m.hout, m.wout, 1), np.float32)})
+    return out
+
+
+def _train(cfg, batches, cuda, graphed=True, state=None):
+    """The batches through make_train_step_on_batch (graphed) or the eager
+    `_update` on a seeded state (or `state`); returns the state."""
+    from openpose_plus_tpu_torch import train as T
+
+    if state is None:
+        state = T.create_train_state(cfg, seed=0, device=cuda)
+    step = T.make_train_step_on_batch(cfg)
+    targets = T.batch_on_device(cfg)
+    for batch in batches:
+        if graphed:
+            state, _ = step(state, batch)
+        else:
+            T._update(state, *targets(state, batch))
+    torch.cuda.synchronize()
+    return state
+
+
+def _params(state):
+    return {n: p.detach().float().clone()
+            for n, p in state.model.named_parameters()}
+
+
+def _max_diff(a, b):
+    return max(float((a[n] - b[n]).abs().max()) for n in a)
+
+
+@pytest.mark.parametrize("remat", [False, True])
+@pytest.mark.parametrize("optimizer", ["adam", "momentum"])
+def test_train_step_graph_within_eager_spread(cuda, optimizer, remat):
+    """7 steps across the lr boundaries at 3 and 6: CAPTURE_WARMUP eager
+    steps, a capture, then one replay a step. The run makes 7 updates (the
+    step, the schedule, Adam's counts), its lr metric is the schedule's,
+    and its parameters lie within the spread of two eager runs measured
+    first (cuDNN's backward is not bit-reproducible)."""
+    from openpose_plus_tpu_torch import train as T
+
+    cfg = _train_cfg(optimizer, remat)
+    batches = _train_batches(cfg, 7)
+    eager = [_params(_train(cfg, batches, cuda, graphed=False))
+             for _ in range(2)]
+    spread = _max_diff(*eager)
+    state = T.create_train_state(cfg, seed=0, device=cuda)
+    step = T.make_train_step_on_batch(cfg)
+    lrs = []
+    for batch in batches:
+        state, metrics = step(state, batch)
+        lrs.append(float(metrics["lr"]))
+    torch.cuda.synchronize()
+    assert state.step == 7 and state.scheduler.last_epoch == 7
+    (captured,) = state.graphs.values()
+    assert isinstance(captured, T._Captured)
+    if optimizer == "adam":
+        assert {int(st["step"]) for st in state.optimizer.state.values()} \
+            == {7}
+    schedule = T.lr_schedule(cfg.train)
+    assert lrs == [float(np.float32(schedule(c))) for c in range(7)]
+    assert np.isfinite(float(metrics["loss"]))
+    diff = _max_diff(_params(state), eager[0])
+    assert diff <= spread, (diff, spread)
+
+
+def test_train_resume_through_the_graph(cuda, tmp_path):
+    """4 graphed steps, a checkpoint, a restore into a fresh state and 3
+    more (which warm up and capture again) against 7 graphed steps in one
+    run: within the eager-against-eager spread."""
+    from openpose_plus_tpu_torch import checkpoint as ckpt
+    from openpose_plus_tpu_torch import train as T
+
+    cfg = _train_cfg("adam")
+    batches = _train_batches(cfg, 7)
+    spread = _max_diff(*(_params(_train(cfg, batches, cuda, graphed=False))
+                         for _ in range(2)))
+    whole = _params(_train(cfg, batches, cuda))
+    part = _train(cfg, batches[:4], cuda)
+    ckpt.save(str(tmp_path / "ck"), part, part.step)
+    fresh = ckpt.restore(str(tmp_path / "ck"), T.create_train_state(
+        cfg, seed=5, device=cuda))
+    assert fresh.step == 4 and fresh.graphs == {}
+    assert all(g["lr"].device.type == "cuda" and g["capturable"]
+               for g in fresh.optimizer.param_groups)
+    resumed = _train(cfg, batches[4:], cuda, state=fresh)
+    assert resumed.step == 7 and len(resumed.graphs) == 1
+    diff = _max_diff(_params(resumed), whole)
+    assert diff <= spread, (diff, spread)
+
+
+# ------------------------------------------------ loaded artifacts replayed ---
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "int8"])
+def test_artifact_replays_a_graph(cuda, dtype, tmp_path):
+    """A reloaded artifact captures at its first call (CAPTURE_WARMUP + 1
+    Python launches of each decoder kernel) and then replays one graph a
+    call with none, each HumanBatch equal to the engine's; a held result
+    survives the next call."""
+    from openpose_plus_tpu_torch import export
+
+    engine = _deploy_engine(cuda, dtype=dtype)
+    a, b = _deploy_images(cuda, 13), _deploy_images(cuda, 14)
+    engine.calibrate(a)
+    export.save_engine(engine, str(tmp_path / "a"), batch_size=2)
+    loaded = export.load_engine(str(tmp_path / "a"))
+    before = greedy.launches
+    first = loaded.infer(a)
+    torch.cuda.synchronize()
+    assert greedy.launches == before + CAPTURE_WARMUP + 1
+    before = _python_launches()
+    held, other = loaded.infer(a), loaded.infer(b)
+    torch.cuda.synchronize()
+    assert _python_launches() == before
+    ref_a, ref_b = engine.infer(a), engine.infer(b)
+    assert _same_humans(first, ref_a) and _same_humans(held, ref_a)
+    assert _same_humans(other, ref_b)
+    with pytest.raises(ValueError, match="artifact"):
+        loaded.infer(a[:1])

@@ -323,7 +323,8 @@ def test_port_never_imports_jax():
     """The card machine has no JAX, and the port keeps its own copies of
     what it needs: importing the port (engine, models and the zoo,
     postproc, eval_coco, ap_oracle, train, ap_bench, checkpoint, the
-    deploy modules cli, export, host, stream and utils.tracer, the loader
+    deploy modules cli, export, host, stream and utils.tracer, the CUDA-
+    graph capture (graphs), the loader
     and the grouping oracle, parallel's kungfu and sharding, the bench,
     every ops.cuda and data module), running CPU
     engines of every model through it (int8 engines too), a stream of
@@ -348,7 +349,7 @@ def test_port_never_imports_jax():
                  "export", "host", "stream", "utils.tracer", "loader",
                  "postproc.oracle", "parallel.kungfu", "parallel.sharding",
                  "bench", "tune_fragment_merge", "analyze_oracle_misses",
-                 "synthetic_e2e"):
+                 "synthetic_e2e", "graphs"):
         assert f"openpose_plus_tpu_torch.{name}'" in proc.stdout
 
 

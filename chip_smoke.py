@@ -3566,8 +3566,7 @@ def stream_phase(torch, np, engine, scenes, dev, gpu) -> None:
         runs = {}
         for r in range(STREAM_ROUNDS):       # each round in another order
             for fn, workers, name in cases[r:] + cases[:r]:
-                GLOBAL_TRACER.reset()
-                with variant(name):
+                with variant(name), GLOBAL_TRACER.recording() as rec:
                     wall, cpu = time.perf_counter(), time.process_time()
                     fps = fn(workers)
                     busy = (time.process_time() - cpu) / (
@@ -3575,8 +3574,8 @@ def stream_phase(torch, np, engine, scenes, dev, gpu) -> None:
                 key = f"{fn.__name__}_w{workers}" + (f"_{name}" if name
                                                      else "")
                 runs.setdefault(key, []).append((fps, busy, {
-                    scope: node.total_s / node.calls * 1e3
-                    for scope, node in GLOBAL_TRACER._root.children.items()}))
+                    scope: total_s / calls * 1e3
+                    for scope, (calls, total_s) in rec.summary().items()}))
         line["rates"] = {key: {
             "fps_median": statistics.median(f for f, _, _ in got),
             "fps": [f for f, _, _ in got],
@@ -4613,8 +4612,8 @@ def bench_phase(torch, np, dev, gpu) -> None:
         line[label] = {**out, "s": time.perf_counter() - t0}
         if label != "train":       # the run's host scopes, ms a call
             line[label]["scope_ms"] = {
-                scope: node.total_s * 1e3 / node.calls
-                for scope, node in GLOBAL_TRACER._root.children.items()}
+                scope: total_s * 1e3 / calls for scope, (calls, total_s)
+                in GLOBAL_TRACER.last.summary().items()}
             # the plane a photo decodes to (bench.stream's defaults)
             photos = bench.make_photo_set(3000, 4000, 16)
             first = min(f for f in os.listdir(photos) if f.endswith(".jpg"))

@@ -545,51 +545,53 @@ def stream(model: str = "mobilenet_thin", src_h: int = 3000,
     run_files(loop=True)` on a compiled engine over the seeded photo set
     (or of the `StreamLoader` alone), after draining `STREAM_DRAIN` batches
     (the read-ahead made while the engine compiled is not counted); the
-    host scopes' report of the run (`utils.tracer`) goes to stderr."""
+    host scopes' report of the run (`utils.tracer`, recorded over the whole
+    run and kept as `GLOBAL_TRACER.last`) goes to stderr."""
     from openpose_plus_tpu_torch.utils.tracer import GLOBAL_TRACER
 
     dev = check_device(device)
-    GLOBAL_TRACER.reset()
-    photo_dir = make_photo_set(src_h, src_w, n)
-    paths = sorted(glob.glob(os.path.join(photo_dir, "*.jpg")))
-    name = (f"stream_fps_{model}_{hin}x{win}_bs{batch}_src{src_h}x{src_w}"
-            + ("_loader_only" if loader_only else ""))
-    if loader_only:
-        from openpose_plus_tpu_torch.loader import StreamLoader
+    with GLOBAL_TRACER.recording() as rec:
+        photo_dir = make_photo_set(src_h, src_w, n)
+        paths = sorted(glob.glob(os.path.join(photo_dir, "*.jpg")))
+        name = (f"stream_fps_{model}_{hin}x{win}_bs{batch}_src{src_h}x{src_w}"
+                + ("_loader_only" if loader_only else ""))
+        if loader_only:
+            from openpose_plus_tpu_torch.loader import StreamLoader
 
-        loader = StreamLoader(paths, hin, win, batch=batch, workers=workers,
-                              queue_capacity=4, loop=True, s2d=2)
-        it = iter(loader)
-        try:
-            for _ in range(STREAM_DRAIN):
-                next(it)
-            t0 = time.perf_counter()
-            frames = 0
-            while frames < repeat * batch:
-                frames += next(it)["images"].shape[0]
-            dt = time.perf_counter() - t0
-        finally:
-            loader.close()
-    else:
-        from openpose_plus_tpu_torch.stream import StreamEstimator
+            loader = StreamLoader(paths, hin, win, batch=batch,
+                                  workers=workers, queue_capacity=4,
+                                  loop=True, s2d=2)
+            it = iter(loader)
+            try:
+                for _ in range(STREAM_DRAIN):
+                    next(it)
+                t0 = time.perf_counter()
+                frames = 0
+                while frames < repeat * batch:
+                    frames += next(it)["images"].shape[0]
+                dt = time.perf_counter() - t0
+            finally:
+                loader.close()
+        else:
+            from openpose_plus_tpu_torch.stream import StreamEstimator
 
-        eng = _engine(model, hin, win, "bfloat16", 0, dev)
-        est = StreamEstimator(eng, batch=batch, workers=workers)
-        it = est.run_files(paths, loop=True)
-        try:
-            for _ in range(STREAM_DRAIN):
-                next(it)
-            t0 = time.perf_counter()
-            frames = 0
-            for _ in range(repeat):
-                frames += next(it).n
-            dt = time.perf_counter() - t0
-        finally:
-            it.close()
+            eng = _engine(model, hin, win, "bfloat16", 0, dev)
+            est = StreamEstimator(eng, batch=batch, workers=workers)
+            it = est.run_files(paths, loop=True)
+            try:
+                for _ in range(STREAM_DRAIN):
+                    next(it)
+                t0 = time.perf_counter()
+                frames = 0
+                for _ in range(repeat):
+                    frames += next(it).n
+                dt = time.perf_counter() - t0
+            finally:
+                it.close()
     out = {"metric": name, "value": round(frames / dt, 2),
            "unit": "frames/s", "ms_per_frame": round(dt / frames * 1e3, 3)}
     print(json.dumps(out), flush=True)
-    print(GLOBAL_TRACER.report(), file=sys.stderr)
+    print(rec.report(), file=sys.stderr)
     return out
 
 

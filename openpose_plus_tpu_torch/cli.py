@@ -200,20 +200,21 @@ def cmd_stream(args) -> int:
     n_batches = args.repeat if args.loop else None
     frames = 0
     t0: Optional[float] = None
-    try:
-        for i, r in enumerate(it):
-            if i == 0:
-                t0 = time.perf_counter()   # skip the warm-up batch
-            else:
-                frames += r.n
-            if n_batches is not None and i >= n_batches:
-                break
-    finally:
-        it.close()
+    with GLOBAL_TRACER.recording() as rec:
+        try:
+            for i, r in enumerate(it):
+                if i == 0:
+                    t0 = time.perf_counter()   # skip the warm-up batch
+                else:
+                    frames += r.n
+                if n_batches is not None and i >= n_batches:
+                    break
+        finally:
+            it.close()
     dt = time.perf_counter() - (t0 or time.perf_counter())
     if frames:
         print(f"{frames} frames in {dt:.2f}s = {frames / dt:.1f} FPS")
-    print(GLOBAL_TRACER.report())
+    print(rec.report())
     return 0
 
 

@@ -33,6 +33,7 @@ from openpose_plus_tpu_torch.parallel import sharding
 from openpose_plus_tpu_torch.postproc import (
     HumanBatch, decode_maps, merge_dedup)
 from openpose_plus_tpu_torch.postproc.flip import mirror_maps
+from openpose_plus_tpu_torch.utils.tracer import count, scope
 
 _CHANNELS = (3, 12, 48)          # per INPUT_LAYOUTS level
 
@@ -332,10 +333,11 @@ class Engine:
     def _serving(self, images) -> torch.Tensor:
         """This rank's checked images, after the implicit calibration of an
         int8 engine on the first batch it serves."""
-        images = self._images(self._local(images))
-        if self._needs_calibration():
-            self._calibrate(images)
-        return images
+        with scope("engine.inputs"):
+            images = self._images(self._local(images))
+            if self._needs_calibration():
+                self._calibrate(images)
+            return images
 
     @torch.inference_mode()
     def infer(self, images: np.ndarray | torch.Tensor,
@@ -343,18 +345,22 @@ class Engine:
         """images (uint8, any of INPUT_LAYOUTS) -> skeletons (on `device`).
         flip_tta averages the maps with those of the horizontally flipped
         image, mirrored back (2 forwards, 1 decode); on a CUDA engine it
-        replays one graph a call (captured at the shape's first call)."""
-        images = self._serving(images)
-        if flip_tta:
-            out = self._accuracy(("tta", tuple(images.shape)), images,
-                                 lambda x: infer_tta(
-                                     self.model, x, self.config.postproc))
-        elif tuple(images.shape) in self._graphs:
-            out = self._replay(images)
-        else:
-            out = infer_step(self.model, images, self.config.postproc,
-                             self.chunk)
-        return self._gather_humans(out)
+        replays one graph a call (captured at the shape's first call).
+        Traced as the span `engine.infer`, whose call id its inner spans
+        carry, and the counter `engine.calls`."""
+        with scope("engine.infer", call=True):
+            count("engine.calls")
+            images = self._serving(images)
+            if flip_tta:
+                out = self._accuracy(("tta", tuple(images.shape)), images,
+                                     lambda x: infer_tta(
+                                         self.model, x, self.config.postproc))
+            elif tuple(images.shape) in self._graphs:
+                out = self._replay(images)
+            else:
+                out = _eager(lambda x: infer_step(
+                    self.model, x, self.config.postproc, self.chunk), images)
+            return self._gather_humans(out)
 
     @torch.inference_mode()
     def infer_multiscale(self, images: np.ndarray | torch.Tensor,
@@ -507,7 +513,7 @@ class Engine:
         the graph of `key`, captured over a static copy of the images at
         the key's first call."""
         if self.device.type != "cuda":
-            return step(images)
+            return _eager(step, images)
         if key not in self._accuracy_graphs:
             static_in = images.clone()
             graph, out = capture_graph(lambda: step(static_in), self.device)
@@ -515,12 +521,26 @@ class Engine:
         return _run_graph(self._accuracy_graphs[key], images)
 
 
+def _eager(step: Callable[[torch.Tensor], HumanBatch],
+           images: torch.Tensor) -> HumanBatch:
+    """step(images) run op by op, at a shape with no graph: the span
+    `engine.eager` and the counter `engine.eager_calls`."""
+    count("engine.eager_calls")
+    with scope("engine.eager"):
+        return step(images)
+
+
 def _run_graph(entry: tuple, images: torch.Tensor) -> HumanBatch:
     """(graph, static input, static outputs): the images copied in, one
     replay, fresh copies of the outputs (the next replay overwrites the
-    graph's own)."""
+    graph's own); the spans `engine.copy_in`, `engine.replay` (the graph's
+    launch) and `engine.outputs`, the counter `engine.replays`."""
     graph, static_in, out = entry
-    static_in.copy_(images)
-    graph.replay()
-    return HumanBatch(**{f.name: getattr(out, f.name).clone()
-                         for f in dataclasses.fields(out)})
+    count("engine.replays")
+    with scope("engine.copy_in"):
+        static_in.copy_(images)
+    with scope("engine.replay"):
+        graph.replay()
+    with scope("engine.outputs"):
+        return HumanBatch(**{f.name: getattr(out, f.name).clone()
+                             for f in dataclasses.fields(out)})

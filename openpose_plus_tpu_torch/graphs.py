@@ -10,6 +10,8 @@ from typing import Any, Callable
 
 import torch
 
+from openpose_plus_tpu_torch.utils.tracer import GLOBAL_TRACER, count, scope
+
 CAPTURE_WARMUP = 2               # eager calls before a CUDA-graph capture
 
 
@@ -33,10 +35,14 @@ def capture_graph(step: Callable[[], Any], device: torch.device,
     kernels and fill every lazy cache, an int8 engine's packed weights
     among them; a caller that ran its own warm-ups passes 0); returns the
     graph and its own output, which each replay overwrites. The capture
-    executes nothing. A capture that fails raises."""
-    for _ in range(warmup):
-        on_side_stream(step, device)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        out = step()
+    executes nothing. A capture that fails raises. Traced as the span
+    `graphs.capture` and the counter `graphs.captures`; the tracer's device
+    spans record nothing inside, so the graph carries no tracer events."""
+    count("graphs.captures")
+    with scope("graphs.capture"), GLOBAL_TRACER.no_device_spans():
+        for _ in range(warmup):
+            on_side_stream(step, device)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = step()
     return graph, out

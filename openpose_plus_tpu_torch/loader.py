@@ -12,8 +12,12 @@ layout (`host.pack`). At most
 source order (the native loader yields in completion order; source order is
 one of the orders it allows), a file that cannot be decoded is skipped, the
 short tail batch is kept, and an exception raised in a worker reaches the
-consumer. The scopes `decode`, `resize`, `s2d` and `s2d2` are timed in
-`utils.tracer.GLOBAL_TRACER`, under the native tracer's names.
+consumer. While `utils.tracer.GLOBAL_TRACER` records (or a
+`torch.profiler` session is active), the workers' scopes `decode`,
+`resize`, `s2d` and `s2d2` are spans under the native tracer's names, the
+consumer's wait for a worker is the span `loader.wait`, and each file that
+cannot be decoded counts in `loader.skipped`; otherwise they cost an
+attribute read.
 
 While a loader with more than one worker runs, cv2's own thread pool is
 held to one thread (`cv2.setNumThreads(1)`, a process-wide setting; the
@@ -57,7 +61,7 @@ import numpy as np
 
 from openpose_plus_tpu_torch import host
 from openpose_plus_tpu_torch.data import augment
-from openpose_plus_tpu_torch.utils.tracer import scope
+from openpose_plus_tpu_torch.utils.tracer import count, scope
 
 Loaded = tuple[np.ndarray, float, tuple[float, float]]
 
@@ -346,8 +350,10 @@ class PooledBatches:
                 if not self._pending:
                     break
                 index, future = self._pending.popleft()
-                loaded = future.result()
+                with scope("loader.wait"):
+                    loaded = future.result()
                 if loaded is None:
+                    count("loader.skipped")
                     misses += 1
                     if misses == self._give_up_after:
                         break

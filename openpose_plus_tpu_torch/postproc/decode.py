@@ -21,6 +21,7 @@ from openpose_plus_tpu_torch import skeleton
 from openpose_plus_tpu_torch.config import PostprocConfig
 from openpose_plus_tpu_torch.ops import device_cache
 from openpose_plus_tpu_torch.postproc import group, nms, paf
+from openpose_plus_tpu_torch.utils.tracer import scope
 
 
 @dataclasses.dataclass
@@ -88,21 +89,38 @@ def decode_maps(conf: torch.Tensor, paf_map: torch.Tensor,
 
     Maps are upcast to float32 first (bfloat16 model outputs would change
     the peak ordering). With `cfg.fragment_merge_rel > 0` (the `quality()`
-    preset) the fragment-merge pass runs before the validity filter."""
-    conf = conf.float()
-    paf_map = paf_map.float()
-    b = conf.shape[0]
+    preset) the fragment-merge pass runs before the validity filter.
+
+    Traced in three spans that time the card's work (`utils.tracer`):
+    `postproc.smooth` (the upcast, upsample and smoothing),
+    `postproc.peaks` (NMS, top-K and refinement) and `postproc.group`
+    (everything after)."""
+    with scope("postproc.smooth", device=conf.device):
+        conf = conf.float()
+        paf_map = paf_map.float()
+        smoothed = nms.upsample_smooth(conf, cfg.upsample_factor,
+                                       cfg.smooth_sigma)
+    with scope("postproc.peaks", device=conf.device):
+        peaks = nms.find_peaks(smoothed, cfg.peak_threshold, cfg.max_peaks)
+    with scope("postproc.group", device=conf.device):
+        return _group(paf_map, smoothed.shape[1:3], peaks, cfg)
+
+
+def _group(paf_map: torch.Tensor, grid: tuple[int, int], peaks: nms.PeakSet,
+           cfg: PostprocConfig) -> HumanBatch:
+    """The decode after its peaks: PAF candidate scores, greedy
+    assignment, subset merge, the peak lookup on the (h, w) grid of the
+    smoothed maps, the optional fragment merge, the validity filter and
+    the compaction."""
+    b = paf_map.shape[0]
     k = cfg.max_peaks
-    smoothed = nms.upsample_smooth(conf, cfg.upsample_factor,
-                                   cfg.smooth_sigma)
-    peaks = nms.find_peaks(smoothed, cfg.peak_threshold, k)
     cand = paf.score_candidates(
         paf_map, peaks, cfg.paf_n_samples, cfg.paf_sample_threshold,
         cfg.paf_inlier_ratio, lowres_factor=cfg.upsample_factor)
     conns = paf.greedy_assign(cand, k)
     subsets = group.assemble(conns, peaks.score, k, cfg.max_humans)
 
-    h, w = smoothed.shape[1], smoothed.shape[2]
+    h, w = grid
     rx = ((peaks.refined_x + 0.5) / w).reshape(b, -1)       # (B, 18*K)
     ry = ((peaks.refined_y + 0.5) / h).reshape(b, -1)
     table = torch.stack([rx, ry, peaks.score.reshape(b, -1)], dim=-1)

@@ -1,2 +1,2 @@
-"""Host-side helpers: skeleton drawing and debug renders (`vis`), scope
-timing and device traces (`tracer`)."""
+"""Host-side helpers: skeleton drawing and debug renders (`vis`), the
+port's spans and counters and device timing (`tracer`)."""

@@ -6,8 +6,8 @@ missing images, a large JPEG served as the loader decodes it
 the port adds or leaves to later items: `bench` runs on `--device cpu`,
 `--engine-dir` refuses engine flags, an int8 export needs calibration images,
 `--checkpoint` reads a train_loop checkpoint directory and an .npz alike.
-Also the app helpers: the `Tracer`, `timeit`, `trace_device` and
-`draw_humans` (pixel-equal to the JAX package's)."""
+Also the app helpers: the `Tracer` (off, recording, under the profiler),
+`timeit` and `draw_humans` (pixel-equal to the JAX package's)."""
 
 import dataclasses
 import functools
@@ -230,8 +230,9 @@ def test_module_entry_point_runs_the_cli():
 # -------------------------------------------------------- app helpers ---
 
 def test_tracer_nests_scopes_per_thread():
-    """Threads share the scope nodes: no update is lost (16 threads, a
-    short switch interval)."""
+    """While recording, each of 16 threads (a short switch interval) keeps
+    its own spans: none is lost, and each inner span's parent is an outer
+    span of its thread that holds it."""
     from openpose_plus_tpu_torch.utils.tracer import Tracer
 
     t = Tracer()
@@ -240,28 +241,94 @@ def test_tracer_nests_scopes_per_thread():
         for _ in range(200):
             with t.scope("outer"):
                 with t.scope("inner"):
-                    pass
+                    t.count("inner")
 
     interval = sys.getswitchinterval()
     sys.setswitchinterval(1e-6)
     try:
-        threads = [threading.Thread(target=work) for _ in range(16)]
-        for th in threads:
-            th.start()
-        for th in threads:
-            th.join(timeout=60)
+        with t.recording() as rec:
+            threads = [threading.Thread(target=work) for _ in range(16)]
+            for th in threads:
+                th.start()
+            for th in threads:
+                th.join(timeout=60)
     finally:
         sys.setswitchinterval(interval)
     assert not any(th.is_alive() for th in threads)
-    outer = t._root.children["outer"]
-    assert outer.calls == 3200 and outer.children["inner"].calls == 3200
-    lines = t.report().splitlines()
+    assert rec.summary().keys() == {"outer", "outer/inner"}
+    assert rec.summary()["outer"][0] == rec.summary()["outer/inner"][0] \
+        == 3200
+    assert rec.counters == {"inner": 3200}
+    for s in rec.spans:
+        if s.name == "inner":
+            p = rec.spans[s.parent]
+            assert p.name == "outer" and p.thread == s.thread
+            assert p.start_ns <= s.start_ns <= s.end_ns <= p.end_ns
+    lines = rec.report().splitlines()
     assert lines[1].startswith("outer") and lines[2].startswith("  inner")
-    t.reset()
-    assert t.report().splitlines()[1:] == []
+    assert lines[3].startswith("counter") and lines[4].startswith("inner")
+    with t.recording() as empty:
+        pass
+    assert empty.report().splitlines()[1:] == [] and t.last is empty
 
 
-def test_timeit_and_trace_device(tmp_path):
+def test_tracer_off_records_nothing_and_takes_no_lock():
+    """Off, a scope is the one shared null context and a count returns:
+    no span, no counter, no thread registered, the lock never taken; a
+    recording opened afterwards starts empty."""
+    from openpose_plus_tpu_torch.utils import tracer
+
+    class NoLock:
+        def __enter__(self):
+            raise AssertionError("the tracer took its lock while off")
+
+        __exit__ = acquire = release = __enter__
+
+    t = tracer.Tracer()
+    t._lock = NoLock()
+    assert t.scope("a") is tracer._NULL
+    assert t.scope("a", call=True) is tracer._NULL
+    assert t.scope("a", device=torch.device("cpu")) is tracer._NULL
+    with t.scope("a"):
+        t.count("n")
+    assert getattr(t._local, "state", None) is None
+    t._lock = threading.Lock()
+    with t.recording() as rec:
+        pass
+    assert rec.spans == [] and rec.counters == {}
+
+
+def test_tracer_spans_carry_parents_and_call_ids():
+    """Spans under a call scope carry its id, a new call a new id, spans
+    outside any call none; parents are indices into the spans; a recording
+    inside a recording is refused."""
+    from openpose_plus_tpu_torch.utils.tracer import Tracer
+
+    t = Tracer()
+    with t.recording() as rec:
+        for inner in ("engine.inputs", "engine.replay"):
+            with t.scope("engine.infer", call=True):
+                with t.scope(inner):
+                    t.count("engine.calls")
+        with t.scope("resize"):
+            pass
+        with pytest.raises(RuntimeError):
+            with t.recording():
+                pass
+    names = [s.name for s in rec.spans]
+    assert names == ["engine.infer", "engine.inputs", "engine.infer",
+                     "engine.replay", "resize"]
+    a, a_in, b, b_in, free = rec.spans
+    assert a.call is not None and b.call is not None and a.call != b.call
+    assert (a_in.call, b_in.call, free.call) == (a.call, b.call, None)
+    assert (a.parent, a_in.parent, b.parent, b_in.parent, free.parent) == \
+        (None, 0, None, 2, None)
+    assert rec.counters == {"engine.calls": 2}
+    assert rec.mean_ms("engine.infer") >= rec.mean_ms("engine.replay") >= 0
+    assert rec.mean_ms("engine.eager") is None and rec.device_ms() == {}
+
+
+def test_timeit():
     from openpose_plus_tpu_torch.utils import tracer
 
     calls = []
@@ -272,10 +339,30 @@ def test_timeit_and_trace_device(tmp_path):
 
     seconds = tracer.timeit(fn, torch.ones(4), warmup=2, iters=5)
     assert len(calls) == 7 and seconds >= 0.0
-    with tracer.trace_device(str(tmp_path / "trace")):
-        torch.ones(8).sum()
-    trace = json.load(open(tmp_path / "trace" / tracer.TRACE_FILE))
-    assert trace["traceEvents"]
+    assert not hasattr(tracer, "trace_device")
+
+
+def test_scopes_are_profiler_events():
+    """Under a torch.profiler session the scopes are profiler events
+    whether the tracer records or not, nested as they ran."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from openpose_plus_tpu_torch.utils.tracer import Tracer
+
+    t = Tracer()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        with t.scope("outer"):
+            with t.scope("inner", device=torch.device("cpu")):
+                torch.ones(8).sum()
+        with t.recording() as rec:
+            with t.scope("recorded"):
+                pass
+    spans = {e.name: e for e in prof.events()
+             if e.name in ("outer", "inner", "recorded")}
+    assert set(spans) == {"outer", "inner", "recorded"}
+    outer, inner = spans["outer"].time_range, spans["inner"].time_range
+    assert outer.start <= inner.start <= inner.end <= outer.end
+    assert [s.name for s in rec.spans] == ["recorded"]
 
 
 def test_draw_humans_equals_the_jax_package():

@@ -25,6 +25,9 @@ engines, under the default, fidelity() and quality() decoders), the train
 step as one CUDA-graph replay a step (Adam and momentum across a staircase
 boundary, remat_stages, a resume; held to the eager step within the
 eager-against-eager spread measured first), and loaded export artifacts.
+And the tracer on the card: a graph captured while it records carries no
+tracer events; the decode's stage device spans, captured in a graph, sum
+to the graph's replay time.
 
 The separable kernels are held to their plain versions as
 tests/test_torch_sepconv.py states: `kernel_inputs.bf16_mismatch` at most 2
@@ -612,6 +615,78 @@ def test_compiled_result_survives_the_next_call(cuda):
     second = engine.infer(b)
     torch.cuda.synchronize()
     assert _same_humans(held, eager_a) and _same_humans(second, eager_b)
+
+
+def test_graph_captured_while_recording_carries_no_tracer_events(cuda):
+    """`compile` while the tracer records: its capture records no device
+    span's events (the served graph carries none), the replay equals the
+    eager call, and the call's spans and counters are there."""
+    from openpose_plus_tpu_torch.utils.tracer import GLOBAL_TRACER
+
+    engine = _deploy_engine(cuda)
+    images = _deploy_images(cuda, 0)
+    eager = engine.infer(images)
+    with GLOBAL_TRACER.recording() as rec:
+        engine.compile(2)
+        out = engine.infer(images)
+    torch.cuda.synchronize()
+    assert _same_humans(out, eager)
+    assert all(s.events is None for s in rec.spans) and not rec.device_ms()
+    assert rec.counters == {"graphs.captures": 1, "engine.calls": 1,
+                            "engine.replays": 1}
+    assert {"graphs.capture", "postproc.group", "engine.infer",
+            "engine.inputs", "engine.copy_in", "engine.replay",
+            "engine.outputs"} <= {s.name for s in rec.spans}
+
+
+def test_decode_stage_spans_sum_to_the_replay(cuda):
+    """20 fidelity decodes of 368x432 maps captured in one graph while the
+    tracer records: each replay times every stage of every decode, and the
+    stages sum within 5% of the same decodes replayed from a graph
+    captured without the tracer (median of 5 replays after the first)."""
+    import statistics
+
+    from openpose_plus_tpu_torch.config import default_config
+    from openpose_plus_tpu_torch.postproc import decode_maps
+    from openpose_plus_tpu_torch.utils.tracer import GLOBAL_TRACER
+
+    calls = 20
+    cfg = default_config("mobilenet_thin").postproc.fidelity()
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    conf = torch.rand(8, 46, 54, 19, device=cuda, generator=gen) * 0.8
+    paf = torch.randn(8, 46, 54, 38, device=cuda, generator=gen)
+
+    def capture():
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for _ in range(calls):
+                decode_maps(conf, paf, cfg)
+        return graph
+
+    decode_maps(conf, paf, cfg)
+    torch.cuda.synchronize()
+    plain = capture()
+    with GLOBAL_TRACER.recording() as rec:
+        traced = capture()
+    plain_ms, staged_ms = [], []
+    for _ in range(6):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        plain.replay()
+        end.record()
+        end.synchronize()
+        plain_ms.append(start.elapsed_time(end))
+        traced.replay()
+        torch.cuda.synchronize()
+        stages = rec.device_ms()
+        assert {k: len(v) for k, v in stages.items()} == dict.fromkeys(
+            ("postproc.smooth", "postproc.peaks", "postproc.group"), calls)
+        staged_ms.append(sum(sum(v) for v in stages.values()))
+    plain_med = statistics.median(plain_ms[1:])
+    staged_med = statistics.median(staged_ms[1:])
+    assert abs(staged_med - plain_med) <= 0.05 * plain_med, (staged_ms,
+                                                             plain_ms)
 
 
 def test_calibrate_drops_the_graph(cuda):

@@ -214,6 +214,33 @@ def test_bad_input_raises():
         engine.infer(np.zeros((1, 64, 64, 3), np.float32))
 
 
+def test_infer_spans_under_the_profiler():
+    """A CPU `Engine.infer` under a torch.profiler session while the tracer
+    records: `engine.infer`, `engine.inputs`, `engine.eager` and the decode
+    stages are profiler events nested in the call, the spans carry the
+    call's id, and the counters read one call, eager."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from openpose_plus_tpu_torch.utils.tracer import GLOBAL_TRACER
+
+    engine = Engine(_tiny(), device="cpu")
+    images = np.zeros((1, 64, 64, 3), np.uint8)
+    names = ("engine.infer", "engine.inputs", "engine.eager",
+             "postproc.smooth", "postproc.peaks", "postproc.group")
+    with profile(activities=[ProfilerActivity.CPU]) as prof, \
+            GLOBAL_TRACER.recording() as rec:
+        engine.infer(images)
+    events = {e.name: e.time_range for e in prof.events() if e.name in names}
+    assert set(events) == set(names)
+    call = events["engine.infer"]
+    assert all(call.start <= r.start <= r.end <= call.end
+               for r in events.values())
+    assert rec.counters == {"engine.calls": 1, "engine.eager_calls": 1}
+    assert {s.name for s in rec.spans} == set(names)
+    assert len({s.call for s in rec.spans}) == 1
+    assert rec.spans[0].call is not None and rec.device_ms() == {}
+
+
 _NO_JAX = """
 import dataclasses
 import importlib

@@ -432,9 +432,14 @@ def test_cv2_is_held_to_one_thread_while_a_pool_runs(files):
 
 
 def test_the_native_scopes_are_traced(files):
-    GLOBAL_TRACER.reset()
-    list(loader.StreamLoader(files, HIN, WIN, batch=4, workers=2, s2d=2))
-    scopes = GLOBAL_TRACER._root.children
-    assert scopes["decode"].calls == len(files)     # the unreadable too
-    assert scopes["resize"].calls == scopes["s2d2"].calls == len(files) - 1
-    assert "s2d2" in GLOBAL_TRACER.report()
+    """While recording: the workers' native scopes, the consumer's wait
+    for each file and the unreadable file's count."""
+    with GLOBAL_TRACER.recording() as rec:
+        list(loader.StreamLoader(files, HIN, WIN, batch=4, workers=2,
+                                 s2d=2))
+    scopes = rec.summary()
+    assert scopes["decode"][0] == len(files)     # the unreadable too
+    assert scopes["resize"][0] == scopes["s2d2"][0] == len(files) - 1
+    assert scopes["loader.wait"][0] == len(files)
+    assert rec.counters == {"loader.skipped": 1}
+    assert "s2d2" in rec.report()

@@ -34,6 +34,10 @@ raises on failure (the script then exits non-zero and prints no result):
      elements;
    - sample_paf at K=16 on the default 92x108 map and at K=32 on the
      fidelity() 368x432 map (batch 8, edge coordinates): bit-equal;
+   - find_peaks (`check_peaks`) on the decoder tests' five scene kinds at
+     the default and fidelity() decodes (batch 8) and on a checkerboard at
+     368x432 (every row at ceil(H/2) * ceil(W/2) peaks, the kernels'
+     capacity): bit-equal to the plain version on the card and the CPU;
    - the depthwise probe (scripts/profile_pallas_dw.py's `run`) at
      (8, 46, 82, C), C in {128, 256}: the DW body within 1 unit and 98%
      identical, the copy body bit-equal. This is the probe's own path: its
@@ -42,8 +46,9 @@ raises on failure (the script then exits non-zero and prints no result):
    device="cuda") at full width (368x432, width 0.75, 6 stages, bfloat16),
    its last stage's prediction kernels scaled so that random weights give
    maps the decoder groups, runs `infer` on an (8, 368, 432, 3) uint8
-   batch; the greedy, merge and sample_paf launch counts must rise during
-   that call, every image must decode to at least one human, and the
+   batch; the find_peaks, greedy, merge and sample_paf launch counts must
+   rise during that call, every image must decode to at least one human,
+   and the
    outputs must have the HumanBatch shapes and be finite. Then the same
    with `fused_inference=True` on the same weights: fused_sepconv must
    launch exactly 41 times in the call, the decoder's kernels must launch,
@@ -88,7 +93,12 @@ raises on failure (the script then exits non-zero and prints no result):
    depthwise + pointwise pair; per sepconv shape and grid the kernel, its
    plain version, the pair and the fused layer, with the kernel's and the
    pair's share of the bound; the 41 layers of one fused forward summed
-   (`fused_forward_layers`); greedy and merge at K=16 and K=32 on random
+   (`fused_forward_layers`); find_peaks at batch 8 at the fidelity()
+   shape (368x432, K 32) and VGG19's default one (92x164, K 16) on phase
+   4's head-scaled maps (`peaks_times`: the kernels, the plain version,
+   `torch.topk` on the plain version's masked plane as the library call,
+   the byte bound with the maps' L2 residency, the launches of a call and
+   the peaks a row); greedy and merge at K=16 and K=32 on random
    sets and on the connections the batch-8 decode (default and fidelity())
    produces, beside their chain estimate (`decoder_kernel_times`), and the
    decode's own device time (`decode_device_ms`). The accuracy paths
@@ -371,7 +381,8 @@ m64n128k32, bf16 m64n128k16). `--int8-phases` only builds
 csrc/int8_conv.cu with its phase clocks and reads where a block of the
 int8 conv spends its time at the forwards' main shapes (`int8_phases`).
 `--bench-phase` only builds the kernels and runs phase 15,
-`--studies-phase` phase 17.
+`--studies-phase` phase 17, `--peaks-phase` find_peaks' checks of phase 3
+and its timings of phase 6 (`peaks_phase`).
 """
 
 from __future__ import annotations
@@ -546,6 +557,9 @@ SOURCES = {   # kernel: (source, the TPU kernel it replaces)
                      "XLA quantize_act, openpose_plus_tpu/models/"
                      "common.py:84 (_int8_conv's float input); no Pallas "
                      "kernel"),
+    "find_peaks": ("openpose_plus_tpu_torch/csrc/peaks.cu",
+                   "lax NMS and top-K, openpose_plus_tpu/postproc/nms.py "
+                   "(find_peaks); no Pallas kernel"),
 }
 
 
@@ -958,6 +972,118 @@ def check_sample_paf(torch, inputs, paf_sample, rng, dev, h, w, k) -> list:
     assert_equal(torch, f"sample_paf K={k} {h}x{w} vs plain (cpu)", out,
                  plain_cpu)
     return args_dev
+
+
+def assert_bits_equal(torch, what: str, outs, refs) -> None:
+    """Equal tensors, floats compared as their bits (-0.0 is not 0.0)."""
+    for i, (o, r) in enumerate(zip(outs, refs, strict=True)):
+        o, r = o.cpu(), r.cpu()
+        if o.dtype == torch.float32:
+            o, r = o.view(torch.int32), r.view(torch.int32)
+        if o.dtype != r.dtype or not torch.equal(o, r):
+            raise AssertionError(f"{what}: output {i} differs")
+
+
+def check_peaks(torch, np, inputs, nms, peaks, dev) -> None:
+    """find_peaks on the card bit-equal to its plain version on the card
+    and on the CPU: the decoder tests' scene kinds (kernel_inputs.
+    peak_scene) as BATCH images (image i rolled i pixels) at the default
+    and fidelity() decodes, and a checkerboard at the fidelity() shape,
+    where every row holds the kernels' capacity."""
+    from openpose_plus_tpu_torch.config import PostprocConfig
+
+    cases = []
+    for post in (PostprocConfig(), PostprocConfig().fidelity()):
+        for kind in ("plateau", "clean", "noisy", "very_noisy",
+                     "pure_noise"):
+            maps = inputs.peak_scene(kind, BATCH)
+            cases.append((f"{kind} K={post.max_peaks}", nms.upsample_smooth(
+                torch.from_numpy(maps), post.upsample_factor,
+                post.smooth_sigma), post.peak_threshold, post.max_peaks))
+    cases.append(("checkerboard", torch.from_numpy(
+        inputs.checkerboard_peaks(2, 368, 432)), 0.5, 32))
+    for what, smoothed, threshold, k in cases:
+        out = peaks.find_peaks(smoothed.to(dev), threshold, k)
+        for where, maps in (("cuda", smoothed.to(dev)), ("cpu", smoothed)):
+            ref = nms.find_peaks_plain(maps, threshold, k)
+            assert_bits_equal(torch, f"find_peaks {what} vs plain ({where})",
+                              out, [getattr(ref, f) for f in peaks.FIELDS])
+    full = peaks.candidates.cpu()
+    if not bool((full == peaks.capacity(368, 432)).all()):
+        raise AssertionError(f"checkerboard: peaks a row {full.unique()}, "
+                             f"expected {peaks.capacity(368, 432)}")
+    log(f"find_peaks bit-equal to its plain version (card and CPU) on "
+        f"{len(cases) - 1} scene sets and a 368x432 checkerboard at "
+        f"{peaks.capacity(368, 432)} peaks a row")
+
+
+def peaks_times(torch, nms, peaks, smoothed, threshold, k) -> dict:
+    """find_peaks at one shape: the kernels' event and device time, the
+    plain version's, `torch.topk` on the plain version's masked plane (the
+    library call; never called by the port: it picks the same K, its tie
+    order unspecified), the byte bound (the 18 part maps read once, the
+    outputs written once; device times replay one input, so maps under
+    the 50 MB L2 sit in it: `maps_fit_l2`), one call's launches, and the
+    peaks a row on these maps."""
+    kern = lambda: peaks.find_peaks(smoothed, threshold, k)   # noqa: E731
+    plain = lambda: nms.find_peaks_plain(smoothed, threshold, k)  # noqa
+    (args, _), = record_calls(nms, "_topk_stable", plain)
+    masked = args[0]
+    library = lambda: torch.topk(masked, k, dim=-1)   # noqa: E731
+    before = peaks.launches
+    kern()
+    torch.cuda.synchronize()
+    rows = peaks.candidates.flatten().float().cpu()
+    b, h, w = smoothed.shape[:3]
+    maps = b * h * w * 18 * 4
+    out = {"shape": [b, h, w], "k": k, "launches": peaks.launches - before,
+           "peaks_a_row_max": int(rows.max()),
+           "peaks_a_row_median": float(rows.median()),
+           "maps_mb": maps / 1e6, "maps_fit_l2": maps <= 50e6}
+    for key, fn in (("", kern), ("plain_", plain), ("library_", library)):
+        out[f"{key}ms"] = median_ms(torch, fn)
+        out[f"{key}device_ms"] = device_ms(torch, fn)
+    # the outputs: y, x, score, refined y and x of 4 bytes, valid of 1
+    out["bound_ms"], out["bound_by"] = bound(maps + b * 18 * k * 21, 0.0)
+    out["pct_of_bound"] = 100.0 * out["bound_ms"] / out["device_ms"]
+    return out
+
+
+def peaks_timings(torch, nms, peaks, conf, cfg, gpu) -> dict:
+    """`peaks_times` at the fidelity() shape (8, 368, 432, K 32) on `conf`,
+    the head-scaled (8, 46, 54, 19) maps, and at VGG19's default one (8,
+    92, 164, K 16) on the same maps widened to its 46x82 grid (columns
+    repeated); a `peaks` line each; returns the fidelity() numbers."""
+    fid, post = cfg.postproc.fidelity(), cfg.postproc
+    conf = conf.float()
+    wide = torch.cat([conf, conf[:, :, :82 - conf.shape[2]]], dim=2)
+    times = {}
+    for label, maps, p in (("fidelity", conf, fid), ("vgg19", wide, post)):
+        smoothed = nms.upsample_smooth(maps, p.upsample_factor,
+                                       p.smooth_sigma)
+        times[label] = peaks_times(torch, nms, peaks, smoothed,
+                                   p.peak_threshold, p.max_peaks)
+        log(json.dumps({"peaks": {"decode": label, **times[label],
+                                  "gpu": gpu}}))
+    return times["fidelity"]
+
+
+def peaks_phase(torch, np, inputs, cfg, dev, gpu) -> None:
+    """--peaks-phase: phase 3's find_peaks checks, then phase 6's timings
+    on phase 4's head-scaled maps (the same seed and images)."""
+    from openpose_plus_tpu_torch import Engine
+    from openpose_plus_tpu_torch.ops.cuda import peaks
+    from openpose_plus_tpu_torch.postproc import nms
+
+    check_peaks(torch, np, inputs, nms, peaks, dev)
+    mc = cfg.model
+    rng = np.random.default_rng(0)
+    engine = Engine(cfg, seed=0, device=dev)
+    images = torch.from_numpy(rng.integers(
+        0, 256, (BATCH, mc.hin, mc.win, 3), dtype=np.uint8)).to(dev)
+    scale_heads(torch, engine, images)
+    conf, _ = engine.forward(images)
+    peaks_timings(torch, nms, peaks, conf, cfg, gpu)
 
 
 def probe_case(torch, np, c) -> tuple:
@@ -1724,7 +1850,7 @@ def studies_models(torch, counted, dev, tmp, gpu) -> None:
             # Python), every later batch a replay
             decodes = (len(ap_bench.MS_SCALES[v]) if "msdd" in v else 1)
             want = {**dict.fromkeys(("greedy_assign", "assemble",
-                                     "sample_paf"),
+                                     "sample_paf", "find_peaks"),
                                     (CAPTURE_WARMUP + 1) * decodes
                                     * shapes[tier]),
                     "fused_sepconv": 0}
@@ -4737,6 +4863,10 @@ def main(argv: list[str]) -> int:
         "--studies-phase", action="store_true",
         help="only build the kernels and run phase 17, the accuracy studies")
     parser.add_argument(
+        "--peaks-phase", action="store_true",
+        help="only build the kernels and run find_peaks' checks (phase 3) "
+             "and timings (phase 6)")
+    parser.add_argument(
         "--spatial-phase", action="store_true",
         help="only run phase 14's spatial axis (no kernel is on its path): "
              "sync-sgd of MobileNet-thin and VGG19 on two gloo ranks "
@@ -4764,8 +4894,8 @@ def main(argv: list[str]) -> int:
     from openpose_plus_tpu_torch.models import common, get_model
     from openpose_plus_tpu_torch.ops.cuda import (build, dw_probe, greedy,
                                                   int8_conv, merge,
-                                                  paf_sample, sepconv)
-    from openpose_plus_tpu_torch.postproc import decode_maps
+                                                  paf_sample, peaks, sepconv)
+    from openpose_plus_tpu_torch.postproc import decode_maps, nms
     inputs = load_test_helper("kernel_inputs")
 
     dev = torch.device("cuda", 0)
@@ -4792,7 +4922,8 @@ def main(argv: list[str]) -> int:
         build.load()
         studies_phase(torch, {"greedy_assign": greedy, "assemble": merge,
                               "sample_paf": paf_sample,
-                              "fused_sepconv": sepconv}, dev, gpu)
+                              "fused_sepconv": sepconv,
+                              "find_peaks": peaks}, dev, gpu)
         if foreign_modules():
             raise AssertionError(f"the port pulled in {foreign_modules()}")
         return 0
@@ -4857,6 +4988,9 @@ def main(argv: list[str]) -> int:
                              f"{2 * len(int8_conv.PLANS)} int8_conv "
                              "instances and the two quantize passes, each "
                              "with 0 bytes of stack and spills")
+    if args.peaks_phase:
+        peaks_phase(torch, np, inputs, cfg, dev, gpu)
+        return 0
 
     phase_done("2_build")
 
@@ -4952,6 +5086,8 @@ def main(argv: list[str]) -> int:
                      mc.hout * fid.upsample_factor,
                      mc.wout * fid.upsample_factor, fid.max_peaks)
     errs["sample_paf"] = 0.0
+    check_peaks(torch, np, inputs, nms, peaks, dev)
+    errs["find_peaks"] = 0.0
     log(f"sample_paf bit-equal to its plain version at K="
         f"{cfg.postproc.max_peaks} ({mc.hout * up}x{mc.wout * up}) and K="
         f"{fid.max_peaks} ({mc.hout * fid.upsample_factor}x"
@@ -5004,7 +5140,8 @@ def main(argv: list[str]) -> int:
               "part_valid": (BATCH, m, 18), "score": (BATCH, m),
               "n_parts": (BATCH, m), "valid": (BATCH, m)}
     counted = {"greedy_assign": greedy, "assemble": merge,
-               "sample_paf": paf_sample, "fused_sepconv": sepconv}
+               "sample_paf": paf_sample, "fused_sepconv": sepconv,
+               "find_peaks": peaks}
     path_launches = {}
     for label, eng in (("default", engine), ("fused", fused_engine)):
         eng.infer(images)                      # warm-up (cuDNN, allocator)
@@ -5020,7 +5157,8 @@ def main(argv: list[str]) -> int:
             f"fused_inference={eng.config.model.fused_inference}, head gains "
             f"{gains}; kernel launches {path_launches[label]}; humans per "
             f"image {out.num_humans.tolist()}")
-        for name in ("greedy_assign", "assemble", "sample_paf"):
+        for name in ("find_peaks", "greedy_assign", "assemble",
+                     "sample_paf"):
             if path_launches[label][name] < 1:
                 raise AssertionError(f"{label} path did not launch {name}")
         n = path_launches[label]["fused_sepconv"]
@@ -5163,6 +5301,7 @@ def main(argv: list[str]) -> int:
         sample_paf_bytes(torch, *paf_args), 0.0), strict=True),
         library_ms=median_ms(torch, paf_gather),
         library_device_ms=device_ms(torch, paf_gather))
+    timing["find_peaks"] = peaks_timings(torch, nms, peaks, conf, cfg, gpu)
     # one forward's worth: every (C, F) shape times its layer count; the
     # cuDNN pair stands in for the library call (no one call fuses them)
     timing["fused_sepconv"] = {
@@ -5198,6 +5337,7 @@ def main(argv: list[str]) -> int:
         "assemble": f"batch {BATCH}, K={k}, M={m}",
         "sample_paf": f"batch {BATCH}, K={k}, {tuple(paf_args[0].shape)} "
                       "map",
+        "find_peaks": f"batch {BATCH}, fidelity() K=32, 368x432 maps",
         "fused_sepconv": f"the {n_fused} layers of one batch-{BATCH} "
                          "forward",
         "dw3x3_relu": f"C=128 plus C=256 at ({BATCH}, *{PROBE_HW})",

@@ -56,6 +56,11 @@ _SIGNATURES = {
     # x, scale, out, rows, c, cp, device, stream
     "quantize_act_launch": [_P, _P, _P] + [ctypes.c_longlong] * 3
                            + [_I, _P],
+    # maps, its four strides, batch, h, w, threshold, k, keys, cap, counts,
+    # y, x, score, valid, ry, rx, device, stream
+    "find_peaks_launch": [_P] + [ctypes.c_longlong] * 4 + [_I] * 3
+                         + [ctypes.c_float, _I, _P, _I] + [_P] * 7
+                         + [_I, _P],
 }
 
 _lib: ctypes.CDLL | None = None

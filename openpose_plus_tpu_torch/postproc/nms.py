@@ -8,6 +8,10 @@ are masked.
 The linear resize/blur operators are contracted in float64 and rounded once
 to float32, so no process-global TF32 setting can reach them (the reference
 contracts at Precision.HIGHEST); the results agree with it to ~1 ulp.
+
+`find_peaks` is the op `openpose_plus_tpu_torch::find_peaks`
+(`ops.cuda.peaks`): the plain version below on a CPU tensor, the
+hand-written kernels on a CUDA tensor, one PeakSet either way.
 """
 
 from __future__ import annotations
@@ -21,6 +25,7 @@ import torch.nn.functional as F
 
 from openpose_plus_tpu_torch import skeleton
 from openpose_plus_tpu_torch.ops import device_cache
+from openpose_plus_tpu_torch.ops.cuda import peaks as peaks_op
 from openpose_plus_tpu_torch.postproc import common
 
 
@@ -143,6 +148,13 @@ def _topk_stable(flat: torch.Tensor, k: int
 
 def find_peaks(smoothed: torch.Tensor, threshold: float, max_peaks: int
                ) -> PeakSet:
+    """`find_peaks_plain`'s PeakSet: on the card one hand-written design
+    (`ops.cuda.peaks`, no sort), on the CPU the plain version itself."""
+    return PeakSet(*peaks_op.find_peaks(smoothed, threshold, max_peaks))
+
+
+def find_peaks_plain(smoothed: torch.Tensor, threshold: float,
+                     max_peaks: int) -> PeakSet:
     """3x3 local-max NMS + per-part top-K on smoothed (B, H, W, >=18) maps.
 
     A pixel is a peak iff it equals the 3x3 max (-inf padding), is strictly

@@ -3,7 +3,8 @@ PAF sampling, fused separable conv, the depthwise probe and the int8
 conv), the bf16
 agreement measure of the separable kernels, and synthetic pose scenes
 (`make_maps`, `standing_person`: tests/maputil.py's functions on the port's
-own skeleton tables). numpy and `openpose_plus_tpu_torch.skeleton` only: no
+own skeleton tables; `peak_scene`, `checkerboard_peaks`: the peaks
+kernels' maps). numpy and `openpose_plus_tpu_torch.skeleton` only: no
 JAX, nothing of the JAX package.
 
 Shared by the port's CPU tests, its `cuda`-marked tests and chip_smoke.py,
@@ -266,3 +267,33 @@ def standing_person(cx: float, cy: float, scale: float = 1.0
         16: (cx - 2 * s, cy - 10.5 * s),  # r ear
         17: (cx + 2 * s, cy - 10.5 * s),  # l ear
     }
+
+
+def peak_scene(kind: str, b: int = 1) -> np.ndarray:
+    """(b, 46, 54, 19) conf maps of one of the decoder tests' scene kinds,
+    image i rolled i pixels along x: "plateau" (integer-grid keypoints:
+    exact 2x2 plateaus after upsampling), "clean", "noisy", "very_noisy"
+    (standing people at fractional keypoints, with Gaussian noise) and
+    "pure_noise" (uniform in [0, 0.4))."""
+    if kind == "plateau":
+        conf = make_maps([standing_person(10, 8), standing_person(10, 30)],
+                         46, 54)[0]
+    elif kind == "pure_noise":
+        conf = np.random.default_rng(100).uniform(
+            0, 0.4, (46, 54, skeleton.N_HEATMAPS)).astype(np.float32)
+    else:
+        n, noise, seed = {"clean": (3, 0.0, 0), "noisy": (3, 0.15, 1),
+                          "very_noisy": (2, 0.2, 2)}[kind]
+        people = [standing_person(11.37 + 15.61 * i, 21.43 - 0.7 * i,
+                                  0.93 + 0.1 * i) for i in range(n)]
+        conf = make_maps(people, 46, 54, noise=noise, seed=seed)[0]
+    return np.stack([np.roll(conf, i, axis=1) for i in range(b)])
+
+
+def checkerboard_peaks(b: int, h: int, w: int, c: int = 19) -> np.ndarray:
+    """(b, h, w, c) maps of 1.0 on every pixel of even row and column and 0
+    elsewhere: every 1.0 is a peak at threshold < 1, the most an (h, w)
+    row can hold, ceil(h / 2) * ceil(w / 2), all of one score."""
+    maps = np.zeros((b, h, w, c), np.float32)
+    maps[:, ::2, ::2] = 1.0
+    return maps

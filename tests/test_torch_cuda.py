@@ -14,7 +14,12 @@ NaN), merge tables with fewer than 32 rows, odd K, the connection sets
 that drive each branch of the merge, the separable conv at odd channel
 counts, every pixel and F tiling, ragged tiles and unaligned views (both
 load paths), the PAF
-sampler at K = 1...32 with corner coordinates, the depthwise probe, the
+sampler at K = 1...32 with corner coordinates, the peaks kernels (the
+decoder tests' scenes at the default and fidelity() decodes, a
+checkerboard at the per-row capacity, K past the shared-memory ranking and
+past H * W, non-finite maps, equal scores, signed zeros, any layout, a
+CUDA-graph replay, and no sort, top-K or max-pool on the card), the
+depthwise probe, the
 int8 conv (kernel sizes 1, 3 and 7, stride 2 on even and odd sizes, Cin
 of 3, 185, 537 and 576, both output modes, M and N edges, both tile plans'
 pixel counts and several N tiles) and the int8 quantize pass, empty
@@ -42,8 +47,11 @@ import torch
 # break where an installed package named `tests` shadows it
 import kernel_inputs
 from openpose_plus_tpu_torch.graphs import CAPTURE_WARMUP
+from openpose_plus_tpu_torch.config import PostprocConfig
 from openpose_plus_tpu_torch.ops.cuda import (dw_probe, greedy, int8_conv,
-                                              merge, paf_sample, sepconv)
+                                              merge, paf_sample, peaks,
+                                              sepconv)
+from openpose_plus_tpu_torch.postproc import nms
 
 pytestmark = pytest.mark.cuda
 
@@ -222,6 +230,205 @@ def test_sample_paf_kernel_equals_plain(cuda, k):
     assert paf_sample.launches == before + 1
     for o, r in zip(out, paf_sample.sample_paf_plain(*args)):
         assert o.device.type == "cuda" and torch.equal(o.cpu(), r)
+
+
+# ---------------------------------------------------------------- peaks ---
+
+_POSTPROC = {"default": PostprocConfig(), "fidelity": PostprocConfig().fidelity()}
+
+
+def _smoothed(kind, post, b):
+    """`kernel_inputs.peak_scene(kind, b)` upsampled and smoothed on the
+    CPU as the decode does: the einsum's layout, H outermost."""
+    return nms.upsample_smooth(torch.from_numpy(kernel_inputs.peak_scene(
+        kind, b)), post.upsample_factor, post.smooth_sigma)
+
+
+def _assert_peaks_equal(cuda, smoothed, threshold, k, on_card=None):
+    """The kernels on the card (on `on_card`, else `smoothed` copied with
+    its strides) against the plain version on the CPU: all six fields, the
+    floats compared as their bits."""
+    before = peaks.launches
+    out = peaks.find_peaks(smoothed.to(cuda) if on_card is None else on_card,
+                           threshold, k)
+    torch.cuda.synchronize()
+    assert peaks.launches == before + 1
+    ref = nms.find_peaks_plain(smoothed, threshold, k)
+    for o, r in zip(out, [getattr(ref, f) for f in peaks.FIELDS]):
+        assert o.device.type == "cuda" and o.dtype == r.dtype
+        o = o.cpu()
+        if r.dtype == torch.float32:
+            o, r = o.view(torch.int32), r.view(torch.int32)
+        assert torch.equal(o, r)
+    return out
+
+
+@pytest.mark.parametrize("b", [1, 8])
+@pytest.mark.parametrize("post", ["default", "fidelity"])
+@pytest.mark.parametrize("kind", ["plateau", "clean", "noisy", "very_noisy",
+                                  "pure_noise"])
+def test_peaks_kernel_equals_plain(cuda, kind, post, b):
+    cfg = _POSTPROC[post]
+    out = _assert_peaks_equal(cuda, _smoothed(kind, cfg, b),
+                              cfg.peak_threshold, cfg.max_peaks)
+    if kind == "plateau":     # one peak a plateau, two people an image
+        assert int(out[3].sum()) == 2 * 18 * b
+
+
+# 368x432: the fidelity grid at its bound; 92x108 with K over the 1,024
+# keys ranked in shared memory (K under and over the row's 2,484 peaks);
+# odd sides
+@pytest.mark.parametrize("h,w,k", [(368, 432, 32), (92, 108, 2000),
+                                   (92, 108, 3000), (7, 9, 32)])
+def test_peaks_kernel_on_a_checkerboard(cuda, h, w, k):
+    """Every row at ceil(H/2) * ceil(W/2) peaks of one score: the capacity
+    is reached and the ties go to the lowest flat index."""
+    smoothed = torch.from_numpy(kernel_inputs.checkerboard_peaks(2, h, w))
+    _assert_peaks_equal(cuda, smoothed, 0.5, k)
+    assert torch.equal(peaks.candidates.cpu(), torch.full(
+        (2, 18), peaks.capacity(h, w), dtype=torch.int32))
+
+
+def test_peaks_kernel_on_non_finite_maps(cuda):
+    """An inf conf pixel smoothed as test_non_finite_maps_decode_as_reference
+    makes it (its rows and columns turn NaN in the contraction), and inf,
+    -inf, NaN pixels and a NaN column put into the smoothed maps."""
+    cfg = _POSTPROC["default"]
+    conf = np.concatenate([kernel_inputs.peak_scene(k)
+                           for k in ("clean", "noisy", "clean")])
+    conf[0, 5, 7, 3] = np.inf
+    smoothed = nms.upsample_smooth(torch.from_numpy(conf),
+                                   cfg.upsample_factor, cfg.smooth_sigma)
+    _assert_peaks_equal(cuda, smoothed, cfg.peak_threshold, cfg.max_peaks)
+    maps = _smoothed("noisy", cfg, 2).contiguous()
+    maps[0, 10, 20, 0] = np.inf
+    maps[0, 30:32, 40:42, 1] = np.inf
+    maps[0, 0, 0, 2] = np.inf
+    maps[1, 50, 60, 3] = np.nan
+    maps[1, :, 70, 4] = np.nan
+    maps[1, 91, 107, 5] = -np.inf
+    _assert_peaks_equal(cuda, maps, cfg.peak_threshold, cfg.max_peaks)
+
+
+def test_peaks_kernel_on_equal_scores(cuda):
+    """Quarter steps of uniform noise: plateaus, and many more than K peaks
+    of each score in a row."""
+    rng = np.random.default_rng(5)
+    maps = torch.from_numpy(
+        np.round(rng.uniform(0, 3, (3, 60, 70, 19))).astype(np.float32) / 4)
+    for k in (1, 16, 32):
+        _assert_peaks_equal(cuda, maps, 0.1, k)
+
+
+@pytest.mark.parametrize("shape,k", [((1, 3, 5), 32), ((2, 4, 4), 16),
+                                     ((1, 1, 1), 3), ((2, 46, 54), 400)])
+def test_peaks_kernel_with_fewer_peaks_than_k(cuda, shape, k):
+    """H * W below or at K, and rows with fewer peaks than K: the slots past
+    them hold index 0, score 0 and valid false."""
+    rng = np.random.default_rng(sum(shape) + k)
+    maps = torch.from_numpy(rng.uniform(0, 0.4, (*shape, 19))
+                            .astype(np.float32))
+    out = _assert_peaks_equal(cuda, maps, 0.05, k)
+    assert not bool(out[3][..., -1].any())
+
+
+def test_peaks_kernel_with_signed_zeros_under_a_negative_threshold(cuda):
+    """-0.0 and +0.0 peaks tie (ties to the lowest index, as torch.sort
+    ties them), and each keeps its own sign in the score."""
+    rng = np.random.default_rng(6)
+    maps = torch.from_numpy(rng.choice(np.asarray(
+        [-0.0, 0.0, -1.0], np.float32), (2, 20, 24, 19)))
+    out = _assert_peaks_equal(cuda, maps, -0.5, 16)
+    score = out[2][out[3]].cpu()
+    assert bool((score == 0).all()) and bool(torch.signbit(score).any())
+    assert not bool(torch.signbit(score).all())
+
+
+def test_peaks_kernel_reads_any_layout(cuda):
+    """The einsum's layout (H outermost), the contiguous copy and a channel
+    slice of wider maps: one PeakSet."""
+    cfg = _POSTPROC["fidelity"]
+    smoothed = _smoothed("noisy", cfg, 2)
+    assert not smoothed.is_contiguous()
+    einsum = smoothed.to(cuda)
+    assert einsum.stride() == smoothed.stride()
+    wide = torch.cat([einsum, torch.ones_like(einsum)], dim=-1)[..., 5:24]
+    for on_card in (einsum, einsum.contiguous()):
+        _assert_peaks_equal(cuda, smoothed, cfg.peak_threshold,
+                            cfg.max_peaks, on_card)
+    _assert_peaks_equal(cuda, wide.cpu(), cfg.peak_threshold, cfg.max_peaks,
+                        wide)
+
+
+def test_peaks_kernel_on_an_empty_batch_launches_nothing(cuda):
+    before = peaks.launches
+    out = peaks.find_peaks(torch.zeros((0, 8, 8, 19), device=cuda), 0.05, 16)
+    out0 = peaks.find_peaks(torch.zeros((1, 8, 8, 19), device=cuda), 0.05, 0)
+    assert peaks.launches == before
+    assert [tuple(t.shape) for t in out + out0] == (
+        [(0, 18, 16)] * 6 + [(1, 18, 0)] * 6)
+
+
+def test_peaks_kernel_replays_in_a_cuda_graph(cuda):
+    """Captured once, replayed on other maps copied into the captured
+    input: each replay equals the eager call on those maps."""
+    cfg = _POSTPROC["fidelity"]
+    maps = [_smoothed(kind, cfg, 2).to(cuda)
+            for kind in ("noisy", "very_noisy", "pure_noise")]
+    static = maps[0].clone()
+    peaks.find_peaks(static, cfg.peak_threshold, cfg.max_peaks)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = peaks.find_peaks(static, cfg.peak_threshold, cfg.max_peaks)
+    for m in maps[1:] + maps[:1]:
+        static.copy_(m)
+        before = peaks.launches
+        graph.replay()
+        torch.cuda.synchronize()
+        assert peaks.launches == before
+        eager = peaks.find_peaks(m, cfg.peak_threshold, cfg.max_peaks)
+        for o, e in zip(out, eager):
+            assert torch.equal(o, e)
+
+
+def test_peaks_kernel_runs_no_sort_topk_or_max_pool(cuda):
+    """What the device runs for find_peaks on the card: the two kernels,
+    and none of the plain version's sort, top-K or max-pool kernels (which
+    the same trace shows for the plain version)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    cfg = _POSTPROC["fidelity"]
+    maps = _smoothed("noisy", cfg, 2).to(cuda)
+    names = {}
+    for label, fn in (("kernel", nms.find_peaks),
+                      ("plain", nms.find_peaks_plain)):
+        fn(maps, cfg.peak_threshold, cfg.max_peaks)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn(maps, cfg.peak_threshold, cfg.max_peaks)
+            torch.cuda.synchronize()
+        names[label] = " ".join(e.key for e in prof.key_averages()).lower()
+    assert "sort" in names["plain"] and "max_pool" in names["plain"]
+    assert "peak_keys_kernel" in names["kernel"]
+    assert "select_kernel" in names["kernel"]
+    for word in ("sort", "topk", "max_pool"):
+        assert word not in names["kernel"], names["kernel"]
+
+
+def test_peaks_wrapper_refuses_what_the_kernels_do_not_take(cuda):
+    maps = torch.zeros((1, 8, 8, 19), device=cuda)
+    with pytest.raises(ValueError, match="float32"):
+        peaks.find_peaks(maps.double(), 0.05, 16)
+    with pytest.raises(ValueError):
+        peaks.find_peaks(maps[..., :17], 0.05, 16)
+    with pytest.raises(ValueError):
+        peaks.find_peaks(maps[0], 0.05, 16)
+    with pytest.raises(ValueError, match="pixels"):    # over 2**24
+        peaks.find_peaks(maps[:, :1, :1].expand(1, 4097, 4096, 19), 0.05, 16)
+    with pytest.raises(ValueError, match="unsupported device"):
+        peaks.find_peaks(maps.to("meta"), 0.05, 16)
 
 
 # The redesigned kernel's tilings: a block owns 128 pixels (8x16 or 16x8,
@@ -632,8 +839,10 @@ def test_graph_captured_while_recording_carries_no_tracer_events(cuda):
     torch.cuda.synchronize()
     assert _same_humans(out, eager)
     assert all(s.events is None for s in rec.spans) and not rec.device_ms()
+    # the decode's peaks kernel: CAPTURE_WARMUP eager steps and the capture
     assert rec.counters == {"graphs.captures": 1, "engine.calls": 1,
-                            "engine.replays": 1}
+                            "engine.replays": 1,
+                            "postproc.peaks_kernel": CAPTURE_WARMUP + 1}
     assert {"graphs.capture", "postproc.group", "engine.infer",
             "engine.inputs", "engine.copy_in", "engine.replay",
             "engine.outputs"} <= {s.name for s in rec.spans}
@@ -819,7 +1028,7 @@ def _acc_calls(engine, path):
 
 def _python_launches():
     return (greedy.launches, merge.launches, paf_sample.launches,
-            sepconv.launches, int8_conv.launches)
+            sepconv.launches, int8_conv.launches, peaks.launches)
 
 
 @pytest.mark.parametrize("kind", ["default", "fused", "int8"])

@@ -39,7 +39,9 @@ from openpose_plus_tpu_torch import host
 from openpose_plus_tpu_torch.engine import Engine
 from openpose_plus_tpu_torch.models.common import space_to_depth
 from openpose_plus_tpu_torch.ops.cuda import (dw_probe, greedy, int8_conv,
-                                              merge, paf_sample, sepconv)
+                                              merge, paf_sample, peaks,
+                                              sepconv)
+from openpose_plus_tpu_torch.postproc import nms
 
 import kernel_inputs
 
@@ -109,6 +111,14 @@ def _op_cases():
     conv = (torch.from_numpy(q), int8_conv.pack_weight(qw), 3,
             int8_conv.rescale(torch.tensor(s_in), wmax),
             torch.from_numpy(bias), 2, (0, 1), torch.tensor(s_out))
+    # smoothed maps in the decode's einsum layout
+    smoothed = nms.upsample_smooth(torch.rand(2, 6, 7, 19, generator=g), 2,
+                                   1.25)
+
+    def peaks_plain(*args):
+        p = nms.find_peaks_plain(*args)
+        return tuple(getattr(p, f) for f in peaks.FIELDS)
+
     return {
         "greedy_assign": (greedy.greedy_assign, greedy.greedy_assign_plain,
                           (scores, 5)),
@@ -127,6 +137,7 @@ def _op_cases():
                        (x, dwk)),
         "copy_bias": (dw_probe.copy_bias, dw_probe.copy_bias_plain,
                       (x, dwk)),
+        "find_peaks": (peaks.find_peaks, peaks_plain, (smoothed, 0.05, 4)),
     }
 
 
@@ -174,7 +185,8 @@ def test_export_roundtrip_equals_infer_and_the_jax_artifact(tmp_path):
     ops = {str(n.target) for n in loaded._program.graph.nodes
            if str(n.target).startswith("openpose_plus_tpu_torch.")}
     assert ops == {f"openpose_plus_tpu_torch.{op}.default"
-                   for op in ("greedy_assign", "assemble", "sample_paf")}
+                   for op in ("find_peaks", "greedy_assign", "assemble",
+                              "sample_paf")}
 
     jexport.save_engine(jax_engine, str(tmp_path / "jax"), batch_size=2)
     jref = jexport.load_engine(str(tmp_path / "jax")).infer(images)

@@ -1,7 +1,8 @@
 """What decides `correct`: the answers the timed path served, judged against
 the plain reference on the same inputs.
 
-The reference works out each sampled image's maps from the seed's weights
+The reference works out each sampled image's maps from the seed's weights,
+through the cell's network (`models.network`, which names its skeleton),
 twice: in float32 with TF32 off, and with what a bf16 network stores
 rounded to bf16 (`models.forward(..., bf16=True)`), and decodes both as the
 configuration states: the heatmaps upsampled and smoothed, the PAFs
@@ -43,7 +44,8 @@ the reference's (`layout_mismatch`), the answers of one input served again
 against its first (`repeat_mismatch`), and the decoder's own guarantees on
 every answer (`invariant_breaks`: valid rows first and by descending score,
 no valid row with fewer parts than the minimum, part flags only on valid
-rows).
+rows, and the skeleton's part count: an answer with another counts each of
+its rows, and serves no people).
 """
 
 from __future__ import annotations
@@ -54,9 +56,7 @@ import numpy as np
 import torch
 
 from reference import decode as rdecode
-from reference import models
-from reference.oracle import (COCO_PAIRS, COCO_PAIRS_NETWORK, N_PARTS,
-                              find_peaks)
+from reference import models, oracle
 
 
 def invariant_breaks(ans: dict, min_parts: int) -> int:
@@ -70,10 +70,19 @@ def invariant_breaks(ans: dict, min_parts: int) -> int:
     return breaks
 
 
+def part_count_breaks(ans: dict, n_parts: int) -> int:
+    """0 where one image's answer serves `n_parts` parts, else its rows (at
+    least one)."""
+    if all(ans[f].shape[1] == n_parts
+           for f in ("coords", "part_scores", "part_valid")):
+        return 0
+    return max(len(ans["valid"]), 1)
+
+
 def keypoint_rows(ans: dict, ref: np.ndarray, ref16: np.ndarray) -> list:
     """(served score, reference value, bf16-stored reference value) of each
     of one image's served keypoints, the references read from their
-    smoothed heatmaps (H, W, 19) at the keypoint's pixel: of the two rows
+    smoothed heatmaps (H, W, heatmaps) at the keypoint's pixel: of the two rows
     and two columns around its subpixel position, the one whose reference
     value is nearest the served score."""
     h, w, _ = ref.shape
@@ -97,18 +106,19 @@ def keypoint_rows(ans: dict, ref: np.ndarray, ref16: np.ndarray) -> list:
 
 
 def served_people(ans: dict) -> tuple[np.ndarray, np.ndarray]:
-    """(coords (P, 18, 2), NaN where a part is absent; scores (P,)) of one
-    image's served valid rows, coordinates normalized."""
+    """(coords (P, parts, 2), NaN where a part is absent; scores (P,)) of
+    one image's served valid rows, coordinates normalized."""
     rows = np.nonzero(ans["valid"])[0]
     xy = ans["coords"][rows].astype(np.float64)
     xy[~ans["part_valid"][rows]] = np.nan
     return xy, ans["score"][rows].astype(np.float64)
 
 
-def reference_people(humans: list) -> tuple[np.ndarray, np.ndarray]:
+def reference_people(humans: list, skeleton: oracle.Skeleton
+                     ) -> tuple[np.ndarray, np.ndarray]:
     """The same of the oracle's people, each scored as the program scores
     a person: its summed score over its part count."""
-    xy = np.full((len(humans), N_PARTS, 2), np.nan)
+    xy = np.full((len(humans), skeleton.n_parts, 2), np.nan)
     for i, hu in enumerate(humans):
         for part, (x, y, _) in hu.parts.items():
             xy[i, part] = (x, y)
@@ -190,13 +200,13 @@ def units(value: float, unit: float) -> float:
     return 0.0 if value == 0 else float("inf")
 
 
-def off_peak(xy: np.ndarray, peaks, extent: tuple, tol: float
-             ) -> tuple[int, int]:
-    """(keypoints of people `xy` (P, 18, 2), those farther than `tol` from
-    every reference peak of their part)."""
+def off_peak(xy: np.ndarray, peaks, extent: tuple, tol: float,
+             skeleton: oracle.Skeleton) -> tuple[int, int]:
+    """(keypoints of people `xy` (P, parts, 2), those farther than `tol`
+    from every reference peak of their part)."""
     h, w = extent
     n = far = 0
-    for part in range(N_PARTS):
+    for part in range(skeleton.n_parts):
         pts = xy[:, part]
         pts = pts[~np.isnan(pts[:, 0])] * (w, h) - 0.5
         n += len(pts)
@@ -211,19 +221,20 @@ def off_peak(xy: np.ndarray, peaks, extent: tuple, tol: float
     return n, far
 
 
-def limb_breaks(xy: np.ndarray, paf: np.ndarray, postproc: dict
-                ) -> tuple[int, int]:
-    """(limbs of people `xy` (P, 18, 2) with both parts present, those whose
-    line integral over the reference's upsampled PAF (H, W, 38) at the
-    parts' pixels fails the decode's test for a connection)."""
+def limb_breaks(xy: np.ndarray, paf: np.ndarray, postproc: dict,
+                skeleton: oracle.Skeleton) -> tuple[int, int]:
+    """(limbs of people `xy` (P, parts, 2) with both parts present, those
+    whose line integral over the reference's upsampled PAF (H, W, PAF
+    channels) at the parts' pixels fails the decode's test for a
+    connection)."""
     h, w, _ = paf.shape
     f32 = np.float32
     n_samples = postproc["paf_n_samples"]
     need = int(np.ceil(postproc["paf_inlier_ratio"] * n_samples))
     fracs = np.linspace(0.0, 1.0, n_samples).astype(f32)
     n = bad = 0
-    for limb, (ia, ib) in enumerate(COCO_PAIRS):
-        cx, cy = COCO_PAIRS_NETWORK[limb]
+    for limb, (ia, ib) in enumerate(skeleton.limbs):
+        cx, cy = skeleton.paf_channels[limb]
         ok = ~np.isnan(xy[:, ia, 0]) & ~np.isnan(xy[:, ib, 0])
         if not ok.any():
             continue
@@ -248,8 +259,8 @@ def limb_breaks(xy: np.ndarray, paf: np.ndarray, postproc: dict
 class Reference:
     """The reference's readings of a sample, image by image: the smoothed
     heatmaps in float32 and bf16-stored, the upsampled float32 PAF, the
-    float32 peaks, and both sides' people (as served_people gives
-    them)."""
+    float32 peaks, and both sides' people (as served_people gives them);
+    the network's skeleton."""
 
     maps: list
     maps16: list
@@ -258,6 +269,7 @@ class Reference:
     people: list
     people16: list
     extent: tuple
+    skeleton: oracle.Skeleton
 
 
 def reference(cell_config: dict, sd: dict, planes: np.ndarray,
@@ -267,24 +279,25 @@ def reference(cell_config: dict, sd: dict, planes: np.ndarray,
     `block` images at a time."""
     model = cell_config["model"]
     f = postproc["upsample_factor"]
-    ref = Reference([], [], [], [], [], [], ())
+    skel = oracle.load_skeleton(models.network(model["name"]).SKELETON)
+    ref = Reference([], [], [], [], [], [], (), skel)
     for i in range(0, len(planes), block):
         x = torch.from_numpy(planes[i:i + block]).to(device)
         conf, paf = models.forward(model["name"], sd, x, model["n_stages"])
-        people, smoothed = rdecode.decode(conf, paf, postproc)
+        people, smoothed = rdecode.decode(conf, paf, postproc, skel)
         paf_up = rdecode.resample(paf, f, 0.0).cpu().numpy()
         del conf, paf
         conf, paf = models.forward(model["name"], sd, x, model["n_stages"],
                                    bf16=True)
-        people16, smoothed16 = rdecode.decode(conf, paf, postproc)
+        people16, smoothed16 = rdecode.decode(conf, paf, postproc, skel)
         del conf, paf
         ref.maps += list(smoothed)
         ref.maps16 += list(smoothed16)
         ref.paf += list(paf_up)
-        ref.peaks += [find_peaks(m, postproc["peak_threshold"], None)
-                      for m in smoothed]
-        ref.people += [reference_people(p) for p in people]
-        ref.people16 += [reference_people(p) for p in people16]
+        ref.peaks += [oracle.find_peaks(m, skel, postproc["peak_threshold"],
+                                        None) for m in smoothed]
+        ref.people += [reference_people(p, skel) for p in people]
+        ref.people16 += [reference_people(p, skel) for p in people16]
         ref.extent = smoothed.shape[1:3]
     return ref
 
@@ -294,23 +307,28 @@ def numbers(answers: list, ref: Reference, postproc: dict,
     """The numbers of a sample: answers[i] (host arrays of one image)
     against the reference's readings of its input."""
     tol = float(postproc["upsample_factor"])          # one output cell
-    extent = ref.extent
+    extent, skel = ref.extent, ref.skeleton
+    no_people = (np.full((0, skel.n_parts, 2), np.nan), np.zeros(0))
     breaks = 0
     rows = []
     program, bf16 = Agreement(), Agreement()
     counts = np.zeros(4, dtype=np.int64)
     for i, ans in enumerate(answers):
         breaks += invariant_breaks(ans, postproc["min_parts_per_human"])
-        rows += keypoint_rows(ans, ref.maps[i], ref.maps16[i])
-        r, r16, served = ref.people[i], ref.people16[i], served_people(ans)
+        wrong = part_count_breaks(ans, skel.n_parts)
+        breaks += wrong
+        if not wrong:
+            rows += keypoint_rows(ans, ref.maps[i], ref.maps16[i])
+        r, r16 = ref.people[i], ref.people16[i]
+        served = no_people if wrong else served_people(ans)
         pairs16, _ = pair(r16[0], r[0], extent, tol)
         steady = [j for i16, j, k in pairs16
                   if k == (~np.isnan(r16[0][i16, :, 0])).sum()
                   == (~np.isnan(r[0][j, :, 0])).sum()]
         program.add(served, r, steady, extent, tol)
         bf16.add(r16, r, [], extent, tol)
-        counts += (*off_peak(served[0], ref.peaks[i], extent, tol),
-                   *limb_breaks(served[0], ref.paf[i], postproc))
+        counts += (*off_peak(served[0], ref.peaks[i], extent, tol, skel),
+                   *limb_breaks(served[0], ref.paf[i], postproc, skel))
     k = np.array(rows, dtype=np.float64).reshape(-1, 3)
     served, refv, ref16 = k.T
     err2 = float(np.sum((served - refv) ** 2))

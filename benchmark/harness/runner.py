@@ -117,7 +117,8 @@ def run(cell, seed: int, seconds: float, trace: bool, t0: float,
                     for k, v in get_model(cfg.model).state_dict().items()}
     w = cell.config["weights"]
     r.mark("imports", t0)
-    sd = weights.make(r.shapes, seed, dev, w["bias_std"])
+    sd = weights.make(r.shapes, seed, dev, w["bias_std"], r.model["name"],
+                      r.model["n_stages"])
     r.mark("weights", t0)
     r.driver = drivers.DRIVERS[cell.traffic["driver"]](r)
     first = r.driver.setup()

@@ -7,6 +7,11 @@ own under `benchmark/`, found by its name:
     benchmark/traffic/<traffic>.json      parameters of one mix
     benchmark/limits/<workload>.json      the limits of `correct`
     benchmark/metrics/<metric>.py         read(run) -> number or None
+    benchmark/reference/networks/<model.name>.py
+                                          the configuration's plain network
+                                          (`reference.models.network`)
+    benchmark/reference/skeletons/<SKELETON>.json
+                                          the skeleton its network names
 """
 
 from __future__ import annotations

@@ -63,15 +63,16 @@ def resample(maps: torch.Tensor, factor: int, sigma: float) -> torch.Tensor:
 
 
 def decode(conf: torch.Tensor, paf: torch.Tensor, cfg: dict,
-           workers: int = 4) -> tuple[list, np.ndarray]:
-    """(B, h, w, 19) and (B, h, w, 38) maps -> (people of each image, the
-    smoothed heatmaps (B, H, W, 19) at the decode resolution, numpy); the
-    images are grouped on `workers` threads."""
+           skeleton: oracle.Skeleton, workers: int = 4
+           ) -> tuple[list, np.ndarray]:
+    """(B, h, w, heatmaps) and (B, h, w, PAF channels) maps -> (people of
+    each image, the smoothed heatmaps (B, H, W, heatmaps) at the decode
+    resolution, numpy), grouped by `skeleton`; the images are grouped on
+    `workers` threads."""
     f = cfg["upsample_factor"]
     smoothed = resample(conf, f, cfg["smooth_sigma"]).cpu().numpy()
     paf_up = resample(paf, f, 0.0).cpu().numpy()
     with concurrent.futures.ThreadPoolExecutor(workers) as pool:
-        people = list(pool.map(lambda i: oracle.group(smoothed[i],
-                                                      paf_up[i], cfg),
-                               range(smoothed.shape[0])))
+        people = list(pool.map(lambda i: oracle.group(
+            smoothed[i], paf_up[i], cfg, skeleton), range(smoothed.shape[0])))
     return people, smoothed

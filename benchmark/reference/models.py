@@ -1,19 +1,23 @@
-"""The two pose networks as plain float32 PyTorch functions of a state_dict
+"""The pose networks as plain float32 PyTorch functions of a state_dict
 (the parameter names of the served program's modules, which the benchmark
 makes from the seed and hands to both sides), with TF32 off.
 
-MobileNet-thin (openpose-plus's at width 0.75, as the repo reconstructs
-it): a 3x3 stride-2 stem, nine depthwise-separable blocks (dw2, dw4 stride
-2), the
-stride-4 block (dw3) max-pooled 2x2 and put in front of dw9's output, then
-six two-branch stages of three separable 3x3 layers, a 1x1 projection
-(256 in stage 1, 128 after) and a 1x1 prediction; stage t > 1 reads
-concat(feature, conf, paf) of stage t - 1.
+Each network is a file of its own, `reference/networks/<model name>.py`,
+found by the configuration's `model.name`. It gives
 
-VGG19 OpenPose (Cao et al. CVPR 2017, `pose_deploy_linevec.prototxt`):
-conv1_1 .. conv4_2 with 2x2 pools after blocks 1-3, two 3x3 CPM convs (256,
-128), stage 1 three 3x3 convs of 128, a 1x1 of 512 and the prediction,
-stages 2-6 five 7x7 convs of 128, a 1x1 of 128 and the prediction.
+    forward(x, sd, n_stages, r) -> (conf, paf)   NCHW float32, `r` the
+                                  rounding of what the network stores
+    heads(n_stages)        the module prefixes of the last heatmap and the
+                           last PAF prediction (the heads `weights` scales)
+    predictions(n_stages)  the module prefixes of every prediction conv
+                           (their biases start at zero)
+    SKELETON               the name of its skeleton,
+                           `reference/skeletons/<name>.json`
+    OTHER_STD              optional: the standard deviation of parameters
+                           that are neither conv kernels nor biases (a
+                           PReLU slope); without it they take the biases'
+
+and builds on the pieces here: `conv`, `sep`, `branch`, `stages`.
 
 Every conv pads as TensorFlow's SAME (an odd total puts the extra row or
 column at the end), adds its bias, then ReLU; the predictions have no
@@ -29,13 +33,15 @@ bf16 storage alone moves a given network's maps.
 from __future__ import annotations
 
 import contextlib
+import importlib.util
+import os
+import types
 
 import torch
 import torch.nn.functional as F
 
-VGG19_BLOCKS = (("conv1", 2, True), ("conv2", 2, True), ("conv3", 4, True),
-                ("conv4", 2, False))
-MOBILENET_STRIDES = {"dw2": 2, "dw4": 2}
+NETWORK_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "networks")
 
 
 @contextlib.contextmanager
@@ -118,39 +124,39 @@ def stages(feature: torch.Tensor, sd: dict, n_stages: int, r
     return conf, paf
 
 
-def mobilenet_thin(x: torch.Tensor, sd: dict, n_stages: int, r=_keep):
-    x = conv(x, sd["conv1.weight"], sd["conv1.bias"], r, stride=2)
-    feat_s4 = None
-    for i in range(1, 10):
-        x = sep(x, sd, f"dw{i}", r, MOBILENET_STRIDES.get(f"dw{i}", 1))
-        if i == 3:
-            feat_s4 = x
-    feature = torch.cat([F.max_pool2d(feat_s4, 2, 2), x], dim=1)
-    return stages(feature, sd, n_stages, r)
+def stage_heads(n_stages: int) -> tuple[str, str]:
+    """The (conf, paf) prediction prefixes of stage `n_stages` of
+    `stages`."""
+    return (f"stages.stage{n_stages}_conf.Conv_0",
+            f"stages.stage{n_stages}_paf.Conv_0")
 
 
-def vgg19(x: torch.Tensor, sd: dict, n_stages: int, r=_keep):
-    for prefix, n, pool in VGG19_BLOCKS:
-        for i in range(1, n + 1):
-            x = conv(x, sd[f"{prefix}_{i}.weight"], sd[f"{prefix}_{i}.bias"],
-                     r)
-        if pool:
-            x = F.max_pool2d(x, 2, 2)
-    for name in ("conv4_3_cpm", "conv4_4_cpm"):
-        x = conv(x, sd[f"{name}.weight"], sd[f"{name}.bias"], r)
-    return stages(x, sd, n_stages, r)
+def stage_predictions(n_stages: int) -> list[str]:
+    """Every prediction prefix of `stages`."""
+    return [p for s in range(1, n_stages + 1) for p in stage_heads(s)]
 
 
-NETWORKS = {"mobilenet_thin": mobilenet_thin, "vgg19": vgg19}
+def network(name: str) -> types.ModuleType:
+    """The network file `reference/networks/<name>.py`, loaded."""
+    path = os.path.join(NETWORK_DIR, f"{name}.py")
+    if not os.path.isfile(path):
+        raise FileNotFoundError(f"no reference network {name!r}: {path} "
+                                "does not exist")
+    spec = importlib.util.spec_from_file_location(
+        f"reference_network_{name}", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
 
 
 @torch.no_grad()
 def forward(arch: str, sd: dict, images: torch.Tensor, n_stages: int,
             bf16: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
-    """uint8 (B, H, W, 3) -> the last stage's (conf, paf), (B, H/8, W/8,
-    19 / 38) float32, on the images' device; `bf16` rounds what a bf16
-    network stores (module docstring)."""
+    """uint8 (B, H, W, 3) -> the network `arch`'s last (conf, paf), (B,
+    H/8, W/8, heatmaps / PAF channels) float32, on the images' device;
+    `bf16` rounds what a bf16 network stores (module docstring)."""
     x = images.permute(0, 3, 1, 2).float() / 255.0 - 0.5
     with no_tf32():
-        conf, paf = NETWORKS[arch](x, sd, n_stages, _bf16 if bf16 else _keep)
+        conf, paf = network(arch).forward(x, sd, n_stages,
+                                          _bf16 if bf16 else _keep)
     return conf.permute(0, 2, 3, 1), paf.permute(0, 2, 3, 1)

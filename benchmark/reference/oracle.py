@@ -1,7 +1,7 @@
 """The bottom-up PAF grouping of OpenPose (Cao et al. CVPR 2017, the
 CMU / tf-pose grouping) in plain numpy: a frozen copy of the grouping
-oracle that the served program is held to, with its tables, so that the
-benchmark's reference imports nothing of the program.
+oracle that the served program is held to, so that the benchmark's
+reference imports nothing of the program.
 
   1. 3x3 local-max NMS of the smoothed heatmaps above a threshold, one
      peak per exact plateau (the lowest flat index), ordered by score
@@ -18,28 +18,51 @@ benchmark's reference imports nothing of the program.
 
 Step 2 scores all pairs of a limb at once, in the same float32
 arithmetic as the one-pair-at-a-time original.
+
+The parts, the limbs, their PAF channels and the limbs that may start a
+person are the network's skeleton: a file `skeletons/<name>.json` beside
+this module, read by `load_skeleton`.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
+import os
 
 import numpy as np
 
-N_PARTS = 18
-N_LIMBS = 19
-# limb endpoints (part_a, part_b), OpenPose order
-COCO_PAIRS = (
-    (1, 2), (1, 5), (2, 3), (3, 4), (5, 6), (6, 7), (1, 8), (8, 9), (9, 10),
-    (1, 11), (11, 12), (12, 13), (1, 0), (0, 14), (14, 16), (0, 15), (15, 17),
-    (2, 16), (5, 17),
-)
-# the (x, y) PAF channels of each limb
-COCO_PAIRS_NETWORK = (
-    (12, 13), (20, 21), (14, 15), (16, 17), (22, 23), (24, 25), (0, 1),
-    (2, 3), (4, 5), (6, 7), (8, 9), (10, 11), (28, 29), (30, 31), (34, 35),
-    (32, 33), (36, 37), (18, 19), (26, 27),
-)
+SKELETON_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            "skeletons")
+
+
+@dataclasses.dataclass(frozen=True)
+class Skeleton:
+    """A body schema: `n_parts` parts (heatmap channels 0 .. n_parts - 1),
+    the limbs' (part_a, part_b) in the order the grouping takes them, the
+    (x, y) PAF channels of each limb, and `person_limbs`: limbs before it
+    may start a person, the rest only join one."""
+
+    name: str
+    n_parts: int
+    limbs: tuple
+    paf_channels: tuple
+    person_limbs: int
+
+
+def load_skeleton(name: str) -> Skeleton:
+    """`skeletons/<name>.json` as a Skeleton."""
+    path = os.path.join(SKELETON_DIR, f"{name}.json")
+    with open(path) as f:
+        d = json.load(f)
+    skel = Skeleton(name, d["parts"], tuple(map(tuple, d["limbs"])),
+                    tuple(map(tuple, d["paf_channels"])), d["person_limbs"])
+    if len(skel.paf_channels) != len(skel.limbs) or not (
+            0 <= skel.person_limbs <= len(skel.limbs)) or any(
+            not 0 <= p < skel.n_parts for limb in skel.limbs for p in limb):
+        raise ValueError(f"{path}: limbs, PAF channels and person_limbs "
+                         f"do not fit {skel.n_parts} parts")
+    return skel
 
 
 @dataclasses.dataclass
@@ -58,13 +81,15 @@ class Human:
     n_parts: int
 
 
-def find_peaks(maps: np.ndarray, threshold: float,
+def find_peaks(maps: np.ndarray, skeleton: Skeleton, threshold: float,
                max_peaks) -> Peaks:
-    """Peaks of (H, W, >= 18) smoothed maps: >= all 8 neighbours
-    (-inf border), > threshold, and the lowest flat index among the
-    equal-valued candidates around it; `max_peaks` None keeps all."""
+    """Peaks of each part's channel of (H, W, >= parts) smoothed maps: >=
+    all 8 neighbours (-inf border), > threshold, and the lowest flat index
+    among the equal-valued candidates around it; `max_peaks` None keeps
+    all."""
     h, w, _ = maps.shape
-    m = np.ascontiguousarray(np.moveaxis(maps[:, :, :N_PARTS], 2, 0))
+    m = np.ascontiguousarray(
+        np.moveaxis(maps[:, :, :skeleton.n_parts], 2, 0))
     padded = np.pad(m, ((0, 0), (1, 1), (1, 1)), constant_values=-np.inf)
     is_max = m > threshold
     for dy in (-1, 0, 1):
@@ -80,7 +105,7 @@ def find_peaks(maps: np.ndarray, threshold: float,
             umax = np.maximum(umax, up[:, 1 + dy:1 + dy + h, 1 + dx:1 + dx + w])
     is_max &= u >= umax
     ys, xs, scores = [], [], []
-    for part in range(N_PARTS):
+    for part in range(skeleton.n_parts):
         py, px = np.nonzero(is_max[part])
         s = m[part, py, px]
         order = np.lexsort((py * w + px, -s))[:max_peaks]
@@ -90,14 +115,14 @@ def find_peaks(maps: np.ndarray, threshold: float,
     return Peaks(ys, xs, scores)
 
 
-def limb_candidates(paf: np.ndarray, peaks: Peaks, limb: int,
-                    n_samples: int, sample_threshold: float,
+def limb_candidates(paf: np.ndarray, peaks: Peaks, skeleton: Skeleton,
+                    limb: int, n_samples: int, sample_threshold: float,
                     inlier_ratio: float) -> list:
     """Every valid (slot_a, slot_b, score) of one limb, in (slot_a,
     slot_b) order, all arithmetic in float32."""
     f32 = np.float32
-    ia, ib = COCO_PAIRS[limb]
-    cx, cy = COCO_PAIRS_NETWORK[limb]
+    ia, ib = skeleton.limbs[limb]
+    cx, cy = skeleton.paf_channels[limb]
     na, nb = len(peaks.scores[ia]), len(peaks.scores[ib])
     if not (na and nb):
         return []
@@ -140,13 +165,14 @@ def greedy_assign(candidates: list, n_a: int, n_b: int) -> list:
     return out
 
 
-def assemble(connections: list, peaks: Peaks, max_peaks: int,
-             min_parts: int, min_score: float, max_humans: int) -> list:
+def assemble(connections: list, peaks: Peaks, skeleton: Skeleton,
+             max_peaks: int, min_parts: int, min_score: float,
+             max_humans: int) -> list:
     """The sequential subset merge, limb by limb in greedy order. One
     matching row: attach b (overwriting, and counting, an occupant); two:
     merge when part-disjoint, else attach b to the first; more: nothing;
-    none, limb < 17: a new row in the first empty slot."""
-    parts = np.full((max_humans, N_PARTS), -1, dtype=np.int64)
+    none, limb < person_limbs: a new row in the first empty slot."""
+    parts = np.full((max_humans, skeleton.n_parts), -1, dtype=np.int64)
     score = np.zeros(max_humans, dtype=np.float64)
     count = np.zeros(max_humans, dtype=np.int64)
 
@@ -155,7 +181,7 @@ def assemble(connections: list, peaks: Peaks, max_peaks: int,
         return float(peaks.scores[part][slot])
 
     for limb, conns in enumerate(connections):
-        ia, ib = COCO_PAIRS[limb]
+        ia, ib = skeleton.limbs[limb]
         for sa, sb, cscore in conns:
             a_gid, b_gid = ia * max_peaks + sa, ib * max_peaks + sb
             found = np.nonzero((parts[:, ia] == a_gid)
@@ -178,7 +204,7 @@ def assemble(connections: list, peaks: Peaks, max_peaks: int,
                     parts[j1, ib] = b_gid
                     count[j1] += 1
                     score[j1] += peak_score(b_gid) + cscore
-            elif len(found) == 0 and limb < 17:
+            elif len(found) == 0 and limb < skeleton.person_limbs:
                 empty = np.nonzero(count == 0)[0]
                 if len(empty):
                     j = empty[0]
@@ -193,7 +219,7 @@ def assemble(connections: list, peaks: Peaks, max_peaks: int,
         if score[j] / count[j] <= min_score:
             continue
         found = {}
-        for part in range(N_PARTS):
+        for part in range(skeleton.n_parts):
             gid = int(parts[j, part])
             if gid >= 0:
                 p, slot = divmod(gid, max_peaks)
@@ -225,21 +251,23 @@ def refine(maps: np.ndarray, x: float, y: float, part: int
     return x + ox, y + oy
 
 
-def group(smoothed: np.ndarray, paf: np.ndarray, cfg: dict) -> list:
+def group(smoothed: np.ndarray, paf: np.ndarray, cfg: dict,
+          skeleton: Skeleton) -> list:
     """People of one image from its smoothed heatmaps and upsampled PAF
     (both at the decode resolution), coordinates normalized as
     (px + 0.5) / extent. `cfg`: the post-processing parameters by their
     names in the configuration file."""
-    peaks = find_peaks(smoothed, cfg["peak_threshold"], cfg["max_peaks"])
+    peaks = find_peaks(smoothed, skeleton, cfg["peak_threshold"],
+                       cfg["max_peaks"])
     connections = []
-    for limb in range(N_LIMBS):
-        ia, ib = COCO_PAIRS[limb]
-        cands = limb_candidates(paf, peaks, limb, cfg["paf_n_samples"],
+    for limb, (ia, ib) in enumerate(skeleton.limbs):
+        cands = limb_candidates(paf, peaks, skeleton, limb,
+                                cfg["paf_n_samples"],
                                 cfg["paf_sample_threshold"],
                                 cfg["paf_inlier_ratio"])
         connections.append(greedy_assign(cands, len(peaks.scores[ia]),
                                          len(peaks.scores[ib])))
-    humans = assemble(connections, peaks, cfg["max_peaks"],
+    humans = assemble(connections, peaks, skeleton, cfg["max_peaks"],
                       cfg["min_parts_per_human"], cfg["min_human_score"],
                       cfg["max_humans"])
     h, w, _ = smoothed.shape

@@ -48,8 +48,8 @@ def test_reference_imports_nothing_of_the_program():
         names = _imports(path)
         assert PROGRAM not in names and not names & JAX_SIDE, path
         assert names <= {"__future__", "concurrent", "contextlib",
-                         "dataclasses", "math", "numpy", "torch", "cv2",
-                         "reference"}, path
+                         "dataclasses", "importlib", "json", "math", "os",
+                         "types", "numpy", "torch", "cv2", "reference"}, path
 
 
 def test_forbidden_modules_compares_whole_names():

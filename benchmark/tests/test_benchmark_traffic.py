@@ -25,15 +25,18 @@ def test_scenes_follow_the_seed():
 
 
 def test_weights_follow_the_seed():
+    head = "stages.stage1_conf.Conv_0"
     shapes = {"a.weight": (4, 3, 3, 3), "a.bias": (4,),
-              "b.Conv_0.weight": (2, 4, 1, 1), "b.Conv_0.bias": (2,)}
+              f"{head}.weight": (2, 4, 1, 1), f"{head}.bias": (2,),
+              "stages.stage1_paf.Conv_0.weight": (2, 4, 1, 1),
+              "stages.stage1_paf.Conv_0.bias": (2,)}
     cpu = torch.device("cpu")
-    one = weights.make(shapes, BIG_SEED, cpu, 0.05)
-    two = weights.make(shapes, BIG_SEED, cpu, 0.05)
-    other = weights.make(shapes, 3, cpu, 0.05)
+    one = weights.make(shapes, BIG_SEED, cpu, 0.05, "vgg19", 1)
+    two = weights.make(shapes, BIG_SEED, cpu, 0.05, "vgg19", 1)
+    other = weights.make(shapes, 3, cpu, 0.05, "vgg19", 1)
     assert all(torch.equal(one[k], two[k]) for k in shapes)
     assert not torch.equal(one["a.weight"], other["a.weight"])
-    assert not one["b.Conv_0.bias"].any() and one["a.bias"].any()
+    assert not one[f"{head}.bias"].any() and one["a.bias"].any()
     assert one["a.weight"].std() == pytest.approx((2 / 27) ** 0.5, rel=0.5)
 
 

@@ -1,0 +1,164 @@
+"""The BODY_25 configuration: its plain network agrees with the program's
+float32 forward at a small size on the CPU, its FLOPs an image at the
+cell's shape are pinned to the count by hand, its skeleton file is the
+program's, and the cell runs whole on the CPU at a cut size (its six
+stages kept: BODY_25 has no other stage count) and reads correct, and not
+correct with its keypoints moved or its answers emptied; traced there, it
+reads no per-layer metric (no card) and stays correct."""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import os
+import time
+
+import numpy as np
+import pytest
+import torch
+
+from conftest import BIG_SEED, FAULT_SEED, make_tiny_root
+from harness import cost, runner, scenes, spec, weights
+from reference import models, oracle
+
+ARCH, WORKLOAD, N_STAGES = "body25", "body25.batch_bs8", 6
+HIN, WIN = 96, 112
+# 2 x the convs' multiply-adds at 368 x 656, every tap counted: the VGG
+# front to conv4_1 116,524,744,704; conv4_2 and the CPM convs
+# 28,922,609,664; the PAF stages 98,421,075,968; the heatmap stages
+# 43,392,605,184 (one image, counted by hand layer by layer)
+FLOPS_368X656 = 287_261_035_520
+# Limits of the cut cell (96 x 112, batches of 2): sound runs on seeds 5-9
+# read 0.74-0.87 bf16 units at the keypoints, lose 0-0.04 of the
+# reference's steady people and serve 0.02-0.075 of their keypoints off
+# every reference peak (this network has 115 bf16 convs against VGG19's
+# 22 at two stages, so its keypoints move more than the other cut cells'
+# 0.06 allows)
+CUT_LIMITS = {"peak_error_bf16_units": 2.0, "steady_people_lost": 0.1,
+              "off_peak_share": 0.15, "invariant_breaks": 0,
+              "repeat_mismatch": 0, "layout_mismatch": 0}
+
+
+def _shapes(hin: int, win: int) -> dict:
+    from openpose_plus_tpu_torch.config import default_config
+    from openpose_plus_tpu_torch.models import get_model
+
+    cfg = default_config(ARCH).model
+    with torch.device("meta"):
+        m = get_model(dataclasses.replace(cfg, hin=hin, win=win,
+                                          compute_dtype="float32"))
+        return {k: tuple(v.shape) for k, v in m.state_dict().items()}
+
+
+def test_forward_matches_program_float32():
+    from openpose_plus_tpu_torch.config import default_config
+    from openpose_plus_tpu_torch.engine import Engine
+
+    sd = weights.make(_shapes(HIN, WIN), BIG_SEED, torch.device("cpu"),
+                      0.05, ARCH, N_STAGES)
+    rng = np.random.default_rng(BIG_SEED)
+    images = np.stack([scenes.render(rng, HIN, WIN, (2, 4))
+                       for _ in range(2)])
+    weights.scale_heads(sd, ARCH, N_STAGES, torch.from_numpy(images[:1]),
+                        0.7, 5.0)
+    cfg = default_config(ARCH)
+    cfg = cfg.replace(model=dataclasses.replace(
+        cfg.model, hin=HIN, win=WIN, compute_dtype="float32"))
+    conf, paf = Engine(cfg, params=sd, device="cpu").forward(images)
+    rconf, rpaf = models.forward(ARCH, sd, torch.from_numpy(images),
+                                 N_STAGES)
+    assert conf.shape == (2, HIN // 8, WIN // 8, 26)
+    assert paf.shape == (2, HIN // 8, WIN // 8, 52)
+    for got, want in ((conf, rconf), (paf, rpaf)):
+        scale = float(want.abs().max())
+        assert scale > 0.1
+        assert float((got - want).abs().max()) <= 1e-4 * scale
+
+
+def test_flops_are_pinned():
+    shapes = _shapes(368, 656)
+    assert cost.cnn_flops(ARCH, shapes, 1, 368, 656, N_STAGES) \
+        == FLOPS_368X656
+    assert cost.cnn_flops(ARCH, shapes, 8, 368, 656, N_STAGES) \
+        == 8 * FLOPS_368X656
+
+
+def test_network_names_its_skeleton_and_heads():
+    net = models.network(ARCH)
+    skel = oracle.load_skeleton(net.SKELETON)
+    assert (skel.n_parts, len(skel.limbs), skel.person_limbs) == (25, 26, 18)
+    assert sorted(c for pair in skel.paf_channels for c in pair) \
+        == list(range(52))
+    shapes = _shapes(HIN, WIN)
+    assert {f"{p}.bias" for p in net.predictions(N_STAGES)} <= set(shapes)
+    assert set(net.heads(N_STAGES)) <= set(net.predictions(N_STAGES))
+    assert any(n.endswith(".slope") for n in shapes)
+    with pytest.raises(ValueError, match="stages"):
+        net.heads(2)
+
+
+def _body25_root(path: str) -> tuple[str, str]:
+    """The benchmark cut to the CPU's size, BODY_25 at HIN x WIN with its
+    six stages."""
+    root, bdir = make_tiny_root(path)
+    with open(os.path.join(root, "BENCHMARK.json")) as f:
+        bench = json.load(f)
+    cfile = {c["name"]: c["file"] for c in bench["configs"]}[
+        "body25-368x656"]
+    with open(os.path.join(root, cfile)) as f:
+        config = json.load(f)
+    config["model"].update(hin=HIN, win=WIN, n_stages=N_STAGES)
+    with open(os.path.join(root, cfile), "w") as f:
+        json.dump(config, f)
+    with open(os.path.join(bdir, "limits", f"{WORKLOAD}.json"), "w") as f:
+        json.dump({k: {"limit": v} for k, v in CUT_LIMITS.items()}, f)
+    return root, bdir
+
+
+@pytest.fixture(scope="module")
+def body25_cell(tmp_path_factory):
+    root, bdir = _body25_root(str(tmp_path_factory.mktemp("body25")))
+    return spec.load_cell(root, WORKLOAD, bdir)
+
+
+@pytest.fixture(scope="module")
+def body25_run(body25_cell):
+    return body25_cell, runner.run(body25_cell, FAULT_SEED, 0.5, False,
+                                   time.perf_counter(), device="cpu")
+
+
+def test_sound_run_is_correct(body25_run):
+    _, out = body25_run
+    assert out["correct"], out["_values"]
+    answers = out["_sample"][0]
+    assert all(a["coords"].shape[1:] == (25, 2) for a in answers)
+    assert sum(int(a["valid"].sum()) for a in answers) > 0
+
+
+@pytest.mark.parametrize("fault", ["moved", "emptied"])
+def test_fault_is_not_correct(body25_run, fault):
+    from harness import check
+
+    cell, out = body25_run
+    answers, ref, pp, repeats, layout = out["_sample"]
+    bad = []
+    for a in answers:
+        a = dict(a)
+        if fault == "moved":      # 4 pixels right on the 28-wide grid
+            a["coords"] = a["coords"] + np.float32([4.0 / 28.0, 0.0])
+        else:
+            a["valid"] = np.zeros_like(a["valid"])
+            a["part_valid"] = np.zeros_like(a["part_valid"])
+        bad.append(a)
+    values = check.numbers(bad, ref, pp, repeats, layout)
+    correct, _ = check.judge(values, cell.limits)
+    assert not correct, values
+
+
+def test_traced_cut_run_reads_no_device_metric(body25_cell):
+    names = {m["name"] for m in body25_cell.per_layer}
+    assert {"models.paf_stages_device_ms.bs8",
+            "models.conf_stages_device_ms.bs8", "mfu.serve"} <= names
+    out = runner.run(body25_cell, FAULT_SEED + 1, 0.5, True,
+                     time.perf_counter(), device="cpu")
+    assert out["metrics"] == {} and out["correct"], out["_values"]

@@ -119,6 +119,19 @@ raises on failure (the script then exits non-zero and prints no result):
    FORWARD32_REL_TOL of the map scale. A `zoo` line per model at batch 8:
    `infer` event ms, the forward's and the stage head's device ms
    (`device_ms`), the convolutions' flops and the forward's bound.
+   7b. BODY_25 at the body25.batch_bs8 cell's shapes (`body25_phase`):
+   greedy at 26 limbs, merge at 25 parts (on greedy's output, random sets
+   and `kernel_inputs.MERGE_KINDS`), sample_paf at 26 limbs and find_peaks
+   on the five BODY_25 scene kinds and a checkerboard at capacity, all at
+   batch 8, K 16, M 32 on the 92x164 grid after the upsample, bit-equal to
+   their plain versions on the card and the CPU; then Engine(default_
+   config("body25")) at 368x656 with its last PAF and heatmap predictions
+   scaled (`scale_paf_first_heads`): the find_peaks, greedy, merge and
+   sample_paf counts must rise during one `infer` (set to 0 just before
+   it), the HumanBatch must hold 25 parts a row and be finite and
+   compacted, the compiled graph's replay must equal the eager call, and
+   three BODY_25 people drawn on the 46x82 grid must decode to three full
+   skeletons, card == CPU. A `body25` line: launches, humans, `infer` ms.
 8. The GT-map oracle on the card (`oracle_phase`): `ap_oracle` renders the
    ground-truth maps of the serving tier's 96 seeded val images
    (368x432, stride 8, sigma 8) on the card and decodes them with the
@@ -382,7 +395,7 @@ csrc/int8_conv.cu with its phase clocks and reads where a block of the
 int8 conv spends its time at the forwards' main shapes (`int8_phases`).
 `--bench-phase` only builds the kernels and runs phase 15,
 `--studies-phase` phase 17, `--peaks-phase` find_peaks' checks of phase 3
-and its timings of phase 6 (`peaks_phase`).
+and its timings of phase 6 (`peaks_phase`), `--body25-phase` phase 7b.
 """
 
 from __future__ import annotations
@@ -956,21 +969,21 @@ def sample_paf_bytes(torch, paf, sy, sx, chans) -> int:
     return touched + io_bytes(sy, sx) + 2 * sy.numel() * paf.element_size()
 
 
-def check_sample_paf(torch, inputs, paf_sample, rng, dev, h, w, k) -> list:
-    """sample_paf bit-equal to its plain version on the card and the CPU;
-    returns the card's inputs."""
-    args = [torch.from_numpy(a) for a in inputs.paf_samples(rng, BATCH, h,
-                                                            w, k)]
-    args.append(paf_sample.limb_channels(torch.device("cpu")))
+def check_sample_paf(torch, inputs, paf_sample, rng, dev, h, w, k,
+                     skel) -> list:
+    """sample_paf at the limbs of `skel` bit-equal to its plain version on
+    the card and the CPU; returns the card's inputs."""
+    args = [torch.from_numpy(a) for a in inputs.paf_samples(
+        rng, BATCH, h, w, k, n_limbs=skel.n_limbs)]
+    args.append(paf_sample.limb_channels(torch.device("cpu"), skel))
     args_dev = [t.to(dev) for t in args]
     out = paf_sample.sample_paf(*args_dev)
     plain_dev = paf_sample.sample_paf_plain(*args_dev)
     plain_cpu = paf_sample.sample_paf_plain(*args)
     torch.cuda.synchronize()
-    assert_equal(torch, f"sample_paf K={k} {h}x{w} vs plain (cuda)", out,
-                 plain_dev)
-    assert_equal(torch, f"sample_paf K={k} {h}x{w} vs plain (cpu)", out,
-                 plain_cpu)
+    what = f"sample_paf {skel.name} K={k} {h}x{w}"
+    assert_equal(torch, f"{what} vs plain (cuda)", out, plain_dev)
+    assert_equal(torch, f"{what} vs plain (cpu)", out, plain_cpu)
     return args_dev
 
 
@@ -1585,6 +1598,153 @@ def zoo_paths(torch, images, counted, dev, gpu) -> None:
             "forward_bound_by": bound_by,
             "forward_pct_of_bound": 100.0 * bound_ms / forward_ms,
             "gpu": gpu}}))
+
+
+def scale_paf_first_heads(torch, engine, images) -> dict:
+    """`scale_heads` for BODY_25, whose heatmap stages read the last PAFs:
+    the last PAF prediction first, then the last heatmap prediction on the
+    maps that follow, to max |paf| 5 and max |conf| 0.7 (both biases are
+    zero)."""
+    from openpose_plus_tpu_torch.models import body25
+
+    stages = engine.model.stages
+    heads = {"paf": getattr(stages, f"stage{body25.N_PAF_STAGES - 1}_L2"),
+             "conf": getattr(stages, f"stage{body25.N_CONF_STAGES - 1}_L1")}
+    gains = {}
+    for key, peak in (("paf", 5.0), ("conf", 0.7)):
+        conf, paf = engine.forward(images)
+        gains[key] = peak / float((paf if key == "paf" else conf).abs().max())
+        with torch.no_grad():
+            heads[key].Mconv7.weight.mul_(gains[key])
+    return gains
+
+
+def body25_kernels(torch, np, inputs, dev, post, hw) -> None:
+    """BODY_25's decode kernels at the body25.batch_bs8 cell's shapes
+    (batch 8, K and M of `post`, the (h, w) grid `hw` after the upsample),
+    each bit-equal to its plain version on the card and on the CPU:
+    greedy at 26 limbs (ties, full density, signed zeros), merge at 25
+    parts on greedy's output, on random sets and on the sets that drive
+    each of its branches, sample_paf at 26 limbs, and find_peaks on the
+    decoder tests' five BODY_25 scene kinds tiled to the cell's grid (46 x
+    54 maps widened to 46 x 82 at the cell) and on a checkerboard that
+    fills every row to its capacity."""
+    from openpose_plus_tpu_torch import skeletons
+    from openpose_plus_tpu_torch.ops.cuda import (greedy, merge, paf_sample,
+                                                  peaks)
+    from openpose_plus_tpu_torch.postproc import nms
+
+    skel = skeletons.BODY25
+    k, m, (h, w) = post.max_peaks, post.max_humans, hw
+    rng = np.random.default_rng(25)
+    for density in (0.3, 1.0):
+        scores = torch.from_numpy(inputs.limb_scores(
+            rng, BATCH, k, density, n_limbs=skel.n_limbs))
+        accepted, _ = check_greedy(torch, greedy, scores, k, dev,
+                                   f"greedy 26 limbs K={k}")
+        peak_score = torch.from_numpy(inputs.peak_scores(rng, BATCH, k,
+                                                         skel.n_parts))
+        for conns in (accepted, [torch.from_numpy(x) for x in
+                                 inputs.connections(rng, BATCH, k,
+                                                    skel.n_limbs)]):
+            check_merge(torch, merge, (*conns, peak_score), k, m, dev,
+                        f"merge 25 parts K={k}")
+    check_greedy(torch, greedy, torch.from_numpy(inputs.signed_zero_scores(
+        rng, BATCH, k, n_limbs=skel.n_limbs)), k, dev,
+        f"greedy 26 limbs K={k}, signed zeros")
+    for kind, mk in inputs.MERGE_KINDS.items():
+        fields = [torch.from_numpy(x) for x in (
+            *inputs.merge_connections(rng, BATCH, k, kind, skel.n_limbs),
+            inputs.peak_scores(rng, BATCH, k, skel.n_parts))]
+        check_merge(torch, merge, fields, k, mk, dev,
+                    f"merge 25 parts {kind} K={k} M={mk}")
+    check_sample_paf(torch, inputs, paf_sample, rng, dev, h, w, k, skel)
+
+    cases = []
+    for kind in ("plateau", "clean", "noisy", "very_noisy", "pure_noise"):
+        maps = torch.from_numpy(inputs.peak_scene(kind, BATCH, skel))
+        lh, lw = h // post.upsample_factor, w // post.upsample_factor
+        tiled = maps.repeat(1, -(-lh // maps.shape[1]),
+                            -(-lw // maps.shape[2]), 1)[:, :lh, :lw]
+        cases.append((kind, nms.upsample_smooth(
+            tiled.contiguous(), post.upsample_factor, post.smooth_sigma),
+            post.peak_threshold))
+    cases.append(("checkerboard", torch.from_numpy(inputs.checkerboard_peaks(
+        BATCH, h, w, skel.n_heatmaps)), 0.5))
+    for what, smoothed, threshold in cases:
+        if tuple(smoothed.shape) != (BATCH, h, w, skel.n_heatmaps):
+            raise AssertionError(f"find_peaks {what}: maps "
+                                 f"{tuple(smoothed.shape)}")
+        out = peaks.find_peaks(smoothed.to(dev), threshold, k)
+        for where, maps in (("cuda", smoothed.to(dev)), ("cpu", smoothed)):
+            ref = nms.find_peaks_plain(maps, threshold, k)
+            assert_bits_equal(torch, f"find_peaks 25 parts {what} vs plain "
+                              f"({where})", out,
+                              [getattr(ref, f) for f in peaks.FIELDS])
+    full = peaks.candidates.cpu()
+    if tuple(full.shape) != (BATCH, skel.n_parts) or not bool(
+            (full == peaks.capacity(h, w)).all()):
+        raise AssertionError(f"25-part checkerboard: peaks a row "
+                             f"{full.unique()} of {tuple(full.shape)}, "
+                             f"expected {peaks.capacity(h, w)}")
+    log(f"BODY_25 kernels bit-equal to their plain versions (card and CPU) "
+        f"at batch {BATCH}, K={k}, M={m}: greedy at 26 limbs, merge at 25 "
+        f"parts ({sorted(inputs.MERGE_KINDS)} included), sample_paf and "
+        f"find_peaks on a {h}x{w} grid ({len(cases) - 1} scene sets and a "
+        f"checkerboard at {peaks.capacity(h, w)} peaks a row)")
+
+
+def body25_phase(torch, np, inputs, counted, dev, gpu,
+                 size=(368, 656)) -> None:
+    """Phase 7b (module docstring): BODY_25 at the body25.batch_bs8 cell's
+    shapes (`size` the input's), its kernels (`body25_kernels`), then its
+    served path."""
+    from openpose_plus_tpu_torch import Engine, default_config, skeletons
+    from openpose_plus_tpu_torch.postproc import decode_maps
+
+    cfg = default_config("body25")
+    cfg = cfg.replace(model=dataclasses.replace(cfg.model, hin=size[0],
+                                                win=size[1]))
+    mc, post = cfg.model, cfg.postproc
+    grid = (mc.hout * post.upsample_factor, mc.wout * post.upsample_factor)
+    body25_kernels(torch, np, inputs, dev, post, grid)
+
+    rng = np.random.default_rng(7)
+    images = torch.from_numpy(rng.integers(
+        0, 256, (BATCH, mc.hin, mc.win, 3), dtype=np.uint8)).to(dev)
+    engine = Engine(cfg, seed=0, device=dev)
+    gains = scale_paf_first_heads(torch, engine, images)
+    engine.infer(images)                   # warm-up (cuDNN, allocator)
+    out, n = launches_during(torch, counted, lambda: engine.infer(images))
+    for name in ("find_peaks", "greedy_assign", "assemble", "sample_paf"):
+        if n[name] < 1:
+            raise AssertionError(f"body25 infer: {name} launched {n[name]} "
+                                 "times, expected >= 1")
+    check_humans(torch, "body25 infer", out, post.max_humans, dev)
+    if tuple(out.coords.shape[2:]) != (skeletons.BODY25.n_parts, 2):
+        raise AssertionError(f"body25 infer: coords {tuple(out.coords.shape)}")
+    # the served graph (`compile`) gives the eager call's people bit for bit
+    engine.compile(BATCH)
+    assert_batches_equal(torch, "body25 compiled vs eager",
+                         engine.infer(images), out)
+    # a scene of three BODY_25 people on the cell's 46 x 82 grid: the
+    # card's decode equals the CPU's
+    people = [inputs.standing_person_25(11.37 + 15.61 * i, 21.43 - 0.7 * i)
+              for i in range(3)]
+    conf, paf = (torch.from_numpy(np.stack([x] * BATCH)) for x in
+                 inputs.make_maps(people, 46, 82, noise=0.05,
+                                  skel=skeletons.BODY25))
+    on_cpu = decode_maps(conf, paf, post)
+    compare_decodes(torch, "body25 scene", decode_maps(
+        conf.to(dev), paf.to(dev), post), on_cpu, 1e-5)
+    if not bool((on_cpu.n_parts[:, :3] == skeletons.BODY25.n_parts).all()):
+        raise AssertionError(f"body25 scene: parts {on_cpu.n_parts[:, :4]}")
+    log(json.dumps({"body25": {
+        "batch": BATCH, "hw": [mc.hin, mc.win], "dtype": mc.compute_dtype,
+        "head_gains": gains, "launches": n,
+        "humans": out.num_humans.tolist(),
+        "infer_ms": median_ms(torch, lambda: engine.infer(images)),
+        "gpu": gpu}}))
 
 
 def conv_flops(torch, common, model, feature, images) -> dict:
@@ -4867,6 +5027,9 @@ def main(argv: list[str]) -> int:
         help="only build the kernels and run find_peaks' checks (phase 3) "
              "and timings (phase 6)")
     parser.add_argument(
+        "--body25-phase", action="store_true",
+        help="only build the kernels and run BODY_25's checks (phase 7b)")
+    parser.add_argument(
         "--spatial-phase", action="store_true",
         help="only run phase 14's spatial axis (no kernel is on its path): "
              "sync-sgd of MobileNet-thin and VGG19 on two gloo ranks "
@@ -4889,7 +5052,7 @@ def main(argv: list[str]) -> int:
     tree = args.decoder_kernels_of or args.int8_kernels_of
     if tree is not None:
         sys.path.insert(0, os.path.abspath(tree))
-    from openpose_plus_tpu_torch import Engine, default_config
+    from openpose_plus_tpu_torch import Engine, default_config, skeletons
     from openpose_plus_tpu_torch.engine import scaled_size
     from openpose_plus_tpu_torch.models import common, get_model
     from openpose_plus_tpu_torch.ops.cuda import (build, dw_probe, greedy,
@@ -4991,6 +5154,13 @@ def main(argv: list[str]) -> int:
     if args.peaks_phase:
         peaks_phase(torch, np, inputs, cfg, dev, gpu)
         return 0
+    if args.body25_phase:
+        body25_phase(torch, np, inputs, {
+            "greedy_assign": greedy, "assemble": merge,
+            "sample_paf": paf_sample, "find_peaks": peaks}, dev, gpu)
+        if foreign_modules():
+            raise AssertionError(f"the port pulled in {foreign_modules()}")
+        return 0
 
     phase_done("2_build")
 
@@ -5081,10 +5251,11 @@ def main(argv: list[str]) -> int:
     fid = cfg.postproc.fidelity()
     paf_args = check_sample_paf(torch, inputs, paf_sample, rng_new, dev,
                                 mc.hout * up, mc.wout * up,
-                                cfg.postproc.max_peaks)
+                                cfg.postproc.max_peaks, skeletons.COCO18)
     check_sample_paf(torch, inputs, paf_sample, rng_new, dev,
                      mc.hout * fid.upsample_factor,
-                     mc.wout * fid.upsample_factor, fid.max_peaks)
+                     mc.wout * fid.upsample_factor, fid.max_peaks,
+                     skeletons.COCO18)
     errs["sample_paf"] = 0.0
     check_peaks(torch, np, inputs, nms, peaks, dev)
     errs["find_peaks"] = 0.0
@@ -5351,6 +5522,7 @@ def main(argv: list[str]) -> int:
 
     # ---- 7-9. the zoo, the GT-map oracle, evaluate_engine -----------------
     zoo_paths(torch, images, counted, dev, gpu)
+    body25_phase(torch, np, inputs, counted, dev, gpu)
     phase_done("7_zoo")
     oracle_phase(torch, counted, dev, gpu)
     phase_done("8_oracle")

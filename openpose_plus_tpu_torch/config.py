@@ -1,7 +1,8 @@
 """The port's configuration: every section of `openpose_plus_tpu/config.py`
 (model, post-processing, data, training, mesh), copied so that the port
 imports nothing of the JAX package. Field names, defaults and the
-`fidelity()` / `quality()` presets are the JAX package's;
+`fidelity()` / `quality()` presets are the JAX package's (a port-only
+model's `default_config` also sets its map channels);
 `tests/test_torch_config.py` pins them equal to the originals. The mesh
 section lays out the ranks of `parallel/` (a data axis and a spatial axis
 that shards the image height).
@@ -182,9 +183,15 @@ class Config:
         return dataclasses.replace(self, **kw)
 
 
+# Models the JAX package lacks, with the map channels they predict
+# (OpenPose's BODY_25: 25 parts and the background, 26 limbs).
+PORT_ONLY_MODELS = {"body25": dict(n_heatmaps=26, n_pafs=52)}
+
+
 def default_config(model_name: Optional[str] = None) -> Config:
     cfg = Config()
     if model_name is not None:
-        cfg = cfg.replace(model=dataclasses.replace(cfg.model,
-                                                    name=model_name))
+        cfg = cfg.replace(model=dataclasses.replace(
+            cfg.model, name=model_name,
+            **PORT_ONLY_MODELS.get(model_name, {})))
     return cfg

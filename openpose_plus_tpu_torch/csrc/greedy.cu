@@ -1,13 +1,13 @@
 // Greedy per-limb candidate assignment, hand-written for Hopper (sm_90a).
 //
 // Replaces the TPU kernel `greedy_assign_pallas` / `_greedy_kernel`
-// (openpose_plus_tpu/ops/pallas/greedy.py). For each image and each of the
-// 19 limbs: K rounds of "take the max of the remaining K x K candidate
+// (openpose_plus_tpu/ops/pallas/greedy.py). For each image and each of its
+// limbs (19 for COCO, 26 for BODY_25, a runtime count): K rounds of "take the max of the remaining K x K candidate
 // scores, ties to the LOWEST row-major index; emit (slot_a, slot_b, score,
 // valid); mask that candidate's row and column to -inf".
 //
 // What bounds it on the H100: the serial chain of rounds, not bytes
-// (B * 19 * K * K floats in, a few KB out). Each round is a warp max, a
+// (B * limbs * K * K floats in, a few KB out). Each round is a warp max, a
 // warp min-index and a masking pass, each depending on the one before, and
 // its compares, selects and min/max issue on the integer pipe at half a
 // warp instruction a cycle, so a round costs its instruction count as much
@@ -147,17 +147,20 @@ void launch(const float* scores, int rows, int k, int* slot_a, int* slot_b,
 
 }  // namespace
 
-// scores (batch, 19, k, k) float32 -> slot_a, slot_b (batch, 19, k) int32,
-// score (batch, 19, k) float32, valid (batch, 19, k) bool. All contiguous.
-extern "C" int greedy_assign_launch(const void* scores, int batch, int k,
-                                    void* slot_a, void* slot_b, void* score,
-                                    void* valid, int device, void* stream) {
-  if (k < 1 || k > 32 || batch < 0) return static_cast<int>(cudaErrorInvalidValue);
+// scores (batch, n_limbs, k, k) float32 -> slot_a, slot_b (batch, n_limbs,
+// k) int32, score (batch, n_limbs, k) float32, valid (batch, n_limbs, k)
+// bool. All contiguous.
+extern "C" int greedy_assign_launch(const void* scores, int batch,
+                                    int n_limbs, int k, void* slot_a,
+                                    void* slot_b, void* score, void* valid,
+                                    int device, void* stream) {
+  if (k < 1 || k > 32 || batch < 0 || n_limbs < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (batch == 0) return 0;
   const float* s = static_cast<const float*>(scores);
-  const int rows = batch * 19;
+  const int rows = batch * n_limbs;
   int* sa = static_cast<int*>(slot_a);
   int* sb = static_cast<int*>(slot_b);
   float* sc = static_cast<float*>(score);

@@ -16,7 +16,7 @@
 // per image, in two parts:
 //
 // 1. Stage, then compact (all four warps). Every global load comes first:
-//    the image's connection fields and its (18, K) peak scores are copied
+//    the image's connection fields and its (parts, K) peak scores are copied
 //    into shared memory, 16 bytes a thread where the layout allows. Then the
 //    valid slots are compacted, in limb-major order, by `__ballot_sync` /
 //    `__popc` prefix counts over 32-slot chunks, into 32-byte records that
@@ -25,8 +25,10 @@
 //    sums the reference forms from peak scores (as the TPU wrapper
 //    precomputed them). Invalid slots are exact no-ops and vanish here.
 // 2. The chain (warp 0), over the n_valid records only. Lane r owns table
-//    row r (max_humans <= 32): its score, count and 18-bit part-occupancy
-//    mask live in that lane's registers; the (18, 32) table of peak ids
+//    row r (max_humans <= 32): its score, count and part-occupancy mask (a
+//    bit a part: 18 for COCO, 25 for BODY_25, the part count a template
+//    parameter) live in that lane's registers; the (parts, 32) table of
+//    peak ids
 //    lives in shared memory column-major, so lane r reads row r without
 //    bank conflicts. A step compares table[ia][r] and table[ib][r] with the
 //    connection's peaks and takes three ballots ("found", "found by B",
@@ -56,7 +58,6 @@
 
 namespace {
 
-constexpr int kParts = 18;
 constexpr int kMaxRows = 32;
 constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
@@ -163,6 +164,7 @@ __device__ void stage(unsigned char* smem, const Layout& lay, int n_slots,
   for (int i = tid; i < n_peaks; i += kThreads) sp[i] = peaks[i];
 }
 
+template <int kParts>
 __global__ void __launch_bounds__(kThreads)
 assemble_kernel(const int* __restrict__ slot_a, const int* __restrict__ slot_b,
                 const float* __restrict__ cscore,
@@ -343,7 +345,7 @@ assemble_kernel(const int* __restrict__ slot_a, const int* __restrict__ slot_b,
     __syncwarp();
   }
 
-  // ---- outputs, once: the image's (m, 18) block in order -------------------
+  // ---- outputs, once: the image's (m, parts) block in order ----------------
   int* out = parts_out + img * m * kParts;
   for (int e = lane; e < m * kParts; e += 32) {
     const int row = e / kParts;
@@ -357,36 +359,56 @@ assemble_kernel(const int* __restrict__ slot_a, const int* __restrict__ slot_b,
 
 }  // namespace
 
-// Connections slot_a, slot_b (batch, n_limbs, k) int32, score (.., k)
-// float32, valid (.., k) bool; peak_score (batch, 18, k) float32; pairs
-// (n_limbs, 2) int32 -> parts (batch, m, 18) int32, subset score (batch, m)
-// float32, count (batch, m) int32. All contiguous; m <= 32, n_limbs <= 32.
-extern "C" int assemble_launch(const void* slot_a, const void* slot_b,
-                               const void* score, const void* valid,
-                               const void* peak_score, const void* pairs,
-                               int batch, int n_limbs, int k, int max_humans,
-                               int n_create, void* parts, void* subset_score,
-                               void* count, int device, void* stream) {
-  if (max_humans < 1 || max_humans > kMaxRows || k < 1 || batch < 0 ||
-      n_limbs < 1 || n_limbs > 32 || kParts * k > 0xffff)
-    return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (batch == 0) return 0;
+template <int kParts>
+cudaError_t launch(const void* slot_a, const void* slot_b, const void* score,
+                   const void* valid, const void* peak_score,
+                   const void* pairs, int batch, int n_limbs, int k,
+                   int max_humans, int n_create, void* parts,
+                   void* subset_score, void* count, cudaStream_t stream) {
+  if (kParts * k > 0xffff) return cudaErrorInvalidValue;
   const int smem = Layout(n_limbs * k, kParts * k).total;
   if (smem > 48 * 1024) {                     // large K only (K > ~50)
-    err = cudaFuncSetAttribute(assemble_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
+    const cudaError_t err = cudaFuncSetAttribute(
+        assemble_kernel<kParts>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        smem);
+    if (err != cudaSuccess) return err;
   }
-  assemble_kernel<<<batch, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+  assemble_kernel<kParts><<<batch, kThreads, smem, stream>>>(
       static_cast<const int*>(slot_a), static_cast<const int*>(slot_b),
       static_cast<const float*>(score), static_cast<const bool*>(valid),
       static_cast<const float*>(peak_score), static_cast<const int*>(pairs),
       n_limbs, k, max_humans, n_create, static_cast<int*>(parts),
       static_cast<float*>(subset_score), static_cast<int*>(count));
-  return static_cast<int>(cudaGetLastError());
+  return cudaGetLastError();
+}
+
+// Connections slot_a, slot_b (batch, n_limbs, k) int32, score (.., k)
+// float32, valid (.., k) bool; peak_score (batch, n_parts, k) float32;
+// pairs (n_limbs, 2) int32 -> parts (batch, m, n_parts) int32, subset score
+// (batch, m) float32, count (batch, m) int32. All contiguous; n_parts 18
+// (COCO) or 25 (BODY_25), m <= 32, n_limbs <= 32.
+extern "C" int assemble_launch(const void* slot_a, const void* slot_b,
+                               const void* score, const void* valid,
+                               const void* peak_score, const void* pairs,
+                               int batch, int n_limbs, int n_parts, int k,
+                               int max_humans, int n_create, void* parts,
+                               void* subset_score, void* count, int device,
+                               void* stream) {
+  if (max_humans < 1 || max_humans > kMaxRows || k < 1 || batch < 0 ||
+      n_limbs < 1 || n_limbs > 32 || (n_parts != 18 && n_parts != 25))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (batch == 0) return 0;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(
+      n_parts == 18
+          ? launch<18>(slot_a, slot_b, score, valid, peak_score, pairs, batch,
+                       n_limbs, k, max_humans, n_create, parts, subset_score,
+                       count, st)
+          : launch<25>(slot_a, slot_b, score, valid, peak_score, pairs, batch,
+                       n_limbs, k, max_humans, n_create, parts, subset_score,
+                       count, st));
 }
 
 // Human-readable text of a CUDA error code returned by the entries above.

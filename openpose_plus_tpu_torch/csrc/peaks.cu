@@ -16,7 +16,11 @@
 // 8-adjacent (two adjacent peaks would be equal candidates, and the
 // plateau tie-break keeps one): at most ceil(H/2) * ceil(W/2) a row.
 //
-// 1. `peak_keys_kernel`, one block a 32 x 8 tile of one image, all 18 parts:
+// 1. `peak_keys_kernel`, one block a 32 x 8 tile of one image, all 18 parts
+//    (BODY_25's 25 parts in two groups of 13, a block a group: 25 planes
+//    and their candidacy would take 52 KB of shared memory, over the 48 KB
+//    a block holds statically; the second group's last plane lies past the
+//    parts, holds -inf and finds nothing):
 //    the tile and a 2-pixel halo (the tie-break reads its neighbours'
 //    candidacy, which reads theirs) come into shared memory once, by
 //    asynchronous 4-byte copies (all of a thread's in flight together),
@@ -61,7 +65,6 @@
 
 namespace {
 
-constexpr int kParts = 18;
 constexpr int kTileX = 32;                      // a warp's row
 constexpr int kTileY = 8;
 constexpr int kThreads = kTileX * kTileY;       // a warp per tile row
@@ -93,14 +96,18 @@ __device__ __forceinline__ float max3(float a, float b, float c) {
   return nan_max(nan_max(a, b), c);
 }
 
+// kParts parts, kGroup of them a block (all of them where kGroups is 1)
+template <int kParts, int kGroup>
 __global__ void __launch_bounds__(kThreads)
 peak_keys_kernel(const float* __restrict__ maps, long long sb, long long sy,
                  long long sx, long long sc, int h, int w, float threshold,
                  int cap, unsigned long long* __restrict__ keys,
                  int* __restrict__ counts) {
-  __shared__ float v[kParts * kPlane];
-  __shared__ unsigned char cand[kParts * kCandPlane];
-  const int b = blockIdx.z;
+  constexpr int kGroups = (kParts + kGroup - 1) / kGroup;
+  __shared__ float v[kGroup * kPlane];
+  __shared__ unsigned char cand[kGroup * kCandPlane];
+  const int b = blockIdx.z / kGroups;
+  const int c0 = (blockIdx.z - b * kGroups) * kGroup;   // the group's first
   const int x0 = blockIdx.x * kTileX;
   const int y0 = blockIdx.y * kTileY;
   const float* img = maps + b * sb;
@@ -108,16 +115,17 @@ peak_keys_kernel(const float* __restrict__ maps, long long sb, long long sy,
   // channels innermost, as the map lies: neighbouring threads, neighbouring
   // addresses; asynchronous copies, so a thread's ~30 loads are all in
   // flight at once
-  for (int i = threadIdx.x; i < kLoadY * kLoadX * kParts; i += kThreads) {
-    const int c = i % kParts;
-    const int p = i / kParts;
+  for (int i = threadIdx.x; i < kLoadY * kLoadX * kGroup; i += kThreads) {
+    const int c = i % kGroup;
+    const int p = i / kGroup;
     const int lx = p % kLoadX;
     const int ly = p / kLoadX;
     const int gx = x0 - kHalo + lx;
     const int gy = y0 - kHalo + ly;
     float* dst = v + c * kPlane + ly * kLoadX + lx;
-    if (gx >= 0 && gx < w && gy >= 0 && gy < h)
-      __pipeline_memcpy_async(dst, img + gy * sy + gx * sx + c * sc,
+    const bool part = kGroups == 1 || c0 + c < kParts;
+    if (part && gx >= 0 && gx < w && gy >= 0 && gy < h)
+      __pipeline_memcpy_async(dst, img + gy * sy + gx * sx + (c0 + c) * sc,
                               sizeof(float));
     else
       *dst = -INFINITY;
@@ -130,7 +138,7 @@ peak_keys_kernel(const float* __restrict__ maps, long long sb, long long sy,
   // each row's 3-wide max, then the 3-high max of three of those, both
   // propagating NaN as max_pool2d does; a pixel outside the map holds -inf,
   // which is above no threshold
-  for (int col = threadIdx.x; col < kParts * kCandX; col += kThreads) {
+  for (int col = threadIdx.x; col < kGroup * kCandX; col += kThreads) {
     const int c = col / kCandX;
     const int cx = col - c * kCandX;
     const float* s = v + c * kPlane + cx;       // the windows' left column
@@ -152,20 +160,22 @@ peak_keys_kernel(const float* __restrict__ maps, long long sb, long long sy,
   const int ty = threadIdx.x >> 5;
   const int gx = x0 + lane;
   const int gy = y0 + ty;
-  for (int c = 0; c < kParts; ++c) {
+  for (int c = 0; c < kGroup; ++c) {
+    if (kGroups > 1 && c0 + c >= kParts) break;
     const unsigned char* q = cand + c * kCandPlane + (ty + 1) * kCandX + lane + 1;
     const bool peak = q[0] && !q[-kCandX - 1] && !q[-kCandX] &&
                       !q[-kCandX + 1] && !q[-1];
     const unsigned ballot = __ballot_sync(kFullMask, peak);
     if (ballot == 0) continue;
     int base = 0;
-    if (lane == 0) base = atomicAdd(counts + b * kParts + c, __popc(ballot));
+    if (lane == 0)
+      base = atomicAdd(counts + b * kParts + c0 + c, __popc(ballot));
     base = __shfl_sync(kFullMask, base, 0);
     const int slot = base + __popc(ballot & ((1u << lane) - 1u));
     if (peak && slot < cap) {
       const float s = v[c * kPlane + (ty + kHalo) * kLoadX + lane + kHalo];
       const unsigned idx = static_cast<unsigned>(gy * w + gx);
-      keys[static_cast<long long>(b * kParts + c) * cap + slot] =
+      keys[static_cast<long long>(b * kParts + c0 + c) * cap + slot] =
           (static_cast<unsigned long long>(ordered(s)) << 32) | ~idx;
     }
   }
@@ -192,6 +202,7 @@ struct Outputs {
   float* rx;
 };
 
+template <int kParts>
 __global__ void __launch_bounds__(kSelectThreads)
 select_kernel(const float* __restrict__ maps, long long sb, long long sy,
               long long sx, long long sc, int h, int w, int k, int cap,
@@ -312,19 +323,42 @@ select_kernel(const float* __restrict__ maps, long long sb, long long sy,
   }
 }
 
+template <int kParts, int kGroup>
+cudaError_t launch(const float* m, long long sb, long long sy, long long sx,
+                   long long sc, int batch, int h, int w, float threshold,
+                   int k, int cap, unsigned long long* keys, int* counts,
+                   const Outputs& out, cudaStream_t st) {
+  constexpr int kGroups = (kParts + kGroup - 1) / kGroup;
+  if (batch * kGroups > 65535) return cudaErrorInvalidValue;
+  cudaError_t err =
+      cudaMemsetAsync(counts, 0, sizeof(int) * batch * kParts, st);
+  if (err != cudaSuccess) return err;
+  const dim3 tiles((w + kTileX - 1) / kTileX, (h + kTileY - 1) / kTileY,
+                   batch * kGroups);
+  peak_keys_kernel<kParts, kGroup><<<tiles, kThreads, 0, st>>>(
+      m, sb, sy, sx, sc, h, w, threshold, cap, keys, counts);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  select_kernel<kParts><<<batch * kParts, kSelectThreads, 0, st>>>(
+      m, sb, sy, sx, sc, h, w, k, cap, keys, counts, out);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
-// maps (batch, h, w, >= 18) float32 at element strides (sb, sy, sx, sc);
-// keys (batch * 18 * cap) uint64 and counts (batch * 18) int32 scratch, cap
-// = ceil(h / 2) * ceil(w / 2); y, x (batch, 18, k) int32, score, ry, rx
-// float32, valid bool. counts ends holding the peaks of each row.
+// maps (batch, h, w, >= n_parts) float32 at element strides (sb, sy, sx,
+// sc); n_parts 18 (COCO) or 25 (BODY_25); keys (batch * n_parts * cap)
+// uint64 and counts (batch * n_parts) int32 scratch, cap = ceil(h / 2) *
+// ceil(w / 2); y, x (batch, n_parts, k) int32, score, ry, rx float32, valid
+// bool. counts ends holding the peaks of each row.
 extern "C" int find_peaks_launch(const void* maps, long long sb, long long sy,
                                  long long sx, long long sc, int batch, int h,
-                                 int w, float threshold, int k, void* keys,
-                                 int cap, void* counts, void* y, void* x,
-                                 void* score, void* valid, void* ry, void* rx,
-                                 int device, void* stream) {
+                                 int w, int n_parts, float threshold, int k,
+                                 void* keys, int cap, void* counts, void* y,
+                                 void* x, void* score, void* valid, void* ry,
+                                 void* rx, int device, void* stream) {
   if (batch < 0 || batch > 65535 || h < 1 || w < 1 || k < 0 ||
+      (n_parts != 18 && n_parts != 25) ||
       static_cast<long long>(h) * w > (1ll << 24) ||
       cap != ((h + 1) / 2) * ((w + 1) / 2))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -332,21 +366,16 @@ extern "C" int find_peaks_launch(const void* maps, long long sb, long long sy,
   if (err != cudaSuccess) return static_cast<int>(err);
   if (batch == 0 || k == 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  err = cudaMemsetAsync(counts, 0, sizeof(int) * batch * kParts, st);
-  if (err != cudaSuccess) return static_cast<int>(err);
   const float* m = static_cast<const float*>(maps);
-  const dim3 tiles((w + kTileX - 1) / kTileX, (h + kTileY - 1) / kTileY, batch);
-  peak_keys_kernel<<<tiles, kThreads, 0, st>>>(
-      m, sb, sy, sx, sc, h, w, threshold, cap,
-      static_cast<unsigned long long*>(keys), static_cast<int*>(counts));
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
+  auto* kp = static_cast<unsigned long long*>(keys);
+  auto* cp = static_cast<int*>(counts);
   const Outputs out{static_cast<int*>(y), static_cast<int*>(x),
                     static_cast<float*>(score), static_cast<bool*>(valid),
                     static_cast<float*>(ry), static_cast<float*>(rx)};
-  select_kernel<<<batch * kParts, kSelectThreads, 0, st>>>(
-      m, sb, sy, sx, sc, h, w, k, cap,
-      static_cast<const unsigned long long*>(keys),
-      static_cast<const int*>(counts), out);
-  return static_cast<int>(cudaGetLastError());
+  err = n_parts == 18
+            ? launch<18, 18>(m, sb, sy, sx, sc, batch, h, w, threshold, k, cap,
+                             kp, cp, out, st)
+            : launch<25, 13>(m, sb, sy, sx, sc, batch, h, w, threshold, k, cap,
+                             kp, cp, out, st);
+  return static_cast<int>(err);
 }

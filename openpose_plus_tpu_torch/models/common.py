@@ -3,8 +3,9 @@
 Port of `openpose_plus_tpu/models/common.py` (the plain lowering, the dense
 and separable stage branches, the fused separable branch, the VGG blocks,
 the space-to-depth data movement of the input layouts, and the calibrated
-int8 mode; no block-grid conv rearrangements). Submodules and parameters
-carry the Flax scope names so the weight bridge
+int8 mode; no block-grid conv rearrangements), and the port's own PReLU
+conv and dense block (OpenPose BODY_25, `models/body25.py`). Submodules
+and parameters carry the Flax scope names so the weight bridge
 (`openpose_plus_tpu_torch.checkpoint`) is a rename plus a transpose.
 
 Numerics follow the reference layer by layer: every conv runs in the compute
@@ -38,11 +39,13 @@ from torch import nn
 
 from openpose_plus_tpu_torch.ops.cuda import int8_conv, sepconv
 from openpose_plus_tpu_torch.parallel import spatial
+from openpose_plus_tpu_torch.utils.tracer import count
 
 # "int8" carries bf16 between the convs (`common.py::_dtype`)
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
            "int8": torch.bfloat16}
 CALIB_LEAVES = ("act_scale", "out_scale")   # + "stage{n}_in_scale"
+PRELU_INIT = 0.25     # Caffe's PReLU filler
 
 
 def compute_dtype(name: str) -> torch.dtype:
@@ -340,6 +343,49 @@ class SepConvRelu(_Int8Layer):
         return F.relu(_bias_add(y, self.pw_bias))
 
 
+class PReLUConv(nn.Module):
+    """kxk conv + PReLU (Caffe's: a learned slope a channel for the
+    negative side), as OpenPose's BODY_25 uses it: the conv, its bias and
+    the PReLU in the compute dtype, as ConvRelu's conv, bias and ReLU. The
+    slope is named `slope`, not `bias` or `weight`, so a rule that draws
+    parameters by those names leaves it to its own."""
+
+    def __init__(self, in_features: int, features: int, kernel: int = 3,
+                 dtype: str = "bfloat16"):
+        super().__init__()
+        self.dtype = compute_dtype(dtype)
+        self.weight = nn.Parameter(
+            torch.empty(features, in_features, kernel, kernel))
+        self.bias = nn.Parameter(torch.zeros(features))
+        self.slope = nn.Parameter(torch.full((features,), PRELU_INIT))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.dtype
+        y = conv2d_same(x.to(dt), self.weight.to(dt))
+        return F.prelu(_bias_add(y, self.bias), self.slope.to(dt))
+
+
+class DenseBlock(nn.Module):
+    """Three chained 3x3 PReLUConv of `features` channels (`conv0` reads
+    the input, `conv1` conv0's output, `conv2` conv1's) and their outputs
+    concatenated in that order: 3 * features channels (a BODY_25 stage's
+    `Mconv` block). Each forward adds one to the tracer's
+    `models.dense_blocks` counter."""
+
+    def __init__(self, in_features: int, features: int,
+                 dtype: str = "bfloat16"):
+        super().__init__()
+        self.conv0 = PReLUConv(in_features, features, dtype=dtype)
+        self.conv1 = PReLUConv(features, features, dtype=dtype)
+        self.conv2 = PReLUConv(features, features, dtype=dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        count("models.dense_blocks")
+        a = self.conv0(x)
+        b = self.conv1(a)
+        return torch.cat([a, b, self.conv2(b)], dim=1)
+
+
 class Conv1x1F32(nn.Module):
     """The final prediction 1x1 (Flax `nn.Conv(dtype=float32)`): float32
     conv of the upcast input (a QAct dequantized first: the int8 chain
@@ -476,6 +522,20 @@ def vgg_block(model: nn.Module, prefix: str, in_features: int,
     return names
 
 
+def vgg_input(x: torch.Tensor, stem_s2d: bool, dtype: torch.dtype
+              ) -> torch.Tensor:
+    """A VGG-style backbone's input: an NHWC float image, plain or (with
+    `stem_s2d`) in the 12-channel s2d layout, as the plain image in
+    `dtype`, NCHW channels-last."""
+    if x.shape[-1] == 12 and not stem_s2d:
+        raise ValueError("s2d input layout needs stem_s2d")
+    if x.shape[-1] not in (3, 12):
+        raise ValueError(f"expected a 3-channel image or its s2d (12) "
+                         f"layout, got {tuple(x.shape)}")
+    x = to_plain(x)               # s2d layout: exact data movement
+    return x.to(dtype).permute(0, 3, 1, 2)     # NCHW, channels-last
+
+
 def run_vgg_block(model: nn.Module, x, names: list[str], pool: bool):
     """The block's convs in order, then the optional 2x2 max pool (of the
     int8 plane for a QAct)."""
@@ -518,13 +578,7 @@ class VGGFamilyPose(nn.Module):
             **self.HEAD)
 
     def forward(self, x: torch.Tensor) -> dict:
-        if x.shape[-1] == 12 and not self.stem_s2d:
-            raise ValueError("s2d input layout needs stem_s2d")
-        if x.shape[-1] not in (3, 12):
-            raise ValueError(f"expected a 3-channel image or its s2d (12) "
-                             f"layout, got {tuple(x.shape)}")
-        x = to_plain(x)               # s2d layout: exact data movement
-        x = x.to(self.dtype).permute(0, 3, 1, 2)     # NCHW, channels-last
+        x = vgg_input(x, self.stem_s2d, self.dtype)
         for names, pool in self.blocks:
             x = run_vgg_block(self, x, names, pool)
         for name, _ in self.CPM:
@@ -539,10 +593,11 @@ class VGGFamilyPose(nn.Module):
 
 
 def init_params(model: nn.Module, generator: torch.Generator) -> None:
-    """Flax-equivalent random init: lecun-normal kernels, zero biases."""
+    """Flax-equivalent random init: lecun-normal kernels, zero biases;
+    PReLU slopes at Caffe's default, PRELU_INIT."""
     for name, p in model.named_parameters():
         if name.endswith("weight"):
             lecun_normal_(p, generator)
         else:
             with torch.no_grad():
-                p.zero_()
+                p.fill_(PRELU_INIT if name.endswith("slope") else 0.0)

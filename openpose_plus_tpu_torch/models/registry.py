@@ -1,11 +1,13 @@
 """Model registry: string name -> torch module
-(`openpose_plus_tpu/models/registry.py`, the same names and aliases)."""
+(`openpose_plus_tpu/models/registry.py`, the same names and aliases, and
+the port's own `body25`, OpenPose's BODY_25)."""
 
 from __future__ import annotations
 
 from torch import nn
 
 from openpose_plus_tpu_torch.config import ModelConfig
+from openpose_plus_tpu_torch.models.body25 import Body25Pose
 from openpose_plus_tpu_torch.models.hao28 import Hao28Pose
 from openpose_plus_tpu_torch.models.mobilenet_thin import MobileNetThinPose
 from openpose_plus_tpu_torch.models.vgg19 import VGG19Pose
@@ -19,6 +21,7 @@ _REGISTRY = {
     "mobilenet": MobileNetThinPose,
     "hao28_experimental": Hao28Pose,
     "hao28": Hao28Pose,
+    "body25": Body25Pose,        # the port's own: no JAX counterpart
 }
 
 

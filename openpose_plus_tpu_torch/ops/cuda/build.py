@@ -34,11 +34,12 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # C signatures: (name, argtypes). Every entry returns a cudaError_t as int.
 _SIGNATURES = {
-    # scores, batch, k, slot_a, slot_b, score, valid, device, stream
-    "greedy_assign_launch": [_P, _I, _I, _P, _P, _P, _P, _I, _P],
-    # slot_a, slot_b, score, valid, peak_score, pairs, batch, n_limbs, k,
-    # max_humans, n_create, parts, subset_score, count, device, stream
-    "assemble_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+    # scores, batch, n_limbs, k, slot_a, slot_b, score, valid, device, stream
+    "greedy_assign_launch": [_P, _I, _I, _I, _P, _P, _P, _P, _I, _P],
+    # slot_a, slot_b, score, valid, peak_score, pairs, batch, n_limbs,
+    # n_parts, k, max_humans, n_create, parts, subset_score, count, device,
+    # stream
+    "assemble_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                         _P, _P, _P, _I, _P],
     # x, dw_kernel, dw_bias, pw_kernel, pw_bias, y, batch, h, w, c, f,
     # device, stream
@@ -56,9 +57,9 @@ _SIGNATURES = {
     # x, scale, out, rows, c, cp, device, stream
     "quantize_act_launch": [_P, _P, _P] + [ctypes.c_longlong] * 3
                            + [_I, _P],
-    # maps, its four strides, batch, h, w, threshold, k, keys, cap, counts,
-    # y, x, score, valid, ry, rx, device, stream
-    "find_peaks_launch": [_P] + [ctypes.c_longlong] * 4 + [_I] * 3
+    # maps, its four strides, batch, h, w, n_parts, threshold, k, keys, cap,
+    # counts, y, x, score, valid, ry, rx, device, stream
+    "find_peaks_launch": [_P] + [ctypes.c_longlong] * 4 + [_I] * 4
                          + [ctypes.c_float, _I, _P, _I] + [_P] * 7
                          + [_I, _P],
 }

@@ -20,9 +20,9 @@ from __future__ import annotations
 
 import torch
 
+from openpose_plus_tpu_torch import skeletons
 from openpose_plus_tpu_torch.ops import NAMESPACE, check_device
 
-N_LIMBS = 19
 MAX_K = 32
 
 launches = 0   # kernel launches in this process (see module docstring)
@@ -83,9 +83,10 @@ def _(scores, max_peaks):
 def _greedy_assign_cuda(scores: torch.Tensor, max_peaks: int
                         ) -> tuple[torch.Tensor, ...]:
     b, n_limbs, k, k2 = scores.shape
-    if (n_limbs, k2) != (N_LIMBS, k) or k != max_peaks:
+    skeletons.find(n_limbs=n_limbs)
+    if k2 != k or k != max_peaks:
         raise ValueError(f"greedy_assign: scores {tuple(scores.shape)} is "
-                         f"not (B, {N_LIMBS}, {max_peaks}, {max_peaks})")
+                         f"not (B, L, {max_peaks}, {max_peaks})")
     if not 1 <= k <= MAX_K:
         raise ValueError(f"greedy_assign kernel takes K <= {MAX_K}, got {k}")
     if scores.dtype != torch.float32 or not scores.is_contiguous():
@@ -102,7 +103,7 @@ def _greedy_assign_cuda(scores: torch.Tensor, max_peaks: int
         return slot_a, slot_b, score, valid
     lib = build.load()
     err = lib.greedy_assign_launch(
-        scores.data_ptr(), b, k, slot_a.data_ptr(), slot_b.data_ptr(),
+        scores.data_ptr(), b, n_limbs, k, slot_a.data_ptr(), slot_b.data_ptr(),
         score.data_ptr(), valid.data_ptr(), dev.index,
         torch.cuda.current_stream(dev).cuda_stream)
     build.check(lib, err, "greedy_assign_launch")

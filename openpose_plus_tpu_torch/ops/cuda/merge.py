@@ -7,7 +7,7 @@ Semantics are bit-identical to `openpose_plus_tpu/postproc/group.py ::
 assemble` (the CMU merge with its overwrite-and-count quirk). On the H100
 the work is bounded by the serial dependency from one valid connection to
 the next, not by bytes: the plain version is ~40 tiny tensor ops per
-connection slot (19*K slots); the kernel is one launch, a 128-thread block
+connection slot (limbs*K slots); the kernel is one launch, a 128-thread block
 per image that stages its inputs in shared memory and compacts the valid
 slots, then one warp whose chain over them runs in registers and shared
 memory only.
@@ -15,21 +15,19 @@ memory only.
 `assemble` calls the op `openpose_plus_tpu_torch::assemble` (torch.library),
 which dispatches on the device of its inputs: CPU tensors take
 `assemble_plain`, CUDA tensors launch the kernel or raise. Each launch adds
-one to the module-level `launches` count.
+one to the module-level `launches` count. The skeleton is the one of the
+peak scores' part count (`skeletons.find`: 18 COCO, 25 BODY_25): its
+limbs, in the connections' order, and the limbs that may start a person.
 """
 
 from __future__ import annotations
 
 import torch
 
-from openpose_plus_tpu_torch import skeleton
+from openpose_plus_tpu_torch import skeletons
 from openpose_plus_tpu_torch.ops import NAMESPACE, check_device, device_cache
 
-N_PARTS = skeleton.N_PARTS
 MAX_HUMANS = 32        # one warp lane per human row
-# Only the first 17 limbs may start a new human; the last two (ear-shoulder
-# links closing the head cycle) only attach or merge.
-N_CREATE_LIMBS = 17
 
 launches = 0   # kernel launches in this process (see module docstring)
 
@@ -38,22 +36,25 @@ def assemble_plain(slot_a: torch.Tensor, slot_b: torch.Tensor,
                    score: torch.Tensor, valid: torch.Tensor,
                    peak_score: torch.Tensor, max_peaks: int, max_humans: int
                    ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Connections (B, L, K) + peak_score (B, 18, K) -> parts (B, M, 18)
+    """Connections (B, L, K) + peak_score (B, P, K) -> parts (B, M, P)
     int32 global peak ids (part*K + slot, -1 empty), score (B, M) float32,
-    count (B, M) int32. One masked step per connection slot in limb-major
-    order, batched over images; float sums grouped as in group.assemble."""
+    count (B, M) int32, P the skeleton's parts. One masked step per
+    connection slot in limb-major order, batched over images; float sums
+    grouped as in group.assemble."""
     b, n_limbs, k = slot_a.shape
     m = max_humans
     dev = slot_a.device
-    pairs = skeleton.pairs_array()
+    skel = skeletons.find(n_parts=peak_score.shape[1], n_limbs=n_limbs)
+    n_parts = skel.n_parts
+    pairs = skel.pairs_array()
     ridx = torch.arange(m, device=dev)
     bidx = torch.arange(b, device=dev)
     zero_i = torch.zeros((b,), dtype=torch.long, device=dev)
-    parts = torch.full((b, m, N_PARTS), -1, dtype=torch.int32, device=dev)
+    parts = torch.full((b, m, n_parts), -1, dtype=torch.int32, device=dev)
     subset_score = torch.zeros((b, m), dtype=torch.float32, device=dev)
     count = torch.zeros((b, m), dtype=torch.int32, device=dev)
-    ps = peak_score.reshape(b, N_PARTS * k)
-    col = torch.arange(N_PARTS, device=dev)
+    ps = peak_score.reshape(b, n_parts * k)
+    col = torch.arange(n_parts, device=dev)
 
     def first(mask: torch.Tensor) -> torch.Tensor:
         # lowest row index where mask (0 when none), as jnp.argmax(mask)
@@ -75,7 +76,7 @@ def assemble_plain(slot_a: torch.Tensor, slot_b: torch.Tensor,
             nfound = found.sum(dim=1)
             j1 = first(found)
             j2 = first(found & (ridx != j1[:, None]))
-            row1, row2 = parts[bidx, j1], parts[bidx, j2]       # (B, 18)
+            row1, row2 = parts[bidx, j1], parts[bidx, j2]       # (B, P)
             overlap = ((row1 >= 0) & (row2 >= 0)).any(dim=1)
             empty = count == 0
             jnew = first(empty)
@@ -84,7 +85,7 @@ def assemble_plain(slot_a: torch.Tensor, slot_b: torch.Tensor,
             attach = cvalid & (((nfound == 1) & (row1[:, ib] != b_gid))
                                | ((nfound == 2) & overlap))
             merge = cvalid & (nfound == 2) & ~overlap
-            create = cvalid & (nfound == 0) & (limb < N_CREATE_LIMBS) \
+            create = cvalid & (nfound == 0) & (limb < skel.person_limbs) \
                 & has_empty
 
             is1 = ridx == j1[:, None]                              # (B, M)
@@ -130,9 +131,11 @@ def assemble_plain(slot_a: torch.Tensor, slot_b: torch.Tensor,
 
 
 @device_cache
-def limb_pairs(device: torch.device) -> torch.Tensor:
-    """(L, 2) int32 part indices of each limb's endpoints, one cached copy
-    per device (the kernel's table; the PAF scorer indexes with it too)."""
+def limb_pairs(device: torch.device, skeleton: skeletons.Skeleton
+               ) -> torch.Tensor:
+    """(L, 2) int32 part indices of each of the skeleton's limb endpoints,
+    one cached copy per device (the kernel's table; the PAF scorer indexes
+    with it too)."""
     return torch.as_tensor(skeleton.pairs_array(), device=device)
 
 
@@ -155,7 +158,7 @@ def _assemble_op(slot_a: torch.Tensor, slot_b: torch.Tensor,
 def _(slot_a, slot_b, score, valid, peak_score, max_peaks, max_humans):
     b = slot_a.shape[0]
     i32, f32 = torch.int32, torch.float32
-    return (slot_a.new_empty((b, max_humans, N_PARTS), dtype=i32),
+    return (slot_a.new_empty((b, max_humans, peak_score.shape[1]), dtype=i32),
             slot_a.new_empty((b, max_humans), dtype=f32),
             slot_a.new_empty((b, max_humans), dtype=i32))
 
@@ -166,11 +169,13 @@ def _assemble_cuda(slot_a: torch.Tensor, slot_b: torch.Tensor,
                    peak_score: torch.Tensor, max_peaks: int, max_humans: int
                    ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     b, n_limbs, k = slot_a.shape
+    skel = skeletons.find(n_parts=peak_score.shape[1], n_limbs=n_limbs)
     expect = {"slot_a": (slot_a, torch.int32, (b, n_limbs, k)),
               "slot_b": (slot_b, torch.int32, (b, n_limbs, k)),
               "score": (score, torch.float32, (b, n_limbs, k)),
               "valid": (valid, torch.bool, (b, n_limbs, k)),
-              "peak_score": (peak_score, torch.float32, (b, N_PARTS, k))}
+              "peak_score": (peak_score, torch.float32,
+                             (b, skel.n_parts, k))}
     for name, (t, dtype, shape) in expect.items():
         if (t.device != slot_a.device or t.dtype != dtype
                 or tuple(t.shape) != shape or not t.is_contiguous()):
@@ -178,9 +183,9 @@ def _assemble_cuda(slot_a: torch.Tensor, slot_b: torch.Tensor,
                 f"assemble: {name} must be a contiguous {dtype} {shape} "
                 f"tensor on {slot_a.device}, got {t.dtype} "
                 f"{tuple(t.shape)} on {t.device}")
-    if n_limbs != skeleton.N_LIMBS or k != max_peaks:
+    if n_limbs != skel.n_limbs or k != max_peaks:
         raise ValueError(f"assemble: connections {(b, n_limbs, k)} are not "
-                         f"(B, {skeleton.N_LIMBS}, {max_peaks})")
+                         f"(B, {skel.n_limbs}, {max_peaks})")
     if not 1 <= max_humans <= MAX_HUMANS:
         raise ValueError(f"assemble kernel takes max_humans <= "
                          f"{MAX_HUMANS}, got {max_humans}")
@@ -188,7 +193,7 @@ def _assemble_cuda(slot_a: torch.Tensor, slot_b: torch.Tensor,
 
     global launches
     dev = slot_a.device
-    parts = torch.empty((b, max_humans, N_PARTS), dtype=torch.int32,
+    parts = torch.empty((b, max_humans, skel.n_parts), dtype=torch.int32,
                         device=dev)
     subset_score = torch.empty((b, max_humans), dtype=torch.float32,
                                device=dev)
@@ -198,8 +203,9 @@ def _assemble_cuda(slot_a: torch.Tensor, slot_b: torch.Tensor,
     lib = build.load()
     err = lib.assemble_launch(
         slot_a.data_ptr(), slot_b.data_ptr(), score.data_ptr(),
-        valid.data_ptr(), peak_score.data_ptr(), limb_pairs(dev).data_ptr(),
-        b, n_limbs, k, max_humans, N_CREATE_LIMBS, parts.data_ptr(),
+        valid.data_ptr(), peak_score.data_ptr(),
+        limb_pairs(dev, skel).data_ptr(), b, n_limbs, skel.n_parts, k,
+        max_humans, skel.person_limbs, parts.data_ptr(),
         subset_score.data_ptr(), count.data_ptr(), dev.index,
         torch.cuda.current_stream(dev).cuda_stream)
     build.check(lib, err, "assemble_launch")

@@ -17,16 +17,17 @@ from __future__ import annotations
 
 import torch
 
-from openpose_plus_tpu_torch import skeleton
+from openpose_plus_tpu_torch import skeletons
 from openpose_plus_tpu_torch.ops import NAMESPACE, check_device, device_cache
 
 launches = 0   # kernel launches in this process (see module docstring)
 
 
 @device_cache
-def limb_channels(device: torch.device) -> torch.Tensor:
-    """(L, 2) int64 PAF channels (x, y) of each limb, one cached copy per
-    device (the kernel's table)."""
+def limb_channels(device: torch.device, skeleton: skeletons.Skeleton
+                  ) -> torch.Tensor:
+    """(L, 2) int64 PAF channels (x, y) of each of the skeleton's limbs,
+    one cached copy per device (the kernel's table)."""
     return torch.as_tensor(skeleton.paf_channels_array(),
                            device=device).long()
 

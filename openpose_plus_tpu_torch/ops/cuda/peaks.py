@@ -7,10 +7,12 @@ code (`openpose_plus_tpu/postproc/nms.py` find_peaks). Kernel source
 `postproc.nms.find_peaks_plain` (max-pools, masks and a full stable sort of
 every row). On the H100 the stage is bound by reading the smoothed part
 maps once; the kernels read them once (one 32 x 8 tile of all 18 parts a
-block, with a 2-pixel halo), append each row's peaks as unique 64-bit keys
-(score bits above, complemented flat index below), then select the top K of
-each row exactly (a radix select where a row holds more than K) and refine
-them: the plain version's PeakSet, bit for bit, and no sort.
+block, with a 2-pixel halo; BODY_25's 25 parts in two blocks of 13, so a
+block's tile fits in static shared memory), append each row's peaks as
+unique 64-bit keys (score bits above, complemented flat index below), then
+select the top K of each row exactly (a radix select where a row holds
+more than K) and refine them: the plain version's PeakSet, bit for bit,
+and no sort.
 
 `find_peaks` calls the op `openpose_plus_tpu_torch::find_peaks`
 (torch.library), which dispatches on the device of `smoothed`: a CPU tensor
@@ -18,7 +20,7 @@ takes the plain version, a CUDA tensor launches the kernels or raises. The
 maps are read through their strides, so the decode's einsum layout needs no
 copy. Each launch adds one to the module-level `launches` count and to the
 tracer's `postproc.peaks_kernel` counter, and leaves `candidates`, the
-(B, 18) int32 device tensor of peaks each row held (for tests and
+(B, n_parts) int32 device tensor of peaks each row held (for tests and
 chip_smoke.py; the served path never reads it).
 """
 
@@ -28,7 +30,7 @@ import ctypes
 
 import torch
 
-from openpose_plus_tpu_torch import skeleton
+from openpose_plus_tpu_torch import skeletons
 from openpose_plus_tpu_torch.ops import NAMESPACE, check_device
 from openpose_plus_tpu_torch.utils.tracer import count
 
@@ -61,7 +63,8 @@ def _find_peaks_op(smoothed: torch.Tensor, threshold: float, max_peaks: int
 
 @_find_peaks_op.register_fake
 def _(smoothed, threshold, max_peaks):
-    shape = (smoothed.shape[0], skeleton.N_PARTS, max_peaks)
+    n = skeletons.find(n_heatmaps=smoothed.shape[-1]).n_parts
+    shape = (smoothed.shape[0], n, max_peaks)
     y = smoothed.new_empty(shape, dtype=torch.int32)
     refined = smoothed.new_empty(shape, dtype=torch.promote_types(
         torch.float32, smoothed.dtype))
@@ -73,10 +76,10 @@ def _(smoothed, threshold, max_peaks):
 @_find_peaks_op.register_kernel("cuda")
 def _find_peaks_cuda(smoothed: torch.Tensor, threshold: float,
                      max_peaks: int) -> tuple[torch.Tensor, ...]:
-    n = skeleton.N_PARTS
-    if smoothed.dim() != 4 or smoothed.shape[3] < n:
+    if smoothed.dim() != 4:
         raise ValueError(f"find_peaks: smoothed {tuple(smoothed.shape)} is "
-                         f"not (B, H, W, >= {n})")
+                         "not (B, H, W, C)")
+    n = skeletons.find(n_heatmaps=smoothed.shape[3]).n_parts
     if smoothed.dtype != torch.float32:
         raise ValueError("find_peaks kernel takes float32 maps")
     b, h, w = smoothed.shape[:3]
@@ -102,7 +105,7 @@ def _find_peaks_cuda(smoothed: torch.Tensor, threshold: float,
     rows = torch.empty((b, n), dtype=torch.int32, device=dev)
     lib = build.load()
     err = lib.find_peaks_launch(
-        smoothed.data_ptr(), *smoothed.stride(), b, h, w,
+        smoothed.data_ptr(), *smoothed.stride(), b, h, w, n,
         ctypes.c_float(threshold), max_peaks, keys.data_ptr(), cap,
         rows.data_ptr(), y.data_ptr(), x.data_ptr(), score.data_ptr(),
         valid.data_ptr(), ry.data_ptr(), rx.data_ptr(), dev.index,
@@ -117,8 +120,9 @@ def _find_peaks_cuda(smoothed: torch.Tensor, threshold: float,
 def find_peaks(smoothed: torch.Tensor, threshold: float, max_peaks: int
                ) -> tuple[torch.Tensor, ...]:
     """Dispatching wrapper (the op): y, x, score, valid, refined_y,
-    refined_x, each (B, 18, max_peaks), as `postproc.nms.find_peaks_plain`
-    computes them. On the card the maps are float32, of 1 to 2**24 pixels
-    an image, at any strides."""
+    refined_x, each (B, P, max_peaks), P the parts of the skeleton of the
+    maps' channels (`skeletons.find`: 19 COCO's 18, 26 BODY_25's 25), as
+    `postproc.nms.find_peaks_plain` computes them. On the card the maps
+    are float32, of 1 to 2**24 pixels an image, at any strides."""
     check_device("find_peaks", smoothed)
     return _find_peaks_op(smoothed, threshold, max_peaks)

@@ -17,7 +17,7 @@ import functools
 import numpy as np
 import torch
 
-from openpose_plus_tpu_torch import skeleton
+from openpose_plus_tpu_torch import skeleton, skeletons
 from openpose_plus_tpu_torch.config import PostprocConfig
 from openpose_plus_tpu_torch.ops import device_cache
 from openpose_plus_tpu_torch.postproc import group, nms, paf
@@ -30,12 +30,13 @@ class HumanBatch:
 
     Coordinates are normalized to [0, 1] in network-input space using the
     pixel-center convention (px + 0.5) / extent. Rows are compacted: valid
-    humans first, sorted by descending mean score.
+    humans first, sorted by descending mean score. P is the skeleton's
+    part count: 18 (COCO) or 25 (BODY_25).
     """
 
-    coords: torch.Tensor       # (B, M, 18, 2) float32 — (x, y) normalized
-    part_scores: torch.Tensor  # (B, M, 18) float32 peak score (0 if absent)
-    part_valid: torch.Tensor   # (B, M, 18) bool
+    coords: torch.Tensor       # (B, M, P, 2) float32 — (x, y) normalized
+    part_scores: torch.Tensor  # (B, M, P) float32 peak score (0 if absent)
+    part_valid: torch.Tensor   # (B, M, P) bool
     score: torch.Tensor        # (B, M) float32 mean score
     n_parts: torch.Tensor      # (B, M) int32
     valid: torch.Tensor        # (B, M) bool
@@ -85,7 +86,10 @@ def _lookup(table: torch.Tensor, index: torch.Tensor) -> torch.Tensor:
 
 def decode_maps(conf: torch.Tensor, paf_map: torch.Tensor,
                 cfg: PostprocConfig) -> HumanBatch:
-    """Batched decode: (B, H, W, 19) + (B, H, W, 38) -> HumanBatch.
+    """Batched decode: (B, H, W, 19) + (B, H, W, 38) -> HumanBatch of
+    COCO's 18 parts, (B, H, W, 26) + (B, H, W, 52) -> one of BODY_25's 25
+    (the skeleton of the maps' channel counts, `skeletons.for_maps`; each
+    stage finds it again from its own tensors' shapes).
 
     Maps are upcast to float32 first (bfloat16 model outputs would change
     the peak ordering). With `cfg.fragment_merge_rel > 0` (the `quality()`
@@ -95,6 +99,7 @@ def decode_maps(conf: torch.Tensor, paf_map: torch.Tensor,
     `postproc.smooth` (the upcast, upsample and smoothing),
     `postproc.peaks` (NMS, top-K and refinement) and `postproc.group`
     (everything after)."""
+    skeletons.for_maps(conf.shape[-1], paf_map.shape[-1])   # or raise
     with scope("postproc.smooth", device=conf.device):
         conf = conf.float()
         paf_map = paf_map.float()
@@ -121,11 +126,11 @@ def _group(paf_map: torch.Tensor, grid: tuple[int, int], peaks: nms.PeakSet,
     subsets = group.assemble(conns, peaks.score, k, cfg.max_humans)
 
     h, w = grid
-    rx = ((peaks.refined_x + 0.5) / w).reshape(b, -1)       # (B, 18*K)
+    rx = ((peaks.refined_x + 0.5) / w).reshape(b, -1)       # (B, P*K)
     ry = ((peaks.refined_y + 0.5) / h).reshape(b, -1)
     table = torch.stack([rx, ry, peaks.score.reshape(b, -1)], dim=-1)
 
-    gids = subsets.parts                                      # (B, M, 18)
+    gids = subsets.parts                                      # (B, M, P)
     m, n_parts = gids.shape[1], gids.shape[2]
     part_valid = gids >= 0
     safe = torch.where(part_valid, gids, torch.zeros_like(gids)).long()
@@ -299,6 +304,9 @@ def merge_dedup(batches: list[HumanBatch], oks_threshold: float = 0.5
     coords, part_scores, part_valid, score, n_parts, valid = (
         _take(getattr(cat, f.name), pre)
         for f in dataclasses.fields(HumanBatch))
+    if coords.shape[2] != skeletons.COCO18.n_parts:
+        raise ValueError(f"merge_dedup holds COCO's 18 OKS sigmas, not "
+                         f"{coords.shape[2]} parts")
     n = coords.shape[1]
     var = _oks_var(coords.device)                             # (18,)
 

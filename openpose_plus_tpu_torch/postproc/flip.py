@@ -84,7 +84,12 @@ def _tables(device: torch.device
 def mirror_maps(conf: torch.Tensor, paf: torch.Tensor
                 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Mirror (..., H, W, C) maps produced from a horizontally flipped
-    input back into original-image orientation."""
+    input back into original-image orientation (COCO's maps: the tables
+    are the 18-part skeleton's)."""
+    if (conf.shape[-1], paf.shape[-1]) != (skeleton.N_HEATMAPS,
+                                           skeleton.N_PAF_CHANNELS):
+        raise ValueError(f"mirror_maps holds COCO's flip tables, not maps of "
+                         f"{conf.shape[-1]} and {paf.shape[-1]} channels")
     swap, perm, sign = _tables(conf.device)
     conf_m = torch.flip(conf, dims=(-2,))[..., swap]
     paf_m = torch.flip(paf, dims=(-2,))[..., perm] * sign

@@ -1,7 +1,8 @@
 """Heatmap peaks: upsample -> smooth -> 3x3 NMS -> top-K -> subpixel refine.
 
 Port of `openpose_plus_tpu/postproc/nms.py` with the batch dimension written
-out: maps are (B, H, W, C), peak fields (B, n_parts, K). Static shapes as in
+out: maps are (B, H, W, C), peak fields (B, n_parts, K), n_parts the
+skeleton's (`skeletons`: 18 for COCO, 25 for BODY_25). Static shapes as in
 the reference: each part keeps its top `max_peaks` peaks and invalid slots
 are masked.
 
@@ -23,7 +24,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from openpose_plus_tpu_torch import skeleton
+from openpose_plus_tpu_torch import skeletons
 from openpose_plus_tpu_torch.ops import device_cache
 from openpose_plus_tpu_torch.ops.cuda import peaks as peaks_op
 from openpose_plus_tpu_torch.postproc import common
@@ -155,7 +156,9 @@ def find_peaks(smoothed: torch.Tensor, threshold: float, max_peaks: int
 
 def find_peaks_plain(smoothed: torch.Tensor, threshold: float,
                      max_peaks: int) -> PeakSet:
-    """3x3 local-max NMS + per-part top-K on smoothed (B, H, W, >=18) maps.
+    """3x3 local-max NMS + per-part top-K on smoothed (B, H, W, C) maps,
+    C a skeleton's heatmaps (`skeletons.find`: 19 or 26), of their part
+    channels (all but the last, the background).
 
     A pixel is a peak iff it equals the 3x3 max (-inf padding), is strictly
     above `threshold`, and has the lowest flat index among equal-valued
@@ -163,7 +166,7 @@ def find_peaks_plain(smoothed: torch.Tensor, threshold: float,
     descending score, ties by ascending flat index; exhausted slots get
     index 0 and valid=False."""
     b, h, w = smoothed.shape[:3]
-    n = skeleton.N_PARTS
+    n = skeletons.find(n_heatmaps=smoothed.shape[3]).n_parts
     parts = smoothed[..., :n]
     cand = (parts >= _pool3x3(parts)) & (parts > threshold)
     idx_f = torch.arange(h * w, dtype=torch.float32,

@@ -2,7 +2,8 @@
 
 Port of `openpose_plus_tpu/postproc/paf.py` (the gather lowering) with the
 batch dimension written out: scores are (B, n_limbs, K, K), connection
-fields (B, n_limbs, K). The PAF samples and `greedy_assign` go through the
+fields (B, n_limbs, K), n_limbs the skeleton's (`skeletons`). The PAF
+samples and `greedy_assign` go through the
 dispatching wrappers of the CUDA sampling and greedy kernels
 (`ops/cuda/paf_sample.py`, `ops/cuda/greedy.py`).
 """
@@ -14,6 +15,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from openpose_plus_tpu_torch import skeletons
 from openpose_plus_tpu_torch.ops import device_cache
 from openpose_plus_tpu_torch.ops.cuda import greedy, merge, paf_sample
 from openpose_plus_tpu_torch.postproc import common, nms
@@ -43,12 +45,14 @@ def sample_coords(ax: torch.Tensor, ay: torch.Tensor, dx: torch.Tensor,
 
 
 @device_cache
-def _tables(device: torch.device, n_samples: int
+def _tables(device: torch.device, n_samples: int,
+            skeleton: skeletons.Skeleton
             ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Limb endpoint pairs ((L, 2) int32, the merge kernel's table), PAF
-    channel pairs ((L, 2) int64) and the sample fractions, cached per device
-    (no host copy per call)."""
-    return (merge.limb_pairs(device), paf_sample.limb_channels(device),
+    """The skeleton's limb endpoint pairs ((L, 2) int32, the merge
+    kernel's table), PAF channel pairs ((L, 2) int64) and the sample
+    fractions, cached per device (no host copy per call)."""
+    return (merge.limb_pairs(device, skeleton),
+            paf_sample.limb_channels(device, skeleton),
             torch.as_tensor(common.line_sample_fracs(n_samples),
                             device=device))
 
@@ -56,7 +60,9 @@ def _tables(device: torch.device, n_samples: int
 def score_candidates(paf: torch.Tensor, peaks: PeakSet, n_samples: int,
                      sample_threshold: float, inlier_ratio: float,
                      lowres_factor: int = 1) -> torch.Tensor:
-    """Dense candidate scores (B, n_limbs, K, K); invalid pairs -> -inf.
+    """Dense candidate scores (B, n_limbs, K, K) of the limbs of the
+    skeleton of the peaks' parts and the map's channels (`skeletons.find`);
+    invalid pairs -> -inf.
 
     Mean dot of the PAF with the unit limb direction over `n_samples`
     nearest-neighbour samples, plus the height prior, kept when at least
@@ -65,7 +71,8 @@ def score_candidates(paf: torch.Tensor, peaks: PeakSet, n_samples: int,
     live on the upsampled grid: the map is upsampled (`nms.upsample`) and
     then sampled."""
     h = paf.shape[1] * lowres_factor
-    pairs, chans, fracs = _tables(paf.device, n_samples)
+    skel = skeletons.find(n_parts=peaks.y.shape[1], n_pafs=paf.shape[-1])
+    pairs, chans, fracs = _tables(paf.device, n_samples, skel)
 
     ax = peaks.x[:, pairs[:, 0]].to(torch.float32)      # (B, L, K)
     ay = peaks.y[:, pairs[:, 0]].to(torch.float32)

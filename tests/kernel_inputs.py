@@ -3,9 +3,10 @@ PAF sampling, fused separable conv, the depthwise probe and the int8
 conv), the bf16
 agreement measure of the separable kernels, and synthetic pose scenes
 (`make_maps`, `standing_person`: tests/maputil.py's functions on the port's
-own skeleton tables; `peak_scene`, `checkerboard_peaks`: the peaks
-kernels' maps). numpy and `openpose_plus_tpu_torch.skeleton` only: no
-JAX, nothing of the JAX package.
+own skeleton tables; `standing_person_25`, BODY_25's figure; `peak_scene`,
+`checkerboard_peaks`: the peaks kernels' maps). Each takes COCO's sizes
+unless given BODY_25's (`n_limbs=26`, `n_parts=25`, `skel=BODY25`). numpy
+and the port's skeleton tables only: no JAX, nothing of the JAX package.
 
 Shared by the port's CPU tests, its `cuda`-marked tests and chip_smoke.py,
 which loads this file by path.
@@ -15,20 +16,22 @@ from __future__ import annotations
 
 import numpy as np
 
-from openpose_plus_tpu_torch import skeleton
+from openpose_plus_tpu_torch import skeleton, skeletons
 
 N_LIMBS = 19
 N_PARTS = 18
+BODY25 = skeletons.BODY25
 
 
 def limb_scores(rng: np.random.Generator, b: int, k: int,
-                density: float = 0.3, ties: bool = True) -> np.ndarray:
-    """(b, 19, k, k) float32 candidate scores, -inf where no candidate.
+                density: float = 0.3, ties: bool = True,
+                n_limbs: int = N_LIMBS) -> np.ndarray:
+    """(b, n_limbs, k, k) float32 candidate scores, -inf where no candidate.
 
     With `ties`, the cases the tie order decides (lowest row-major index
     wins): an empty limb, a limb whose candidates all tie, exact ties
     between two corners and between two cells of one row."""
-    s = rng.uniform(0.01, 1.0, (b, N_LIMBS, k, k)).astype(np.float32)
+    s = rng.uniform(0.01, 1.0, (b, n_limbs, k, k)).astype(np.float32)
     s = np.where(rng.random(s.shape) < density, s, -np.inf)
     if ties:
         s[:, 1] = -np.inf
@@ -38,28 +41,29 @@ def limb_scores(rng: np.random.Generator, b: int, k: int,
     return s.astype(np.float32)
 
 
-def connections(rng: np.random.Generator, b: int, k: int
-                ) -> tuple[np.ndarray, ...]:
-    """Connection sets shaped like greedy output, (b, 19, k) each: distinct
-    slots per limb and a valid prefix of random length. Returns slot_a,
-    slot_b (int32), score (float32, 0 where invalid), valid (bool)."""
-    slots = np.tile(np.arange(k, dtype=np.int32), (b, N_LIMBS, 1))
+def connections(rng: np.random.Generator, b: int, k: int,
+                n_limbs: int = N_LIMBS) -> tuple[np.ndarray, ...]:
+    """Connection sets shaped like greedy output, (b, n_limbs, k) each:
+    distinct slots per limb and a valid prefix of random length. Returns
+    slot_a, slot_b (int32), score (float32, 0 where invalid), valid
+    (bool)."""
+    slots = np.tile(np.arange(k, dtype=np.int32), (b, n_limbs, 1))
     slot_a = rng.permuted(slots, axis=-1)
     slot_b = rng.permuted(slots, axis=-1)
-    valid = np.arange(k) < rng.integers(0, k + 1, (b, N_LIMBS, 1))
-    score = (rng.uniform(0.1, 1.0, (b, N_LIMBS, k)) * valid).astype(
+    valid = np.arange(k) < rng.integers(0, k + 1, (b, n_limbs, 1))
+    score = (rng.uniform(0.1, 1.0, (b, n_limbs, k)) * valid).astype(
         np.float32)
     return slot_a, slot_b, score, valid
 
 
-def signed_zero_scores(rng: np.random.Generator, b: int, k: int
-                       ) -> np.ndarray:
-    """(b, 19, k, k) float32 limb scores whose maxima are often zeros of
+def signed_zero_scores(rng: np.random.Generator, b: int, k: int,
+                       n_limbs: int = N_LIMBS) -> np.ndarray:
+    """(b, n_limbs, k, k) float32 limb scores whose maxima are often zeros of
     both signs: -0.0 and +0.0 tie (`rem == best`), so the lowest index
     wins whatever the sign. Drawn from {-inf, -1, -0.0, +0.0, 0.5}; limb 0
     has no 0.5, limb 1 only zeros."""
     values = np.array([-np.inf, -1.0, -0.0, 0.0, 0.5], np.float32)
-    s = rng.choice(values, (b, N_LIMBS, k, k), p=[0.3, 0.2, 0.2, 0.2, 0.1])
+    s = rng.choice(values, (b, n_limbs, k, k), p=[0.3, 0.2, 0.2, 0.2, 0.1])
     s[:, 0] = np.where(s[:, 0] == 0.5, -0.0, s[:, 0])
     s[:, 1] = rng.choice(values[2:4], (b, k, k))
     return s.astype(np.float32)
@@ -71,9 +75,11 @@ MERGE_KINDS = {"merge_heavy": 32, "table_filling": 4, "all_valid": 32,
                "none_valid": 32}
 
 
-def merge_connections(rng: np.random.Generator, b: int, k: int, kind: str
-                      ) -> tuple[np.ndarray, ...]:
-    """Connection sets like `connections`, (b, 19, k) each, of one kind:
+def merge_connections(rng: np.random.Generator, b: int, k: int, kind: str,
+                      n_limbs: int = N_LIMBS) -> tuple[np.ndarray, ...]:
+    """Connection sets like `connections`, (b, n_limbs, k) each, of one
+    kind (the limb numbers below are COCO's; BODY_25's sets take the same
+    rule by index):
 
     - "merge_heavy": each limb accepts a few slots at random positions,
       their endpoints drawn from peaks 0-2 only, so rows collide: two or
@@ -92,37 +98,40 @@ def merge_connections(rng: np.random.Generator, b: int, k: int, kind: str
     valid (bool)."""
     if kind == "merge_heavy":
         pool = min(3, k)
-        slot_a = rng.integers(0, pool, (b, N_LIMBS, k)).astype(np.int32)
-        slot_b = rng.integers(0, pool, (b, N_LIMBS, k)).astype(np.int32)
-        n = rng.integers(0, 4, (b, N_LIMBS, 1))
-        n[:, 13:] = rng.integers(2, 6, (b, N_LIMBS - 13, 1))
+        slot_a = rng.integers(0, pool, (b, n_limbs, k)).astype(np.int32)
+        slot_b = rng.integers(0, pool, (b, n_limbs, k)).astype(np.int32)
+        n = rng.integers(0, 4, (b, n_limbs, 1))
+        n[:, 13:] = rng.integers(2, 6, (b, n_limbs - 13, 1))
         n[:, 12] = np.where(rng.random((b, 1)) < 0.8, 0, n[:, 12])
-        valid = rng.random((b, N_LIMBS, k)).argsort(-1).argsort(-1) < n
+        valid = rng.random((b, n_limbs, k)).argsort(-1).argsort(-1) < n
     else:
-        slot_a, slot_b, _, valid = connections(rng, b, k)
+        slot_a, slot_b, _, valid = connections(rng, b, k, n_limbs)
         if kind in ("table_filling", "all_valid"):
             valid = np.ones_like(valid)
         elif kind == "none_valid":
             valid = np.zeros_like(valid)
         else:
             raise ValueError(f"unknown connection set {kind!r}")
-    score = (rng.uniform(0.1, 1.0, (b, N_LIMBS, k)) * valid).astype(
+    score = (rng.uniform(0.1, 1.0, (b, n_limbs, k)) * valid).astype(
         np.float32)
     return slot_a, slot_b, score, valid
 
 
-def peak_scores(rng: np.random.Generator, b: int, k: int) -> np.ndarray:
-    """(b, 18, k) float32 peak scores."""
-    return rng.uniform(0.1, 1.0, (b, N_PARTS, k)).astype(np.float32)
+def peak_scores(rng: np.random.Generator, b: int, k: int,
+                n_parts: int = N_PARTS) -> np.ndarray:
+    """(b, n_parts, k) float32 peak scores."""
+    return rng.uniform(0.1, 1.0, (b, n_parts, k)).astype(np.float32)
 
 
 def paf_samples(rng: np.random.Generator, b: int, h: int, w: int, k: int,
-                s: int = 10) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
-    """paf (b, h, w, 38) float32 and in-bounds sample coordinates sy, sx
-    (b, 19, s, k, k) int32, with the map's corners and edges among them."""
-    paf = (rng.random((b, h, w, 2 * N_LIMBS), np.float32) - 0.5)
-    sy = rng.integers(0, h, (b, N_LIMBS, s, k, k)).astype(np.int32)
-    sx = rng.integers(0, w, (b, N_LIMBS, s, k, k)).astype(np.int32)
+                s: int = 10, n_limbs: int = N_LIMBS
+                ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """paf (b, h, w, 2 n_limbs) float32 and in-bounds sample coordinates
+    sy, sx (b, n_limbs, s, k, k) int32, with the map's corners and edges
+    among them."""
+    paf = (rng.random((b, h, w, 2 * n_limbs), np.float32) - 0.5)
+    sy = rng.integers(0, h, (b, n_limbs, s, k, k)).astype(np.int32)
+    sx = rng.integers(0, w, (b, n_limbs, s, k, k)).astype(np.int32)
     sy[:, :, 0], sx[:, :, 0] = 0, 0
     sy[:, :, -1], sx[:, :, -1] = h - 1, w - 1
     sy[:, 0, :, 0], sx[:, 1, :, 0] = h - 1, w - 1
@@ -198,23 +207,28 @@ def bf16_mismatch(out, ref, floor=0.0) -> tuple[float, float]:
 
 def make_maps(people: list[dict[int, tuple[float, float]]], h: int, w: int,
               sigma: float = 2.0, limb_width: float = 1.5,
-              noise: float = 0.0, seed: int = 0):
+              noise: float = 0.0, seed: int = 0, skel=None):
     """people: list of {part_idx: (x, y)} dicts in map coords.
 
-    Returns (conf (h,w,19), paf (h,w,38)) float32.
+    Returns (conf (h,w,19), paf (h,w,38)) float32, or with `skel` (a
+    `skeletons.Skeleton`) that skeleton's (n_parts + 1, 2 n_limbs) maps.
     """
+    n_parts, pairs, channels = ((skeleton.N_PARTS, skeleton.COCO_PAIRS,
+                                 skeleton.COCO_PAIRS_NETWORK) if skel is None
+                                else (skel.n_parts, skel.limbs,
+                                      skel.paf_channels))
     yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
-    conf = np.zeros((h, w, skeleton.N_HEATMAPS), np.float32)
+    conf = np.zeros((h, w, n_parts + 1), np.float32)
     for person in people:
         for part, (px, py) in person.items():
             g = np.exp(-((xx - px) ** 2 + (yy - py) ** 2) / (2 * sigma ** 2))
             conf[:, :, part] = np.maximum(conf[:, :, part], g)
-    conf[:, :, skeleton.N_PARTS] = 1.0 - conf[:, :, : skeleton.N_PARTS].max(-1)
+    conf[:, :, n_parts] = 1.0 - conf[:, :, :n_parts].max(-1)
 
-    paf = np.zeros((h, w, skeleton.N_PAF_CHANNELS), np.float32)
-    count = np.zeros((h, w, skeleton.N_LIMBS), np.float32)
+    paf = np.zeros((h, w, 2 * len(pairs)), np.float32)
+    count = np.zeros((h, w, len(pairs)), np.float32)
     for person in people:
-        for limb, (ia, ib) in enumerate(skeleton.COCO_PAIRS):
+        for limb, (ia, ib) in enumerate(pairs):
             if ia not in person or ib not in person:
                 continue
             ax, ay = person[ia]
@@ -227,11 +241,11 @@ def make_maps(people: list[dict[int, tuple[float, float]]], h: int, w: int,
             along = relx * ux + rely * uy
             perp = np.abs(relx * (-uy) + rely * ux)
             band = (along >= 0) & (along <= norm) & (perp <= limb_width)
-            cx, cy = skeleton.COCO_PAIRS_NETWORK[limb]
+            cx, cy = channels[limb]
             paf[:, :, cx] += band * ux
             paf[:, :, cy] += band * uy
             count[:, :, limb] += band
-    for limb, (cx, cy) in enumerate(skeleton.COCO_PAIRS_NETWORK):
+    for limb, (cx, cy) in enumerate(channels):
         nz = count[:, :, limb] > 0
         paf[:, :, cx][nz] /= count[:, :, limb][nz]
         paf[:, :, cy][nz] /= count[:, :, limb][nz]
@@ -269,24 +283,49 @@ def standing_person(cx: float, cy: float, scale: float = 1.0
     }
 
 
-def peak_scene(kind: str, b: int = 1) -> np.ndarray:
+def standing_person_25(cx: float, cy: float, scale: float = 1.0
+                       ) -> dict[int, tuple[float, float]]:
+    """A full BODY_25 stick figure centered near (cx, cy): COCO's figure
+    with BODY_25's numbering, the mid hip between the hips, and the feet
+    (big toe, small toe, heel) under each ankle."""
+    s = scale
+    coco = standing_person(cx, cy, scale)
+    # BODY_25 part <- COCO part, for the parts they share
+    shared = {0: 0, 1: 1, 2: 2, 3: 3, 4: 4, 5: 5, 6: 6, 7: 7, 9: 8, 10: 9,
+              11: 10, 12: 11, 13: 12, 14: 13, 15: 14, 16: 15, 17: 16, 18: 17}
+    person = {p: coco[c] for p, c in shared.items()}
+    person[8] = (cx, cy)                                  # mid hip
+    for ankle, toes in ((14, (19, 20, 21)), (11, (22, 23, 24))):
+        ax, ay = person[ankle]
+        side = 1.0 if ankle == 14 else -1.0               # left, right
+        person[toes[0]] = (ax + side * 1.5 * s, ay + 1.5 * s)   # big toe
+        person[toes[1]] = (ax + side * 2.5 * s, ay + 1.0 * s)   # small toe
+        person[toes[2]] = (ax - side * 0.5 * s, ay + 1.5 * s)   # heel
+    return person
+
+
+def peak_scene(kind: str, b: int = 1, skel=None) -> np.ndarray:
     """(b, 46, 54, 19) conf maps of one of the decoder tests' scene kinds,
     image i rolled i pixels along x: "plateau" (integer-grid keypoints:
     exact 2x2 plateaus after upsampling), "clean", "noisy", "very_noisy"
     (standing people at fractional keypoints, with Gaussian noise) and
-    "pure_noise" (uniform in [0, 0.4))."""
+    "pure_noise" (uniform in [0, 0.4)); with `skel` BODY25, (b, 46, 54,
+    26) maps of its figures."""
+    person = standing_person if skel is None else standing_person_25
+    channels = skeleton.N_HEATMAPS if skel is None else skel.n_heatmaps
     if kind == "plateau":
-        conf = make_maps([standing_person(10, 8), standing_person(10, 30)],
-                         46, 54)[0]
+        conf = make_maps([person(10, 8), person(10, 30)], 46, 54,
+                         skel=skel)[0]
     elif kind == "pure_noise":
         conf = np.random.default_rng(100).uniform(
-            0, 0.4, (46, 54, skeleton.N_HEATMAPS)).astype(np.float32)
+            0, 0.4, (46, 54, channels)).astype(np.float32)
     else:
         n, noise, seed = {"clean": (3, 0.0, 0), "noisy": (3, 0.15, 1),
                           "very_noisy": (2, 0.2, 2)}[kind]
-        people = [standing_person(11.37 + 15.61 * i, 21.43 - 0.7 * i,
-                                  0.93 + 0.1 * i) for i in range(n)]
-        conf = make_maps(people, 46, 54, noise=noise, seed=seed)[0]
+        people = [person(11.37 + 15.61 * i, 21.43 - 0.7 * i,
+                         0.93 + 0.1 * i) for i in range(n)]
+        conf = make_maps(people, 46, 54, noise=noise, seed=seed,
+                         skel=skel)[0]
     return np.stack([np.roll(conf, i, axis=1) for i in range(b)])
 
 

@@ -20,6 +20,7 @@ import pytest
 from openpose_plus_tpu import config as jconfig, skeleton as jskeleton
 from openpose_plus_tpu.models import model_names
 from openpose_plus_tpu_torch import config as tconfig, skeleton as tskeleton
+from openpose_plus_tpu_torch.models import model_names as tmodel_names
 
 from tests import kernel_inputs, maputil
 
@@ -37,6 +38,14 @@ def _sections(cfg):
 
 @pytest.mark.parametrize("name", _NAMES)
 def test_default_config_matches_jax(name):
+    """Every JAX model name; the port's names are those and its own
+    (`PORT_ONLY_MODELS`), whose presets set their map channels."""
+    names = set(tmodel_names()) - set(tconfig.PORT_ONLY_MODELS)
+    assert names == set(_NAMES[1:])
+    for own, channels in tconfig.PORT_ONLY_MODELS.items():
+        assert dataclasses.asdict(tconfig.default_config(own).model) == \
+            dataclasses.asdict(dataclasses.replace(
+                tconfig.ModelConfig(), name=own, **channels))
     ref = jconfig.default_config(name)
     out = tconfig.default_config(name)
     assert dataclasses.asdict(out) == _sections(ref)

@@ -32,7 +32,11 @@ boundary, remat_stages, a resume; held to the eager step within the
 eager-against-eager spread measured first), and loaded export artifacts.
 And the tracer on the card: a graph captured while it records carries no
 tracer events; the decode's stage device spans, captured in a graph, sum
-to the graph's replay time.
+to the graph's replay time. And BODY_25's sizes: the peaks, greedy, merge
+and PAF-sampling kernels at 25 parts and 26 limbs on the same kinds of
+input (the peaks kernels at capacity too), the 25-part decode on the card
+against the CPU, and a BODY_25 engine's compiled replay against its eager
+call, with its model spans timing a captured forward.
 
 The separable kernels are held to their plain versions as
 tests/test_torch_sepconv.py states: `kernel_inputs.bf16_mismatch` at most 2
@@ -65,22 +69,25 @@ def cuda():
     return torch.device("cuda", 0)
 
 
-def _scores(rng, b, k, density):
+def _scores(rng, b, k, density, n_limbs=19):
     """limb_scores at `density`, or "signed_zero" (-0.0 and +0.0 tie), or
     "nan" (signed zeros with a NaN in limb 5 of image 0, which the plain
     version's amax propagates: that limb accepts nothing)."""
     if density in ("signed_zero", "nan"):
-        s = kernel_inputs.signed_zero_scores(rng, b, k)
+        s = kernel_inputs.signed_zero_scores(rng, b, k, n_limbs)
         if density == "nan":
             s[0, 5, k // 2, 0] = np.nan
         return torch.from_numpy(s)
-    return torch.from_numpy(kernel_inputs.limb_scores(rng, b, k, density))
+    return torch.from_numpy(kernel_inputs.limb_scores(rng, b, k, density,
+                                                      n_limbs=n_limbs))
 
 
-def _conns(rng, b, k, kind="random"):
-    conns = (kernel_inputs.connections(rng, b, k) if kind == "random"
-             else kernel_inputs.merge_connections(rng, b, k, kind))
-    fields = (*conns, kernel_inputs.peak_scores(rng, b, k))
+def _conns(rng, b, k, kind="random", skel=None):
+    n_limbs, n_parts = (19, 18) if skel is None else (skel.n_limbs,
+                                                      skel.n_parts)
+    conns = (kernel_inputs.connections(rng, b, k, n_limbs) if kind == "random"
+             else kernel_inputs.merge_connections(rng, b, k, kind, n_limbs))
+    fields = (*conns, kernel_inputs.peak_scores(rng, b, k, n_parts))
     return [torch.from_numpy(x) for x in fields]
 
 
@@ -1230,3 +1237,182 @@ def test_artifact_replays_a_graph(cuda, dtype, tmp_path):
     assert _same_humans(other, ref_b)
     with pytest.raises(ValueError, match="artifact"):
         loaded.infer(a[:1])
+
+
+# ------------------------------------------------------------- BODY_25 ---
+
+B25 = kernel_inputs.BODY25
+
+
+@pytest.mark.parametrize("k", [1, 5, 8, 16, 23, 32])
+@pytest.mark.parametrize("density", [0.3, 1.0, "signed_zero", "nan"])
+def test_greedy_kernel_equals_plain_at_26_limbs(cuda, k, density):
+    scores = _scores(np.random.default_rng(k), 5, k, density, B25.n_limbs)
+    out = greedy.greedy_assign(scores.to(cuda), k)
+    for o, r in zip(out, greedy.greedy_assign_plain(scores, k)):
+        assert o.shape[1] == 26 and torch.equal(o.cpu(), r)
+
+
+_MERGE_CASES_25 = [pytest.param(k, m, "random", id=f"{k}-{m}")
+                   for k, m in [(1, 1), (16, 7), (16, 32), (32, 32), (5, 32),
+                                (64, 32)]]
+_MERGE_CASES_25 += [pytest.param(k, m, kind, id=f"{kind}-{k}")
+                    for kind, m in kernel_inputs.MERGE_KINDS.items()
+                    for k in (16, 32)]
+
+
+@pytest.mark.parametrize("k,m,kind", _MERGE_CASES_25)
+def test_merge_kernel_equals_plain_at_25_parts(cuda, k, m, kind):
+    args = _conns(np.random.default_rng(200 + k * m), 6, k, kind, B25)
+    before = merge.launches
+    out = merge.assemble(*[t.to(cuda) for t in args], k, m)
+    torch.cuda.synchronize()
+    assert merge.launches == before + 1
+    ref = merge.assemble_plain(*args, k, m)
+    assert ref[0].shape == (6, m, 25)
+    for o, r in zip(out, ref):
+        assert torch.equal(o.cpu(), r)
+
+
+@pytest.mark.parametrize("k", [16, 32])
+def test_merge_kernel_on_greedy_output_at_25_parts(cuda, k):
+    rng = np.random.default_rng(9)
+    scores = _scores(rng, 8, k, 0.3, B25.n_limbs)
+    peak_score = torch.from_numpy(kernel_inputs.peak_scores(rng, 8, k, 25))
+    out = merge.assemble(*greedy.greedy_assign(scores.to(cuda), k),
+                         peak_score.to(cuda), k, 32)
+    ref = merge.assemble_plain(*greedy.greedy_assign_plain(scores, k),
+                               peak_score, k, 32)
+    for o, r in zip(out, ref):
+        assert torch.equal(o.cpu(), r)
+
+
+@pytest.mark.parametrize("k", [1, 5, 16, 32])
+def test_sample_paf_kernel_equals_plain_at_26_limbs(cuda, k):
+    paf, sy, sx = kernel_inputs.paf_samples(np.random.default_rng(k), 3, 23,
+                                            29, k, n_limbs=B25.n_limbs)
+    chans = paf_sample.limb_channels(torch.device("cpu"), B25)
+    args = [torch.from_numpy(a) for a in (paf, sy, sx)] + [chans]
+    out = paf_sample.sample_paf(*[t.to(cuda) for t in args])
+    for o, r in zip(out, paf_sample.sample_paf_plain(*args)):
+        assert torch.equal(o.cpu(), r)
+
+
+def _assert_peaks_equal_25(cuda, smoothed, threshold, k):
+    out = peaks.find_peaks(smoothed.to(cuda), threshold, k)
+    ref = nms.find_peaks_plain(smoothed, threshold, k)
+    for o, r in zip(out, [getattr(ref, f) for f in peaks.FIELDS]):
+        assert o.shape[1] == 25 and o.dtype == r.dtype
+        o = o.cpu()
+        if r.dtype == torch.float32:
+            o, r = o.view(torch.int32), r.view(torch.int32)
+        assert torch.equal(o, r)
+    return out
+
+
+@pytest.mark.parametrize("b", [1, 8])
+@pytest.mark.parametrize("post", ["default", "fidelity"])
+@pytest.mark.parametrize("kind", ["plateau", "clean", "noisy", "very_noisy",
+                                  "pure_noise"])
+def test_peaks_kernel_equals_plain_at_25_parts(cuda, kind, post, b):
+    cfg = _POSTPROC[post]
+    smoothed = nms.upsample_smooth(torch.from_numpy(kernel_inputs.peak_scene(
+        kind, b, B25)), cfg.upsample_factor, cfg.smooth_sigma)
+    out = _assert_peaks_equal_25(cuda, smoothed, cfg.peak_threshold,
+                                 cfg.max_peaks)
+    if kind == "plateau":     # two people an image, every part
+        assert int(out[3].sum()) == 2 * 25 * b
+
+
+@pytest.mark.parametrize("h,w,k", [(368, 432, 32), (92, 108, 3000),
+                                   (7, 9, 32)])
+def test_peaks_kernel_on_a_checkerboard_at_25_parts(cuda, h, w, k):
+    """Every row at its capacity, in both part groups of a tile."""
+    smoothed = torch.from_numpy(kernel_inputs.checkerboard_peaks(2, h, w,
+                                                                 26))
+    _assert_peaks_equal_25(cuda, smoothed, 0.5, k)
+    assert torch.equal(peaks.candidates.cpu(), torch.full(
+        (2, 25), peaks.capacity(h, w), dtype=torch.int32))
+
+
+def test_decode_at_25_parts_equals_the_cpu(cuda):
+    """The whole decode of BODY_25 maps (noisy figures, both decoders) on
+    the card against the CPU: the same people and parts; coordinates and
+    scores within 1e-5 (the float64 smoothing contracts in another order
+    on the card, which moves a refined coordinate by float32 ulps)."""
+    import dataclasses
+
+    from openpose_plus_tpu_torch.postproc import decode_maps
+
+    people = [kernel_inputs.standing_person_25(11.37 + 15.61 * i,
+                                               21.43 - 0.7 * i)
+              for i in range(3)]
+    conf, paf = (torch.from_numpy(np.stack([m, np.roll(m, 2, axis=1)]))
+                 for m in kernel_inputs.make_maps(people, 46, 54, noise=0.05,
+                                                  skel=B25))
+    for cfg in _POSTPROC.values():
+        ref = decode_maps(conf, paf, cfg)
+        out = decode_maps(conf.to(cuda), paf.to(cuda), cfg)
+        assert ref.coords.shape == (2, cfg.max_humans, 25, 2)
+        assert int(ref.num_humans.sum()) >= 4
+        for f in dataclasses.fields(ref):
+            got, want = getattr(out, f.name).cpu(), getattr(ref, f.name)
+            if want.dtype == torch.float32:
+                assert torch.allclose(got, want, rtol=0, atol=1e-5), f.name
+            else:
+                assert torch.equal(got, want), f.name
+
+
+def _body25_engine(cuda):
+    import dataclasses
+
+    from openpose_plus_tpu_torch.config import default_config
+    from openpose_plus_tpu_torch.engine import Engine
+
+    cfg = default_config("body25")
+    cfg = cfg.replace(model=dataclasses.replace(cfg.model, hin=64, win=80))
+    return Engine(cfg, seed=3, device=cuda)
+
+
+def test_body25_compiled_replay_equals_eager(cuda):
+    engine = _body25_engine(cuda)
+    images = _deploy_images(cuda, 4)
+    eager = engine.infer(images)
+    engine.compile(2)
+    out = engine.infer(images)
+    torch.cuda.synchronize()
+    assert engine._graphs[tuple(images.shape)] is not None
+    assert out.coords.shape[2] == 25 and _same_humans(out, eager)
+
+
+def test_body25_model_spans_time_a_captured_forward(cuda):
+    """An eager forward counts 30 dense blocks; forwards captured while
+    the tracer records: each replay times the front, the PAF stages and
+    the heatmap stages of every forward, and they sum to no more than the
+    replay."""
+    from openpose_plus_tpu_torch.utils.tracer import GLOBAL_TRACER
+
+    engine = _body25_engine(cuda)
+    images = _deploy_images(cuda, 5)
+    with GLOBAL_TRACER.recording() as rec:
+        engine.forward(images)
+    assert rec.counters == {"models.dense_blocks": 30}
+    calls = 4
+    graph = torch.cuda.CUDAGraph()
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        with GLOBAL_TRACER.recording() as rec, torch.cuda.graph(graph):
+            for _ in range(calls):
+                engine.forward(images)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    for _ in range(2):
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+    stages = rec.device_ms()
+    assert {k: len(v) for k, v in stages.items()} == dict.fromkeys(
+        ("models.front", "models.paf_stages", "models.conf_stages"), calls)
+    assert all(ms > 0 for v in stages.values() for ms in v)
+    assert sum(sum(v) for v in stages.values()) <= start.elapsed_time(end)

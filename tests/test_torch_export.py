@@ -35,7 +35,7 @@ from openpose_plus_tpu.checkpoint import _flatten
 from openpose_plus_tpu.engine import Engine as JaxEngine
 from openpose_plus_tpu_torch import config as tconfig
 from openpose_plus_tpu_torch import export as E
-from openpose_plus_tpu_torch import host
+from openpose_plus_tpu_torch import host, skeletons
 from openpose_plus_tpu_torch.engine import Engine
 from openpose_plus_tpu_torch.models.common import space_to_depth
 from openpose_plus_tpu_torch.ops.cuda import (dw_probe, greedy, int8_conv,
@@ -98,7 +98,7 @@ def _op_cases():
         kernel_inputs.peak_scores(rng, 2, 5))]
     paf, sy, sx = (torch.from_numpy(a) for a in
                    kernel_inputs.paf_samples(rng, 2, 8, 9, 4))
-    chans = paf_sample.limb_channels(torch.device("cpu"))
+    chans = paf_sample.limb_channels(torch.device("cpu"), skeletons.COCO18)
     g = torch.Generator().manual_seed(0)
     x = torch.randn(1, 5, 6, 8, generator=g).bfloat16()
     dwk = torch.randn(9, 8, generator=g).bfloat16()

@@ -24,7 +24,7 @@ from openpose_plus_tpu.ops.pallas.merge import assemble_pallas
 from openpose_plus_tpu.postproc import (
     common as jcommon, decode as jdecode, group as jgroup, nms as jnms,
     paf as jpaf)
-from openpose_plus_tpu_torch import config as tconfig
+from openpose_plus_tpu_torch import config as tconfig, skeletons
 from openpose_plus_tpu_torch.ops.cuda import greedy as tgreedy
 from openpose_plus_tpu_torch.ops.cuda import merge as tmerge
 from openpose_plus_tpu_torch.ops.cuda import paf_sample as tpaf_sample
@@ -210,7 +210,8 @@ def test_plain_sample_paf_matches_pallas(seed, h, w):
                                                  interpret=True)):
         ref = sample_paf_pallas(jnp.asarray(paf[0]), jnp.asarray(sy[0]),
                                 jnp.asarray(sx[0]))
-    chans = tpaf_sample.limb_channels(torch.device("cpu"))
+    chans = tpaf_sample.limb_channels(torch.device("cpu"),
+                                       skeletons.COCO18)
     out = tpaf_sample.sample_paf_plain(_t(paf), _t(sy), _t(sx), chans)
     for o, r in zip(out, ref):
         assert o.shape == (1, 19, 10, 16, 16) and o.dtype == torch.float32
@@ -222,7 +223,8 @@ def test_sample_paf_wrapper_dispatch():
     plain version (no launch); another device is refused."""
     paf, sy, sx = kernel_inputs.paf_samples(np.random.default_rng(2), 2, 9,
                                             11, 4, s=3)
-    chans = tpaf_sample.limb_channels(torch.device("cpu"))
+    chans = tpaf_sample.limb_channels(torch.device("cpu"),
+                                       skeletons.COCO18)
     args = (_t(paf), _t(sy), _t(sx), chans)
     before = tpaf_sample.launches
     out = tpaf_sample.sample_paf(*args)

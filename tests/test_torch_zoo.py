@@ -110,7 +110,11 @@ def test_dense_head_structure(name):
 
 
 def test_model_names_match_reference():
-    assert model_names() == jax_model_names()
+    """The JAX package's names, and the port's one name of its own
+    (OpenPose's BODY_25, which the JAX package does not have)."""
+    assert model_names() == sorted([*jax_model_names(),
+                                    *tconfig.PORT_ONLY_MODELS])
+    assert list(tconfig.PORT_ONLY_MODELS) == ["body25"]
 
 
 @pytest.mark.parametrize("alias,name", [

@@ -132,6 +132,20 @@ raises on failure (the script then exits non-zero and prints no result):
    compacted, the compiled graph's replay must equal the eager call, and
    three BODY_25 people drawn on the 46x82 grid must decode to three full
    skeletons, card == CPU. A `body25` line: launches, humans, `infer` ms.
+   7c. The conv epilogue `bias_act` (`bias_act_phase`): ptxas must report 0
+   bytes of stack and spills for its 8 instances; then on each bf16 engine
+   of BIAS_ACT_CALLS at its cells' shapes (BODY_25 and VGG19 at batch 8,
+   368x656; MobileNet-thin fused, the fidelity and live cells' engine, and
+   unfused, phase 4's, at batch 8 and 1, 368x432): one eager `infer`
+   launches it 108, 80, 21 and 103 times (the count set to 0 just before
+   it); the forward's maps through the kernel equal those with the op
+   swapped for its plain version (dense blocks written in place either
+   way), and both forwards' device times; at each distinct call shape of
+   the forward the kernel is bit-equal to the plain version on the card,
+   and the kernel, the plain expressions and the byte bound at 3.35 TB/s
+   are timed, inputs rotated past the L2. A `bias_act` line an engine and
+   batch: per shape and summed over the forward; the `kernels` line's
+   `bias_act` entry is BODY_25's sums.
 8. The GT-map oracle on the card (`oracle_phase`): `ap_oracle` renders the
    ground-truth maps of the serving tier's 96 seeded val images
    (368x432, stride 8, sigma 8) on the card and decodes them with the
@@ -395,7 +409,8 @@ csrc/int8_conv.cu with its phase clocks and reads where a block of the
 int8 conv spends its time at the forwards' main shapes (`int8_phases`).
 `--bench-phase` only builds the kernels and runs phase 15,
 `--studies-phase` phase 17, `--peaks-phase` find_peaks' checks of phase 3
-and its timings of phase 6 (`peaks_phase`), `--body25-phase` phase 7b.
+and its timings of phase 6 (`peaks_phase`), `--body25-phase` phase 7b,
+`--bias-act-phase` phase 7c.
 """
 
 from __future__ import annotations
@@ -435,6 +450,19 @@ PLAIN_MERGE_REPLAYS = 2       # plain merge: ~12k launches a call at K=16
 ROUND_TRIP_CYCLES = 30
 FORWARD32_REL_TOL = 1e-4      # float32 forward, card vs CPU, of the map scale
 ZOO = ("vgg19", "vggtiny", "hao28")
+# phase 7c: the conv epilogue on each float engine the port serves: label:
+# (model, fused_inference, input (H, W), batches, its launches in one infer)
+BIAS_ACT_CALLS = {
+    "body25": ("body25", False, (368, 656), (BATCH,), 108),  # batch cell
+    "vgg19": ("vgg19", False, (368, 656), (BATCH,), 80),      # batch cell
+    # the fidelity (batch 8) and live (batch 1) cells' engine: its stem,
+    # dw1-dw4's two halves and 12 stage projections
+    "mobilenet_thin-fused": ("mobilenet_thin", True, (368, 432),
+                             (BATCH, 1), 21),
+    # phase 4's unfused engine
+    "mobilenet_thin": ("mobilenet_thin", False, (368, 432), (BATCH, 1), 103),
+}
+L2_BYTES = 50e6               # H100 L2; timed inputs rotate past twice it
 # GT-map oracle AP on the card against ap_benchmark.json "oracle@368" (the
 # JAX package's record, rounded to 4 digits): ulp-level reorders of
 # near-equal peaks in crowded scenes may change a top-K; card vs CPU on the
@@ -573,6 +601,9 @@ SOURCES = {   # kernel: (source, the TPU kernel it replaces)
     "find_peaks": ("openpose_plus_tpu_torch/csrc/peaks.cu",
                    "lax NMS and top-K, openpose_plus_tpu/postproc/nms.py "
                    "(find_peaks); no Pallas kernel"),
+    "bias_act": ("openpose_plus_tpu_torch/csrc/bias_act.cu",
+                 "XLA-fused conv bias and activation, openpose_plus_tpu/"
+                 "models/common.py ConvRelu; no Pallas kernel"),
 }
 
 
@@ -1745,6 +1776,146 @@ def body25_phase(torch, np, inputs, counted, dev, gpu,
         "humans": out.num_humans.tolist(),
         "infer_ms": median_ms(torch, lambda: engine.infer(images)),
         "gpu": gpu}}))
+
+
+def bias_act_case(torch, np, inputs, bias_act, key, count, dev) -> dict:
+    """One bias_act call shape of a forward, `key` ((B, C, H, W), PReLU,
+    the dense block buffer's channels or 0, offset), which the forward
+    makes `count` times, on `kernel_inputs.epilogue_inputs` in bf16: the
+    kernel bit-equal to its plain version on the card (its output and the
+    buffer), then both timed (`device_ms`) on copies of the input rotated
+    past twice the 50 MB L2, so each call reads from HBM as the byte bound
+    assumes (in the forward the conv's output may still sit in L2): y read
+    once, the output and the buffer's channels written once."""
+    (b, c, h, w), prelu, wide, offset = key
+    y, bias, slope = inputs.epilogue_inputs(
+        np.random.default_rng(b + c + wide + offset), b, h, w, c)
+    y = torch.from_numpy(y).to(dev, torch.bfloat16).permute(0, 3, 1, 2)
+    bias = torch.from_numpy(bias).to(dev)
+    slope = torch.from_numpy(slope).to(dev) if prelu else None
+    per = y.numel() * y.element_size()
+    copies = max(1, min(TIMED_ITERS, math.ceil(2 * L2_BYTES / per)))
+    ys = [y] + [y.clone() for _ in range(copies - 1)]
+
+    def buffer():
+        return None if not wide else torch.zeros(
+            (b, wide, h, w), dtype=y.dtype, device=dev).contiguous(
+                memory_format=torch.channels_last)
+
+    into, want = buffer(), buffer()
+    out = bias_act.bias_act(y, bias, slope, into, offset)
+    ref = bias_act.bias_act_plain(y, bias, slope, want, offset)
+    for what, a, r in (("output", out, ref), ("buffer", into, want)):
+        if a is not None and not torch.equal(
+                a.contiguous().view(torch.int16),
+                r.contiguous().view(torch.int16)):
+            raise AssertionError(f"bias_act {key}: {what} differs from the "
+                                 "plain version on the card")
+    intos = [buffer() for _ in range(copies)]
+    turn = iter(range(1 << 30))
+
+    def kernel():
+        i = next(turn) % copies
+        bias_act.bias_act(ys[i], bias, slope, intos[i], offset)
+
+    def plain():
+        i = next(turn) % copies
+        bias_act.bias_act_plain(ys[i], bias, slope, intos[i], offset)
+
+    nbytes = per * (2 + bool(wide)) + 4 * c * (1 + prelu)
+    out = {"shape": [b, c, h, w], "prelu": prelu, "buffer_channels": wide,
+           "offset": offset, "count": count, "copies": copies,
+           "device_ms": device_ms(torch, kernel),
+           "plain_device_ms": device_ms(torch, plain),
+           "bound_ms": bound(nbytes, 0.0)[0]}
+    out["pct_of_bound"] = 100.0 * out["bound_ms"] / out["device_ms"]
+    out["tb_per_s"] = nbytes / out["device_ms"] / 1e9
+    return out
+
+
+def bias_act_forward(torch, np, inputs, bias_act, engine, images, calls,
+                     dev) -> dict:
+    """One engine's epilogue at one batch: one eager `infer` must launch
+    the kernel `calls` times (the count set to 0 just before it); the
+    forward's maps through the kernel must equal those with the op
+    swapped for its plain version (dense blocks written in place either
+    way), both forwards timed; each call shape of the forward is checked
+    and timed by `bias_act_case`."""
+    engine.infer(images)                         # warm-up
+    torch.cuda.synchronize()
+    bias_act.launches = 0
+    engine.infer(images)
+    torch.cuda.synchronize()
+    if bias_act.launches != calls:
+        raise AssertionError(f"infer {tuple(images.shape)}: bias_act "
+                             f"launched {bias_act.launches} times, expected "
+                             f"{calls}")
+    seen = record_calls(bias_act, "_bias_act_op",
+                        lambda: engine.forward(images))
+    if len(seen) != calls:
+        raise AssertionError(f"forward {tuple(images.shape)}: {len(seen)} "
+                             f"bias_act calls, expected {calls}")
+    keys: dict = {}
+    for (y, _, slope, into, offset), _ in seen:
+        key = (tuple(y.shape), slope is not None,
+               0 if into is None else into.shape[1], offset)
+        keys[key] = keys.get(key, 0) + 1
+    maps = engine.forward(images)
+    forward_ms = {"kernel": device_ms(torch, lambda: engine.forward(images))}
+    op, bias_act._bias_act_op = bias_act._bias_act_op, bias_act.bias_act_plain
+    try:
+        plain_maps = engine.forward(images)
+        forward_ms["plain"] = device_ms(torch,
+                                        lambda: engine.forward(images))
+    finally:
+        bias_act._bias_act_op = op
+    if not all(torch.equal(a, p) for a, p in zip(maps, plain_maps,
+                                                 strict=True)):
+        raise AssertionError(f"forward {tuple(images.shape)} through the "
+                             "kernel differs from the plain op's")
+    cases = [bias_act_case(torch, np, inputs, bias_act, key, n, dev)
+             for key, n in keys.items()]
+    total = {k: sum(c["count"] * c[k] for c in cases)
+             for k in ("device_ms", "plain_device_ms", "bound_ms")}
+    total["pct_of_bound"] = 100.0 * total["bound_ms"] / total["device_ms"]
+    return {"launches_per_infer": calls, "forward_device_ms": forward_ms,
+            "sum": total, "shapes": cases}
+
+
+def bias_act_phase(torch, np, inputs, dev, gpu, nvcc_log: str) -> dict:
+    """Phase 7c (module docstring): the conv epilogue on every engine of
+    BIAS_ACT_CALLS at its cells' shapes. Returns {label: {batch: the
+    `bias_act_forward` result}}."""
+    from openpose_plus_tpu_torch import Engine, default_config
+    from openpose_plus_tpu_torch.ops.cuda import bias_act
+
+    frames = ptxas_frames(nvcc_log, ("bias_act_kernel",))
+    if len(frames) != 8 or any(f != (0, 0, 0) for f in frames.values()):
+        raise AssertionError(f"bias_act ptxas frames {frames}: expected 8 "
+                             "instances with 0 bytes of stack and spills")
+    rng = np.random.default_rng(24)
+    results = {}
+    for label, (name, fused, hw, batches, calls) in BIAS_ACT_CALLS.items():
+        cfg = default_config(name)
+        cfg = cfg.replace(model=dataclasses.replace(
+            cfg.model, hin=hw[0], win=hw[1], fused_inference=fused))
+        engine = Engine(cfg, seed=0, device=dev)
+        results[label] = {}
+        for batch in batches:
+            images = torch.from_numpy(rng.integers(
+                0, 256, (batch, *hw, 3), dtype=np.uint8)).to(dev)
+            try:
+                got = bias_act_forward(torch, np, inputs, bias_act, engine,
+                                       images, calls, dev)
+            except AssertionError as e:
+                raise AssertionError(f"bias_act {label}: {e}") from e
+            results[label][batch] = got
+            log(json.dumps({"bias_act": {
+                "model": label, "batch": batch, "hw": list(hw), **got,
+                "ptxas": sorted(frames.values()), "gpu": gpu}}))
+        del engine
+        torch.cuda.empty_cache()
+    return results
 
 
 def conv_flops(torch, common, model, feature, images) -> dict:
@@ -5030,6 +5201,10 @@ def main(argv: list[str]) -> int:
         "--body25-phase", action="store_true",
         help="only build the kernels and run BODY_25's checks (phase 7b)")
     parser.add_argument(
+        "--bias-act-phase", action="store_true",
+        help="only build the kernels and run the conv epilogue's checks and "
+             "timings (phase 7c)")
+    parser.add_argument(
         "--spatial-phase", action="store_true",
         help="only run phase 14's spatial axis (no kernel is on its path): "
              "sync-sgd of MobileNet-thin and VGG19 on two gloo ranks "
@@ -5158,6 +5333,11 @@ def main(argv: list[str]) -> int:
         body25_phase(torch, np, inputs, {
             "greedy_assign": greedy, "assemble": merge,
             "sample_paf": paf_sample, "find_peaks": peaks}, dev, gpu)
+        if foreign_modules():
+            raise AssertionError(f"the port pulled in {foreign_modules()}")
+        return 0
+    if args.bias_act_phase:
+        bias_act_phase(torch, np, inputs, dev, gpu, nvcc_log)
         if foreign_modules():
             raise AssertionError(f"the port pulled in {foreign_modules()}")
         return 0
@@ -5523,6 +5703,14 @@ def main(argv: list[str]) -> int:
     # ---- 7-9. the zoo, the GT-map oracle, evaluate_engine -----------------
     zoo_paths(torch, images, counted, dev, gpu)
     body25_phase(torch, np, inputs, counted, dev, gpu)
+    body25_sums = bias_act_phase(torch, np, inputs, dev, gpu,
+                                 nvcc_log)["body25"][BATCH]["sum"]
+    timing["bias_act"] = {"ms": body25_sums["device_ms"],
+                          "plain_ms": body25_sums["plain_device_ms"],
+                          "bound_ms": body25_sums["bound_ms"],
+                          "bound_by": "bytes", "library_ms": None}
+    launches["bias_act"] = BIAS_ACT_CALLS["body25"][-1]
+    errs["bias_act"] = 0.0                       # bit-equal, checked above
     phase_done("7_zoo")
     oracle_phase(torch, counted, dev, gpu)
     phase_done("8_oracle")

@@ -112,7 +112,7 @@ class ExportedEngine:
     def __init__(self, path: str):
         # the kernel ops the program calls must be registered before load
         from openpose_plus_tpu_torch.ops.cuda import (  # noqa: F401
-            greedy, int8_conv, merge, paf_sample, sepconv)
+            bias_act, greedy, int8_conv, merge, paf_sample, sepconv)
 
         with open(os.path.join(path, _MANIFEST)) as f:
             self.manifest = json.load(f)

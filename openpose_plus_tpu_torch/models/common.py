@@ -12,7 +12,10 @@ Numerics follow the reference layer by layer: every conv runs in the compute
 dtype, its bias is added in the compute dtype AFTER the conv, then ReLU; the
 last 1x1 of each branch runs in float32 on the upcast input. Tensors are
 NCHW inside the model; parameters are float32 and cast per call, as the
-Flax modules cast their float32 params.
+Flax modules cast their float32 params. With grad disabled, a conv's bias
+and activation are one `ops.cuda.bias_act` pass over its output (the same
+numbers; `conv_epilogue`); a dense block's epilogues write its
+concatenation in place.
 
 int8 (`compute_dtype="int8"`) is an inference mode, not an activation
 dtype: the dense and pointwise convs run on the int8 tensor cores
@@ -37,7 +40,7 @@ import torch.nn.functional as F
 import torch.utils.checkpoint
 from torch import nn
 
-from openpose_plus_tpu_torch.ops.cuda import int8_conv, sepconv
+from openpose_plus_tpu_torch.ops.cuda import bias_act, int8_conv, sepconv
 from openpose_plus_tpu_torch.parallel import spatial
 from openpose_plus_tpu_torch.utils.tracer import count
 
@@ -138,9 +141,9 @@ class _Int8Layer(nn.Module):
         if self.calibrating:
             xf = dequant(x)
             _grow(self.act_scale, xf)
-            y = conv2d_same(xf.to(torch.bfloat16),
-                            weight.to(torch.bfloat16), stride)
-            y = F.relu(_bias_add(y, bias))
+            y = conv_epilogue(conv2d_same(xf.to(torch.bfloat16),
+                                          weight.to(torch.bfloat16), stride),
+                              bias)
             _grow(self.out_scale, y)
             return y
         floor = int8_conv.SCALE_FLOOR
@@ -270,8 +273,19 @@ def lecun_normal_(weight: torch.Tensor, generator: torch.Generator) -> None:
                               generator=generator)
 
 
-def _bias_add(y: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
-    return y + bias.to(y.dtype).view(1, -1, 1, 1)
+def conv_epilogue(y: torch.Tensor, bias: torch.Tensor,
+                  slope: torch.Tensor | None = None,
+                  into: torch.Tensor | None = None,
+                  offset: int = 0) -> torch.Tensor:
+    """A conv output's bias, then ReLU (`slope` None) or PReLU, in its
+    dtype, also stored at channels [offset, offset + C) of `into` when
+    given (`ops.cuda.bias_act`). With grad disabled it is the `bias_act`
+    op, one pass over the output (channels-last); with grad enabled (the
+    kernel has no backward) the plain expressions."""
+    if torch.is_grad_enabled():
+        return bias_act.bias_act_plain(y, bias, slope, into, offset)
+    return bias_act.bias_act(y.contiguous(memory_format=torch.channels_last),
+                             bias, slope, into, offset)
 
 
 class ConvRelu(_Int8Layer):
@@ -293,7 +307,7 @@ class ConvRelu(_Int8Layer):
             return self._int8_conv(x, self.weight, self.bias, self.stride)
         dt = self.dtype
         y = conv2d_same(x.to(dt), self.weight.to(dt), self.stride)
-        return F.relu(_bias_add(y, self.bias))
+        return conv_epilogue(y, self.bias)
 
 
 class SepConvRelu(_Int8Layer):
@@ -335,12 +349,12 @@ class SepConvRelu(_Int8Layer):
             ).permute(0, 3, 1, 2)
         y = conv2d_same(x.to(dt), self.dw_weight.to(dt), self.stride,
                         groups=self.dw_weight.shape[0])
-        y = F.relu(_bias_add(y, self.dw_bias))
+        y = conv_epilogue(y, self.dw_bias)
         if self.int8:
             return self._int8_conv(y, self.pw_weight, self.pw_bias, 1,
                                    emit_q=False)
-        y = F.conv2d(y, self.pw_weight.to(dt))
-        return F.relu(_bias_add(y, self.pw_bias))
+        return conv_epilogue(F.conv2d(y, self.pw_weight.to(dt)),
+                             self.pw_bias)
 
 
 class PReLUConv(nn.Module):
@@ -359,18 +373,22 @@ class PReLUConv(nn.Module):
         self.bias = nn.Parameter(torch.zeros(features))
         self.slope = nn.Parameter(torch.full((features,), PRELU_INIT))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, into: torch.Tensor | None = None,
+                offset: int = 0) -> torch.Tensor:
+        """`conv_epilogue`'s `into` and `offset` pass through."""
         dt = self.dtype
         y = conv2d_same(x.to(dt), self.weight.to(dt))
-        return F.prelu(_bias_add(y, self.bias), self.slope.to(dt))
+        return conv_epilogue(y, self.bias, self.slope, into, offset)
 
 
 class DenseBlock(nn.Module):
     """Three chained 3x3 PReLUConv of `features` channels (`conv0` reads
     the input, `conv1` conv0's output, `conv2` conv1's) and their outputs
     concatenated in that order: 3 * features channels (a BODY_25 stage's
-    `Mconv` block). Each forward adds one to the tracer's
-    `models.dense_blocks` counter."""
+    `Mconv` block). Each conv's epilogue writes its channels of the
+    block's channels-last output itself, beside its own output (the next
+    conv reads that one contiguous), so no concat copies them again. Each
+    forward adds one to the tracer's `models.dense_blocks` counter."""
 
     def __init__(self, in_features: int, features: int,
                  dtype: str = "bfloat16"):
@@ -381,9 +399,14 @@ class DenseBlock(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         count("models.dense_blocks")
-        a = self.conv0(x)
-        b = self.conv1(a)
-        return torch.cat([a, b, self.conv2(b)], dim=1)
+        w = self.conv0.weight.shape[0]
+        out = torch.empty((x.shape[0], 3 * w, *x.shape[2:]),
+                          dtype=self.conv0.dtype, device=x.device,
+                          memory_format=torch.channels_last)
+        a = self.conv0(x, out, 0)
+        b = self.conv1(a, out, w)
+        self.conv2(b, out, 2 * w)
+        return out
 
 
 class Conv1x1F32(nn.Module):
@@ -397,8 +420,8 @@ class Conv1x1F32(nn.Module):
         self.bias = nn.Parameter(torch.zeros(features))
 
     def forward(self, x) -> torch.Tensor:
-        return _bias_add(F.conv2d(dequant(x).float(), self.weight),
-                         self.bias)
+        return (F.conv2d(dequant(x).float(), self.weight)
+                + self.bias.view(1, -1, 1, 1))
 
 
 class StageBranch(nn.Module):

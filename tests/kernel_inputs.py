@@ -1,6 +1,6 @@
 """Random inputs for the port's kernels (greedy assignment, subset merge,
-PAF sampling, fused separable conv, the depthwise probe and the int8
-conv), the bf16
+PAF sampling, fused separable conv, the depthwise probe, the int8 conv and
+the conv epilogue, with the epilogue calls a model makes), the bf16
 agreement measure of the separable kernels, and synthetic pose scenes
 (`make_maps`, `standing_person`: tests/maputil.py's functions on the port's
 own skeleton tables; `standing_person_25`, BODY_25's figure; `peak_scene`,
@@ -183,6 +183,44 @@ INT8_REFUSED = [
     (8, 0, 54, 64, 64, 3, 1, (1, 1)),        # an empty image
     (-1, 46, 54, 64, 64, 3, 1, (1, 1)),
 ]
+
+
+def epilogue_inputs(rng: np.random.Generator, b: int, h: int, w: int,
+                    c: int) -> tuple[np.ndarray, ...]:
+    """A conv output y (b, h, w, c) and its bias and PReLU slope (c,),
+    float32, for the bias_act epilogue: normal values with exact zeros of
+    both signs, NaN, infinities of both signs and values that cancel their
+    channel's bias to zero (also in bf16), 1 in 40 elements each; slopes of
+    both signs, every fifth channel's 0."""
+    y = rng.normal(0.0, 2.0, (b, h, w, c)).astype(np.float32)
+    bias = rng.normal(0.0, 1.0, c).astype(np.float32)
+    slope = rng.normal(0.0, 0.5, c).astype(np.float32)
+    slope[::5] = 0.0
+    flat = y.reshape(-1, c)
+    where = rng.integers(0, flat.size, (6, max(1, flat.size // 40)))
+    rows, chans = where // c, where % c
+    for i, v in enumerate((0.0, -0.0, np.nan, np.inf, -np.inf)):
+        flat[rows[i], chans[i]] = v
+    flat[rows[5], chans[5]] = -bias[chans[5]]
+    return y, bias, slope
+
+
+def bias_act_calls(model) -> int:
+    """The `ops.bias_act` calls one inference forward of `model` makes: one
+    a float ConvRelu or PReLUConv, two an unfused float SepConvRelu (its
+    depthwise and pointwise halves), one an unfused int8 SepConvRelu (its
+    bf16 depthwise); an int8 ConvRelu's conv applies its own bias and ReLU
+    unless calibrating."""
+    from openpose_plus_tpu_torch.models import common
+
+    n = 0
+    for m in model.modules():
+        float_path = not getattr(m, "int8", False) or m.calibrating
+        if isinstance(m, (common.ConvRelu, common.PReLUConv)):
+            n += float_path
+        elif isinstance(m, common.SepConvRelu) and not m.fused:
+            n += 1 + float_path
+    return n
 
 
 def bf16_mismatch(out, ref, floor=0.0) -> tuple[float, float]:

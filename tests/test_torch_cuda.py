@@ -36,7 +36,13 @@ to the graph's replay time. And BODY_25's sizes: the peaks, greedy, merge
 and PAF-sampling kernels at 25 parts and 26 limbs on the same kinds of
 input (the peaks kernels at capacity too), the 25-part decode on the card
 against the CPU, and a BODY_25 engine's compiled replay against its eager
-call, with its model spans timing a captured forward.
+call, with its model spans timing a captured forward. And the conv
+epilogue (`bias_act`): the kernel bit for bit against the plain
+expressions at C = 24 ... 512 (57 ragged) on a ragged pixel count, with
+signed zeros, NaN, infinities and slopes of both signs, in bf16 and
+float32; its second store into a dense block's buffer; the wrapper's
+refusals; bf16 BODY_25 and VGG19 forwards equal with the kernel and with
+the op swapped for its plain version.
 
 The separable kernels are held to their plain versions as
 tests/test_torch_sepconv.py states: `kernel_inputs.bf16_mismatch` at most 2
@@ -52,9 +58,9 @@ import torch
 import kernel_inputs
 from openpose_plus_tpu_torch.graphs import CAPTURE_WARMUP
 from openpose_plus_tpu_torch.config import PostprocConfig
-from openpose_plus_tpu_torch.ops.cuda import (dw_probe, greedy, int8_conv,
-                                              merge, paf_sample, peaks,
-                                              sepconv)
+from openpose_plus_tpu_torch.ops.cuda import (bias_act, dw_probe, greedy,
+                                              int8_conv, merge, paf_sample,
+                                              peaks, sepconv)
 from openpose_plus_tpu_torch.postproc import nms
 
 pytestmark = pytest.mark.cuda
@@ -846,10 +852,13 @@ def test_graph_captured_while_recording_carries_no_tracer_events(cuda):
     torch.cuda.synchronize()
     assert _same_humans(out, eager)
     assert all(s.events is None for s in rec.spans) and not rec.device_ms()
-    # the decode's peaks kernel: CAPTURE_WARMUP eager steps and the capture
+    # the decode's peaks kernel and the conv epilogues: CAPTURE_WARMUP
+    # eager steps and the capture
     assert rec.counters == {"graphs.captures": 1, "engine.calls": 1,
                             "engine.replays": 1,
-                            "postproc.peaks_kernel": CAPTURE_WARMUP + 1}
+                            "postproc.peaks_kernel": CAPTURE_WARMUP + 1,
+                            "ops.bias_act": (CAPTURE_WARMUP + 1)
+                            * kernel_inputs.bias_act_calls(engine.model)}
     assert {"graphs.capture", "postproc.group", "engine.infer",
             "engine.inputs", "engine.copy_in", "engine.replay",
             "engine.outputs"} <= {s.name for s in rec.spans}
@@ -1386,7 +1395,8 @@ def test_body25_compiled_replay_equals_eager(cuda):
 
 
 def test_body25_model_spans_time_a_captured_forward(cuda):
-    """An eager forward counts 30 dense blocks; forwards captured while
+    """An eager forward counts 30 dense blocks and 108 conv epilogues;
+    forwards captured while
     the tracer records: each replay times the front, the PAF stages and
     the heatmap stages of every forward, and they sum to no more than the
     replay."""
@@ -1396,7 +1406,7 @@ def test_body25_model_spans_time_a_captured_forward(cuda):
     images = _deploy_images(cuda, 5)
     with GLOBAL_TRACER.recording() as rec:
         engine.forward(images)
-    assert rec.counters == {"models.dense_blocks": 30}
+    assert rec.counters == {"models.dense_blocks": 30, "ops.bias_act": 108}
     calls = 4
     graph = torch.cuda.CUDAGraph()
     with torch.inference_mode():
@@ -1416,3 +1426,125 @@ def test_body25_model_spans_time_a_captured_forward(cuda):
         ("models.front", "models.paf_stages", "models.conf_stages"), calls)
     assert all(ms > 0 for v in stages.values() for ms in v)
     assert sum(sum(v) for v in stages.values()) <= start.elapsed_time(end)
+
+
+# ---------------------------------------------- the conv epilogue, bias_act
+
+_EPILOGUE_DTYPES = {"bf16": torch.bfloat16, "f32": torch.float32}
+
+
+def _epilogue_case(cuda, dtype, c, b=3, h=7, w=13, seed=0):
+    """y (b, c, h, w) channels-last in `dtype`, bias and slope float32, on
+    the card (`kernel_inputs.epilogue_inputs`); 3 x 7 x 13 = 273 pixels, a
+    ragged count for a block of 256 threads."""
+    y, bias, slope = kernel_inputs.epilogue_inputs(
+        np.random.default_rng(seed + c), b, h, w, c)
+    return (torch.from_numpy(y).to(cuda, dtype).permute(0, 3, 1, 2),
+            torch.from_numpy(bias).to(cuda), torch.from_numpy(slope).to(cuda))
+
+
+def _bits(t):
+    """The tensor's bit patterns (signed zeros and NaN compared too)."""
+    return t.contiguous().view(torch.int16 if t.element_size() == 2
+                               else torch.int32)
+
+
+@pytest.mark.parametrize("c", [24, 57, 64, 96, 128, 512])
+@pytest.mark.parametrize("act", ["relu", "prelu"])
+@pytest.mark.parametrize("dtype", list(_EPILOGUE_DTYPES))
+def test_bias_act_kernel_equals_plain(cuda, dtype, act, c):
+    """Signed zeros, NaN, infinities, sums that cancel to zero, slopes of
+    both signs and zero, 8-channel groups and a ragged C (57: the
+    element-wise path): the kernel's bits are the plain expressions' on
+    the card, its values the CPU's."""
+    y, bias, slope = _epilogue_case(cuda, _EPILOGUE_DTYPES[dtype], c)
+    slope = slope if act == "prelu" else None
+    before = bias_act.launches
+    out = bias_act.bias_act(y, bias, slope)
+    torch.cuda.synchronize()
+    assert bias_act.launches == before + 1
+    assert out.is_contiguous(memory_format=torch.channels_last)
+    assert torch.equal(_bits(out), _bits(bias_act.bias_act_plain(y, bias,
+                                                                  slope)))
+    cpu = bias_act.bias_act_plain(y.cpu(), bias.cpu(),
+                                  None if slope is None else slope.cpu())
+    assert torch.equal(out.cpu().isnan(), cpu.isnan())
+    assert torch.equal(out.cpu().nan_to_num(), cpu.nan_to_num())
+
+
+@pytest.mark.parametrize("c,offset", [(96, 0), (96, 96), (96, 192),
+                                      (128, 256), (24, 4), (57, 57)])
+@pytest.mark.parametrize("act", ["relu", "prelu"])
+def test_bias_act_kernel_stores_into_a_wider_buffer(cuda, c, offset, act):
+    """The second store at channels [offset, offset + C) of a 3C-wide
+    channels-last buffer (a dense block's), beside the kernel's own
+    output, leaves the rest of the buffer as it was; an offset or C off
+    the 8-channel grid takes the element-wise path."""
+    y, bias, slope = _epilogue_case(cuda, torch.bfloat16, c, seed=1)
+    slope = slope if act == "prelu" else None
+    into = torch.full((y.shape[0], 3 * c, *y.shape[2:]), 7.0,
+                      dtype=y.dtype, device=cuda).contiguous(
+                          memory_format=torch.channels_last)
+    want = into.clone()
+    ref = bias_act.bias_act_plain(y, bias, slope, want, offset)
+    out = bias_act.bias_act(y, bias, slope, into, offset)
+    torch.cuda.synchronize()
+    assert torch.equal(_bits(into), _bits(want))
+    assert torch.equal(_bits(out), _bits(ref))
+
+
+def test_bias_act_wrapper_refuses_what_the_kernel_does_not_take(cuda):
+    y, bias, slope = _epilogue_case(cuda, torch.bfloat16, 64)
+    into = torch.zeros((y.shape[0], 128, *y.shape[2:]), dtype=y.dtype,
+                       device=cuda).contiguous(
+                           memory_format=torch.channels_last)
+    refused = [((y.half(), bias, slope), "bf16 or float32"),
+               ((y, bias.bfloat16(), slope), "float32 bias"),
+               ((y, bias[:32], slope), "float32 bias"),
+               ((y, bias, slope.double()), "float32 slope"),
+               ((y.contiguous(), bias, slope), "channels-last y"),
+               ((y, bias.cpu(), slope), "one device"),
+               ((y, bias, slope, into.cpu()), "one device"),
+               ((y, bias, slope, into.float()), "buffer"),
+               ((y, bias, slope, into.contiguous()), "buffer"),
+               ((y, bias, slope, into, 65), "buffer")]
+    before = bias_act.launches
+    for args, match in refused:
+        with pytest.raises(ValueError, match=match):
+            bias_act.bias_act(*args)
+    out = bias_act.bias_act(y[:0], bias, slope)     # an empty batch
+    torch.cuda.synchronize()
+    assert bias_act.launches == before and tuple(out.shape) == (
+        0, *y.shape[1:])
+
+
+@pytest.mark.parametrize("name,calls", [("body25", 108), ("vgg19", 80)])
+def test_bias_act_forward_equals_the_plain_op(cuda, monkeypatch, name,
+                                              calls):
+    """A bf16 forward at batch 2 launches the kernel once a conv epilogue;
+    with the op swapped for its plain version (the dense blocks still
+    written in place) it launches none and gives the same maps bit for
+    bit."""
+    import dataclasses
+
+    from openpose_plus_tpu_torch.config import default_config
+    from openpose_plus_tpu_torch.engine import Engine
+
+    cfg = default_config(name)
+    cfg = cfg.replace(model=dataclasses.replace(cfg.model, hin=96, win=160))
+    engine = Engine(cfg, seed=5, device=cuda)
+    assert cfg.model.compute_dtype == "bfloat16"
+    images = torch.from_numpy(np.random.default_rng(6).integers(
+        0, 256, (2, 96, 160, 3), dtype=np.uint8)).to(cuda)
+    before = bias_act.launches
+    maps = engine.forward(images)
+    torch.cuda.synchronize()
+    assert bias_act.launches == before + calls
+    monkeypatch.setattr(
+        bias_act, "_bias_act_op",
+        bias_act.bias_act_plain)
+    plain = engine.forward(images)
+    torch.cuda.synchronize()
+    assert bias_act.launches == before + calls
+    for a, b in zip(maps, plain, strict=True):
+        assert bool(a.isfinite().all()) and torch.equal(a, b)

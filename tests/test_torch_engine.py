@@ -25,6 +25,8 @@ from openpose_plus_tpu.engine import Engine as JaxEngine
 from openpose_plus_tpu_torch import config as tconfig
 from openpose_plus_tpu_torch.engine import Engine, preprocess_images
 
+import kernel_inputs
+
 torch.set_num_threads(2)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -235,7 +237,9 @@ def test_infer_spans_under_the_profiler():
     call = events["engine.infer"]
     assert all(call.start <= r.start <= r.end <= call.end
                for r in events.values())
-    assert rec.counters == {"engine.calls": 1, "engine.eager_calls": 1}
+    assert rec.counters == {"engine.calls": 1, "engine.eager_calls": 1,
+                            "ops.bias_act": kernel_inputs.bias_act_calls(
+                                engine.model)}
     assert {s.name for s in rec.spans} == set(names)
     assert len({s.call for s in rec.spans}) == 1
     assert rec.spans[0].call is not None and rec.device_ms() == {}

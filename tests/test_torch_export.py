@@ -38,9 +38,9 @@ from openpose_plus_tpu_torch import export as E
 from openpose_plus_tpu_torch import host, skeletons
 from openpose_plus_tpu_torch.engine import Engine
 from openpose_plus_tpu_torch.models.common import space_to_depth
-from openpose_plus_tpu_torch.ops.cuda import (dw_probe, greedy, int8_conv,
-                                              merge, paf_sample, peaks,
-                                              sepconv)
+from openpose_plus_tpu_torch.ops.cuda import (bias_act, dw_probe, greedy,
+                                              int8_conv, merge, paf_sample,
+                                              peaks, sepconv)
 from openpose_plus_tpu_torch.postproc import nms
 
 import kernel_inputs
@@ -138,6 +138,8 @@ def _op_cases():
         "copy_bias": (dw_probe.copy_bias, dw_probe.copy_bias_plain,
                       (x, dwk)),
         "find_peaks": (peaks.find_peaks, peaks_plain, (smoothed, 0.05, 4)),
+        "bias_act": (bias_act.bias_act, bias_act.bias_act_plain,
+                     (x.permute(0, 3, 1, 2), sep[2], sep[2])),
     }
 
 
@@ -158,6 +160,8 @@ def test_op_cpu_route_is_the_plain_version(name):
         args = (*args[:6], list(args[6]), args[7])
     elif op_name == "fused_sepconv":
         args = args[:5]
+    elif op_name == "bias_act":      # no second store
+        args = (*args, None, 0)
     result = torch.library.opcheck(op, args)
     assert set(result.values()) == {"SUCCESS"}, result
 
@@ -185,8 +189,8 @@ def test_export_roundtrip_equals_infer_and_the_jax_artifact(tmp_path):
     ops = {str(n.target) for n in loaded._program.graph.nodes
            if str(n.target).startswith("openpose_plus_tpu_torch.")}
     assert ops == {f"openpose_plus_tpu_torch.{op}.default"
-                   for op in ("find_peaks", "greedy_assign", "assemble",
-                              "sample_paf")}
+                   for op in ("bias_act", "find_peaks", "greedy_assign",
+                              "assemble", "sample_paf")}
 
     jexport.save_engine(jax_engine, str(tmp_path / "jax"), batch_size=2)
     jref = jexport.load_engine(str(tmp_path / "jax")).infer(images)

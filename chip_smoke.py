@@ -9,47 +9,29 @@ Hopper, sm_90a):
 It imports nothing of JAX and nothing of the JAX package
 (`openpose_plus_tpu`): the port keeps its own `config` and `skeleton`, and
 the synthetic scenes come from tests/kernel_inputs.py; the end of the run
-checks `sys.modules` for both (`foreign_modules`). Phases, any of which
-raises on failure (the script then exits non-zero and prints no result):
+checks `sys.modules` for both (`foreign_modules`). It times with the
+benchmark's yardstick: device times are `benchmark/harness/device_time.
+graph_ms`, the peaks those of `benchmark/harness/cost.py`. It checks what
+needs a full-size engine or the whole machine, and each kernel it times;
+the kernels on seeded inputs are `cuda` tests (tests/test_torch_cuda.py).
+Phases, any of which raises on failure (the script then exits non-zero and
+prints no result):
 
 1. Requires a CUDA device; prints the card's name and power limit
    (nvidia-smi).
 2. Builds the hand-written kernels from openpose_plus_tpu_torch/csrc/ with
    nvcc (openpose_plus_tpu_torch/ops/cuda/build.py) and prints ptxas'
    report: every instance of greedy, merge, the int8 conv (one a tile plan
-   and output type) and the two quantize passes must keep 0 bytes of stack
-   and spills.
-3. Kernel phases: each kernel against its plain PyTorch version on the
-   card and on a CPU copy, on seeded random inputs (tests/kernel_inputs.py):
-   - greedy and merge at batch 8, K=16 and K=32, M=32, with injected ties:
-     bit-equal; greedy also where -0.0 and +0.0 tie, merge also on the
-     connection sets that drive each of its branches
-     (`kernel_inputs.merge_connections`: merge-heavy, table-filling at
-     M=4, every slot valid, none valid). ptxas must report 0 bytes of
-     stack for every instance of both (`ptxas_frames`);
-   - fused_sepconv at the six (C, F) shapes of the fused model's 41 layers
-     (batch 8, 46x54, and the scale search's 23x27 and 69x81) and one shape
-     with ragged tiles: at most 2 units of `kernel_inputs.bf16_mismatch`
-     (one bf16 ulp before the last bias add) and at least 98% identical
-     elements;
-   - sample_paf at K=16 on the default 92x108 map and at K=32 on the
-     fidelity() 368x432 map (batch 8, edge coordinates): bit-equal;
-   - find_peaks (`check_peaks`) on the decoder tests' five scene kinds at
-     the default and fidelity() decodes (batch 8) and on a checkerboard at
-     368x432 (every row at ceil(H/2) * ceil(W/2) peaks, the kernels'
-     capacity): bit-equal to the plain version on the card and the CPU;
-   - the depthwise probe (scripts/profile_pallas_dw.py's `run`) at
-     (8, 46, 82, C), C in {128, 256}: the DW body within 1 unit and 98%
-     identical, the copy body bit-equal. This is the probe's own path: its
-     counts are set to 0 before it and read after.
+   and output type), the two quantize passes and the 8 of bias_act must
+   keep 0 bytes of stack and spills.
 4. Main paths: Engine(default_config("mobilenet_thin"), seed=0,
    device="cuda") at full width (368x432, width 0.75, 6 stages, bfloat16),
    its last stage's prediction kernels scaled so that random weights give
    maps the decoder groups, runs `infer` on an (8, 368, 432, 3) uint8
    batch; the find_peaks, greedy, merge and sample_paf launch counts must
    rise during that call, every image must decode to at least one human,
-   and the
-   outputs must have the HumanBatch shapes and be finite. Then the same
+   and the outputs must have the HumanBatch shapes and be finite and
+   compacted. Then the same
    with `fused_inference=True` on the same weights: fused_sepconv must
    launch exactly 41 times in the call, the decoder's kernels must launch,
    every image must decode to a human, and the final maps must lie within
@@ -80,33 +62,29 @@ raises on failure (the script then exits non-zero and prints no result):
    `fidelity()`); `merge_dedup` on the card equals the CPU's; flip-TTA and
    the scale search (dedup, no flip) under the fidelity() and quality()
    decoders replay equal to their eager calls.
-6. Timings (CUDA events, median of 20 after warm-up; device times from a
-   CUDA-graph replay, `device_ms`, which leave out the host's dispatch that
-   the event time of one small call is made of): `infer` at batch 8, its
-   CNN forward (also as device time) and decode parts alone, unfused and
-   fused; every kernel beside its plain version, its bound (`bound`: bytes
-   over the HBM rate against operations over the peak of their type) and
-   the one PyTorch call that computes the same function where there is one
-   (`library_ms`; never called by the port): the advanced-index gather for
-   sample_paf, cuDNN's depthwise + ReLU for dw3x3_relu, `x + b` for
-   copy_bias, and for fused_sepconv, which no one call computes, the cuDNN
-   depthwise + pointwise pair; per sepconv shape and grid the kernel, its
-   plain version, the pair and the fused layer, with the kernel's and the
-   pair's share of the bound; the 41 layers of one fused forward summed
-   (`fused_forward_layers`); find_peaks at batch 8 at the fidelity()
-   shape (368x432, K 32) and VGG19's default one (92x164, K 16) on phase
-   4's head-scaled maps (`peaks_times`: the kernels, the plain version,
-   `torch.topk` on the plain version's masked plane as the library call,
-   the byte bound with the maps' L2 residency, the launches of a call and
-   the peaks a row); greedy and merge at K=16 and K=32 on random
-   sets and on the connections the batch-8 decode (default and fidelity())
-   produces, beside their chain estimate (`decoder_kernel_times`), and the
-   decode's own device time (`decode_device_ms`). The accuracy paths
-   (`accuracy_timings`):
-   `infer` on plain, s2d and s2d^2 input, flip-TTA and the scale search avg
-   and dedup replayed and eager (the module functions), with their graphs'
-   bytes, the quality decode and its fragment merge alone, `merge_dedup`
-   alone, and batch 32 with and without `chunk=8`.
+6. The kernels' timings, the figures of the final `kernels` line (CUDA
+   events, median of 20 after warm-up; device times by `graph_ms`, which
+   leave out the host's dispatch that the event time of one small call is
+   made of): every kernel beside its plain version, checked against it
+   on the card (greedy, merge, sample_paf, find_peaks and copy_bias bit for
+   bit in every output; fused_sepconv within 2 bf16 units and dw3x3_relu
+   within 1, each at least 98% identical; find_peaks and the probe's
+   kernels in one launch a call) and its max_abs_err recorded, its bound (`bound`: bytes over the HBM rate against
+   operations over the peak of their type) and the one PyTorch call that
+   computes the same function where there is one (`library_ms`; never
+   called by the port): the advanced-index gather for sample_paf, cuDNN's
+   depthwise + ReLU for dw3x3_relu, `x + b` for copy_bias, and for
+   fused_sepconv, which no one call computes, the cuDNN depthwise +
+   pointwise pair. greedy and merge on seeded random sets at K=16 and K=32
+   (`decoder_kernel_times`, beside their chain estimate; plain at the
+   served K); fused_sepconv at each of the fused model's six (C, F) layer
+   shapes (batch 8, 46x54; `sepconv` lines), summed over the 41 layers of
+   one forward; the depthwise probe at (8, 46, 82, C), C in {128, 256};
+   sample_paf at K=16 on the default 92x108 map; find_peaks at the
+   fidelity() shape (368x432, K 32) on phase 4's head-scaled maps
+   (`peaks_times`: `torch.topk` on the plain version's masked plane as the
+   library call, the byte bound with the maps' L2 residency, the launches
+   of a call and the peaks a row). A `kernel_times` line each.
 7. The rest of the zoo (`zoo_paths`): for each of VGG19, VGG-tiny and
    hao28, Engine(default_config(name), seed=0, device="cuda") at full
    width (368x432, 6 stages, bfloat16) with its heads scaled as in phase 4
@@ -116,34 +94,28 @@ raises on failure (the script then exits non-zero and prints no result):
    must have its shapes and be finite and compacted, and the s2d form of
    the images must give an equal HumanBatch; the float32 forward on the
    card must match the float32 forward on the CPU at batch 1 within
-   FORWARD32_REL_TOL of the map scale. A `zoo` line per model at batch 8:
-   `infer` event ms, the forward's and the stage head's device ms
-   (`device_ms`), the convolutions' flops and the forward's bound.
+   FORWARD32_REL_TOL of the map scale. A `zoo` line per model: launches,
+   humans and the float32 forward's error.
    7b. BODY_25 at the body25.batch_bs8 cell's shapes (`body25_phase`):
-   greedy at 26 limbs, merge at 25 parts (on greedy's output, random sets
-   and `kernel_inputs.MERGE_KINDS`), sample_paf at 26 limbs and find_peaks
-   on the five BODY_25 scene kinds and a checkerboard at capacity, all at
-   batch 8, K 16, M 32 on the 92x164 grid after the upsample, bit-equal to
-   their plain versions on the card and the CPU; then Engine(default_
-   config("body25")) at 368x656 with its last PAF and heatmap predictions
+   Engine(default_config("body25")) at 368x656 with its last PAF and
+   heatmap predictions
    scaled (`scale_paf_first_heads`): the find_peaks, greedy, merge and
    sample_paf counts must rise during one `infer` (set to 0 just before
    it), the HumanBatch must hold 25 parts a row and be finite and
    compacted, the compiled graph's replay must equal the eager call, and
    three BODY_25 people drawn on the 46x82 grid must decode to three full
    skeletons, card == CPU. A `body25` line: launches, humans, `infer` ms.
-   7c. The conv epilogue `bias_act` (`bias_act_phase`): ptxas must report 0
-   bytes of stack and spills for its 8 instances; then on each bf16 engine
-   of BIAS_ACT_CALLS at its cells' shapes (BODY_25 and VGG19 at batch 8,
-   368x656; MobileNet-thin fused, the fidelity and live cells' engine, and
-   unfused, phase 4's, at batch 8 and 1, 368x432): one eager `infer`
-   launches it 108, 80, 21 and 103 times (the count set to 0 just before
-   it); the forward's maps through the kernel equal those with the op
-   swapped for its plain version (dense blocks written in place either
+   7c. The conv epilogue `bias_act` (`bias_act_phase`): on each bf16
+   engine of BIAS_ACT_CALLS at its cells' shapes (BODY_25 and VGG19 at
+   batch 8, 368x656; MobileNet-thin fused, the fidelity and live cells'
+   engine, and unfused, phase 4's, at batch 8 and 1, 368x432): one eager
+   `infer` launches it 108, 80, 21 and 103 times (the count set to 0 just
+   before it); the forward's maps through the kernel equal those with the
+   op swapped for its plain version (dense blocks written in place either
    way), and both forwards' device times; at each distinct call shape of
-   the forward the kernel is bit-equal to the plain version on the card,
-   and the kernel, the plain expressions and the byte bound at 3.35 TB/s
-   are timed, inputs rotated past the L2. A `bias_act` line an engine and
+   the forward the kernel, the plain expressions and the byte bound at
+   3.35 TB/s are timed, inputs rotated past the L2. A `bias_act` line an
+   engine and
    batch: per shape and summed over the forward; the `kernels` line's
    `bias_act` entry is BODY_25's sums.
 8. The GT-map oracle on the card (`oracle_phase`): `ap_oracle` renders the
@@ -156,8 +128,7 @@ raises on failure (the script then exits non-zero and prints no result):
    record, and the same variants on the first ORACLE_CPU_IMAGES images on
    the CPU must give the card's AP on them within ORACLE_CPU_TOL. An
    `oracle` line per variant: AP beside the record and its delta, the
-   variant's seconds, one batch's decode and map rendering (event and
-   device ms).
+   variant's seconds.
 9. `evaluate_engine` on the card (`eval_phase`): a seeded val bank of
    EVAL_IMAGES serving-size (736 px) JPEGs drawn with cv2 into a temporary
    directory of the checkout, streamed through the pooled loader
@@ -205,12 +176,9 @@ raises on failure (the script then exits non-zero and prints no result):
    (`train_graph_spread`): two eager runs and one graphed run of
    TRAIN_SPREAD_STEPS steps from the seeded state, the graphed within the
    eager runs' spread.
-11. Calibrated int8 (`int8_phase`): first `int8_conv` and the quantize
-   pass against their plain versions on seeded edge cases (Cin 3, 185 and
-   537, stride 2 on even and odd sizes, s_out 1e-6, both output modes):
-   bit-equal. Then for VGG19 and MobileNet-thin at full width (368x432, 6
-   stages, batch 8, phase 4's images): a bf16 engine seeded and
-   head-scaled as in phases 4 and 7, an int8 engine on its weights
+11. Calibrated int8 (`int8_phase`): for VGG19 and MobileNet-thin at full
+   width (368x432, 6 stages, batch 8, phase 4's images): a bf16 engine
+   seeded and head-scaled as in phases 4 and 7, an int8 engine on its weights
    (zero scales), `calibrate` on the batch (timed), then `infer`: the
    decoder's kernels launch, int8_conv launches once per ConvRelu and
    SepConvRelu and quantize_act once per float input (`int8_layers`),
@@ -222,14 +190,13 @@ raises on failure (the script then exits non-zero and prints no result):
    the int8 conf maps have cosine > INT8_COSINE against the bf16 engine's.
    An `int8` line per model (forward device ms int8 and bf16, infer
    event ms, calibration ms, the FLOP bound: int8 convs at the int8 peak,
-   depthwise at bf16, heads at f32; the forward's device time by kernel
-   from torch.profiler), a `kernel_times` line per int8_conv shape group
-   (event and device ms, plain, bound, the tile plan, `torch._int_mm` on
-   the 1x1 layers as `library_*`, the bf16 cuDNN conv of the shape as
-   `cudnn_*`) and an `int8_forward_layers` line (the groups summed over a
-   forward, and the quantize passes; int8_conv's own device time summed
-   over the layers `torch._int_mm` was timed on, and the pair per shape
-   group, `library_pairs`).
+   depthwise at bf16, heads at f32), a `kernel_times` line per int8_conv
+   shape group (event and device ms, plain, bound, the tile plan,
+   `torch._int_mm` on the 1x1 layers as `library_*`, the bf16 cuDNN conv
+   of the shape as `cudnn_*`) and an `int8_forward_layers` line (the
+   groups summed over a forward, and the quantize passes; int8_conv's own
+   device time summed over the layers `torch._int_mm` was timed on, and
+   the pair per shape group, `library_pairs`).
 12. The deploy path (`deploy_phase`): copies of phase 4's two engines (same
    weights) and phase 11's VGG19 int8 engine, calibrated on the batch, each
    `compile`d at batch 8 (a CUDA-graph capture of `infer`): the replay
@@ -250,16 +217,13 @@ raises on failure (the script then exits non-zero and prints no result):
    kernels), its replays launch none from Python and give the compiled
    engine's HumanBatch, and a trace of one replay (that process's only
    profiler session) names the compiled engine's kernels; the process
-   imports neither `models` nor `engine`. `StreamEstimator.run_frames` over DEPLOY_FRAMES frames of
-   mixed sizes gives, batch by batch, `infer` on the letterboxed batch;
-   `python -m openpose_plus_tpu_torch infer`, `export` and `infer
-   --engine-dir` on cv2-written JPEGs exit 0. A `deploy` line: `infer`
-   event ms eager and compiled (median of 20) at batch 8 (each engine) and
-   1 (MobileNet-thin), the compiled call's device-busy ms and idle share,
-   each graph's bytes, the artifacts' export, load, replayed and eager
-   call times, device events a replay beside the compiled engine's, and
-   `run_frames`
-   sustained frames/s on VGA frames beside the host's letterbox time.
+   imports neither `models` nor `engine`. `StreamEstimator.run_frames`
+   over DEPLOY_FRAMES frames of mixed sizes gives, batch by batch, `infer`
+   on the letterboxed batch; `python -m openpose_plus_tpu_torch infer`,
+   `export` and `infer --engine-dir` on cv2-written JPEGs exit 0. A
+   `deploy` line: each compile's seconds and graph's bytes, a replay's
+   device-busy ms and device events (the artifacts' beside the compiled
+   engines'), the artifacts' export and load seconds, the CLI's seconds.
 13. The file stream and the grouping oracle (`stream_phase`): a seeded
    set of STREAM_JPEGS 640x480 JPEGs, STREAM_PNGS PNGs of mixed sizes and
    one unreadable file in a temporary `.smoke_bank_stream_*` directory.
@@ -275,17 +239,10 @@ raises on failure (the script then exits non-zero and prints no result):
    tests/test_postproc_parity.py's criteria): the card machine's first
    check of the decoder that does not come from the decoder's own code.
    `python -m openpose_plus_tpu_torch stream --images '<dir>/*.jpg' --loop
-   --repeat 20` exits 0 and prints the host scopes' report. A `stream`
-   line, at batch 8: `benchmark_stream` frames/s on the looped JPEGs with
-   8 and 1 workers, the loader alone (no engine) and `run_frames` on
-   640x480 frames with 8 and 1 workers; each at 8 workers also without the
-   loader's hold of cv2 at one thread (`_cv2_all_threads`), and
-   `benchmark_stream` also with torch's intra-op pool at one thread and
-   with blocking CUDA events; each rate in STREAM_ROUNDS rounds (median and
-   all), beside the host's cores busy (process CPU time over wall time)
-   and the tracer's per-frame ms of `decode`, `resize` and `s2d2`;
-   the consumer's per-batch stack and pinned copy, the compiled replay's
-   event ms, and the machine's CPU count.
+   --repeat 20` exits 0 and prints the host scopes' report; cv2 keeps its
+   thread count once the loaders close. A `stream` line: the batches, the
+   kernels of the traced run, the humans, the CLI's rate line, and the
+   machine's CPU count.
 14. The distributed layer (`parallel_phase`; `openpose_plus_tpu_torch.
    parallel`). (1) One NCCL rank on the card, started from torchrun's
    environment by `sharding.init_distributed`: the sync-sgd step (its
@@ -334,30 +291,25 @@ raises on failure (the script then exits non-zero and prints no result):
    within INT8_PLAIN_TOL; the decode bit-equal to its plain-routed
    version; the graph's HumanBatch against the plain one by
    `compare_decodes`; a scene of people across the row's map grid decoded
-   bit-equal and in full). Then three checks: the headline's slope within
-   BENCH_SLOPE_TOL of `device_ms` of the same chained step, the median
-   ratio of BENCH_ROUNDS rounds in which five methods read the graph in
-   turn under sampled clocks (`bench_rounds`); the headline graph's
-   HumanBatch equal to `Engine.compile`d `infer` on the same images, bit
-   for bit; one torch.profiler session over a replay of the headline's
-   graph and of BENCH_INT8_ROW's names greedy, merge and sample_paf once
-   each, and one int8_conv_kernel per int8 layer and one quantize pass per
-   float input, and five of each decoder kernel in five headline replays;
-   no row may carry a cost error. Then
+   bit-equal and in full); no row may carry a cost error, and its fps,
+   step, MFU, HBM share and FLOPs are finite. The headline's two-point
+   slope (`bench.fori_slope_seconds`) lies within BENCH_SLOPE_TOL of
+   `graph_ms` of the same chained step, read once each; the headline
+   graph's HumanBatch equals `Engine.compile`d `infer` on the same images,
+   bit for bit; one torch.profiler session over a replay of the headline's graph
+   and of BENCH_INT8_ROW's names greedy, merge and sample_paf once each,
+   and one int8_conv_kernel per int8 layer and one quantize pass per float
+   input, and five of each decoder kernel in five headline replays. Then
    `python -m openpose_plus_tpu_torch bench` in a fresh process with
    BENCH_HEADLINE_ONLY prints the headline line with bench.py's keys, and
    the `train` mode, the `stream` mode (3000x4000 photos, 16 of them) and
-   the stream's `--loader-only` run at their defaults. A `bench` line:
-   every row's fps, ms, MFU, HBM share, spread, FLOPs an image and plain
-   check, the headline's rounds and its step's graphs of 20 and 1 calls,
-   the trace, the modes' lines (the streams with their host scopes' ms a
-   call and the plane a photo decodes to: 1/8, 375x500, since the loader
-   decodes DCT-scaled) and the phase's seconds. The phase runs in a fresh
-   process (`--bench-phase`): its profiler session is that process's
-   first.
-16. With --profile only: batch scaling (1, 8, 32; decode also at the
-   fidelity() preset), the host's enqueue time per call, and the device's
-   busy time per call from torch.profiler (see `profile`).
+   the stream's `--loader-only` run once each at their defaults, each
+   value finite. A `bench` line: every row's fps, ms, MFU, HBM share,
+   spread, FLOPs an image and plain check, the trace, the modes' lines
+   (the streams with their host scopes' ms a call and the plane a photo
+   decodes to: 1/8, 375x500, since the loader decodes DCT-scaled) and the
+   phase's seconds. The phase runs in a fresh process (`--bench-phase`):
+   its profiler session is that process's first.
 17. The accuracy studies (`studies_phase`; `ap_bench`, `ap_oracle`,
    `tune_fragment_merge`, `analyze_oracle_misses`, `synthetic_e2e`), in a
    temporary `.smoke_bank_studies_*` directory of the checkout, each
@@ -388,7 +340,8 @@ raises on failure (the script then exits non-zero and prints no result):
 
 Each phase logs its seconds as it ends, and a `phase_seconds` line sums
 them before the results. The line before the last is the nvidia-smi
-name/power-limit line, the one before it the per-kernel JSON record; the last line is
+name/power-limit line, the one before it the per-kernel JSON record
+(`kernels`); the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 `python3 chip_smoke.py --decoder-kernels-of DIR` instead builds the kernels
@@ -408,9 +361,7 @@ m64n128k32, bf16 m64n128k16). `--int8-phases` only builds
 csrc/int8_conv.cu with its phase clocks and reads where a block of the
 int8 conv spends its time at the forwards' main shapes (`int8_phases`).
 `--bench-phase` only builds the kernels and runs phase 15,
-`--studies-phase` phase 17, `--peaks-phase` find_peaks' checks of phase 3
-and its timings of phase 6 (`peaks_phase`), `--body25-phase` phase 7b,
-`--bias-act-phase` phase 7c.
+`--studies-phase` phase 17, `--spatial-phase` phase 14's spatial axis.
 """
 
 from __future__ import annotations
@@ -425,21 +376,13 @@ import statistics
 import subprocess
 import sys
 import time
-import types
 
 BATCH = 8
 TIMED_ITERS = 20
 WARMUP = 3
 PROFILED_CALLS = 5
-FORWARD_REPLAYS = 5           # forwards captured in one CUDA graph
-SEPCONV_MAX_UNITS = 2.0       # kernel_inputs.bf16_mismatch; see phase 3
-MIN_IDENTICAL = 0.98
 PROBE_HW = (46, 82)           # scripts/profile_pallas_dw.py B, H, W
-HBM_BYTES_PER_S = 3.35e12     # H100 SXM data sheet: HBM3
-BF16_OPS_PER_S = 989e12       # dense bf16 tensor-core peak
-F32_OPS_PER_S = 67e12         # f32 outside the tensor cores
 SCALES = (0.5, 1.0, 1.5)      # infer_multiscale's default scale search
-PLAIN_MERGE_REPLAYS = 2       # plain merge: ~12k launches a call at K=16
 # The chain estimate of greedy and merge: their dependent steps on these
 # inputs, each costed at one on-chip round trip of ROUND_TRIP_CYCLES (a
 # shared-memory load to its use; a warp vote, shuffle or redux is of the
@@ -449,6 +392,11 @@ PLAIN_MERGE_REPLAYS = 2       # plain merge: ~12k launches a call at K=16
 # approach, not a prediction: a step does more than that.
 ROUND_TRIP_CYCLES = 30
 FORWARD32_REL_TOL = 1e-4      # float32 forward, card vs CPU, of the map scale
+# phase 6's bf16 kernels against their plain versions on the card
+# (kernel_inputs.bf16_mismatch): fused_sepconv within 2 units, dw3x3_relu
+# within 1, and each with at least this share of identical elements
+SEPCONV_MAX_UNITS = 2.0
+MIN_IDENTICAL = 0.98
 ZOO = ("vgg19", "vggtiny", "hao28")
 # phase 7c: the conv epilogue on each float engine the port serves: label:
 # (model, fused_inference, input (H, W), batches, its launches in one infer)
@@ -506,23 +454,25 @@ INT8_COSINE = 0.98
 INT8_PLAIN_TOL = 1e-6
 INT8_OPS_PER_S = 1979e12      # dense int8 tensor-core peak
 # phase 12, the deploy path: the compiled calls traced TRACE_GAP_S apart;
-# run_frames' equality check over DEPLOY_FRAMES
-# frames of mixed sizes; its rate over DEPLOY_STREAM_BATCHES batches of
-# DEPLOY_FRAME_HW frames after one batch of warm-up
+# run_frames' equality check over DEPLOY_FRAMES frames of mixed sizes; the
+# CLI's JPEGs of DEPLOY_FRAME_HW
 TRACE_GAP_S = 0.05
 DEPLOY_FRAMES = 29
-DEPLOY_STREAM_BATCHES = 20
 DEPLOY_FRAME_HW = (480, 640)
-# phase 13, the file stream: the seeded files, the batches timed after one
-# of warm-up (every rate in STREAM_ROUNDS rounds, each in another order),
-# and the noisy scenes held to the oracle
+# phase 13, the file stream: the seeded files and the noisy scenes held to
+# the oracle
 STREAM_JPEGS = 24
 STREAM_PNGS = 4
-STREAM_BATCHES = 100
-STREAM_ROUNDS = 3
 STREAM_SCENE_NOISE = 0.15
 STREAM_NOISY_SEEDS = (0, 1)
 HERE = os.path.dirname(os.path.abspath(__file__))
+# the benchmark's yardstick (harness.device_time, harness.cost), found as
+# benchmark/run.py finds it; appended, so that it shadows no module of the
+# repository (its `tests` among them) in a process that imports this file
+sys.path.append(os.path.join(HERE, "benchmark"))
+from harness.cost import (BF16_FLOPS, F32_FLOPS,  # noqa: E402
+                          HBM_BYTES, sepconv_bound)
+from harness.device_time import graph_ms  # noqa: E402
 DECODER_KERNELS = ("greedy_assign_kernel", "assemble_kernel")
 # csrc/int8_conv.cu: the conv (one instance per tile plan of
 # ops/cuda/int8_conv.py `PLANS` and output type) and the quantize passes
@@ -551,14 +501,10 @@ PARALLEL_EVAL_TOL = 1e-3
 # 368x432, bf16, Adam at TRAIN_LR, a global batch of BATCH
 SPATIAL_MODELS = ("mobilenet_thin", "vgg19")
 SPATIAL_VGG_STEPS = 1
-# phase 15, the bench: the headline's slope against the device time of the
-# same chained step, the median ratio of BENCH_ROUNDS rounds (each method
-# read in turn: they agreed within 0.7% in a round, while the card's speed
-# for the graph moved 4.5% between rounds, run 92); the int8 row whose
-# replay is traced; the headline line's keys (bench.py's)
-BENCH_SLOPE_TOL = 0.02
-BENCH_ROUNDS = 3
+# phase 15, the bench: the int8 row whose replay is traced; the headline
+# line's keys (bench.py's)
 BENCH_INT8_ROW = "e2e_fps_vgg19_int8_368x656_bs8"
+BENCH_SLOPE_TOL = 0.02        # the headline's slope against its graph_ms
 BENCH_HEADLINE_KEYS = ["metric", "value", "unit", "vs_baseline", "mfu_pct",
                        "hbm_pct_est", "spread_pct"]
 # phase 17, the accuracy studies: the oracle probes (tier, out_stride,
@@ -684,36 +630,13 @@ def median_ms(torch, fn) -> float:
     return statistics.median(times)
 
 
-def device_ms(torch, fn, calls: int = TIMED_ITERS) -> float:
-    """Device time per fn() call: `calls` calls captured in one CUDA graph
-    and replayed back to back, timed with CUDA events (median of 5 replays
-    after a warm-up one). No host dispatch runs between the kernels, so
-    unlike the event time around one eager call this is the device's own
-    time. Inputs stay in L2 where they fit (50 MB)."""
-    fn()
-    torch.cuda.synchronize()
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
-        for _ in range(calls):
-            fn()
-    times = []
-    for _ in range(6):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        graph.replay()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end) / calls)
-    return statistics.median(times[1:])
-
-
 def max_abs_err(torch, outs, refs) -> float:
-    err = 0.0
-    for o, r in zip(outs, refs):
-        if o.dtype.is_floating_point:
-            err = max(err, float((o.cpu() - r.cpu()).abs().max()))
-    return err
+    """The largest |out - ref| of the float outputs (a record: the checks
+    are `assert_bits_equal` and `bf16_mismatch`); NaN if any is NaN."""
+    errs = [float((o.cpu() - r.cpu()).abs().max())
+            for o, r in zip(outs, refs, strict=True)
+            if o.dtype.is_floating_point]
+    return math.nan if any(map(math.isnan, errs)) else max(errs, default=0.0)
 
 
 def assert_equal(torch, what: str, outs, refs) -> None:
@@ -722,30 +645,21 @@ def assert_equal(torch, what: str, outs, refs) -> None:
             raise AssertionError(f"{what}: output {i} differs")
 
 
-def check_greedy(torch, greedy, scores, k, dev, what) -> tuple:
-    """greedy_assign on the card bit-equal to its plain version on the card
-    and on the CPU (`scores` on the CPU); returns the plain CPU outputs and
-    the max_abs_err."""
-    out = greedy.greedy_assign(scores.to(dev), k)
-    plain_dev = greedy.greedy_assign_plain(scores.to(dev), k)
-    plain_cpu = greedy.greedy_assign_plain(scores, k)
-    torch.cuda.synchronize()
-    assert_equal(torch, f"{what} vs plain (cuda)", out, plain_dev)
-    assert_equal(torch, f"{what} vs plain (cpu)", out, plain_cpu)
-    return plain_cpu, max_abs_err(torch, out, plain_cpu)
-
-
-def check_merge(torch, merge, args, k, m, dev, what) -> float:
-    """assemble on the card bit-equal to its plain version on the card and
-    on the CPU (`args` on the CPU); returns the max_abs_err."""
-    args_dev = [t.to(dev) for t in args]
-    out = merge.assemble(*args_dev, k, m)
-    plain_dev = merge.assemble_plain(*args_dev, k, m)
-    plain_cpu = merge.assemble_plain(*args, k, m)
-    torch.cuda.synchronize()
-    assert_equal(torch, f"{what} vs plain (cuda)", out, plain_dev)
-    assert_equal(torch, f"{what} vs plain (cpu)", out, plain_cpu)
-    return max_abs_err(torch, out, plain_cpu)
+def assert_bits_equal(torch, what: str, outs, refs) -> None:
+    """Equal outputs, every field of the same dtype and shape, floats
+    compared as their bits (-0.0 is not 0.0, a NaN only its own bits)."""
+    as_int = {2: torch.int16, 4: torch.int32, 8: torch.int64}
+    for i, (o, r) in enumerate(zip(outs, refs, strict=True)):
+        o, r = o.cpu(), r.cpu()
+        if o.dtype != r.dtype or o.shape != r.shape:
+            raise AssertionError(f"{what}: output {i} is {o.dtype} "
+                                 f"{tuple(o.shape)}, expected {r.dtype} "
+                                 f"{tuple(r.shape)}")
+        if o.dtype.is_floating_point:
+            o, r = o.view(as_int[o.element_size()]), r.view(
+                as_int[r.element_size()])
+        if not torch.equal(o, r):
+            raise AssertionError(f"{what}: output {i} differs")
 
 
 def load_test_helper(name: str):
@@ -760,6 +674,8 @@ def load_test_helper(name: str):
     return module
 
 
+# not harness/weights.scale_heads: that one centres the maps through the
+# benchmark's reference network first; this one scales the port's own maps
 def scale_heads(torch, engine, images, gains=None) -> dict:
     """Scale the last stage's prediction kernels so the served decode finds
     humans on random weights and images.
@@ -792,82 +708,60 @@ def fused_shapes(common, model) -> dict:
     return shapes
 
 
-def sepconv_case(torch, inputs, rng, b, h, w, c, f) -> list:
-    """Seeded x (bf16) and float32 weights in the JAX layouts, on the CPU."""
-    x, *weights = inputs.sepconv_inputs(rng, b, h, w, c, f)
-    return [torch.from_numpy(x).to(torch.bfloat16),
-            *map(torch.from_numpy, weights)]
-
-
-def check_sepconv(torch, inputs, sepconv, args, dev) -> tuple:
-    """fused_sepconv on the card vs its plain version on the card and on
-    the CPU; returns (max_abs_err vs the CPU, worst units, least identical
-    share)."""
-    out = sepconv.fused_sepconv(*[t.to(dev) for t in args])
-    refs = (sepconv.fused_sepconv_plain(*[t.to(dev) for t in args]),
-            sepconv.fused_sepconv_plain(*args))
-    torch.cuda.synchronize()
-    floor = args[4].to(torch.bfloat16).float().abs().numpy()
-    worst, least = 0.0, 1.0
-    for where, ref in zip(("cuda", "cpu"), refs):
-        units, same = inputs.bf16_mismatch(out.float().cpu().numpy(),
-                                           ref.float().cpu().numpy(), floor)
-        if not (units <= SEPCONV_MAX_UNITS and same >= MIN_IDENTICAL):
-            raise AssertionError(
-                f"fused_sepconv {tuple(args[0].shape)} -> {out.shape[-1]} vs "
-                f"plain ({where}): {units} units, {same} identical")
-        worst, least = max(worst, units), min(least, same)
-    return max_abs_err(torch, [out], [refs[1]]), worst, least
-
-
 def bound(nbytes, op_seconds) -> tuple[float, str]:
     """The least time (ms) the card could take for a function and what
     bounds it: the bytes it must move (each input read once, each output
     written once) over the HBM rate, against `op_seconds`, the time of its
-    operations at the peak rate of their type (H100 SXM data sheet)."""
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    operations at the peak rate of their type (the benchmark's peaks,
+    harness/cost.py)."""
+    t_bytes = nbytes / HBM_BYTES * 1e3
     t_ops = op_seconds * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def sepconv_bound(b, h, w, c, f) -> tuple[float, str]:
-    """fused_sepconv's bound: bf16 x and y, the four weight arrays; the
-    depthwise's 9 products and 9 adds a channel-pixel in f32 on the CUDA
-    cores, the pointwise's 2 * C * F flops a pixel on the bf16 tensor
-    cores."""
-    px = b * h * w
-    nbytes = 2 * (px * (c + f) + 10 * c + c * f + f)
-    return bound(nbytes, px * 18 * c / F32_OPS_PER_S
-                 + px * 2 * c * f / BF16_OPS_PER_S)
-
-
-def time_sepconv(torch, common, sepconv, args, dev) -> dict:
-    """One sepconv shape: the kernel (weights already bf16), its plain
-    version, the unfused port layer (cuDNN depthwise + pointwise pair) and
-    the fused layer (weights cast per call, as in the model); the bound and
-    the kernel's and the pair's device time as a share of it."""
-    x = args[0].to(dev)
-    weights = [t.to(dev, torch.bfloat16) for t in args[1:]]
-    c, f = x.shape[-1], args[3].shape[-1]
-    layers = {}
-    for fused in (False, True):
-        layer = common.SepConvRelu(c, f, fused=fused)
-        for name, t in zip(("dw_weight", "dw_bias", "pw_weight", "pw_bias"),
-                           args[1:]):
-            getattr(layer, name).data = t.permute(3, 2, 0, 1).contiguous() \
-                if t.dim() == 4 else t
-        layers[fused] = layer.to(dev)
+def time_sepconv(torch, np, inputs, common, sepconv, b, h, w, c, f,
+                 dev) -> dict:
+    """One sepconv shape on seeded inputs: the kernel (weights already
+    bf16), its plain version and the unfused port layer (cuDNN depthwise +
+    pointwise pair); the kernel checked against its plain version on the
+    card (SEPCONV_MAX_UNITS, MIN_IDENTICAL), its max_abs_err, the bound
+    (harness/cost.py's `sepconv_bound`) and the kernel's and the pair's
+    device time as a share of it."""
+    x, *args = inputs.sepconv_inputs(np.random.default_rng(c * f), b, h, w,
+                                     c, f)
+    x = torch.from_numpy(x).to(dev, torch.bfloat16)
+    weights = [torch.from_numpy(t).to(dev, torch.bfloat16) for t in args]
+    pair = common.SepConvRelu(c, f)
+    for name, t in zip(("dw_weight", "dw_bias", "pw_weight", "pw_bias"),
+                       map(torch.from_numpy, args)):
+        getattr(pair, name).data = t.permute(3, 2, 0, 1).contiguous() \
+            if t.dim() == 4 else t
+    pair.to(dev)
     x_nchw = x.permute(0, 3, 1, 2)        # channels-last, as in the model
     calls = {
         "kernel": lambda: sepconv.fused_sepconv(x, *weights),
         "plain": lambda: sepconv.fused_sepconv_plain(x, *weights),
-        "pair": lambda: layers[False](x_nchw),
-        "fused_layer": lambda: layers[True](x_nchw),
+        "pair": lambda: pair(x_nchw),
     }
-    out = {f"{key}_ms": median_ms(torch, fn) for key, fn in calls.items()}
-    out.update({f"{key}_device_ms": device_ms(torch, fn)
+    with torch.no_grad():
+        y, ref = calls["kernel"](), calls["plain"]()
+        units, same = inputs.bf16_mismatch(
+            y.float().cpu().numpy(), ref.float().cpu().numpy(),
+            weights[3].float().abs().cpu().numpy())     # the pointwise bias
+        if not (units <= SEPCONV_MAX_UNITS and same >= MIN_IDENTICAL):
+            raise AssertionError(
+                f"fused_sepconv {tuple(x.shape)} -> {f} vs plain (cuda): "
+                f"{units} units, {same} identical")
+        out = {"max_abs_err": max_abs_err(torch, [y], [ref]),
+               "units": units, "identical": same}
+        out.update({f"{key}_ms": median_ms(torch, fn)
+                    for key, fn in calls.items()})
+    out.update({f"{key}_device_ms": graph_ms(fn, dev)
                 for key, fn in calls.items()})
-    out["bound_ms"], out["bound_by"] = sepconv_bound(*x.shape, f)
+    out["bound_ms"] = sepconv_bound(b, h, w, c, f) * 1e3
+    bytes_ms, _ = bound(io_bytes(x, *weights, y), 0.0)
+    out["bound_by"] = ("bytes" if bytes_ms >= out["bound_ms"]
+                       else "operations")
     out["pct_of_bound"] = 100.0 * out["bound_ms"] / out["kernel_device_ms"]
     out["pair_pct_of_bound"] = (100.0 * out["bound_ms"]
                                 / out["pair_device_ms"])
@@ -900,8 +794,8 @@ def decoder_kernel_times(torch, greedy, merge, scores, conns, peak_score, m,
     """greedy_assign on `scores` (B, 19, K, K) and assemble on `conns` +
     `peak_score` at table size m, both checked bit-equal to their plain
     versions on the card: event and device ms (and with `plain`, their
-    plain versions'), the bound (bytes over the HBM rate against a max and
-    a compare a remaining candidate a round, or 2 m operations a valid
+    plain versions' event ms), the bound (bytes over the HBM rate against a
+    max and a compare a remaining candidate a round, or 2 m operations a valid
     connection, over the f32 rate), and the chain estimate: the dependent
     steps these inputs need (greedy: the most rounds of any image and limb,
     its accepted connections plus the round that finds none, at most K;
@@ -914,43 +808,51 @@ def decoder_kernel_times(torch, greedy, merge, scores, conns, peak_score, m,
         "assemble": (lambda: merge.assemble(*conns, peak_score, k, m),
                      lambda: merge.assemble_plain(*conns, peak_score, k, m)),
     }
+
     out = {}
     for name, (fn, slow) in calls.items():
-        assert_equal(torch, f"{name} K={k} vs plain (cuda)", fn(), slow())
+        assert_bits_equal(torch, f"{name} K={k} vs plain (cuda)", fn(),
+                          slow())
         t = out[name] = {"ms": median_ms(torch, fn),
-                         "device_ms": device_ms(torch, fn)}
+                         "device_ms": graph_ms(fn, scores.device)}
         if plain:
             t["plain_ms"] = median_ms(torch, slow)
-            t["plain_device_ms"] = device_ms(
-                torch, slow, calls=PLAIN_MERGE_REPLAYS
-                if name == "assemble" else TIMED_ITERS)
     accepted = greedy.greedy_assign(scores, k)
     rounds = torch.clamp(accepted[3].sum(-1) + 1, max=k)      # (B, 19)
     steps = conns[3].sum(dim=(1, 2))                          # (B,)
     cycle_ms = 1e-3 / clock_mhz
     out["greedy_assign"].update(zip(("bound_ms", "bound_by"), bound(
         io_bytes(scores, *accepted),
-        2 * int(rounds.sum()) * k * k / F32_OPS_PER_S), strict=True))
+        2 * int(rounds.sum()) * k * k / F32_FLOPS), strict=True))
     out["greedy_assign"].update(
         rounds=int(rounds.max()), rounds_total=int(rounds.sum()),
         chain_ms=int(rounds.max()) * 2 * ROUND_TRIP_CYCLES * cycle_ms)
     out["assemble"].update(zip(("bound_ms", "bound_by"), bound(
         io_bytes(*conns, peak_score, *merge.assemble(*conns, peak_score, k,
                                                      m)),
-        int(steps.sum()) * m * 2 / F32_OPS_PER_S), strict=True))
+        int(steps.sum()) * m * 2 / F32_FLOPS), strict=True))
     out["assemble"].update(
         steps=int(steps.max()), steps_total=int(steps.sum()),
         chain_ms=int(steps.max()) * ROUND_TRIP_CYCLES * cycle_ms)
     return out
 
 
-def time_probe(torch, dw_probe, x, dwk) -> dict:
-    """The probe at one C: its two kernels, their plain versions and the
-    library call computing the same function (never called by the port):
-    cuDNN's depthwise conv (channels-last bf16) + ReLU for dw3x3_relu, `x +
-    b` for copy_bias. Event and device ms, the bounds, shares."""
+def time_probe(torch, np, inputs, dw_probe, c, dev) -> dict:
+    """The probe at one C, on inputs drawn as scripts/profile_pallas_dw.py's
+    `run` draws them (x (8, 46, 82, C) and dwk (9, C), bf16): its two
+    kernels, their plain versions and the library call computing the same
+    function (never called by the port): cuDNN's depthwise conv
+    (channels-last bf16) + ReLU for dw3x3_relu, `x + b` for copy_bias.
+    Each kernel checked against its plain version on the card (dw3x3_relu
+    within 1 bf16 unit, copy_bias bit-equal) in one launch; event and
+    device ms, the kernels' max_abs_err, the bounds, shares."""
     import torch.nn.functional as F
-    c = x.shape[-1]
+
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.standard_normal((BATCH, *PROBE_HW, c)).astype(
+        np.float32)).to(dev, torch.bfloat16)
+    dwk = torch.from_numpy((rng.standard_normal((9, c)) * 0.1).astype(
+        np.float32)).to(dev, torch.bfloat16)
     w_dw = dwk.t().reshape(c, 1, 3, 3).contiguous()
     x_nchw = x.permute(0, 3, 1, 2)        # NCHW channels-last view
     calls = {
@@ -963,13 +865,31 @@ def time_probe(torch, dw_probe, x, dwk) -> dict:
         "copy_library": lambda: x + dwk[0],
     }
     out = {"shape": list(x.shape)}
+    for key, name in (("dw", "dw3x3_relu"), ("copy", "copy_bias")):
+        before = getattr(dw_probe, f"{name}_launches")
+        y = calls[key]()
+        out[f"{key}_launches"] = getattr(dw_probe, f"{name}_launches") - before
+        ref = calls[f"{key}_plain"]()
+        what = f"{name} C={c} vs plain (cuda)"
+        if key == "copy":
+            assert_bits_equal(torch, what, [y], [ref])
+        else:
+            units, same = inputs.bf16_mismatch(y.float().cpu().numpy(),
+                                               ref.float().cpu().numpy())
+            if not (units <= 1.0 and same >= MIN_IDENTICAL):
+                raise AssertionError(f"{what}: {units} units, {same} "
+                                     "identical")
+        if out[f"{key}_launches"] != 1:
+            raise AssertionError(f"{what}: {out[f'{key}_launches']} "
+                                 "launches, expected 1")
+        out[f"{key}_max_abs_err"] = max_abs_err(torch, [y], [ref])
     for key, fn in calls.items():
         out[f"{key}_ms"] = median_ms(torch, fn)
-        out[f"{key}_device_ms"] = device_ms(torch, fn)
+        out[f"{key}_device_ms"] = graph_ms(fn, dev)
     out["dw_bound_ms"], out["dw_bound_by"] = bound(
-        io_bytes(x, dwk, x), 18 * x.numel() / F32_OPS_PER_S)
+        io_bytes(x, dwk, x), 18 * x.numel() / F32_FLOPS)
     out["copy_bound_ms"], out["copy_bound_by"] = bound(
-        io_bytes(x, dwk[0], x), x.numel() / F32_OPS_PER_S)
+        io_bytes(x, dwk[0], x), x.numel() / F32_FLOPS)
     for key in ("dw", "copy"):
         out[f"{key}_pct_of_bound"] = (100.0 * out[f"{key}_bound_ms"]
                                       / out[f"{key}_device_ms"])
@@ -1000,144 +920,47 @@ def sample_paf_bytes(torch, paf, sy, sx, chans) -> int:
     return touched + io_bytes(sy, sx) + 2 * sy.numel() * paf.element_size()
 
 
-def check_sample_paf(torch, inputs, paf_sample, rng, dev, h, w, k,
-                     skel) -> list:
-    """sample_paf at the limbs of `skel` bit-equal to its plain version on
-    the card and the CPU; returns the card's inputs."""
-    args = [torch.from_numpy(a) for a in inputs.paf_samples(
-        rng, BATCH, h, w, k, n_limbs=skel.n_limbs)]
-    args.append(paf_sample.limb_channels(torch.device("cpu"), skel))
-    args_dev = [t.to(dev) for t in args]
-    out = paf_sample.sample_paf(*args_dev)
-    plain_dev = paf_sample.sample_paf_plain(*args_dev)
-    plain_cpu = paf_sample.sample_paf_plain(*args)
-    torch.cuda.synchronize()
-    what = f"sample_paf {skel.name} K={k} {h}x{w}"
-    assert_equal(torch, f"{what} vs plain (cuda)", out, plain_dev)
-    assert_equal(torch, f"{what} vs plain (cpu)", out, plain_cpu)
-    return args_dev
-
-
-def assert_bits_equal(torch, what: str, outs, refs) -> None:
-    """Equal tensors, floats compared as their bits (-0.0 is not 0.0)."""
-    for i, (o, r) in enumerate(zip(outs, refs, strict=True)):
-        o, r = o.cpu(), r.cpu()
-        if o.dtype == torch.float32:
-            o, r = o.view(torch.int32), r.view(torch.int32)
-        if o.dtype != r.dtype or not torch.equal(o, r):
-            raise AssertionError(f"{what}: output {i} differs")
-
-
-def check_peaks(torch, np, inputs, nms, peaks, dev) -> None:
-    """find_peaks on the card bit-equal to its plain version on the card
-    and on the CPU: the decoder tests' scene kinds (kernel_inputs.
-    peak_scene) as BATCH images (image i rolled i pixels) at the default
-    and fidelity() decodes, and a checkerboard at the fidelity() shape,
-    where every row holds the kernels' capacity."""
-    from openpose_plus_tpu_torch.config import PostprocConfig
-
-    cases = []
-    for post in (PostprocConfig(), PostprocConfig().fidelity()):
-        for kind in ("plateau", "clean", "noisy", "very_noisy",
-                     "pure_noise"):
-            maps = inputs.peak_scene(kind, BATCH)
-            cases.append((f"{kind} K={post.max_peaks}", nms.upsample_smooth(
-                torch.from_numpy(maps), post.upsample_factor,
-                post.smooth_sigma), post.peak_threshold, post.max_peaks))
-    cases.append(("checkerboard", torch.from_numpy(
-        inputs.checkerboard_peaks(2, 368, 432)), 0.5, 32))
-    for what, smoothed, threshold, k in cases:
-        out = peaks.find_peaks(smoothed.to(dev), threshold, k)
-        for where, maps in (("cuda", smoothed.to(dev)), ("cpu", smoothed)):
-            ref = nms.find_peaks_plain(maps, threshold, k)
-            assert_bits_equal(torch, f"find_peaks {what} vs plain ({where})",
-                              out, [getattr(ref, f) for f in peaks.FIELDS])
-    full = peaks.candidates.cpu()
-    if not bool((full == peaks.capacity(368, 432)).all()):
-        raise AssertionError(f"checkerboard: peaks a row {full.unique()}, "
-                             f"expected {peaks.capacity(368, 432)}")
-    log(f"find_peaks bit-equal to its plain version (card and CPU) on "
-        f"{len(cases) - 1} scene sets and a 368x432 checkerboard at "
-        f"{peaks.capacity(368, 432)} peaks a row")
-
-
-def peaks_times(torch, nms, peaks, smoothed, threshold, k) -> dict:
-    """find_peaks at one shape: the kernels' event and device time, the
-    plain version's, `torch.topk` on the plain version's masked plane (the
-    library call; never called by the port: it picks the same K, its tie
-    order unspecified), the byte bound (the 18 part maps read once, the
-    outputs written once; device times replay one input, so maps under
-    the 50 MB L2 sit in it: `maps_fit_l2`), one call's launches, and the
+def peaks_times(torch, nms, peaks, conf, post) -> dict:
+    """find_peaks at the `post` decode's shape on `conf` (the head-scaled
+    maps): the kernels' event and device time, the plain version's,
+    `torch.topk` on the plain version's masked plane (the library call;
+    never called by the port: it picks the same K, its tie order
+    unspecified), the kernels checked bit-equal to the plain version on
+    the card in one launch, their max_abs_err, the byte bound (the 18 part
+    maps read once, the outputs written once; device times replay one
+    input, so maps under the 50 MB L2 sit in it: `maps_fit_l2`), and the
     peaks a row on these maps."""
+    smoothed = nms.upsample_smooth(conf.float(), post.upsample_factor,
+                                   post.smooth_sigma)
+    threshold, k = post.peak_threshold, post.max_peaks
     kern = lambda: peaks.find_peaks(smoothed, threshold, k)   # noqa: E731
     plain = lambda: nms.find_peaks_plain(smoothed, threshold, k)  # noqa
     (args, _), = record_calls(nms, "_topk_stable", plain)
     masked = args[0]
     library = lambda: torch.topk(masked, k, dim=-1)   # noqa: E731
     before = peaks.launches
-    kern()
+    got = kern()
     torch.cuda.synchronize()
     rows = peaks.candidates.flatten().float().cpu()
     b, h, w = smoothed.shape[:3]
     maps = b * h * w * 18 * 4
+    ref = [getattr(plain(), f) for f in peaks.FIELDS]
+    what = f"find_peaks {b}x{h}x{w} K={k} vs plain (cuda)"
+    assert_bits_equal(torch, what, got, ref)
     out = {"shape": [b, h, w], "k": k, "launches": peaks.launches - before,
            "peaks_a_row_max": int(rows.max()),
            "peaks_a_row_median": float(rows.median()),
-           "maps_mb": maps / 1e6, "maps_fit_l2": maps <= 50e6}
+           "maps_mb": maps / 1e6, "maps_fit_l2": maps <= 50e6,
+           "max_abs_err": max_abs_err(torch, got, ref)}
+    if out["launches"] != 1:
+        raise AssertionError(f"{what}: {out['launches']} launches")
     for key, fn in (("", kern), ("plain_", plain), ("library_", library)):
         out[f"{key}ms"] = median_ms(torch, fn)
-        out[f"{key}device_ms"] = device_ms(torch, fn)
+        out[f"{key}device_ms"] = graph_ms(fn, smoothed.device)
     # the outputs: y, x, score, refined y and x of 4 bytes, valid of 1
     out["bound_ms"], out["bound_by"] = bound(maps + b * 18 * k * 21, 0.0)
     out["pct_of_bound"] = 100.0 * out["bound_ms"] / out["device_ms"]
     return out
-
-
-def peaks_timings(torch, nms, peaks, conf, cfg, gpu) -> dict:
-    """`peaks_times` at the fidelity() shape (8, 368, 432, K 32) on `conf`,
-    the head-scaled (8, 46, 54, 19) maps, and at VGG19's default one (8,
-    92, 164, K 16) on the same maps widened to its 46x82 grid (columns
-    repeated); a `peaks` line each; returns the fidelity() numbers."""
-    fid, post = cfg.postproc.fidelity(), cfg.postproc
-    conf = conf.float()
-    wide = torch.cat([conf, conf[:, :, :82 - conf.shape[2]]], dim=2)
-    times = {}
-    for label, maps, p in (("fidelity", conf, fid), ("vgg19", wide, post)):
-        smoothed = nms.upsample_smooth(maps, p.upsample_factor,
-                                       p.smooth_sigma)
-        times[label] = peaks_times(torch, nms, peaks, smoothed,
-                                   p.peak_threshold, p.max_peaks)
-        log(json.dumps({"peaks": {"decode": label, **times[label],
-                                  "gpu": gpu}}))
-    return times["fidelity"]
-
-
-def peaks_phase(torch, np, inputs, cfg, dev, gpu) -> None:
-    """--peaks-phase: phase 3's find_peaks checks, then phase 6's timings
-    on phase 4's head-scaled maps (the same seed and images)."""
-    from openpose_plus_tpu_torch import Engine
-    from openpose_plus_tpu_torch.ops.cuda import peaks
-    from openpose_plus_tpu_torch.postproc import nms
-
-    check_peaks(torch, np, inputs, nms, peaks, dev)
-    mc = cfg.model
-    rng = np.random.default_rng(0)
-    engine = Engine(cfg, seed=0, device=dev)
-    images = torch.from_numpy(rng.integers(
-        0, 256, (BATCH, mc.hin, mc.win, 3), dtype=np.uint8)).to(dev)
-    scale_heads(torch, engine, images)
-    conf, _ = engine.forward(images)
-    peaks_timings(torch, nms, peaks, conf, cfg, gpu)
-
-
-def probe_case(torch, np, c) -> tuple:
-    """The probe's inputs, drawn as scripts/profile_pallas_dw.py's `run`
-    draws them: x (8, 46, 82, C) and dwk (9, C), bf16."""
-    rng = np.random.default_rng(0)
-    x = rng.standard_normal((BATCH, *PROBE_HW, c)).astype(np.float32)
-    dwk = (rng.standard_normal((9, c)) * 0.1).astype(np.float32)
-    return (torch.from_numpy(x).to(torch.bfloat16),
-            torch.from_numpy(dwk).to(torch.bfloat16))
 
 
 def check_map_scale(torch, what, outs, refs, rel_tol) -> list:
@@ -1349,8 +1172,8 @@ def check_mirrored_scene(torch, np, scenes, flip, decode_maps, postproc,
 
 
 def accuracy_paths(torch, np, scenes, engines, images, counted, n_fused,
-                   dev) -> dict:
-    """Phase 5 (module docstring). Returns what the timings reuse."""
+                   dev) -> None:
+    """Phase 5 (module docstring)."""
     from openpose_plus_tpu_torch import engine as engine_mod
     from openpose_plus_tpu_torch.models import common
     from openpose_plus_tpu_torch.postproc import decode, flip
@@ -1494,91 +1317,6 @@ def accuracy_paths(torch, np, scenes, engines, images, counted, n_fused,
         del eng
     log(f"accuracy: fidelity() and quality() flip-TTA and scale search "
         f"(dedup, no flip) replayed == eager; graph bytes {graphs}")
-    return {"layouts": layouts, "quality": quality,
-            "truncated": (conf_dev, paf_dev), "graph_bytes": graphs}
-
-
-def accuracy_timings(torch, np, rng, engines, images, acc, gpu) -> None:
-    """Phase 6's timings of the accuracy paths, one JSON line each."""
-    from openpose_plus_tpu_torch import Engine
-    from openpose_plus_tpu_torch import engine as engine_mod
-    from openpose_plus_tpu_torch.postproc import decode
-
-    def eager(eng, fn, *args):
-        def call():
-            with torch.inference_mode():
-                return fn(eng.model, images, eng.config.postproc, *args)
-        return call
-
-    for label, eng in engines.items():
-        stride = eng.config.model.stride
-        # flip-TTA and the scale search replay their graphs (phase 5
-        # captured them); the `_eager` calls are the module functions
-        calls = {"plain": lambda: eng.infer(images),
-                 **{name: (lambda x=x: eng.infer(x))
-                    for name, x in acc["layouts"].items()},
-                 "flip_tta": lambda: eng.infer(images, flip_tta=True),
-                 "flip_tta_eager": eager(eng, engine_mod.infer_tta)}
-        for combine in ("avg", "dedup"):
-            calls[f"multiscale_{combine}"] = (
-                lambda c=combine: eng.infer_multiscale(
-                    images, SCALES, flip_tta=True, combine=c))
-            calls[f"multiscale_{combine}_eager"] = eager(
-                eng, getattr(engine_mod, f"infer_multiscale_{combine}"), SCALES,
-                True, stride)
-        # plain once more: the spread of one program between the calls
-        calls["plain_again"] = calls["plain"]
-        times = {f"{key}_ms": median_ms(torch, fn)
-                 for key, fn in calls.items()}
-        log(json.dumps({"accuracy_infer": {
-            "engine": label, "batch": BATCH, "scales": SCALES, **times,
-            **{f"{key}_eager_over_replayed": times[f"{key}_eager_ms"]
-               / times[f"{key}_ms"] for key in (
-                   "flip_tta", "multiscale_avg", "multiscale_dedup")},
-            "graph_bytes": {k: v for k, v in acc["graph_bytes"].items()
-                            if k.startswith(label)},
-            "gpu": gpu}}))
-
-    quality = acc["quality"]
-    conf, paf = acc["truncated"]
-    # the arguments of the calls to time alone, as the paths pass them
-    (merge_args, merge_kwargs), = record_calls(
-        decode, "merge_fragments",
-        lambda: decode.decode_maps(conf, paf, quality))
-    (dedup_args, _), = record_calls(
-        engine_mod, "merge_dedup", eager(
-            engines["default"], engine_mod.infer_multiscale_dedup, SCALES,
-            True, engines["default"].config.model.stride))
-    log(json.dumps({"accuracy_decode": {
-        "batch": BATCH, "max_peaks": quality.max_peaks,
-        "upsample": quality.upsample_factor,
-        "rounds": quality.fragment_merge_rounds,
-        "quality_decode_ms": median_ms(
-            torch, lambda: decode.decode_maps(conf, paf, quality)),
-        "fragment_merge_ms": median_ms(torch, lambda: decode.merge_fragments(
-            *merge_args, **merge_kwargs)),
-        "fragment_merge_device_ms": device_ms(
-            torch, lambda: decode.merge_fragments(*merge_args,
-                                                  **merge_kwargs)),
-        "merge_dedup_rows": sum(b.valid.shape[1] for b in dedup_args[0]),
-        "merge_dedup_ms": median_ms(
-            torch, lambda: decode.merge_dedup(*dedup_args)),
-        "merge_dedup_device_ms": device_ms(
-            torch, lambda: decode.merge_dedup(*dedup_args)),
-        "gpu": gpu}}))
-
-    mc = engines["default"].config.model
-    big = torch.from_numpy(rng.integers(
-        0, 256, (32, mc.hin, mc.win, 3), dtype=np.uint8)).to(images.device)
-    state = engines["default"].model.state_dict()
-    chunked = Engine(engines["default"].config, params=state,
-                     device=images.device, chunk=BATCH)
-    log(json.dumps({"chunk": {
-        "batch": 32, "chunk": BATCH,
-        "unchunked_ms": median_ms(torch,
-                                  lambda: engines["default"].infer(big)),
-        "chunked_ms": median_ms(torch, lambda: chunked.infer(big)),
-        "gpu": gpu}}))
 
 
 def zoo_paths(torch, images, counted, dev, gpu) -> None:
@@ -1606,29 +1344,11 @@ def zoo_paths(torch, images, counted, dev, gpu) -> None:
             f"{out.num_humans.tolist()}; s2d input gives the same HumanBatch")
         errs = check_forward32(torch, get_model, engine, images, dev,
                                f"zoo {name} ")
-        with torch.inference_mode():      # the head alone, on the features
-            feature = engine.model(images.float() / 255.0 - 0.5)[
-                "feature"].permute(0, 3, 1, 2)
-            flops = conv_flops(torch, common, engine.model, feature, images)
-        forward_ms = device_ms(torch, lambda: engine.forward(images),
-                               calls=FORWARD_REPLAYS)
-        head = torch.inference_mode()(engine.model.stages)
-        bound_ms, bound_by = bound(io_bytes(images), flops["bf16"]
-                                   / BF16_OPS_PER_S + flops["f32"]
-                                   / F32_OPS_PER_S)
         log(json.dumps({"zoo": {
             "model": name, "batch": BATCH, "hw": [mc.hin, mc.win],
             "dtype": mc.compute_dtype, "stages": mc.n_stages,
             "launches": n, "humans": out.num_humans.tolist(),
-            "forward32_rel_err": errs,
-            "infer_ms": median_ms(torch, lambda: engine.infer(images)),
-            "forward_device_ms": forward_ms,
-            "head_device_ms": device_ms(
-                torch, lambda: head(feature), calls=FORWARD_REPLAYS),
-            "forward_flops": flops, "forward_bound_ms": bound_ms,
-            "forward_bound_by": bound_by,
-            "forward_pct_of_bound": 100.0 * bound_ms / forward_ms,
-            "gpu": gpu}}))
+            "forward32_rel_err": errs, "gpu": gpu}}))
 
 
 def scale_paf_first_heads(torch, engine, images) -> dict:
@@ -1650,86 +1370,10 @@ def scale_paf_first_heads(torch, engine, images) -> dict:
     return gains
 
 
-def body25_kernels(torch, np, inputs, dev, post, hw) -> None:
-    """BODY_25's decode kernels at the body25.batch_bs8 cell's shapes
-    (batch 8, K and M of `post`, the (h, w) grid `hw` after the upsample),
-    each bit-equal to its plain version on the card and on the CPU:
-    greedy at 26 limbs (ties, full density, signed zeros), merge at 25
-    parts on greedy's output, on random sets and on the sets that drive
-    each of its branches, sample_paf at 26 limbs, and find_peaks on the
-    decoder tests' five BODY_25 scene kinds tiled to the cell's grid (46 x
-    54 maps widened to 46 x 82 at the cell) and on a checkerboard that
-    fills every row to its capacity."""
-    from openpose_plus_tpu_torch import skeletons
-    from openpose_plus_tpu_torch.ops.cuda import (greedy, merge, paf_sample,
-                                                  peaks)
-    from openpose_plus_tpu_torch.postproc import nms
-
-    skel = skeletons.BODY25
-    k, m, (h, w) = post.max_peaks, post.max_humans, hw
-    rng = np.random.default_rng(25)
-    for density in (0.3, 1.0):
-        scores = torch.from_numpy(inputs.limb_scores(
-            rng, BATCH, k, density, n_limbs=skel.n_limbs))
-        accepted, _ = check_greedy(torch, greedy, scores, k, dev,
-                                   f"greedy 26 limbs K={k}")
-        peak_score = torch.from_numpy(inputs.peak_scores(rng, BATCH, k,
-                                                         skel.n_parts))
-        for conns in (accepted, [torch.from_numpy(x) for x in
-                                 inputs.connections(rng, BATCH, k,
-                                                    skel.n_limbs)]):
-            check_merge(torch, merge, (*conns, peak_score), k, m, dev,
-                        f"merge 25 parts K={k}")
-    check_greedy(torch, greedy, torch.from_numpy(inputs.signed_zero_scores(
-        rng, BATCH, k, n_limbs=skel.n_limbs)), k, dev,
-        f"greedy 26 limbs K={k}, signed zeros")
-    for kind, mk in inputs.MERGE_KINDS.items():
-        fields = [torch.from_numpy(x) for x in (
-            *inputs.merge_connections(rng, BATCH, k, kind, skel.n_limbs),
-            inputs.peak_scores(rng, BATCH, k, skel.n_parts))]
-        check_merge(torch, merge, fields, k, mk, dev,
-                    f"merge 25 parts {kind} K={k} M={mk}")
-    check_sample_paf(torch, inputs, paf_sample, rng, dev, h, w, k, skel)
-
-    cases = []
-    for kind in ("plateau", "clean", "noisy", "very_noisy", "pure_noise"):
-        maps = torch.from_numpy(inputs.peak_scene(kind, BATCH, skel))
-        lh, lw = h // post.upsample_factor, w // post.upsample_factor
-        tiled = maps.repeat(1, -(-lh // maps.shape[1]),
-                            -(-lw // maps.shape[2]), 1)[:, :lh, :lw]
-        cases.append((kind, nms.upsample_smooth(
-            tiled.contiguous(), post.upsample_factor, post.smooth_sigma),
-            post.peak_threshold))
-    cases.append(("checkerboard", torch.from_numpy(inputs.checkerboard_peaks(
-        BATCH, h, w, skel.n_heatmaps)), 0.5))
-    for what, smoothed, threshold in cases:
-        if tuple(smoothed.shape) != (BATCH, h, w, skel.n_heatmaps):
-            raise AssertionError(f"find_peaks {what}: maps "
-                                 f"{tuple(smoothed.shape)}")
-        out = peaks.find_peaks(smoothed.to(dev), threshold, k)
-        for where, maps in (("cuda", smoothed.to(dev)), ("cpu", smoothed)):
-            ref = nms.find_peaks_plain(maps, threshold, k)
-            assert_bits_equal(torch, f"find_peaks 25 parts {what} vs plain "
-                              f"({where})", out,
-                              [getattr(ref, f) for f in peaks.FIELDS])
-    full = peaks.candidates.cpu()
-    if tuple(full.shape) != (BATCH, skel.n_parts) or not bool(
-            (full == peaks.capacity(h, w)).all()):
-        raise AssertionError(f"25-part checkerboard: peaks a row "
-                             f"{full.unique()} of {tuple(full.shape)}, "
-                             f"expected {peaks.capacity(h, w)}")
-    log(f"BODY_25 kernels bit-equal to their plain versions (card and CPU) "
-        f"at batch {BATCH}, K={k}, M={m}: greedy at 26 limbs, merge at 25 "
-        f"parts ({sorted(inputs.MERGE_KINDS)} included), sample_paf and "
-        f"find_peaks on a {h}x{w} grid ({len(cases) - 1} scene sets and a "
-        f"checkerboard at {peaks.capacity(h, w)} peaks a row)")
-
-
 def body25_phase(torch, np, inputs, counted, dev, gpu,
                  size=(368, 656)) -> None:
-    """Phase 7b (module docstring): BODY_25 at the body25.batch_bs8 cell's
-    shapes (`size` the input's), its kernels (`body25_kernels`), then its
-    served path."""
+    """Phase 7b (module docstring): BODY_25's served path at the
+    body25.batch_bs8 cell's shapes (`size` the input's)."""
     from openpose_plus_tpu_torch import Engine, default_config, skeletons
     from openpose_plus_tpu_torch.postproc import decode_maps
 
@@ -1737,8 +1381,6 @@ def body25_phase(torch, np, inputs, counted, dev, gpu,
     cfg = cfg.replace(model=dataclasses.replace(cfg.model, hin=size[0],
                                                 win=size[1]))
     mc, post = cfg.model, cfg.postproc
-    grid = (mc.hout * post.upsample_factor, mc.wout * post.upsample_factor)
-    body25_kernels(torch, np, inputs, dev, post, grid)
 
     rng = np.random.default_rng(7)
     images = torch.from_numpy(rng.integers(
@@ -1778,15 +1420,15 @@ def body25_phase(torch, np, inputs, counted, dev, gpu,
         "gpu": gpu}}))
 
 
-def bias_act_case(torch, np, inputs, bias_act, key, count, dev) -> dict:
+def bias_act_times(torch, np, inputs, bias_act, key, count, dev) -> dict:
     """One bias_act call shape of a forward, `key` ((B, C, H, W), PReLU,
     the dense block buffer's channels or 0, offset), which the forward
     makes `count` times, on `kernel_inputs.epilogue_inputs` in bf16: the
-    kernel bit-equal to its plain version on the card (its output and the
-    buffer), then both timed (`device_ms`) on copies of the input rotated
-    past twice the 50 MB L2, so each call reads from HBM as the byte bound
-    assumes (in the forward the conv's output may still sit in L2): y read
-    once, the output and the buffer's channels written once."""
+    kernel and its plain version timed (`graph_ms`) on copies of the input
+    rotated past twice the 50 MB L2, so each call reads from HBM as the
+    byte bound assumes (in the forward the conv's output may still sit in
+    L2): y read once, the output and the buffer's channels written
+    once."""
     (b, c, h, w), prelu, wide, offset = key
     y, bias, slope = inputs.epilogue_inputs(
         np.random.default_rng(b + c + wide + offset), b, h, w, c)
@@ -1802,15 +1444,6 @@ def bias_act_case(torch, np, inputs, bias_act, key, count, dev) -> dict:
             (b, wide, h, w), dtype=y.dtype, device=dev).contiguous(
                 memory_format=torch.channels_last)
 
-    into, want = buffer(), buffer()
-    out = bias_act.bias_act(y, bias, slope, into, offset)
-    ref = bias_act.bias_act_plain(y, bias, slope, want, offset)
-    for what, a, r in (("output", out, ref), ("buffer", into, want)):
-        if a is not None and not torch.equal(
-                a.contiguous().view(torch.int16),
-                r.contiguous().view(torch.int16)):
-            raise AssertionError(f"bias_act {key}: {what} differs from the "
-                                 "plain version on the card")
     intos = [buffer() for _ in range(copies)]
     turn = iter(range(1 << 30))
 
@@ -1825,8 +1458,8 @@ def bias_act_case(torch, np, inputs, bias_act, key, count, dev) -> dict:
     nbytes = per * (2 + bool(wide)) + 4 * c * (1 + prelu)
     out = {"shape": [b, c, h, w], "prelu": prelu, "buffer_channels": wide,
            "offset": offset, "count": count, "copies": copies,
-           "device_ms": device_ms(torch, kernel),
-           "plain_device_ms": device_ms(torch, plain),
+           "device_ms": graph_ms(kernel, dev),
+           "plain_device_ms": graph_ms(plain, dev),
            "bound_ms": bound(nbytes, 0.0)[0]}
     out["pct_of_bound"] = 100.0 * out["bound_ms"] / out["device_ms"]
     out["tb_per_s"] = nbytes / out["device_ms"] / 1e9
@@ -1839,8 +1472,8 @@ def bias_act_forward(torch, np, inputs, bias_act, engine, images, calls,
     the kernel `calls` times (the count set to 0 just before it); the
     forward's maps through the kernel must equal those with the op
     swapped for its plain version (dense blocks written in place either
-    way), both forwards timed; each call shape of the forward is checked
-    and timed by `bias_act_case`."""
+    way), both forwards timed; each call shape of the forward is timed by
+    `bias_act_times`."""
     engine.infer(images)                         # warm-up
     torch.cuda.synchronize()
     bias_act.launches = 0
@@ -1861,19 +1494,18 @@ def bias_act_forward(torch, np, inputs, bias_act, engine, images, calls,
                0 if into is None else into.shape[1], offset)
         keys[key] = keys.get(key, 0) + 1
     maps = engine.forward(images)
-    forward_ms = {"kernel": device_ms(torch, lambda: engine.forward(images))}
+    forward_ms = {"kernel": graph_ms(lambda: engine.forward(images), dev)}
     op, bias_act._bias_act_op = bias_act._bias_act_op, bias_act.bias_act_plain
     try:
         plain_maps = engine.forward(images)
-        forward_ms["plain"] = device_ms(torch,
-                                        lambda: engine.forward(images))
+        forward_ms["plain"] = graph_ms(lambda: engine.forward(images), dev)
     finally:
         bias_act._bias_act_op = op
     if not all(torch.equal(a, p) for a, p in zip(maps, plain_maps,
                                                  strict=True)):
         raise AssertionError(f"forward {tuple(images.shape)} through the "
                              "kernel differs from the plain op's")
-    cases = [bias_act_case(torch, np, inputs, bias_act, key, n, dev)
+    cases = [bias_act_times(torch, np, inputs, bias_act, key, n, dev)
              for key, n in keys.items()]
     total = {k: sum(c["count"] * c[k] for c in cases)
              for k in ("device_ms", "plain_device_ms", "bound_ms")}
@@ -1882,17 +1514,13 @@ def bias_act_forward(torch, np, inputs, bias_act, engine, images, calls,
             "sum": total, "shapes": cases}
 
 
-def bias_act_phase(torch, np, inputs, dev, gpu, nvcc_log: str) -> dict:
+def bias_act_phase(torch, np, inputs, dev, gpu) -> dict:
     """Phase 7c (module docstring): the conv epilogue on every engine of
     BIAS_ACT_CALLS at its cells' shapes. Returns {label: {batch: the
     `bias_act_forward` result}}."""
     from openpose_plus_tpu_torch import Engine, default_config
     from openpose_plus_tpu_torch.ops.cuda import bias_act
 
-    frames = ptxas_frames(nvcc_log, ("bias_act_kernel",))
-    if len(frames) != 8 or any(f != (0, 0, 0) for f in frames.values()):
-        raise AssertionError(f"bias_act ptxas frames {frames}: expected 8 "
-                             "instances with 0 bytes of stack and spills")
     rng = np.random.default_rng(24)
     results = {}
     for label, (name, fused, hw, batches, calls) in BIAS_ACT_CALLS.items():
@@ -1912,18 +1540,16 @@ def bias_act_phase(torch, np, inputs, dev, gpu, nvcc_log: str) -> dict:
             results[label][batch] = got
             log(json.dumps({"bias_act": {
                 "model": label, "batch": batch, "hw": list(hw), **got,
-                "ptxas": sorted(frames.values()), "gpu": gpu}}))
+                "gpu": gpu}}))
         del engine
         torch.cuda.empty_cache()
     return results
 
 
-def conv_flops(torch, common, model, feature, images) -> dict:
+def conv_flops(torch, common, model, images) -> dict:
     """The convolutions' flops in one forward of `images`, by type: "bf16"
     for the compute-dtype convs (ConvRelu, SepConvRelu: the tensor cores),
-    "f32" for the float32 prediction 1x1s (Conv1x1F32); and "head", the
-    stage stack's share, from a forward of the stages alone on
-    `feature`."""
+    "f32" for the float32 prediction 1x1s (Conv1x1F32)."""
     counts = {"bf16": 0, "f32": 0}
 
     def hook(module, args, out):
@@ -1942,13 +1568,10 @@ def conv_flops(torch, common, model, feature, images) -> dict:
                                  common.Conv1x1F32))]
     try:
         model(images.float() / 255.0 - 0.5)
-        total = dict(counts)
-        counts.update(bf16=0, f32=0)
-        model.stages(feature)
     finally:
         for h in handles:
             h.remove()
-    return {**total, "head": counts["bf16"] + counts["f32"]}
+    return counts
 
 
 def oracle_phase(torch, counted, dev, gpu) -> None:
@@ -1956,25 +1579,13 @@ def oracle_phase(torch, counted, dev, gpu) -> None:
     ap_benchmark.json's "oracle@368" record, and card vs CPU on the first
     ORACLE_CPU_IMAGES images."""
     from openpose_plus_tpu_torch import ap_oracle
-    from openpose_plus_tpu_torch.data.targets import make_targets
     from openpose_plus_tpu_torch.eval_coco import evaluate_detections_full
-    from openpose_plus_tpu_torch.postproc import build_decoder
 
     with open(os.path.join(HERE, "ap_benchmark.json")) as f:
         record = json.load(f)["oracle@368"]
     bank = ap_oracle.oracle_bank("serving")
     first = ap_oracle.oracle_bank("serving", limit=ORACLE_CPU_IMAGES)
-    geo, stride = bank.geo, ap_oracle.STRIDE
-    hout, wout = geo["hin"] // stride, geo["win"] // stride
-    kps = torch.from_numpy(ap_oracle.input_keypoints(bank, 0)).to(dev)
-
-    def render():
-        return make_targets(kps, hout, wout, stride, geo["sigma"],
-                            geo["limb"])
-
     with torch.inference_mode():
-        conf, paf = render()
-        targets_ms = (median_ms(torch, render), device_ms(torch, render))
         for variant in ap_oracle.VARIANTS:
             t0 = time.perf_counter()
             dets, n = launches_during(torch, counted, lambda: (
@@ -2005,15 +1616,9 @@ def oracle_phase(torch, counted, dev, gpu) -> None:
                         f"oracle {variant}, first {ORACLE_CPU_IMAGES} "
                         f"images: AP {on_card} on the card, {on_cpu} on the "
                         f"CPU (tolerance {ORACLE_CPU_TOL})")
-                decode = functools.partial(build_decoder(
-                    ap_oracle.variant_config(variant)), conf, paf)
                 line.update(
                     launches=n, first_images=ORACLE_CPU_IMAGES,
-                    first_ap_card=on_card, first_ap_cpu=on_cpu,
-                    decode_ms=median_ms(torch, decode),
-                    decode_device_ms=device_ms(torch, decode),
-                    targets_ms=targets_ms[0],
-                    targets_device_ms=targets_ms[1])
+                    first_ap_card=on_card, first_ap_cpu=on_cpu)
             log(f"oracle {variant}: AP {res.ap:.4f} (recorded {want}, delta "
                 f"{res.ap - want:+.5f}), {seconds:.2f} s")
             log(json.dumps({"oracle": {**line, "gpu": gpu}}))
@@ -2633,13 +2238,10 @@ def train_phase(torch, np, counted, dev, gpu) -> None:
         pipe.stop()
         with torch.no_grad():
             state.model.eval()
-            feature = state.model(on_card["images"].float() / 255.0 - 0.5)[
-                "feature"].permute(0, 3, 1, 2)
-            flops = conv_flops(torch, common, state.model, feature,
-                               on_card["images"])
+            flops = conv_flops(torch, common, state.model, on_card["images"])
             state.model.train()
         step_flops = 3 * (flops["bf16"] + flops["f32"])
-        bound_ms = step_flops / BF16_OPS_PER_S * 1e3
+        bound_ms = step_flops / BF16_FLOPS * 1e3
         step_imgs = BATCH * 1000.0 / step_ms
         log(json.dumps({"train": {
             "model": mc.name, "batch": BATCH, "hw": [mc.hin, mc.win],
@@ -2723,24 +2325,6 @@ def train_graph_spread(torch, T, cfg, batch, dev) -> dict:
                graph_vs_eager_max_abs=max_diff(graphed, eager[0]))
     if out["graph_vs_eager_max_abs"] > out["eager_vs_eager_max_abs"]:
         raise AssertionError(f"train step, graph vs eager: {out}")
-    return out
-
-
-def kernel_breakdown(prof, calls: int, top: int = 8) -> dict:
-    """{kernel name (cut to 60 characters): device ms per call} of the
-    `top` kernels by device time in a torch.profiler profile of `calls`
-    calls, and "rest" for the others."""
-    from torch.autograd import DeviceType
-
-    by_name: dict = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            name = e.name[:60]
-            by_name[name] = by_name.get(name, 0.0) + (
-                e.time_range.end - e.time_range.start) / 1e3 / calls
-    ranked = sorted(by_name.items(), key=lambda kv: -kv[1])
-    out = dict(ranked[:top])
-    out["rest"] = sum(ms for _, ms in ranked[top:])
     return out
 
 
@@ -2895,40 +2479,12 @@ def int8_groups(calls, cins) -> dict:
     return groups
 
 
-def int8_edge_cases(torch, np, inputs, int8_conv, dev) -> list:
-    """Seeded int8_conv arguments beyond the forwards' shapes: Cin 3 /
-    185 / 537 at stride 2 on even sizes (SAME pads (0, 1)) and odd ones,
-    M and N off the 64-wide tiles, and s_out = 1e-6 (every positive
-    output saturates); each in both output modes."""
-    rng = np.random.default_rng(8)
-    cases = []
-    for b, h, w, cin, cout, k, stride, tiny in (
-            (2, 40, 50, 3, 24, 3, 2, False), (3, 17, 19, 185, 200, 7, 2,
-                                               False),
-            (2, 46, 54, 537, 128, 1, 1, True), (1, 23, 27, 185, 128, 7, 1,
-                                                 True),
-            (1, 9, 7, 537, 40, 3, 2, False)):
-        q, weight, bias, s_in, s_out = inputs.int8_conv_inputs(
-            rng, b, h, w, cin, cout, k)
-        qw, wmax = int8_conv.quantize_weight(torch.from_numpy(weight))
-        pads = tuple(max((-(-n // stride) - 1) * stride + k - n, 0) // 2
-                     for n in (h, w))
-        args = [torch.from_numpy(q).to(dev), int8_conv.pack_weight(qw).to(
-            dev), k, int8_conv.rescale(torch.tensor(s_in).to(dev),
-                                       wmax.to(dev)),
-                torch.from_numpy(bias).to(dev), stride, pads]
-        s = torch.tensor(1e-6 if tiny else s_out).to(dev)
-        cases += [(*args, s), (*args, None)]
-    return cases
-
-
 def int8_phase(torch, np, images, counted, dev, gpu) -> dict:
     """Phase 11 (module docstring): calibrated int8 serving at full width;
     returns the kernels line's entries of int8_conv and quantize_act."""
     from openpose_plus_tpu_torch.models import common
     from openpose_plus_tpu_torch.ops.cuda import int8_conv
 
-    inputs = load_test_helper("kernel_inputs")
     worst = {"int8_conv": 0.0, "quantize_act": 0.0}
     checked = set()
 
@@ -2948,18 +2504,6 @@ def int8_phase(torch, np, images, counted, dev, gpu) -> dict:
                                  "version")
         worst[name] = max(worst[name], float((out.float() - ref.float())
                                              .abs().max()))
-
-    for args in int8_edge_cases(torch, np, inputs, int8_conv, dev):
-        check_kernel("int8_conv", args)
-    for c in (185, 3):
-        x = torch.from_numpy(np.random.default_rng(9).standard_normal(
-            (2, 46, 54, c)).astype(np.float32) * 3).to(dev, torch.bfloat16)
-        for s in (1e-6, 0.5, 1.0):
-            check_kernel("quantize_act", (x, torch.tensor(s, device=dev)))
-    log(f"int8 edge cases: {len(checked)} kernel calls bit-equal to their "
-        "plain versions (Cin 3/185/537, stride 2 on even and odd sizes, "
-        "s_out 1e-6, both output modes; quantize at Cin 185 and 3, "
-        "channel-padded)")
 
     line = {}
     for name in INT8_MODELS:
@@ -3037,16 +2581,11 @@ def int8_phase(torch, np, images, counted, dev, gpu) -> dict:
 
         # timings: the forwards, infer, calibration, the bound
         flops = int8_flops(torch, common, engine.model, images)
-        fwd8 = device_ms(torch, lambda: engine.forward(images),
-                         calls=FORWARD_REPLAYS)
-        fwd16 = device_ms(torch, lambda: bf16.forward(images),
-                          calls=FORWARD_REPLAYS)
+        fwd8 = graph_ms(lambda: engine.forward(images), dev)
+        fwd16 = graph_ms(lambda: bf16.forward(images), dev)
         bound_ms, bound_by = bound(io_bytes(images), flops["int8"]
                                    / INT8_OPS_PER_S + flops["bf16"]
-                                   / BF16_OPS_PER_S + flops["f32"]
-                                   / F32_OPS_PER_S)
-        busy_ms, n_kernels, prof = device_busy(
-            torch, lambda: engine.forward(images), calls=2)
+                                   / BF16_FLOPS + flops["f32"] / F32_FLOPS)
         log(json.dumps({"int8": {
             "model": name, "batch": BATCH, "hw": [mc.hin, mc.win],
             "stages": mc.n_stages, "int8_layers": n_convs,
@@ -3061,8 +2600,6 @@ def int8_phase(torch, np, images, counted, dev, gpu) -> dict:
             "calibrate_ms": calib_ms, "forward_flops": flops,
             "forward_bound_ms": bound_ms, "forward_bound_by": bound_by,
             "forward_pct_of_bound": 100.0 * bound_ms / fwd8,
-            "forward_busy_ms": busy_ms, "forward_kernels": n_kernels,
-            "forward_by_kernel_ms": kernel_breakdown(prof, 2),
             "gpu": gpu}}))
 
         # per shape group: the kernel, its plain version, torch._int_mm
@@ -3156,7 +2693,7 @@ def time_int8_group(torch, common, int8_conv, args, out, cin) -> dict:
     for key, fn in calls.items():
         t[f"{key}ms"] = median_ms(torch, fn)
         if key != "plain_":
-            t[f"{key}device_ms"] = device_ms(torch, fn)
+            t[f"{key}device_ms"] = graph_ms(fn, q.device)
     if not mat:
         t["library_ms"] = t["library_device_ms"] = None
     t["bound_ms"], t["bound_by"] = int8_bound(q, cin, k, out)
@@ -3182,8 +2719,8 @@ def plan_times(torch, int8_conv, args) -> dict:
                 if not torch.equal(int8_conv.int8_conv(*args), ref):
                     raise AssertionError(f"int8_conv under plan {plan} "
                                          "differs from the chosen plan's")
-                times["x".join(map(str, plan))] = device_ms(
-                    torch, lambda: int8_conv.int8_conv(*args))
+                times["x".join(map(str, plan))] = graph_ms(
+                    lambda: int8_conv.int8_conv(*args), args[0].device)
             finally:
                 int8_conv.tile_plan = chosen
     return times
@@ -3206,8 +2743,7 @@ def quantize_bound(x, padded) -> float:
     output written, the channel padding's zeros included (rows of
     `padded` channels)."""
     rows = x.numel() // x.shape[-1]
-    return bound(io_bytes(x) + rows * padded, 4 * x.numel()
-                 / F32_OPS_PER_S)[0]
+    return bound(io_bytes(x) + rows * padded, 4 * x.numel() / F32_FLOPS)[0]
 
 
 def time_quantize(torch, int8_conv, args) -> dict:
@@ -3216,8 +2752,8 @@ def time_quantize(torch, int8_conv, args) -> dict:
     t = {"ms": median_ms(torch, lambda: int8_conv.quantize_act(*args)),
          "plain_ms": median_ms(
              torch, lambda: int8_conv.quantize_act_plain(*args)),
-         "device_ms": device_ms(torch, lambda: int8_conv.quantize_act(
-             *args))}
+         "device_ms": graph_ms(lambda: int8_conv.quantize_act(*args),
+                               args[0].device)}
     x = args[0]
     t["bound_ms"] = quantize_bound(x, int8_conv.padded(x.shape[-1]))
     return t
@@ -3254,7 +2790,7 @@ def int8_kernels_of(torch, np, tree, dev, gpu) -> None:
                     raise AssertionError(f"{tree} {name} {shape} -> {cout}:"
                                          " kernel differs from its plain "
                                          "version")
-            ms = device_ms(torch, lambda: int8_conv.int8_conv(*args))
+            ms = graph_ms(lambda: int8_conv.int8_conv(*args), dev)
             groups.append([[*shape[:3], cin], cout, k, stride,
                            "bf16" if bf16_out else "int8", count, ms,
                            plan_of(int8_conv, args),
@@ -3271,7 +2807,7 @@ def int8_kernels_of(torch, np, tree, dev, gpu) -> None:
                     raise AssertionError(f"{tree} {name} quantize {shape}: "
                                          "kernel differs from its plain "
                                          "version")
-            ms = device_ms(torch, lambda: int8_conv.quantize_act(*args))
+            ms = graph_ms(lambda: int8_conv.quantize_act(*args), dev)
             q_groups.append([list(shape), count, ms, quantize_bound(
                 args[0], int8_conv.padded(shape[-1]))])
             q_total += count * ms
@@ -3316,6 +2852,7 @@ def int8_phases(torch, np, build, int8_conv, inputs, dev, gpu) -> None:
     50th and 90th percentile over the first 4096 blocks of one launch, and
     the device ms of the stamped and of the regular build."""
     import ctypes
+
     out_dir = build.BUILD_ROOT / "int8_phases"
     out_dir.mkdir(parents=True, exist_ok=True)
     so = out_dir / "libint8_phases.so"
@@ -3347,14 +2884,14 @@ def int8_phases(torch, np, build, int8_conv, inputs, dev, gpu) -> None:
             return int8_conv.int8_conv(*args)
 
         with torch.inference_mode():
-            ms = device_ms(torch, call)
+            ms = graph_ms(call, dev)
             ref = int8_conv.int8_conv_plain(*args)
             build.load = lambda: stamped
             try:
                 if not torch.equal(call(), ref):
                     raise AssertionError(f"int8 phases {b, h, w, cin, cout, k}"
                                          ": the stamped kernel differs")
-                stamped_ms = device_ms(torch, call)
+                stamped_ms = graph_ms(call, dev)
                 call()
                 torch.cuda.synchronize()
             finally:
@@ -3380,10 +2917,10 @@ def int8_phases(torch, np, build, int8_conv, inputs, dev, gpu) -> None:
 
 
 # a fresh process: load the artifacts phase 12 exported, serve the batch
-# (the first call captures, the next replays), time the replays and trace
-# one replay of each artifact in this process's only profiler session
+# (the first call captures, the next replays) and trace one replay of each
+# artifact in this process's only profiler session
 _LOAD_ARTIFACTS = """
-import json, statistics, sys, time
+import json, sys, time
 import numpy as np
 import torch
 from chip_smoke import graph_bytes, replay_trace
@@ -3406,19 +2943,6 @@ def launches(fn):
     return out, {k: m.launches for k, m in counted.items()}
 
 
-def event_ms(fn):
-    times = []
-    for _ in range(23):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times[3:])
-
-
 res, engines = {}, {}
 for label in sys.argv[2:]:
     t0 = time.perf_counter()
@@ -3429,16 +2953,13 @@ for label in sys.argv[2:]:
         lambda: engine.infer(x)))
     again, n_replay = launches(lambda: engine.infer(x))
     ref = np.load(tmp + "/" + label + "/eager.npz")
-    with torch.inference_mode():
-        eager_ms = event_ms(lambda: engine._call(x))
     res[label] = {
         "load_s": load_s, "launches": n, "replay_launches": n_replay,
         "equal": all(np.array_equal(getattr(out, f).cpu().numpy(), ref[f])
                      for f in export.FIELDS),
         "equal_replay": all(np.array_equal(getattr(again, f).cpu().numpy(),
                                            ref[f]) for f in export.FIELDS),
-        "graph_bytes": nbytes, "infer_ms": event_ms(lambda: engine.infer(x)),
-        "eager_call_ms": eager_ms}
+        "graph_bytes": nbytes}
 on_device = {label: images.to(e.device) for label, e in engines.items()}
 trace = replay_trace(torch, {label: (lambda e=e, x=on_device[label]:
                                      e.infer(x))
@@ -3505,8 +3026,8 @@ def replay_trace(torch, calls: dict, gap_s: float = TRACE_GAP_S) -> dict:
 def compiled_case(torch, label, engine, images, other) -> dict:
     """Phase 12 on one engine: eager `infer`, `compile` at the batch of
     `images`, the replay against the eager HumanBatch with no Python
-    launch, a held result across the next call, and the eager and
-    compiled event times; returns the numbers."""
+    launch, a held result across the next call; returns the compile's
+    seconds and its graph's bytes."""
     from openpose_plus_tpu_torch.engine import infer_step
     from openpose_plus_tpu_torch.ops.cuda import (greedy, int8_conv, merge,
                                                   paf_sample, sepconv)
@@ -3516,7 +3037,6 @@ def compiled_case(torch, label, engine, images, other) -> dict:
     with torch.inference_mode():
         eager_other = infer_step(engine.model, other,
                                  engine.config.postproc)
-    eager_ms = median_ms(torch, lambda: engine.infer(images))
     t0 = time.perf_counter()
     _, nbytes = graph_bytes(torch, lambda: engine.compile(images.shape[0]))
     compile_s = time.perf_counter() - t0
@@ -3542,12 +3062,9 @@ def compiled_case(torch, label, engine, images, other) -> dict:
         if not torch.equal(getattr(held, name), t):
             raise AssertionError(f"deploy {label}: a held result's {name} "
                                  "changed at the next call")
-    compiled_ms = median_ms(torch, lambda: engine.infer(images))
     log(f"deploy {label}: compiled replay == eager, no Python launch, held "
         "result intact")
-    return {"eager_ms": eager_ms, "compiled_ms": compiled_ms,
-            "eager_over_compiled": eager_ms / compiled_ms,
-            "compile_s": compile_s, "graph_bytes": nbytes}
+    return {"compile_s": compile_s, "graph_bytes": nbytes}
 
 
 def deploy_phase(torch, np, engine, fused_engine, images, n_fused, dev,
@@ -3599,10 +3116,7 @@ def deploy_phase(torch, np, engine, fused_engine, images, n_fused, dev,
     if rec["eager_launches"]["int8_conv"] != 2 * n_convs:
         raise AssertionError(f"int8 VGG19 flip-TTA launches "
                              f"{rec['eager_launches']}")
-    line["int8_vgg19_flip_tta"] = {
-        "graph_bytes": rec["graph_bytes"],
-        "replayed_ms": median_ms(torch, lambda: int8.infer(
-            images, flip_tta=True))}
+    line["int8_vgg19_flip_tta"] = {"graph_bytes": rec["graph_bytes"]}
     # the kernels of one replay of each graph, by name, in one trace: the
     # compiled engines, and phase 5's flip-TTA and scale-search graphs of
     # phase 4's engines (phase 5 captured them) and the int8 flip-TTA
@@ -3637,14 +3151,10 @@ def deploy_phase(torch, np, engine, fused_engine, images, n_fused, dev,
         if got["kernels"] != want:
             raise AssertionError(f"deploy {label}: kernels of one replay "
                                  f"{got['kernels']}, expected {want}")
-        record = {"kernels_per_replay": got["kernels"],
-                  "device_events_per_replay": got["device_events"],
-                  "busy_ms": got["busy_ms"]}
-        if label in cases:
-            record["compiled_busy_ms"] = record.pop("busy_ms")
-            record["compiled_idle_share"] = (
-                1.0 - got["busy_ms"] / line[label]["compiled_ms"])
-        line.setdefault(label, {}).update(record)
+        line.setdefault(label, {}).update(
+            kernels_per_replay=got["kernels"],
+            device_events_per_replay=got["device_events"],
+            busy_ms=got["busy_ms"])
     log(f"deploy: one replay of each graph traced, kernels by name "
         f"{ {k: v['kernels'] for k, v in trace.items()} }")
     del cases
@@ -3699,7 +3209,6 @@ def deploy_phase(torch, np, engine, fused_engine, images, n_fused, dev,
                              "int8_vgg19": "int8_vgg19_batch8"}[label]]
             got["compiled_device_events_per_replay"] = compiled[
                 "device_events_per_replay"]
-            got["compiled_ms"] = compiled["compiled_ms"]
             if got["kernels_per_replay"] != compiled["kernels_per_replay"]:
                 raise AssertionError(f"artifact {label}: kernels of one "
                                      f"replay {got['kernels_per_replay']}, "
@@ -3735,22 +3244,6 @@ def deploy_phase(torch, np, engine, fused_engine, images, n_fused, dev,
                                                .to(dev)))
         log(f"deploy: run_frames over {DEPLOY_FRAMES} frames of mixed sizes "
             "== infer on each letterboxed batch")
-        vga = [rng.integers(0, 256, (*DEPLOY_FRAME_HW, 3), dtype=np.uint8)
-               for _ in range(BATCH)]
-        t0 = time.perf_counter()
-        for f in vga:
-            host.pack(letterbox(f, mc.hin, mc.win)[0], est.s2d)
-        host_ms = (time.perf_counter() - t0) * 1e3
-        n_frames = BATCH * (DEPLOY_STREAM_BATCHES + 1)
-        it = est.run_frames(vga[i % BATCH] for i in range(n_frames))
-        next(it)                          # warm-up batch
-        t0 = time.perf_counter()
-        timed = sum(r.n for r in it)
-        seconds = time.perf_counter() - t0
-        line["run_frames"] = {
-            "batch": BATCH, "frame_hw": list(DEPLOY_FRAME_HW),
-            "layout": est.s2d, "frames": timed, "seconds": seconds,
-            "fps": timed / seconds, "host_letterbox_ms_per_batch": host_ms}
 
         # the CLI in fresh processes, on cv2-written JPEGs
         jpgs = []
@@ -3851,7 +3344,6 @@ def stream_phase(torch, np, engine, scenes, dev, gpu) -> None:
     from openpose_plus_tpu_torch.ops.cuda import greedy, merge, paf_sample
     from openpose_plus_tpu_torch.postproc import decode_maps, nms
     from openpose_plus_tpu_torch.postproc.oracle import decode_oracle
-    from openpose_plus_tpu_torch.utils.tracer import GLOBAL_TRACER
 
     post = engine.config.postproc
     mc = engine.config.model
@@ -3884,7 +3376,7 @@ def stream_phase(torch, np, engine, scenes, dev, gpu) -> None:
     log(f"stream: the card's decode == the numpy grouping oracle on the "
         f"card's preprocessed maps, humans {oracle_humans}")
 
-    # a compiled copy: phase 4's engine stays eager for --profile
+    # a compiled copy: phase 4's engine stays eager
     served = Engine(engine.config, params=engine.model.state_dict(),
                     device=dev)
     est = stream.StreamEstimator(served, batch=BATCH)
@@ -3962,109 +3454,10 @@ def stream_phase(torch, np, engine, scenes, dev, gpu) -> None:
         log(f"stream: python -m openpose_plus_tpu_torch stream --images "
             f"--loop --repeat 20: rc 0, {line['cli_fps_line']}")
 
-        # rates at batch 8, each with the host's CPU time over its wall
-        # time (cores busy); variants at 8 workers: "_cv2_all_threads"
-        # without the loader's hold of cv2 at one thread, "_torch_threads_1"
-        # with torch's intra-op pool at one thread, "_blocking_events" with
-        # the stream's CUDA events waited on by blocking, not spinning
-        serial = loader.SERIAL_CV2
-        event = torch.cuda.Event
-        torch_threads = torch.get_num_threads()
-
-        @contextlib.contextmanager
-        def variant(name):
-            if name == "cv2_all_threads":
-                loader.SERIAL_CV2 = types.SimpleNamespace(
-                    acquire=lambda: None, release=lambda: None)
-            elif name == "torch_threads_1":
-                torch.set_num_threads(1)
-            elif name == "blocking_events":
-                torch.cuda.Event = functools.partial(event, blocking=True)
-            try:
-                yield
-            finally:
-                loader.SERIAL_CV2 = serial
-                torch.set_num_threads(torch_threads)
-                torch.cuda.Event = event
-
-        def benchmark_stream(workers):
-            return stream.benchmark_stream(
-                served, jpgs, n_batches=STREAM_BATCHES, batch=BATCH,
-                workers=workers)["fps"]
-
-        def loader_alone(workers):
-            it = iter(loader.StreamLoader(jpgs, mc.hin, mc.win, batch=BATCH,
-                                          workers=workers, loop=True,
-                                          s2d=est.s2d))
-            next(it)
-            t0 = time.perf_counter()
-            frames = sum(len(next(it)["indices"])
-                         for _ in range(STREAM_BATCHES))
-            fps = frames / (time.perf_counter() - t0)
-            it.close()
-            return fps
-
-        def run_frames(workers):
-            it = stream.StreamEstimator(served, batch=BATCH,
-                                        workers=workers).run_frames(
-                vga[i % BATCH] for i in range(BATCH * (STREAM_BATCHES + 1)))
-            next(it)                     # warm-up batch
-            t0 = time.perf_counter()
-            frames = sum(r.n for r in it)
-            return frames / (time.perf_counter() - t0)
-
-        vga = [cv2.cvtColor(cv2.imread(p), cv2.COLOR_BGR2RGB)
-               for p in jpgs[:BATCH]]
-        cases = [(fn, w, v)
-                 for fn in (benchmark_stream, loader_alone, run_frames)
-                 for w, v in ((8, ""), (1, ""), (8, "cv2_all_threads"))]
-        cases[3:3] = [(benchmark_stream, 8, "torch_threads_1"),
-                      (benchmark_stream, 8, "blocking_events")]
-        runs = {}
-        for r in range(STREAM_ROUNDS):       # each round in another order
-            for fn, workers, name in cases[r:] + cases[:r]:
-                with variant(name), GLOBAL_TRACER.recording() as rec:
-                    wall, cpu = time.perf_counter(), time.process_time()
-                    fps = fn(workers)
-                    busy = (time.process_time() - cpu) / (
-                        time.perf_counter() - wall)
-                key = f"{fn.__name__}_w{workers}" + (f"_{name}" if name
-                                                     else "")
-                runs.setdefault(key, []).append((fps, busy, {
-                    scope: total_s / calls * 1e3
-                    for scope, (calls, total_s) in rec.summary().items()}))
-        line["rates"] = {key: {
-            "fps_median": statistics.median(f for f, _, _ in got),
-            "fps": [f for f, _, _ in got],
-            "cores_busy_median": statistics.median(b for _, b, _ in got),
-            "scope_ms_median": {scope: statistics.median(
-                sc[scope] for _, _, sc in got) for scope in got[0][2]}}
-            for key, got in runs.items()}
         if cv2.getNumThreads() != line["cv2_threads"]:
             raise AssertionError(f"cv2 threads {cv2.getNumThreads()} after "
                                  f"the loaders closed, {line['cv2_threads']} "
                                  "before")
-        # the consumer thread's share: stacking a batch, filling the pinned
-        # slot (through numpy, as stream._run does)
-        packed = [loader._load_frame(f, mc.hin, mc.win, est.s2d)[0]
-                  for f in vga]
-        pinned = torch.empty(est.shape, dtype=torch.uint8,
-                             pin_memory=True).numpy()
-        stack_s, copy_s = [], []
-        for _ in range(TIMED_ITERS):
-            t0 = time.perf_counter()
-            stacked = np.stack(packed)
-            t1 = time.perf_counter()
-            pinned[:] = stacked
-            stack_s.append(t1 - t0)
-            copy_s.append(time.perf_counter() - t1)
-        line.update(
-            consumer_stack_ms=statistics.median(stack_s) * 1e3,
-            consumer_pinned_copy_ms=statistics.median(copy_s) * 1e3)
-        images = torch.from_numpy(np.stack(packed)).to(dev)
-        line["compiled_replay_ms"] = median_ms(torch,
-                                               lambda: served.infer(images))
-        line["device_ceiling_fps"] = BATCH * 1e3 / line["compiled_replay_ms"]
     log(json.dumps({"stream": {**line, "gpu": gpu}}))
     log(gpu)
     del served, est
@@ -4741,112 +4134,6 @@ def parallel_phase(torch, np, engine, gains, images, eval_card, counted,
     log(json.dumps({"parallel": line}))
 
 
-def replays_ms(torch, graph, n: int = TIMED_ITERS, warm: int = 0,
-               host: list | None = None) -> float:
-    """Device time per replay of `graph`: n replays back to back between
-    two CUDA events, the median of 5 such passes after a warm-up one. With
-    `warm`, each pass's events follow `warm` replays enqueued before them
-    (no synchronise between), so the card is busy when the pass starts.
-    `host` gets each timed pass's host time a replay (ms), the enqueue."""
-    times = []
-    for i in range(6):
-        for _ in range(warm):
-            graph.replay()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        t0 = time.perf_counter()
-        for _ in range(n):
-            graph.replay()
-        if host is not None and i:
-            host.append((time.perf_counter() - t0) * 1e3 / n)
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end) / n)
-    return statistics.median(times[1:])
-
-
-def event_slope_ms(torch, graph, small: int = 8, large: int = 40) -> float:
-    """The two-point slope of `replays_ms` passes of `small` and `large`
-    replays: device time a replay with each pass's fixed cost cancelled."""
-    t = {n: replays_ms(torch, graph, n) * n for n in (small, large)}
-    return (t[large] - t[small]) / (large - small)
-
-
-@contextlib.contextmanager
-def sm_clocks():
-    """nvidia-smi's SM and memory clocks (MHz) and power draw (W) sampled
-    every 10 ms in a subprocess while the block runs; the yielded dict gets
-    "mhz", "mem_mhz" and "watts", [min, median, max] of the samples taken
-    inside the block, and "samples", their count."""
-    import datetime
-
-    proc = subprocess.Popen(
-        ["nvidia-smi",
-         "--query-gpu=timestamp,clocks.sm,clocks.mem,power.draw",
-         "--format=csv,noheader,nounits", "-lms", "10"],
-        stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
-    out: dict = {}
-    try:
-        time.sleep(1.0)                     # nvidia-smi's start
-        t0 = datetime.datetime.now()
-        yield out
-        t1 = datetime.datetime.now()
-    finally:
-        proc.terminate()
-        text, _ = proc.communicate(timeout=30)
-    mhz, mem_mhz, watts = [], [], []
-    for line in text.splitlines():
-        try:
-            stamp, *values = (f.strip() for f in line.split(","))
-            t = datetime.datetime.strptime(stamp, "%Y/%m/%d %H:%M:%S.%f")
-            clock, mem, power = map(float, values)
-        except ValueError:
-            continue
-        if t0 <= t <= t1:
-            mhz.append(clock)
-            mem_mhz.append(mem)
-            watts.append(power)
-    out["samples"] = len(mhz)
-    for key, vals in (("mhz", mhz), ("mem_mhz", mem_mhz), ("watts", watts)):
-        out[key] = ([min(vals), statistics.median(vals), max(vals)]
-                    if vals else None)
-
-
-def bench_rounds(torch, bench, chain, t_phase) -> list:
-    """The headline graph read by five methods in turn, BENCH_ROUNDS
-    times, each round under `sm_clocks`: the bench's slope; `device_ms`
-    of the step; `replays_ms` of 20 back-to-back replays (and the host's
-    enqueue time a replay); the same with 40 replays enqueued ahead of
-    each pass; `event_slope_ms`. Per round: seconds into the phase, each
-    method's ms, the clocks and power."""
-    out = []
-    for _ in range(BENCH_ROUNDS):
-        host: list = []
-        with sm_clocks() as clocks:
-            t = time.perf_counter() - t_phase
-            ms = {"slope": 1e3 * bench.fori_slope_seconds(chain.run,
-                                                         chain.carry),
-                  "device_ms": device_ms(torch, chain.step),
-                  "replays": replays_ms(torch, chain.graph, host=host),
-                  "replays_warm": replays_ms(torch, chain.graph, warm=40),
-                  "event_slope": event_slope_ms(torch, chain.graph)}
-        out.append({"t_s": t, **ms,
-                    "host_enqueue_ms": statistics.median(host), **clocks})
-    return out
-
-
-def graph_reading(torch, fn, calls: int) -> dict:
-    """`device_ms` of fn at `calls` calls a graph, with the memory its
-    capture reserved (MiB, the caching allocator's growth over the call
-    from an emptied cache)."""
-    torch.cuda.empty_cache()
-    before = torch.cuda.memory_reserved()
-    ms = device_ms(torch, fn, calls=calls)
-    return {"calls": calls, "ms": ms,
-            "reserved_mib": (torch.cuda.memory_reserved() - before) / 2**20}
-
-
 def bench_scene(torch, np, scenes, n: int, h: int, w: int) -> tuple:
     """n images of standing people spread over the width of an (h, w) map
     grid, each image its own arrangement (CPU): (conf, paf, people an
@@ -4968,28 +4255,25 @@ def bench_phase(torch, np, dev, gpu) -> None:
             "spread_pct": row["spread_pct"],
             "flops_per_image": row["flops_per_image"],
             "samples_ms": [t * 1e3 for t in m.samples]}
+        if not (all(math.isfinite(v) for v in (
+                row["fps"], dt, row["mfu_pct"], row["hbm_pct_est"],
+                row["flops_per_image"])) and min(row["fps"], dt,
+                                                 row["flops_per_image"]) > 0):
+            raise AssertionError(f"bench {name}: {row}, {dt} s a step")
         t0 = time.perf_counter()
         line["rows"][name]["vs_plain"] = {
             **bench_row_vs_plain(torch, np, scenes, name, chain, dev),
             "s": time.perf_counter() - t0}
         if name == bench.HEADLINE:
-            # (1) the slope against the device time of the same step, read
-            # in turn in BENCH_ROUNDS rounds (the card's speed for one graph
-            # moves between rounds); and `device_ms` of the step captured
-            # TIMED_ITERS times and once a graph, with their memory
-            rounds = bench_rounds(torch, bench, chain, t_phase)
-            ratio = statistics.median(r["slope"] / r["device_ms"]
-                                      for r in rounds)
-            line["headline_slope_ms"] = dt * 1e3
-            line["headline_rounds"] = rounds
-            line["headline_slope_over_device"] = ratio
-            line["headline_graphs"] = [graph_reading(torch, chain.step, n)
-                                       for n in (TIMED_ITERS, 1)]
-            if not abs(ratio - 1) <= BENCH_SLOPE_TOL:
+            # the bench's yardstick against the benchmark's on one step
+            slope_ms = 1e3 * bench.fori_slope_seconds(chain.run, chain.carry)
+            step_ms = graph_ms(chain.step, dev)
+            line["headline_slope_over_device"] = slope_ms / step_ms
+            if not abs(slope_ms / step_ms - 1) <= BENCH_SLOPE_TOL:
                 raise AssertionError(
-                    f"bench headline: slope / device_ms {ratio:.4f} over "
-                    f"{len(rounds)} rounds (limit {BENCH_SLOPE_TOL})")
-            # (2) the graph's HumanBatch against compiled infer
+                    f"bench headline: slope {slope_ms:.4f} ms, graph_ms "
+                    f"{step_ms:.4f} ms (limit {BENCH_SLOPE_TOL:.0%})")
+            # the graph's HumanBatch against compiled infer
             chain.run(1)
             torch.cuda.synchronize()
             if not bool(torch.isfinite(chain.carry)):
@@ -5016,13 +4300,12 @@ def bench_phase(torch, np, dev, gpu) -> None:
     line["table_s"] = time.perf_counter() - t0
     if list(line["rows"]) != [name for name, *_ in bench.ROWS]:
         raise AssertionError(f"bench table rows {list(line['rows'])}")
-    log(f"bench: {len(line['rows'])} rows, each against its plain "
-        f"versions; headline slope {line['headline_slope_ms']:.4f} ms, "
-        f"slope / device_ms {line['headline_slope_over_device']:.4f} "
-        f"(median of {BENCH_ROUNDS} rounds, limit {BENCH_SLOPE_TOL:.0%}); "
-        "its graph == compiled infer")
+    log(f"bench: {len(line['rows'])} rows, each finite and against its "
+        "plain versions; headline slope / graph_ms "
+        f"{line['headline_slope_over_device']:.4f} (limit "
+        f"{BENCH_SLOPE_TOL:.0%}); the headline's graph == compiled infer")
 
-    # (3) one profiler session over a replay of each kept graph
+    # one profiler session over a replay of each kept graph
     calls = {label: functools.partial(chain.run, 1)
              for label, chain in kept.items()}
     calls["headline_x5"] = functools.partial(kept["headline"].run, 5)
@@ -5053,7 +4336,7 @@ def bench_phase(torch, np, dev, gpu) -> None:
     head = (json.loads(proc.stdout.splitlines()[-1])
             if proc.returncode == 0 and proc.stdout.strip() else None)
     if head is None or list(head) != BENCH_HEADLINE_KEYS or not (
-            head["value"] > 0):
+            math.isfinite(head["value"]) and head["value"] > 0):
         raise AssertionError(f"python -m openpose_plus_tpu_torch bench: rc "
                              f"{proc.returncode}\n{proc.stdout}\n"
                              f"{proc.stderr}")
@@ -5064,7 +4347,7 @@ def bench_phase(torch, np, dev, gpu) -> None:
                           bench.stream, loader_only=True))):
         t0 = time.perf_counter()
         out = fn(device=dev)
-        if not out["value"] > 0:
+        if not (math.isfinite(out["value"]) and out["value"] > 0):
             raise AssertionError(f"bench {label}: {out}")
         line[label] = {**out, "s": time.perf_counter() - t0}
         if label != "train":       # the run's host scopes, ms a call
@@ -5080,92 +4363,9 @@ def bench_phase(torch, np, dev, gpu) -> None:
     log(json.dumps({"bench": {**line, "gpu": gpu}}))
 
 
-def profile(torch, np, rng, engine, images, gpu) -> None:
-    """--profile: where the time of the served call goes.
-
-    1. Batch scaling: CUDA-event medians of infer, forward and decode at
-       batch 1, 8 and 32, and of decode at the fidelity() preset.
-    2. Host enqueue: host-clock time for `infer` to return (its kernels
-       queued, not run) beside the time to the end of its device work.
-    3. Device busy: torch.profiler over PROFILED_CALLS calls at batch 8;
-       the union of the device kernels' intervals per call, their count,
-       and the idle share against the unprofiled median; then the top
-       rows by device time."""
-    from openpose_plus_tpu_torch.postproc import decode_maps
-
-    cfg = engine.config
-    mc = cfg.model
-    fidelity = cfg.postproc.fidelity()
-    infer_ms = {}
-    for bs in (1, BATCH, 32):
-        imgs = torch.from_numpy(rng.integers(
-            0, 256, (bs, mc.hin, mc.win, 3), dtype=np.uint8)).to(images.device)
-        conf, paf = engine.forward(imgs)
-        infer_ms[bs] = median_ms(torch, lambda: engine.infer(imgs))
-        log(json.dumps({"scaling": {
-            "batch": bs, "infer_ms": infer_ms[bs],
-            "fps": bs * 1000.0 / infer_ms[bs],
-            "forward_ms": median_ms(torch, lambda: engine.forward(imgs)),
-            "decode_ms": median_ms(
-                torch, lambda: decode_maps(conf, paf, cfg.postproc)),
-            "decode_fidelity_ms": median_ms(
-                torch, lambda: decode_maps(conf, paf, fidelity)),
-            "gpu": gpu}}))
-
-    enqueue, to_end = [], []
-    for _ in range(TIMED_ITERS):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        engine.infer(images)
-        t1 = time.perf_counter()
-        torch.cuda.synchronize()
-        t2 = time.perf_counter()
-        enqueue.append((t1 - t0) * 1e3)
-        to_end.append((t2 - t0) * 1e3)
-
-    busy_ms, kernels, prof = device_busy(torch, lambda: engine.infer(images))
-    log(json.dumps({"host_and_device": {
-        "batch": BATCH, "host_enqueue_ms": statistics.median(enqueue),
-        "host_to_end_ms": statistics.median(to_end),
-        "device_busy_ms": busy_ms,
-        "device_kernels_per_call": kernels,
-        "device_idle_share": 1.0 - busy_ms / infer_ms[BATCH],
-        "gpu": gpu}}))
-    log(prof.key_averages().table(sort_by="self_device_time_total",
-                                  row_limit=15, max_name_column_width=60))
-
-
-def device_busy(torch, fn, calls: int = PROFILED_CALLS) -> tuple:
-    """torch.profiler over `calls` calls of fn(): the union of the device
-    kernels' intervals per call (ms), the kernels per call, and the
-    profile."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity
-    from torch.profiler import profile as torch_profile
-
-    torch.cuda.synchronize()
-    with torch_profile(activities=[ProfilerActivity.CPU,
-                                   ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    spans = sorted((e.time_range.start, e.time_range.end)
-                   for e in prof.events() if e.device_type == DeviceType.CUDA)
-    busy_us, end = 0.0, float("-inf")
-    for a, b in spans:                 # union of intervals (one stream)
-        busy_us += max(0.0, b - max(a, end))
-        end = max(end, b)
-    return busy_us / 1e3 / calls, len(spans) / calls, prof
-
-
 def main(argv: list[str]) -> int:
     import argparse
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    parser.add_argument(
-        "--profile", action="store_true",
-        help="also time infer/forward/decode at batch 1, 8 and 32, the "
-             "host's enqueue time, and the device's busy time per call "
-             "(torch.profiler)")
     parser.add_argument(
         "--decoder-kernels-of", metavar="DIR",
         help="only build the port in DIR (a checkout of this repository), "
@@ -5194,17 +4394,6 @@ def main(argv: list[str]) -> int:
         "--studies-phase", action="store_true",
         help="only build the kernels and run phase 17, the accuracy studies")
     parser.add_argument(
-        "--peaks-phase", action="store_true",
-        help="only build the kernels and run find_peaks' checks (phase 3) "
-             "and timings (phase 6)")
-    parser.add_argument(
-        "--body25-phase", action="store_true",
-        help="only build the kernels and run BODY_25's checks (phase 7b)")
-    parser.add_argument(
-        "--bias-act-phase", action="store_true",
-        help="only build the kernels and run the conv epilogue's checks and "
-             "timings (phase 7c)")
-    parser.add_argument(
         "--spatial-phase", action="store_true",
         help="only run phase 14's spatial axis (no kernel is on its path): "
              "sync-sgd of MobileNet-thin and VGG19 on two gloo ranks "
@@ -5227,8 +4416,8 @@ def main(argv: list[str]) -> int:
     tree = args.decoder_kernels_of or args.int8_kernels_of
     if tree is not None:
         sys.path.insert(0, os.path.abspath(tree))
+
     from openpose_plus_tpu_torch import Engine, default_config, skeletons
-    from openpose_plus_tpu_torch.engine import scaled_size
     from openpose_plus_tpu_torch.models import common, get_model
     from openpose_plus_tpu_torch.ops.cuda import (build, dw_probe, greedy,
                                                   int8_conv, merge,
@@ -5243,25 +4432,19 @@ def main(argv: list[str]) -> int:
     if args.int8_phases:
         int8_phases(torch, np, build, int8_conv, inputs, dev, gpu)
         return 0
-    if args.spatial_phase:
-        spatial_phase(torch, np, dev, gpu)
-        if foreign_modules():
-            raise AssertionError(f"the port pulled in {foreign_modules()}")
-        return 0
-    if args.bench_phase:
-        build.build()
-        build.load()
-        bench_phase(torch, np, dev, gpu)
-        if foreign_modules():
-            raise AssertionError(f"the port pulled in {foreign_modules()}")
-        return 0
-    if args.studies_phase:
-        build.build()
-        build.load()
-        studies_phase(torch, {"greedy_assign": greedy, "assemble": merge,
-                              "sample_paf": paf_sample,
-                              "fused_sepconv": sepconv,
-                              "find_peaks": peaks}, dev, gpu)
+    if args.spatial_phase or args.bench_phase or args.studies_phase:
+        if args.spatial_phase:          # no kernel is on its path
+            spatial_phase(torch, np, dev, gpu)
+        else:
+            build.build()
+            build.load()
+            if args.bench_phase:
+                bench_phase(torch, np, dev, gpu)
+            else:
+                studies_phase(torch, {
+                    "greedy_assign": greedy, "assemble": merge,
+                    "sample_paf": paf_sample, "fused_sepconv": sepconv,
+                    "find_peaks": peaks}, dev, gpu)
         if foreign_modules():
             raise AssertionError(f"the port pulled in {foreign_modules()}")
         return 0
@@ -5287,8 +4470,9 @@ def main(argv: list[str]) -> int:
             log(f"  {line.strip()}")
     frames = ptxas_frames(nvcc_log)
     int8_frames = ptxas_frames(nvcc_log, INT8_KERNELS)
-    for name, (stack, spill_st, spill_ld) in sorted({**frames,
-                                                     **int8_frames}.items()):
+    bias_act_frames = ptxas_frames(nvcc_log, ("bias_act_kernel",))
+    for name, (stack, spill_st, spill_ld) in sorted({
+            **frames, **int8_frames, **bias_act_frames}.items()):
         log(f"  ptxas frame {name}: {stack} bytes stack, {spill_st} bytes "
             f"spill stores, {spill_ld} bytes spill loads")
     cfg = default_config("mobilenet_thin")
@@ -5326,65 +4510,15 @@ def main(argv: list[str]) -> int:
                              f"{2 * len(int8_conv.PLANS)} int8_conv "
                              "instances and the two quantize passes, each "
                              "with 0 bytes of stack and spills")
-    if args.peaks_phase:
-        peaks_phase(torch, np, inputs, cfg, dev, gpu)
-        return 0
-    if args.body25_phase:
-        body25_phase(torch, np, inputs, {
-            "greedy_assign": greedy, "assemble": merge,
-            "sample_paf": paf_sample, "find_peaks": peaks}, dev, gpu)
-        if foreign_modules():
-            raise AssertionError(f"the port pulled in {foreign_modules()}")
-        return 0
-    if args.bias_act_phase:
-        bias_act_phase(torch, np, inputs, dev, gpu, nvcc_log)
-        if foreign_modules():
-            raise AssertionError(f"the port pulled in {foreign_modules()}")
-        return 0
-
+    if len(bias_act_frames) != 8 or any(f != (0, 0, 0) for f in
+                                        bias_act_frames.values()):
+        raise AssertionError(f"bias_act ptxas frames {bias_act_frames}: "
+                             "expected 8 instances with 0 bytes of stack "
+                             "and spills")
     phase_done("2_build")
 
-    # ---- 3. kernel phases ----------------------------------------------
+    # ---- 4. main paths ---------------------------------------------------
     rng = np.random.default_rng(0)
-    errs = {"greedy_assign": 0.0, "assemble": 0.0}
-    for k in (16, 32):
-        for density in (0.3, 1.0):
-            scores = torch.from_numpy(inputs.limb_scores(rng, BATCH, k,
-                                                         density))
-            accepted, err = check_greedy(torch, greedy, scores, k, dev,
-                                         f"greedy K={k}")
-            errs["greedy_assign"] = max(errs["greedy_assign"], err)
-            # merge on real greedy output and on random connection sets
-            peak_score = torch.from_numpy(inputs.peak_scores(rng, BATCH, k))
-            for conns in (accepted,
-                          [torch.from_numpy(x)
-                           for x in inputs.connections(rng, BATCH, k)]):
-                errs["assemble"] = max(errs["assemble"], check_merge(
-                    torch, merge, (*conns, peak_score), k, m, dev,
-                    f"merge K={k}"))
-    # -0.0 tying +0.0, and the connection sets that drive each branch of the
-    # merge, from their own generator
-    rng_sets = np.random.default_rng(3)
-    for k in (16, 32):
-        scores = torch.from_numpy(inputs.signed_zero_scores(rng_sets, BATCH,
-                                                            k))
-        _, err = check_greedy(torch, greedy, scores, k, dev,
-                              f"greedy K={k}, signed zeros")
-        errs["greedy_assign"] = max(errs["greedy_assign"], err)
-        for kind, mk in inputs.MERGE_KINDS.items():
-            fields = [torch.from_numpy(x) for x in (
-                *inputs.merge_connections(rng_sets, BATCH, k, kind),
-                inputs.peak_scores(rng_sets, BATCH, k))]
-            errs["assemble"] = max(errs["assemble"], check_merge(
-                torch, merge, fields, k, mk, dev,
-                f"merge {kind} K={k} M={mk}"))
-    log(f"greedy and merge bit-equal to their plain versions at K=16, 32 "
-        f"(ties, signed zeros, {sorted(inputs.MERGE_KINDS)} included), 0 "
-        f"bytes of stack: max_abs_err {errs}")
-
-    # the phases below draw from their own generator, so the main path's
-    # images stay those of the runs before them
-    rng_new = np.random.default_rng(1)
     mc = cfg.model
     cfg_fused = cfg.replace(model=dataclasses.replace(
         mc, fused_inference=True))
@@ -5394,89 +4528,6 @@ def main(argv: list[str]) -> int:
     if sum(shapes.values()) != n_fused:
         raise AssertionError(f"fused model layers {shapes}: expected "
                              f"{n_fused}")
-    cases = {cf: sepconv_case(torch, inputs, rng_new, BATCH, mc.hout,
-                              mc.wout, *cf) for cf in shapes}
-    ragged = sepconv_case(torch, inputs, rng_new, 3, 13, 21, 57, 40)
-    sep_stats = []
-    with torch.no_grad():
-        for case in [*cases.values(), ragged]:
-            sep_stats.append(check_sepconv(torch, inputs, sepconv, case,
-                                           dev))
-    errs["fused_sepconv"] = max(e for e, _, _ in sep_stats)
-    log(f"fused_sepconv vs plain at {sorted(shapes)} (batch {BATCH}, "
-        f"{mc.hout}x{mc.wout}) and (3, 13, 21) 57->40: worst "
-        f"{max(u for _, u, _ in sep_stats):.3g} units (limit "
-        f"{SEPCONV_MAX_UNITS}), least identical share "
-        f"{min(s for _, _, s in sep_stats):.5f}, max_abs_err "
-        f"{errs['fused_sepconv']:.3g}")
-    # the scale search's other output grids (scales 0.5 and 1.5: 23x27 and
-    # 69x81, ragged 8x8 tiles at both), drawn from their own generator
-    rng_grid = np.random.default_rng(2)
-    grids = [(scaled_size(mc.hin, s, mc.stride) // mc.stride,
-              scaled_size(mc.win, s, mc.stride) // mc.stride)
-             for s in SCALES if s != 1.0]
-    grid_cases = {(hw, cf): sepconv_case(torch, inputs, rng_grid, BATCH,
-                                         *hw, *cf)
-                  for hw in grids for cf in sorted(shapes)}
-    with torch.no_grad():
-        grid_stats = [check_sepconv(torch, inputs, sepconv, case, dev)
-                      for case in grid_cases.values()]
-    errs["fused_sepconv"] = max(errs["fused_sepconv"],
-                                max(e for e, _, _ in grid_stats))
-    log(f"fused_sepconv vs plain at the same shapes on the {grids} grids: "
-        f"worst {max(u for _, u, _ in grid_stats):.3g} units, least "
-        f"identical share {min(s for _, _, s in grid_stats):.5f}")
-
-    up = cfg.postproc.upsample_factor
-    fid = cfg.postproc.fidelity()
-    paf_args = check_sample_paf(torch, inputs, paf_sample, rng_new, dev,
-                                mc.hout * up, mc.wout * up,
-                                cfg.postproc.max_peaks, skeletons.COCO18)
-    check_sample_paf(torch, inputs, paf_sample, rng_new, dev,
-                     mc.hout * fid.upsample_factor,
-                     mc.wout * fid.upsample_factor, fid.max_peaks,
-                     skeletons.COCO18)
-    errs["sample_paf"] = 0.0
-    check_peaks(torch, np, inputs, nms, peaks, dev)
-    errs["find_peaks"] = 0.0
-    log(f"sample_paf bit-equal to its plain version at K="
-        f"{cfg.postproc.max_peaks} ({mc.hout * up}x{mc.wout * up}) and K="
-        f"{fid.max_peaks} ({mc.hout * fid.upsample_factor}x"
-        f"{mc.wout * fid.upsample_factor}), batch {BATCH}")
-
-    probes = {c: probe_case(torch, np, c) for c in (128, 256)}
-    torch.cuda.synchronize()
-    dw_probe.dw3x3_relu_launches = 0
-    dw_probe.copy_bias_launches = 0
-    probe_out = {c: (dw_probe.dw3x3_relu(x.to(dev), dwk.to(dev)),
-                     dw_probe.copy_bias(x.to(dev), dwk.to(dev)))
-                 for c, (x, dwk) in probes.items()}
-    torch.cuda.synchronize()
-    launches = {"dw3x3_relu": dw_probe.dw3x3_relu_launches,
-                "copy_bias": dw_probe.copy_bias_launches}
-    errs["dw3x3_relu"] = errs["copy_bias"] = 0.0
-    for c, (x, dwk) in probes.items():
-        dw, cp = probe_out[c]
-        for where, xs, ks in (("cuda", x.to(dev), dwk.to(dev)),
-                              ("cpu", x, dwk)):
-            units, same = inputs.bf16_mismatch(
-                dw.float().cpu().numpy(),
-                dw_probe.dw3x3_relu_plain(xs, ks).float().cpu().numpy())
-            if not (units <= 1.0 and same >= MIN_IDENTICAL):
-                raise AssertionError(f"dw3x3_relu C={c} vs plain ({where}):"
-                                     f" {units} units, {same} identical")
-            assert_equal(torch, f"copy_bias C={c} vs plain ({where})", [cp],
-                         [dw_probe.copy_bias_plain(xs, ks)])
-        errs["dw3x3_relu"] = max(errs["dw3x3_relu"], max_abs_err(
-            torch, [dw], [dw_probe.dw3x3_relu_plain(x, dwk)]))
-        log(f"probe C={c}: dw3x3_relu within {units:.3g} units, "
-            f"{same:.5f} identical; copy_bias bit-equal")
-    if launches != {"dw3x3_relu": 2, "copy_bias": 2}:
-        raise AssertionError(f"probe path launches {launches}")
-
-    phase_done("3_kernels")
-
-    # ---- 4. main paths ---------------------------------------------------
     engine = Engine(cfg, seed=0, device=dev)
     images = torch.from_numpy(rng.integers(
         0, 256, (BATCH, mc.hin, mc.win, 3), dtype=np.uint8)).to(dev)
@@ -5487,48 +4538,29 @@ def main(argv: list[str]) -> int:
                     fused_engine.model.state_dict().values()):
         if not torch.equal(a, b):
             raise AssertionError("the two engines' weights differ")
-    expect = {"coords": (BATCH, m, 18, 2), "part_scores": (BATCH, m, 18),
-              "part_valid": (BATCH, m, 18), "score": (BATCH, m),
-              "n_parts": (BATCH, m), "valid": (BATCH, m)}
     counted = {"greedy_assign": greedy, "assemble": merge,
                "sample_paf": paf_sample, "fused_sepconv": sepconv,
                "find_peaks": peaks}
     path_launches = {}
     for label, eng in (("default", engine), ("fused", fused_engine)):
         eng.infer(images)                      # warm-up (cuDNN, allocator)
-        torch.cuda.synchronize()
-        for module in counted.values():
-            module.launches = 0
-        out = eng.infer(images)
-        torch.cuda.synchronize()
-        path_launches[label] = {name: module.launches
-                                for name, module in counted.items()}
+        out, n = launches_during(torch, counted, lambda: eng.infer(images))
+        path_launches[label] = n
         log(f"main path ({label}): Engine.infer {tuple(images.shape)} "
             f"{mc.name} {mc.compute_dtype} {mc.n_stages} stages, "
             f"fused_inference={eng.config.model.fused_inference}, head gains "
-            f"{gains}; kernel launches {path_launches[label]}; humans per "
-            f"image {out.num_humans.tolist()}")
-        for name in ("find_peaks", "greedy_assign", "assemble",
-                     "sample_paf"):
-            if path_launches[label][name] < 1:
-                raise AssertionError(f"{label} path did not launch {name}")
-        n = path_launches[label]["fused_sepconv"]
-        if n != (n_fused if label == "fused" else 0):
-            raise AssertionError(f"{label} path launched fused_sepconv {n} "
-                                 f"times, expected {n_fused} per fused call")
-        if not bool((out.num_humans > 0).all()):
-            raise AssertionError(f"{label} path decoded an image to no "
-                                 "humans")
-        for name, shape in expect.items():
-            t = getattr(out, name)
-            if tuple(t.shape) != shape or t.device != dev:
-                raise AssertionError(
-                    f"HumanBatch.{name}: {tuple(t.shape)} on {t.device}, "
-                    f"expected {shape} on {dev}")
-            if t.dtype.is_floating_point and not bool(
-                    torch.isfinite(t).all()):
-                raise AssertionError(f"HumanBatch.{name} is not finite")
-    launches.update(path_launches["default"])
+            f"{gains}; kernel launches {n}; humans per image "
+            f"{out.num_humans.tolist()}")
+        check_launches(f"{label} path", n, 1,
+                       n_fused if label == "fused" else 0)
+        check_humans(torch, f"{label} path", out, m, dev)
+        if n["find_peaks"] < 1 or tuple(out.coords.shape[2:]) != (18, 2) \
+                or not bool((out.num_humans > 0).all()):
+            raise AssertionError(f"{label} path: find_peaks launched "
+                                 f"{n['find_peaks']} times, coords "
+                                 f"{tuple(out.coords.shape)}, humans per "
+                                 f"image {out.num_humans.tolist()}")
+    launches = dict(path_launches["default"])
     launches["fused_sepconv"] = path_launches["fused"]["fused_sepconv"]
     # the fused maps against the unfused ones: bf16 rounding
     # (tests/test_torch_models.py REL_TOL["bfloat16"])
@@ -5565,94 +4597,63 @@ def main(argv: list[str]) -> int:
 
     # ---- 5. accuracy paths ------------------------------------------------
     engines = {"default": engine, "fused": fused_engine}
-    acc = accuracy_paths(torch, np, inputs, engines, images, counted,
-                         n_fused, dev)
+    accuracy_paths(torch, np, inputs, engines, images, counted, n_fused,
+                   dev)
     phase_done("5_accuracy_paths")
 
-    # ---- 6. timings -------------------------------------------------------
-    decode_device = {}
-    for label, eng in (("default", engine), ("fused", fused_engine)):
-        infer_ms = median_ms(torch, lambda: eng.infer(images))
-        forward_ms = median_ms(torch, lambda: eng.forward(images))
-        conf, paf = eng.forward(images)
-        decode_ms = median_ms(torch, lambda: decode_maps(conf, paf,
-                                                         cfg.postproc))
-        decode_device[label] = device_ms(
-            torch, lambda: decode_maps(conf, paf, cfg.postproc))
-        log(json.dumps({"infer": {
-            "model": mc.name, "batch": BATCH, "hw": [mc.hin, mc.win],
-            "dtype": mc.compute_dtype, "stages": mc.n_stages,
-            "fused_inference": eng.config.model.fused_inference,
-            "ms": infer_ms, "fps": BATCH * 1000.0 / infer_ms,
-            "forward_ms": forward_ms, "decode_ms": decode_ms,
-            "forward_device_ms": device_ms(
-                torch, lambda: eng.forward(images), calls=FORWARD_REPLAYS),
-            "decode_device_ms": decode_device[label],
-            "gpu": gpu}}))
-    # greedy and merge on the random sets, then on what the default
-    # engine's batch-8 decode hands them (default and fidelity() presets)
-    dec_sets = {key: (*case, m) for key, case in random_decoder_sets(
-        torch, inputs, np, dev).items()}
-    conf, paf = engine.forward(images)
-    for label, post in (("infer", cfg.postproc),
-                        ("fidelity", cfg.postproc.fidelity())):
-        decode = functools.partial(decode_maps, conf, paf, post)
-        merges = []
-        (g_args, _), = record_calls(greedy, "greedy_assign", lambda: (
-            merges.extend(record_calls(merge, "assemble", decode))))
-        (m_args, _), = merges
-        dec_sets[label, post.max_peaks] = (g_args[0], list(m_args[:4]),
-                                           m_args[4], m_args[6])
-        if label == "fidelity":
-            decode_device[label] = device_ms(torch, decode)
-    dec_t = {}
-    for (label, k), (scores, conns, peak_score, mk) in dec_sets.items():
-        t = dec_t[label, k] = decoder_kernel_times(
-            torch, greedy, merge, scores, conns, peak_score, mk, clock_mhz,
-            plain=label == "random")
-        line = {"set": label, "k": k, "batch": BATCH, "m": mk, **t,
-                "max_sm_mhz": clock_mhz}
-        if label != "random":     # the decode these inputs came from
-            line["decode_device_ms"] = decode_device[
-                "default" if label == "infer" else label]
-            line["share_of_decode"] = (
-                t["greedy_assign"]["device_ms"] + t["assemble"]["device_ms"]
-            ) / line["decode_device_ms"]
-        log(json.dumps({"decoder_kernels": {**line, "gpu": gpu}}))
-    sep_ms = {}
-    with torch.no_grad():
-        for (c, f), n in sorted(shapes.items()):
-            sep_ms[c, f] = time_sepconv(torch, common, sepconv, cases[c, f],
-                                        dev)
-            log(json.dumps({"sepconv": {
-                "batch": BATCH, "hw": [mc.hout, mc.wout], "c": c, "f": f,
-                "layers": n, **sep_ms[c, f], "gpu": gpu}}))
-        for (hw, (c, f)), case in grid_cases.items():
-            log(json.dumps({"sepconv": {
-                "batch": BATCH, "hw": list(hw), "c": c, "f": f,
-                "layers": shapes[c, f],
-                **time_sepconv(torch, common, sepconv, case, dev),
-                "gpu": gpu}}))
-    probe_t = {}
-    for c, (x, dwk) in probes.items():
-        probe_t[c] = time_probe(torch, dw_probe, x.to(dev), dwk.to(dev))
-        log(json.dumps({"probe": {**probe_t[c], "gpu": gpu}}))
+    # ---- 6. the kernels' timings: the `kernels` line's figures -----------
     k = cfg.postproc.max_peaks
-    # the kernels line: greedy and merge on the random sets at the served K
-    timing = {name: {**dec_t["random", k][name], "library_ms": None}
-              for name in ("greedy_assign", "assemble")}
+    # greedy and merge on random sets at K=16 and K=32, their plain versions
+    # at the served K
+    timing, errs = {}, {}
+    for (label, kk), case in random_decoder_sets(torch, inputs, np,
+                                                 dev).items():
+        t = decoder_kernel_times(torch, greedy, merge, *case, m, clock_mhz,
+                                 plain=kk == k)
+        log(json.dumps({"decoder_kernels": {
+            "set": label, "k": kk, "batch": BATCH, "m": m, **t,
+            "max_sm_mhz": clock_mhz, "gpu": gpu}}))
+        if kk == k:
+            for name in ("greedy_assign", "assemble"):
+                timing[name] = {**t[name], "library_ms": None}
+                errs[name] = 0.0          # bit-equal, checked in the call
+    sep_ms = {}
+    for (c, f), n in sorted(shapes.items()):
+        sep_ms[c, f] = time_sepconv(torch, np, inputs, common, sepconv,
+                                    BATCH, mc.hout, mc.wout, c, f, dev)
+        log(json.dumps({"sepconv": {
+            "batch": BATCH, "hw": [mc.hout, mc.wout], "c": c, "f": f,
+            "layers": n, **sep_ms[c, f], "gpu": gpu}}))
+    errs["fused_sepconv"] = max(t["max_abs_err"] for t in sep_ms.values())
+    probe_t = {}
+    for c in (128, 256):
+        probe_t[c] = time_probe(torch, np, inputs, dw_probe, c, dev)
+        log(json.dumps({"probe": {**probe_t[c], "gpu": gpu}}))
+    up = cfg.postproc.upsample_factor
+    paf_args = [torch.from_numpy(a).to(dev) for a in inputs.paf_samples(
+        np.random.default_rng(1), BATCH, mc.hout * up, mc.wout * up, k)]
+    paf_args.append(paf_sample.limb_channels(dev, skeletons.COCO18))
     paf_gather = one_call_gather(torch, *paf_args)
     sample = functools.partial(paf_sample.sample_paf, *paf_args)
     sample_plain = functools.partial(paf_sample.sample_paf_plain, *paf_args)
+    got, ref = sample(), sample_plain()
+    assert_bits_equal(torch, f"sample_paf K={k} {tuple(paf_args[0].shape)} "
+                      "vs plain (cuda)", got, ref)
+    errs["sample_paf"] = max_abs_err(torch, got, ref)
     timing["sample_paf"] = {
         "ms": median_ms(torch, sample), "plain_ms": median_ms(
-            torch, sample_plain), "device_ms": device_ms(torch, sample),
-        "plain_device_ms": device_ms(torch, sample_plain)}
+            torch, sample_plain), "device_ms": graph_ms(sample, dev),
+        "plain_device_ms": graph_ms(sample_plain, dev)}
     timing["sample_paf"].update(zip(("bound_ms", "bound_by"), bound(
         sample_paf_bytes(torch, *paf_args), 0.0), strict=True),
         library_ms=median_ms(torch, paf_gather),
-        library_device_ms=device_ms(torch, paf_gather))
-    timing["find_peaks"] = peaks_timings(torch, nms, peaks, conf, cfg, gpu)
+        library_device_ms=graph_ms(paf_gather, dev))
+    conf, _ = engine.forward(images)
+    timing["find_peaks"] = peaks_times(torch, nms, peaks, conf,
+                                       cfg.postproc.fidelity())
+    log(json.dumps({"peaks": {"decode": "fidelity", **timing["find_peaks"],
+                              "gpu": gpu}}))
+    errs["find_peaks"] = timing["find_peaks"]["max_abs_err"]
     # one forward's worth: every (C, F) shape times its layer count; the
     # cuDNN pair stands in for the library call (no one call fuses them)
     timing["fused_sepconv"] = {
@@ -5676,13 +4677,8 @@ def main(argv: list[str]) -> int:
                              ("library_device_ms", "_library_device_ms"),
                              ("bound_ms", "_bound_ms"))}
         timing[name]["bound_by"] = probe_t[128][f"{key}_bound_by"]
-    log(json.dumps({"fused_forward_layers": {
-        "layers": n_fused, "hw": [mc.hout, mc.wout], "batch": BATCH,
-        "kernel_device_ms": timing["fused_sepconv"]["device_ms"],
-        "pair_device_ms": timing["fused_sepconv"]["library_device_ms"],
-        "bound_ms": timing["fused_sepconv"]["bound_ms"],
-        "pct_of_bound": 100.0 * timing["fused_sepconv"]["bound_ms"]
-        / timing["fused_sepconv"]["device_ms"], "gpu": gpu}}))
+        errs[name] = max(p[f"{key}_max_abs_err"] for p in probe_t.values())
+        launches[name] = sum(p[f"{key}_launches"] for p in probe_t.values())
     shape_of = {
         "greedy_assign": f"batch {BATCH}, K={k}",
         "assemble": f"batch {BATCH}, K={k}, M={m}",
@@ -5697,14 +4693,13 @@ def main(argv: list[str]) -> int:
         log(json.dumps({"kernel_times": {"name": name, **t,
                                          "shape": shape_of[name],
                                          "gpu": gpu}}))
-    accuracy_timings(torch, np, rng, engines, images, acc, gpu)
     phase_done("6_timings")
 
     # ---- 7-9. the zoo, the GT-map oracle, evaluate_engine -----------------
     zoo_paths(torch, images, counted, dev, gpu)
     body25_phase(torch, np, inputs, counted, dev, gpu)
-    body25_sums = bias_act_phase(torch, np, inputs, dev, gpu,
-                                 nvcc_log)["body25"][BATCH]["sum"]
+    body25_sums = bias_act_phase(torch, np, inputs, dev,
+                                 gpu)["body25"][BATCH]["sum"]
     timing["bias_act"] = {"ms": body25_sums["device_ms"],
                           "plain_ms": body25_sums["plain_device_ms"],
                           "bound_ms": body25_sums["bound_ms"],
@@ -5754,9 +4749,6 @@ def main(argv: list[str]) -> int:
     # ---- 17. the accuracy studies -----------------------------------------
     studies_phase(torch, counted, dev, gpu)
     phase_done("17_studies")
-    if args.profile:
-        profile(torch, np, rng, engine, images, gpu)
-        phase_done("16_profile")
     log(json.dumps({"phase_seconds": {**phase_s,
                                       "total": sum(phase_s.values()),
                                       "gpu": gpu}}))

@@ -8,18 +8,22 @@ has no JAX:
     python -m pytest --noconftest -p no:cacheprovider -m cuda \
         tests/test_torch_cuda.py
 
-It covers what chip_smoke.py's main-path shapes do not: every register
-tiling of the greedy kernel (K from 1 to 32, ties of -0.0 with +0.0, a
-NaN), merge tables with fewer than 32 rows, odd K, the connection sets
-that drive each branch of the merge, the separable conv at odd channel
-counts, every pixel and F tiling, ragged tiles and unaligned views (both
-load paths), the PAF
-sampler at K = 1...32 with corner coordinates, the peaks kernels (the
-decoder tests' scenes at the default and fidelity() decodes, a
-checkerboard at the per-row capacity, K past the shared-memory ranking and
-past H * W, non-finite maps, equal scores, signed zeros, any layout, a
-CUDA-graph replay, and no sort, top-K or max-pool on the card), the
-depthwise probe, the
+Every check of a kernel against its plain version on seeded inputs lives
+here (chip_smoke.py checks what needs a full-size engine or the whole
+machine, and each kernel it times on its own inputs). The decode kernels run at both skeletons' sizes (COCO's 18 parts
+and 19 limbs, BODY_25's 25 and 26): every register tiling of the greedy
+kernel (K from 1 to 32, ties of -0.0 with +0.0, a NaN), merge tables with
+fewer than 32 rows, odd K, the connection sets that drive each branch of
+the merge, the PAF sampler at K = 1...32 with corner coordinates and on
+the served decodes' maps (92x108 K 16, 368x432 K 32, BODY_25's 92x164 K
+16, batch 8), the peaks kernels (the decoder tests' scenes at the default
+and fidelity() decodes and tiled to BODY_25's 92x164, a checkerboard at
+the per-row capacity, K past the shared-memory ranking and past H * W,
+non-finite maps, equal scores, signed zeros, any layout, a CUDA-graph
+replay, and no sort, top-K or max-pool on the card). Then the separable conv at odd channel counts,
+every pixel and F tiling, ragged tiles, unaligned views (both load paths)
+and the fused MobileNet-thin's six layer shapes on its three grids at
+batch 8, the depthwise probe (batch 8 at C 128 and 256 among others), the
 int8 conv (kernel sizes 1, 3 and 7, stride 2 on even and odd sizes, Cin
 of 3, 185, 537 and 576, both output modes, M and N edges, both tile plans'
 pixel counts and several N tiles) and the int8 quantize pass, empty
@@ -32,9 +36,7 @@ boundary, remat_stages, a resume; held to the eager step within the
 eager-against-eager spread measured first), and loaded export artifacts.
 And the tracer on the card: a graph captured while it records carries no
 tracer events; the decode's stage device spans, captured in a graph, sum
-to the graph's replay time. And BODY_25's sizes: the peaks, greedy, merge
-and PAF-sampling kernels at 25 parts and 26 limbs on the same kinds of
-input (the peaks kernels at capacity too), the 25-part decode on the card
+to the graph's replay time. And BODY_25: the 25-part decode on the card
 against the CPU, and a BODY_25 engine's compiled replay against its eager
 call, with its model spans timing a captured forward. And the conv
 epilogue (`bias_act`): the kernel bit for bit against the plain
@@ -58,6 +60,7 @@ import torch
 import kernel_inputs
 from openpose_plus_tpu_torch.graphs import CAPTURE_WARMUP
 from openpose_plus_tpu_torch.config import PostprocConfig
+from openpose_plus_tpu_torch.skeletons import BODY25, COCO18
 from openpose_plus_tpu_torch.ops.cuda import (bias_act, dw_probe, greedy,
                                               int8_conv, merge, paf_sample,
                                               peaks, sepconv)
@@ -66,6 +69,9 @@ from openpose_plus_tpu_torch.postproc import nms
 pytestmark = pytest.mark.cuda
 
 torch.set_num_threads(2)
+
+# the decode kernels' two sizes: 18 parts and 19 limbs, 25 and 26
+SKELETONS = {"coco18": COCO18, "body25": BODY25}
 
 
 @pytest.fixture
@@ -88,26 +94,28 @@ def _scores(rng, b, k, density, n_limbs=19):
                                                       n_limbs=n_limbs))
 
 
-def _conns(rng, b, k, kind="random", skel=None):
-    n_limbs, n_parts = (19, 18) if skel is None else (skel.n_limbs,
-                                                      skel.n_parts)
-    conns = (kernel_inputs.connections(rng, b, k, n_limbs) if kind == "random"
-             else kernel_inputs.merge_connections(rng, b, k, kind, n_limbs))
-    fields = (*conns, kernel_inputs.peak_scores(rng, b, k, n_parts))
+def _conns(rng, b, k, kind="random", skel=COCO18):
+    conns = (kernel_inputs.connections(rng, b, k, skel.n_limbs)
+             if kind == "random" else kernel_inputs.merge_connections(
+                 rng, b, k, kind, skel.n_limbs))
+    fields = (*conns, kernel_inputs.peak_scores(rng, b, k, skel.n_parts))
     return [torch.from_numpy(x) for x in fields]
 
 
 # K*K/32 candidates per lane: 1 (K <= 5), 2, 4, 8, 16 and 32 (K = 31, 32)
 @pytest.mark.parametrize("k", [1, 2, 5, 7, 8, 11, 16, 22, 23, 31, 32])
 @pytest.mark.parametrize("density", [0.3, 1.0, "signed_zero", "nan"])
-def test_greedy_kernel_equals_plain(cuda, k, density):
-    scores = _scores(np.random.default_rng(k), 5, k, density)
+@pytest.mark.parametrize("skel", SKELETONS)
+def test_greedy_kernel_equals_plain(cuda, skel, k, density):
+    n_limbs = SKELETONS[skel].n_limbs
+    scores = _scores(np.random.default_rng(k), 5, k, density, n_limbs)
     before = greedy.launches
     out = greedy.greedy_assign(scores.to(cuda), k)
     torch.cuda.synchronize()
     assert greedy.launches == before + 1
     for o, r in zip(out, greedy.greedy_assign_plain(scores, k)):
-        assert o.device.type == "cuda" and torch.equal(o.cpu(), r)
+        assert o.device.type == "cuda" and o.shape[1] == n_limbs
+        assert torch.equal(o.cpu(), r)
 
 
 # the random connection sets at table sizes below 32, odd K (16-byte and
@@ -123,24 +131,31 @@ _MERGE_CASES += [pytest.param(k, m, kind, id=f"{kind}-{k}")
 
 
 @pytest.mark.parametrize("k,m,kind", _MERGE_CASES)
-def test_merge_kernel_equals_plain(cuda, k, m, kind):
-    rng = np.random.default_rng(100 + k * m)
-    args = _conns(rng, 6, k, kind)
+@pytest.mark.parametrize("skel", SKELETONS)
+def test_merge_kernel_equals_plain(cuda, skel, k, m, kind):
+    skel = SKELETONS[skel]
+    seed = 100 if skel is COCO18 else 200
+    args = _conns(np.random.default_rng(seed + k * m), 6, k, kind, skel)
     before = merge.launches
     out = merge.assemble(*[t.to(cuda) for t in args], k, m)
     torch.cuda.synchronize()
     assert merge.launches == before + 1
-    for o, r in zip(out, merge.assemble_plain(*args, k, m)):
+    ref = merge.assemble_plain(*args, k, m)
+    assert ref[0].shape == (6, m, skel.n_parts)
+    for o, r in zip(out, ref):
         assert o.device.type == "cuda" and torch.equal(o.cpu(), r)
 
 
 @pytest.mark.parametrize("k", [16, 32])
-def test_merge_kernel_on_greedy_output(cuda, k):
+@pytest.mark.parametrize("skel", SKELETONS)
+def test_merge_kernel_on_greedy_output(cuda, skel, k):
     """The two kernels chained as the decoder chains them."""
-    rng = np.random.default_rng(7)
-    scores = _scores(rng, 8, k, 0.3)
+    skel = SKELETONS[skel]
+    rng = np.random.default_rng(7 if skel is COCO18 else 9)
+    scores = _scores(rng, 8, k, 0.3, skel.n_limbs)
     conns = greedy.greedy_assign(scores.to(cuda), k)
-    peak_score = torch.from_numpy(kernel_inputs.peak_scores(rng, 8, k))
+    peak_score = torch.from_numpy(kernel_inputs.peak_scores(rng, 8, k,
+                                                            skel.n_parts))
     out = merge.assemble(*conns, peak_score.to(cuda), k, 32)
     ref = merge.assemble_plain(*greedy.greedy_assign_plain(scores, k),
                                peak_score, k, 32)
@@ -230,12 +245,23 @@ def test_fused_module_on_channels_last_activations(cuda):
             fused(x.to(cuda).contiguous())
 
 
-@pytest.mark.parametrize("k", [1, 2, 5, 16, 23, 32])
-def test_sample_paf_kernel_equals_plain(cuda, k):
-    paf, sy, sx = kernel_inputs.paf_samples(np.random.default_rng(k), 3, 23,
-                                            29, k)
-    chans = torch.as_tensor(np.asarray(
+# K = 1 ... 32 on a small map, then the served decodes' maps at batch 8:
+# the default's 92x108 at K 16, fidelity()'s 368x432 at K 32, and the
+# BODY_25 cell's 92x164 at K 16
+@pytest.mark.parametrize("b,h,w,k", [
+    *[(3, 23, 29, k) for k in (1, 2, 5, 16, 23, 32)],
+    (8, 92, 108, 16), (8, 368, 432, 32), (8, 92, 164, 16)])
+@pytest.mark.parametrize("skel", SKELETONS)
+def test_sample_paf_kernel_equals_plain(cuda, skel, b, h, w, k):
+    """COCO's limbs in reversed channel order (any table), BODY_25's by its
+    own table."""
+    skel = SKELETONS[skel]
+    paf, sy, sx = kernel_inputs.paf_samples(np.random.default_rng(k), b, h,
+                                            w, k, n_limbs=skel.n_limbs)
+    chans = (torch.as_tensor(np.asarray(
         [[2 * i, 2 * i + 1] for i in range(19)])[::-1].copy())
+        if skel is COCO18 else paf_sample.limb_channels(
+            torch.device("cpu"), skel))
     args = [torch.from_numpy(a) for a in (paf, sy, sx)] + [chans]
     before = paf_sample.launches
     out = paf_sample.sample_paf(*[t.to(cuda) for t in args])
@@ -250,17 +276,24 @@ def test_sample_paf_kernel_equals_plain(cuda, k):
 _POSTPROC = {"default": PostprocConfig(), "fidelity": PostprocConfig().fidelity()}
 
 
-def _smoothed(kind, post, b):
-    """`kernel_inputs.peak_scene(kind, b)` upsampled and smoothed on the
-    CPU as the decode does: the einsum's layout, H outermost."""
-    return nms.upsample_smooth(torch.from_numpy(kernel_inputs.peak_scene(
-        kind, b)), post.upsample_factor, post.smooth_sigma)
+def _smoothed(kind, post, b, skel=COCO18, hw=(46, 54)):
+    """`kernel_inputs.peak_scene(kind, b)` of `skel`'s figures tiled to the
+    `hw` grid, upsampled and smoothed on the CPU as the decode does: the
+    einsum's layout, H outermost."""
+    maps = torch.from_numpy(kernel_inputs.peak_scene(
+        kind, b, None if skel is COCO18 else skel))
+    h, w = hw
+    maps = maps.repeat(1, -(-h // maps.shape[1]), -(-w // maps.shape[2]),
+                       1)[:, :h, :w]
+    return nms.upsample_smooth(maps.contiguous(), post.upsample_factor,
+                               post.smooth_sigma)
 
 
 def _assert_peaks_equal(cuda, smoothed, threshold, k, on_card=None):
     """The kernels on the card (on `on_card`, else `smoothed` copied with
-    its strides) against the plain version on the CPU: all six fields, the
-    floats compared as their bits."""
+    its strides) against the plain version on the CPU: all six fields, one
+    row a part (the maps' last channel is the background), the floats
+    compared as their bits."""
     before = peaks.launches
     out = peaks.find_peaks(smoothed.to(cuda) if on_card is None else on_card,
                            threshold, k)
@@ -269,6 +302,7 @@ def _assert_peaks_equal(cuda, smoothed, threshold, k, on_card=None):
     ref = nms.find_peaks_plain(smoothed, threshold, k)
     for o, r in zip(out, [getattr(ref, f) for f in peaks.FIELDS]):
         assert o.device.type == "cuda" and o.dtype == r.dtype
+        assert o.shape[1] == smoothed.shape[-1] - 1
         o = o.cpu()
         if r.dtype == torch.float32:
             o, r = o.view(torch.int32), r.view(torch.int32)
@@ -276,30 +310,44 @@ def _assert_peaks_equal(cuda, smoothed, threshold, k, on_card=None):
     return out
 
 
+# the scenes' own 46x54 grid under both decodes, and the default decode on
+# the BODY_25 cell's 46x82 grid (92x164 maps), the scenes tiled to it
 @pytest.mark.parametrize("b", [1, 8])
-@pytest.mark.parametrize("post", ["default", "fidelity"])
+@pytest.mark.parametrize("post,grid", [("default", "46x54"),
+                                       ("fidelity", "46x54"),
+                                       ("default", "46x82")])
 @pytest.mark.parametrize("kind", ["plateau", "clean", "noisy", "very_noisy",
                                   "pure_noise"])
-def test_peaks_kernel_equals_plain(cuda, kind, post, b):
-    cfg = _POSTPROC[post]
-    out = _assert_peaks_equal(cuda, _smoothed(kind, cfg, b),
-                              cfg.peak_threshold, cfg.max_peaks)
-    if kind == "plateau":     # one peak a plateau, two people an image
-        assert int(out[3].sum()) == 2 * 18 * b
+@pytest.mark.parametrize("skel", SKELETONS)
+def test_peaks_kernel_equals_plain(cuda, skel, kind, post, grid, b):
+    skel, cfg = SKELETONS[skel], _POSTPROC[post]
+    hw = tuple(map(int, grid.split("x")))
+    smoothed = _smoothed(kind, cfg, b, skel, hw)
+    assert smoothed.shape == (b, *(n * cfg.upsample_factor for n in hw),
+                              skel.n_heatmaps)
+    out = _assert_peaks_equal(cuda, smoothed, cfg.peak_threshold,
+                              cfg.max_peaks)
+    if kind == "plateau" and hw == (46, 54):   # one peak a plateau, two
+        assert int(out[3].sum()) == 2 * skel.n_parts * b     # people an image
 
 
 # 368x432: the fidelity grid at its bound; 92x108 with K over the 1,024
 # keys ranked in shared memory (K under and over the row's 2,484 peaks);
-# odd sides
+# the BODY_25 cell's 92x164; odd sides
 @pytest.mark.parametrize("h,w,k", [(368, 432, 32), (92, 108, 2000),
-                                   (92, 108, 3000), (7, 9, 32)])
-def test_peaks_kernel_on_a_checkerboard(cuda, h, w, k):
+                                   (92, 108, 3000), (92, 164, 16),
+                                   (7, 9, 32)])
+@pytest.mark.parametrize("skel", SKELETONS)
+def test_peaks_kernel_on_a_checkerboard(cuda, skel, h, w, k):
     """Every row at ceil(H/2) * ceil(W/2) peaks of one score: the capacity
-    is reached and the ties go to the lowest flat index."""
-    smoothed = torch.from_numpy(kernel_inputs.checkerboard_peaks(2, h, w))
+    is reached (in both part groups of a tile at 25 parts) and the ties go
+    to the lowest flat index."""
+    skel = SKELETONS[skel]
+    smoothed = torch.from_numpy(kernel_inputs.checkerboard_peaks(
+        2, h, w, skel.n_heatmaps))
     _assert_peaks_equal(cuda, smoothed, 0.5, k)
     assert torch.equal(peaks.candidates.cpu(), torch.full(
-        (2, 18), peaks.capacity(h, w), dtype=torch.int32))
+        (2, skel.n_parts), peaks.capacity(h, w), dtype=torch.int32))
 
 
 def test_peaks_kernel_on_non_finite_maps(cuda):
@@ -458,6 +506,12 @@ def test_peaks_wrapper_refuses_what_the_kernels_do_not_take(cuda):
     (1, 1, 1, 96, 64),        # one pixel: all halo is padding
     (3, 33, 7, 24, 8),        # ragged against both tile sides
     (1, 16, 16, 480, 192),    # tiles exactly filled, C % 32 == 0
+    (3, 13, 21, 57, 40),      # ragged tiles, C % 8 != 0
+    # the fused MobileNet-thin's six (C, F) layer shapes at batch 8 on its
+    # grids: 46x54 (368x432) and the scale search's 23x27 and 69x81
+    *[(8, h, w, c, f) for h, w in ((46, 54), (23, 27), (69, 81))
+      for c, f in ((128, 128), (192, 192), (192, 384), (384, 384),
+                   (480, 128), (537, 128))],
 ])
 def test_sepconv_kernel_tilings(cuda, b, h, w, c, f):
     args = _sepconv_args(np.random.default_rng(h * w + c), b, h, w, c, f)
@@ -500,10 +554,11 @@ def test_probe_dw_kernel_shapes(cuda, shape):
     _assert_bf16_close(dw, dw_probe.dw3x3_relu_plain(x, dwk), max_units=1.0)
 
 
-@pytest.mark.parametrize("c", [128, 20])
-def test_probe_kernels_match_plain(cuda, c):
+# scripts/profile_pallas_dw.py's batch (8) at both its widths, and C = 20
+@pytest.mark.parametrize("b,c", [(2, 128), (2, 20), (8, 128), (8, 256)])
+def test_probe_kernels_match_plain(cuda, b, c):
     rng = np.random.default_rng(c)
-    x = torch.from_numpy(rng.standard_normal((2, 46, 82, c)).astype(
+    x = torch.from_numpy(rng.standard_normal((b, 46, 82, c)).astype(
         np.float32)).to(torch.bfloat16)
     dwk = torch.from_numpy((rng.standard_normal((9, c)) * 0.1).astype(
         np.float32)).to(torch.bfloat16)
@@ -601,7 +656,9 @@ def _same_pads(h, w, k, stride):
 # 128 x 64 block and one more pixel), a 7x7 over Cin 576 (441 stages: the
 # ring wraps 55 times), stride 2 of a 7x7 and a 1x1 on even sizes (the
 # im2col box's corners), and M = 19968 (104 blocks of 192 pixels) and
-# 19969 (a last block of one pixel)
+# 19969 (a last block of one pixel); then Cin 3 / 185 / 537 at larger
+# sizes: stride 2 of a 3x3 and a 7x7, a 1x1 on MobileNet-thin's 46x54
+# grid, a 7x7 on the scale search's 23x27
 _INT8_CASES = [(2, 10, 12, 3, 24, 3, 2), (2, 9, 11, 3, 64, 3, 2),
                (1, 12, 14, 3, 64, 3, 1), (2, 7, 9, 185, 128, 7, 1),
                (1, 8, 10, 537, 128, 1, 1), (2, 9, 10, 48, 96, 1, 1),
@@ -612,17 +669,23 @@ _INT8_CASES = [(2, 10, 12, 3, 24, 3, 2), (2, 9, 11, 3, 64, 3, 2),
                (1, 9, 10, 576, 64, 7, 1), (2, 14, 16, 64, 128, 7, 2),
                (1, 10, 12, 64, 64, 1, 2), (1, 104, 192, 64, 128, 3, 1),
                (1, 1, 19969, 64, 96, 3, 1), (1, 8, 16, 64, 64, 3, 1),
-               (1, 3, 43, 64, 40, 3, 1)]
+               (1, 3, 43, 64, 40, 3, 1), (2, 40, 50, 3, 24, 3, 2),
+               (3, 17, 19, 185, 200, 7, 2), (2, 46, 54, 537, 128, 1, 1),
+               (1, 23, 27, 185, 128, 7, 1), (1, 9, 7, 537, 40, 3, 2)]
 
 
+# int8 out at the layer's s_out, bf16 out, and int8 out at s_out 1e-6
+# (every positive output saturates)
 @pytest.mark.parametrize("case", _INT8_CASES)
-@pytest.mark.parametrize("quant", [True, False])
-def test_int8_conv_kernel_equals_plain(cuda, case, quant):
+@pytest.mark.parametrize("mode", ["int8", "bf16", "saturated"])
+def test_int8_conv_kernel_equals_plain(cuda, case, mode):
     b, h, w, cin, cout, k, stride = case
     args = _int8_case(np.random.default_rng(cin + k), b, h, w, cin, cout,
                       k, cuda)
     q, wp, rs, bias, s_out = args
-    s_out = s_out if quant else None
+    quant = mode != "bf16"
+    s_out = {"int8": s_out, "bf16": None,
+             "saturated": torch.full_like(s_out, 1e-6)}[mode]
     pads = _same_pads(h, w, k, stride)
     before = int8_conv.launches
     out = int8_conv.int8_conv(q, wp, k, rs, bias, stride, pads, s_out)
@@ -1250,100 +1313,6 @@ def test_artifact_replays_a_graph(cuda, dtype, tmp_path):
 
 # ------------------------------------------------------------- BODY_25 ---
 
-B25 = kernel_inputs.BODY25
-
-
-@pytest.mark.parametrize("k", [1, 5, 8, 16, 23, 32])
-@pytest.mark.parametrize("density", [0.3, 1.0, "signed_zero", "nan"])
-def test_greedy_kernel_equals_plain_at_26_limbs(cuda, k, density):
-    scores = _scores(np.random.default_rng(k), 5, k, density, B25.n_limbs)
-    out = greedy.greedy_assign(scores.to(cuda), k)
-    for o, r in zip(out, greedy.greedy_assign_plain(scores, k)):
-        assert o.shape[1] == 26 and torch.equal(o.cpu(), r)
-
-
-_MERGE_CASES_25 = [pytest.param(k, m, "random", id=f"{k}-{m}")
-                   for k, m in [(1, 1), (16, 7), (16, 32), (32, 32), (5, 32),
-                                (64, 32)]]
-_MERGE_CASES_25 += [pytest.param(k, m, kind, id=f"{kind}-{k}")
-                    for kind, m in kernel_inputs.MERGE_KINDS.items()
-                    for k in (16, 32)]
-
-
-@pytest.mark.parametrize("k,m,kind", _MERGE_CASES_25)
-def test_merge_kernel_equals_plain_at_25_parts(cuda, k, m, kind):
-    args = _conns(np.random.default_rng(200 + k * m), 6, k, kind, B25)
-    before = merge.launches
-    out = merge.assemble(*[t.to(cuda) for t in args], k, m)
-    torch.cuda.synchronize()
-    assert merge.launches == before + 1
-    ref = merge.assemble_plain(*args, k, m)
-    assert ref[0].shape == (6, m, 25)
-    for o, r in zip(out, ref):
-        assert torch.equal(o.cpu(), r)
-
-
-@pytest.mark.parametrize("k", [16, 32])
-def test_merge_kernel_on_greedy_output_at_25_parts(cuda, k):
-    rng = np.random.default_rng(9)
-    scores = _scores(rng, 8, k, 0.3, B25.n_limbs)
-    peak_score = torch.from_numpy(kernel_inputs.peak_scores(rng, 8, k, 25))
-    out = merge.assemble(*greedy.greedy_assign(scores.to(cuda), k),
-                         peak_score.to(cuda), k, 32)
-    ref = merge.assemble_plain(*greedy.greedy_assign_plain(scores, k),
-                               peak_score, k, 32)
-    for o, r in zip(out, ref):
-        assert torch.equal(o.cpu(), r)
-
-
-@pytest.mark.parametrize("k", [1, 5, 16, 32])
-def test_sample_paf_kernel_equals_plain_at_26_limbs(cuda, k):
-    paf, sy, sx = kernel_inputs.paf_samples(np.random.default_rng(k), 3, 23,
-                                            29, k, n_limbs=B25.n_limbs)
-    chans = paf_sample.limb_channels(torch.device("cpu"), B25)
-    args = [torch.from_numpy(a) for a in (paf, sy, sx)] + [chans]
-    out = paf_sample.sample_paf(*[t.to(cuda) for t in args])
-    for o, r in zip(out, paf_sample.sample_paf_plain(*args)):
-        assert torch.equal(o.cpu(), r)
-
-
-def _assert_peaks_equal_25(cuda, smoothed, threshold, k):
-    out = peaks.find_peaks(smoothed.to(cuda), threshold, k)
-    ref = nms.find_peaks_plain(smoothed, threshold, k)
-    for o, r in zip(out, [getattr(ref, f) for f in peaks.FIELDS]):
-        assert o.shape[1] == 25 and o.dtype == r.dtype
-        o = o.cpu()
-        if r.dtype == torch.float32:
-            o, r = o.view(torch.int32), r.view(torch.int32)
-        assert torch.equal(o, r)
-    return out
-
-
-@pytest.mark.parametrize("b", [1, 8])
-@pytest.mark.parametrize("post", ["default", "fidelity"])
-@pytest.mark.parametrize("kind", ["plateau", "clean", "noisy", "very_noisy",
-                                  "pure_noise"])
-def test_peaks_kernel_equals_plain_at_25_parts(cuda, kind, post, b):
-    cfg = _POSTPROC[post]
-    smoothed = nms.upsample_smooth(torch.from_numpy(kernel_inputs.peak_scene(
-        kind, b, B25)), cfg.upsample_factor, cfg.smooth_sigma)
-    out = _assert_peaks_equal_25(cuda, smoothed, cfg.peak_threshold,
-                                 cfg.max_peaks)
-    if kind == "plateau":     # two people an image, every part
-        assert int(out[3].sum()) == 2 * 25 * b
-
-
-@pytest.mark.parametrize("h,w,k", [(368, 432, 32), (92, 108, 3000),
-                                   (7, 9, 32)])
-def test_peaks_kernel_on_a_checkerboard_at_25_parts(cuda, h, w, k):
-    """Every row at its capacity, in both part groups of a tile."""
-    smoothed = torch.from_numpy(kernel_inputs.checkerboard_peaks(2, h, w,
-                                                                 26))
-    _assert_peaks_equal_25(cuda, smoothed, 0.5, k)
-    assert torch.equal(peaks.candidates.cpu(), torch.full(
-        (2, 25), peaks.capacity(h, w), dtype=torch.int32))
-
-
 def test_decode_at_25_parts_equals_the_cpu(cuda):
     """The whole decode of BODY_25 maps (noisy figures, both decoders) on
     the card against the CPU: the same people and parts; coordinates and
@@ -1358,7 +1327,7 @@ def test_decode_at_25_parts_equals_the_cpu(cuda):
               for i in range(3)]
     conf, paf = (torch.from_numpy(np.stack([m, np.roll(m, 2, axis=1)]))
                  for m in kernel_inputs.make_maps(people, 46, 54, noise=0.05,
-                                                  skel=B25))
+                                                  skel=BODY25))
     for cfg in _POSTPROC.values():
         ref = decode_maps(conf, paf, cfg)
         out = decode_maps(conf.to(cuda), paf.to(cuda), cfg)

@@ -22,7 +22,7 @@ prints no result):
 2. Builds the hand-written kernels from openpose_plus_tpu_torch/csrc/ with
    nvcc (openpose_plus_tpu_torch/ops/cuda/build.py) and prints ptxas'
    report: every instance of greedy, merge, the int8 conv (one a tile plan
-   and output type), the two quantize passes and the 8 of bias_act must
+   and output type), the two quantize passes and the 16 of bias_act must
    keep 0 bytes of stack and spills.
 4. Main paths: Engine(default_config("mobilenet_thin"), seed=0,
    device="cuda") at full width (368x432, width 0.75, 6 stages, bfloat16),
@@ -110,14 +110,14 @@ prints no result):
    batch 8, 368x656; MobileNet-thin fused, the fidelity and live cells'
    engine, and unfused, phase 4's, at batch 8 and 1, 368x432): one eager
    `infer` launches it 108, 80, 21 and 103 times (the count set to 0 just
-   before it); the forward's maps through the kernel equal those with the
-   op swapped for its plain version (dense blocks written in place either
-   way), and both forwards' device times; at each distinct call shape of
-   the forward the kernel, the plain expressions and the byte bound at
-   3.35 TB/s are timed, inputs rotated past the L2. A `bias_act` line an
-   engine and
-   batch: per shape and summed over the forward; the `kernels` line's
-   `bias_act` entry is BODY_25's sums.
+   before it; BODY_25's and VGG19's three pooled calls among them); the
+   forward's maps through the kernel equal those with the op swapped for
+   its plain version (dense blocks written in place either way), and both
+   forwards' device times; at each distinct call shape of the forward the
+   kernel, the plain expressions (pooled: then PyTorch's pool) and the
+   byte bound at 3.35 TB/s are timed, inputs rotated past the L2. A
+   `bias_act` line an engine and batch: per shape and summed over the
+   forward; the `kernels` line's `bias_act` entry is BODY_25's sums.
 8. The GT-map oracle on the card (`oracle_phase`): `ap_oracle` renders the
    ground-truth maps of the serving tier's 96 seeded val images
    (368x432, stride 8, sigma 8) on the card and decodes them with the
@@ -1422,14 +1422,15 @@ def body25_phase(torch, np, inputs, counted, dev, gpu,
 
 def bias_act_times(torch, np, inputs, bias_act, key, count, dev) -> dict:
     """One bias_act call shape of a forward, `key` ((B, C, H, W), PReLU,
-    the dense block buffer's channels or 0, offset), which the forward
-    makes `count` times, on `kernel_inputs.epilogue_inputs` in bf16: the
-    kernel and its plain version timed (`graph_ms`) on copies of the input
-    rotated past twice the 50 MB L2, so each call reads from HBM as the
-    byte bound assumes (in the forward the conv's output may still sit in
-    L2): y read once, the output and the buffer's channels written
-    once."""
-    (b, c, h, w), prelu, wide, offset = key
+    the dense block buffer's channels or 0, offset, pooled), which the
+    forward makes `count` times, on `kernel_inputs.epilogue_inputs` in
+    bf16: the kernel and its plain version (pooled: then `F.max_pool2d`)
+    timed (`graph_ms`) on copies of the input rotated past twice the 50 MB
+    L2, so each call reads from HBM as the byte bound assumes (in the
+    forward the conv's output may still sit in L2): y read once, the
+    output (pooled: a quarter of y, rounded down) and the buffer's
+    channels written once."""
+    (b, c, h, w), prelu, wide, offset, pool = key
     y, bias, slope = inputs.epilogue_inputs(
         np.random.default_rng(b + c + wide + offset), b, h, w, c)
     y = torch.from_numpy(y).to(dev, torch.bfloat16).permute(0, 3, 1, 2)
@@ -1449,15 +1450,17 @@ def bias_act_times(torch, np, inputs, bias_act, key, count, dev) -> dict:
 
     def kernel():
         i = next(turn) % copies
-        bias_act.bias_act(ys[i], bias, slope, intos[i], offset)
+        bias_act.bias_act(ys[i], bias, slope, intos[i], offset, pool)
 
     def plain():
         i = next(turn) % copies
-        bias_act.bias_act_plain(ys[i], bias, slope, intos[i], offset)
+        bias_act.bias_act_plain(ys[i], bias, slope, intos[i], offset, pool)
 
-    nbytes = per * (2 + bool(wide)) + 4 * c * (1 + prelu)
+    written = (b * c * (h // 2) * (w // 2) * y.element_size() if pool
+               else per)
+    nbytes = per * (1 + bool(wide)) + written + 4 * c * (1 + prelu)
     out = {"shape": [b, c, h, w], "prelu": prelu, "buffer_channels": wide,
-           "offset": offset, "count": count, "copies": copies,
+           "offset": offset, "pool": pool, "count": count, "copies": copies,
            "device_ms": graph_ms(kernel, dev),
            "plain_device_ms": graph_ms(plain, dev),
            "bound_ms": bound(nbytes, 0.0)[0]}
@@ -1489,9 +1492,9 @@ def bias_act_forward(torch, np, inputs, bias_act, engine, images, calls,
         raise AssertionError(f"forward {tuple(images.shape)}: {len(seen)} "
                              f"bias_act calls, expected {calls}")
     keys: dict = {}
-    for (y, _, slope, into, offset), _ in seen:
+    for (y, _, slope, into, offset, pool), _ in seen:
         key = (tuple(y.shape), slope is not None,
-               0 if into is None else into.shape[1], offset)
+               0 if into is None else into.shape[1], offset, pool)
         keys[key] = keys.get(key, 0) + 1
     maps = engine.forward(images)
     forward_ms = {"kernel": graph_ms(lambda: engine.forward(images), dev)}
@@ -4510,10 +4513,10 @@ def main(argv: list[str]) -> int:
                              f"{2 * len(int8_conv.PLANS)} int8_conv "
                              "instances and the two quantize passes, each "
                              "with 0 bytes of stack and spills")
-    if len(bias_act_frames) != 8 or any(f != (0, 0, 0) for f in
-                                        bias_act_frames.values()):
+    if len(bias_act_frames) != 16 or any(f != (0, 0, 0) for f in
+                                         bias_act_frames.values()):
         raise AssertionError(f"bias_act ptxas frames {bias_act_frames}: "
-                             "expected 8 instances with 0 bytes of stack "
+                             "expected 16 instances with 0 bytes of stack "
                              "and spills")
     phase_done("2_build")
 

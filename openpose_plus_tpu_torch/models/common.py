@@ -15,7 +15,8 @@ NCHW inside the model; parameters are float32 and cast per call, as the
 Flax modules cast their float32 params. With grad disabled, a conv's bias
 and activation are one `ops.cuda.bias_act` pass over its output (the same
 numbers; `conv_epilogue`); a dense block's epilogues write its
-concatenation in place.
+concatenation in place, and a VGG block's last epilogue takes the block's
+2x2 max pool in the same pass (`run_vgg_block`).
 
 int8 (`compute_dtype="int8"`) is an inference mode, not an activation
 dtype: the dense and pointwise convs run on the int8 tensor cores
@@ -185,14 +186,21 @@ def frozen_int8_weights(model: nn.Module) -> Iterator[None]:
             del layer._buffers["packed_weight"], layer._buffers["weight_max"]
 
 
+def _check_band_pool(x: torch.Tensor) -> None:
+    """Under a spatial band a 2x2 pool pools the rank's rows: the bands
+    above the output grid start and end on even rows."""
+    band = spatial.active()
+    if band is not None:
+        spatial.check_pool(band, x)
+
+
 def maxpool2x2(x):
     """2x2 stride-2 max pool (VALID: an odd last row or column is
     dropped); a QAct pools its int8 plane (max commutes with the positive
-    scale), exactly. Under a spatial band it pools the rank's rows: the
-    bands above the output grid start and end on even rows."""
-    band = spatial.active()
-    if band is not None:
-        spatial.check_pool(band, x.q if isinstance(x, QAct) else x)
+    scale), exactly. Under a spatial band it pools the rank's rows
+    (`_check_band_pool`). A float VGG block pools in its last conv's
+    epilogue instead (`conv_epilogue`)."""
+    _check_band_pool(x.q if isinstance(x, QAct) else x)
     if isinstance(x, QAct):
         q = _nhwc(x.q)
         b, h, w, c = q.shape
@@ -276,21 +284,25 @@ def lecun_normal_(weight: torch.Tensor, generator: torch.Generator) -> None:
 def conv_epilogue(y: torch.Tensor, bias: torch.Tensor,
                   slope: torch.Tensor | None = None,
                   into: torch.Tensor | None = None,
-                  offset: int = 0) -> torch.Tensor:
+                  offset: int = 0, pool: bool = False) -> torch.Tensor:
     """A conv output's bias, then ReLU (`slope` None) or PReLU, in its
     dtype, also stored at channels [offset, offset + C) of `into` when
-    given (`ops.cuda.bias_act`). With grad disabled it is the `bias_act`
-    op, one pass over the output (channels-last); with grad enabled (the
-    kernel has no backward) the plain expressions."""
+    given, or (`pool`) 2x2 max-pooled as `maxpool2x2` pools
+    (`ops.cuda.bias_act`). With grad disabled it is the `bias_act` op, one
+    pass over the output (channels-last); with grad enabled (the kernel
+    has no backward) the plain expressions, then `F.max_pool2d`."""
+    if pool:
+        _check_band_pool(y)
     if torch.is_grad_enabled():
-        return bias_act.bias_act_plain(y, bias, slope, into, offset)
+        return bias_act.bias_act_plain(y, bias, slope, into, offset, pool)
     return bias_act.bias_act(y.contiguous(memory_format=torch.channels_last),
-                             bias, slope, into, offset)
+                             bias, slope, into, offset, pool)
 
 
 class ConvRelu(_Int8Layer):
-    """kxk conv + ReLU (`models/common.py::ConvRelu`); in int8, float or
-    QAct in, QAct out."""
+    """kxk conv + ReLU (`models/common.py::ConvRelu`), then, with `pool`,
+    the 2x2 max pool (in the float epilogue's pass; in int8 `maxpool2x2`
+    of the output); in int8, float or QAct in, QAct out."""
 
     def __init__(self, in_features: int, features: int, kernel: int = 3,
                  stride: int = 1, dtype: str = "bfloat16"):
@@ -302,12 +314,13 @@ class ConvRelu(_Int8Layer):
         self.bias = nn.Parameter(torch.zeros(features))
         self._init_int8(dtype, "weight")
 
-    def forward(self, x):
+    def forward(self, x, pool: bool = False):
         if self.int8:
-            return self._int8_conv(x, self.weight, self.bias, self.stride)
+            y = self._int8_conv(x, self.weight, self.bias, self.stride)
+            return maxpool2x2(y) if pool else y
         dt = self.dtype
         y = conv2d_same(x.to(dt), self.weight.to(dt), self.stride)
-        return conv_epilogue(y, self.bias)
+        return conv_epilogue(y, self.bias, pool=pool)
 
 
 class SepConvRelu(_Int8Layer):
@@ -560,11 +573,14 @@ def vgg_input(x: torch.Tensor, stem_s2d: bool, dtype: torch.dtype
 
 
 def run_vgg_block(model: nn.Module, x, names: list[str], pool: bool):
-    """The block's convs in order, then the optional 2x2 max pool (of the
-    int8 plane for a QAct)."""
-    for name in names:
+    """The block's convs in order, the last one taking the optional 2x2 max
+    pool (`ConvRelu`'s `pool`: the float epilogue pools in its own pass, so
+    the full-size activation is never stored; int8 pools the QAct's
+    plane)."""
+    *first, last = names
+    for name in first:
         x = getattr(model, name)(x)
-    return maxpool2x2(x) if pool else x
+    return getattr(model, last)(x, pool=pool)
 
 
 class VGGFamilyPose(nn.Module):

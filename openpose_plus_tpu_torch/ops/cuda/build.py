@@ -62,9 +62,9 @@ _SIGNATURES = {
     "find_peaks_launch": [_P] + [ctypes.c_longlong] * 4 + [_I] * 4
                          + [ctypes.c_float, _I, _P, _I] + [_P] * 7
                          + [_I, _P],
-    # y, bias, slope, out, wide, pixels, c, wide_c, offset, dtype, device,
-    # stream
-    "bias_act_launch": [_P] * 5 + [ctypes.c_longlong] + [_I] * 5 + [_P],
+    # y, bias, slope, out, wide, pixels, c, wide_c, offset, h, w, pool,
+    # dtype, device, stream
+    "bias_act_launch": [_P] * 5 + [ctypes.c_longlong] + [_I] * 8 + [_P],
 }
 
 _lib: ctypes.CDLL | None = None

@@ -205,22 +205,28 @@ def epilogue_inputs(rng: np.random.Generator, b: int, h: int, w: int,
     return y, bias, slope
 
 
-def bias_act_calls(model) -> int:
-    """The `ops.bias_act` calls one inference forward of `model` makes: one
-    a float ConvRelu or PReLUConv, two an unfused float SepConvRelu (its
-    depthwise and pointwise halves), one an unfused int8 SepConvRelu (its
-    bf16 depthwise); an int8 ConvRelu's conv applies its own bias and ReLU
-    unless calibrating."""
+def bias_act_calls(model) -> dict:
+    """The tracer's epilogue counters one inference forward of `model`
+    bumps, as the tracer records them (a counter never bumped is absent).
+    `ops.bias_act`: one a float ConvRelu or PReLUConv, two an unfused float
+    SepConvRelu (its depthwise and pointwise halves), one an unfused int8
+    SepConvRelu (its bf16 depthwise); an int8 ConvRelu's conv applies its
+    own bias and ReLU unless calibrating. `ops.bias_act_pool`: one a pooled
+    VGG block (`model.blocks`) whose last conv is a float ConvRelu (an int8
+    one pools its output apart, calibrating or not)."""
     from openpose_plus_tpu_torch.models import common
 
-    n = 0
+    n = pooled = 0
     for m in model.modules():
         float_path = not getattr(m, "int8", False) or m.calibrating
         if isinstance(m, (common.ConvRelu, common.PReLUConv)):
             n += float_path
         elif isinstance(m, common.SepConvRelu) and not m.fused:
             n += 1 + float_path
-    return n
+        for names, pool in getattr(m, "blocks", ()):
+            pooled += pool and not getattr(m, names[-1]).int8
+    counters = {"ops.bias_act": n, "ops.bias_act_pool": pooled}
+    return {k: v for k, v in counters.items() if v}
 
 
 def bf16_mismatch(out, ref, floor=0.0) -> tuple[float, float]:

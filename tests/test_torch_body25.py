@@ -121,22 +121,26 @@ def test_forward_matches_plain_reference(dtype, shape):
 
 def test_bf16_layers_match_plain_layers():
     """Every conv of the bf16 port on the input the port gave it, against
-    the plain layer (rounded as a bf16 network stores) on that input; each
-    dense block's output is its three convs' outputs in order."""
+    the plain layer (rounded as a bf16 network stores) on that input, then
+    the 2x2 max pool where the conv ends a pooled VGG block; each dense
+    block's output is its three convs' outputs in order."""
     model = _model("bfloat16", 48, 80)
     sd = _weights(model, seed=7)
     model.load_state_dict(sd)
     seen: dict = {}
+    pooled = set()
 
     def hook(name):
-        def fn(module, args, out):
+        def fn(module, args, kwargs, out):
             seen[name] = (module, args[0], out)
+            if kwargs.get("pool"):
+                pooled.add(name)
         return fn
 
     for name, m in model.named_modules():
         if isinstance(m, (common.PReLUConv, common.ConvRelu,
                           common.DenseBlock, common.Conv1x1F32)):
-            m.register_forward_hook(hook(name))
+            m.register_forward_hook(hook(name), with_kwargs=True)
     x = torch.rand(2, 48, 80, 3, generator=torch.Generator().manual_seed(1))
     with torch.no_grad():
         model(x - 0.5)
@@ -148,6 +152,8 @@ def test_bf16_layers_match_plain_layers():
             want, kind = plain_body25.conv_prelu(inp, sd, name, r), "prelu"
         elif isinstance(m, common.ConvRelu):
             want = plain_body25.relu(plain_body25.conv(inp, sd, name, r))
+            if name in pooled:
+                want = torch.nn.functional.max_pool2d(want, 2, 2)
             kind = "relu"
         elif isinstance(m, common.Conv1x1F32):
             want, kind = plain_body25.predict(inp, sd, name), "head"
@@ -161,6 +167,7 @@ def test_bf16_layers_match_plain_layers():
             BF16_LAYER_TOL * float(want.abs().max())), name
     assert kinds == {"prelu": 3 + 6 * 16, "relu": 9, "dense": 30,
                      "head": 6}
+    assert pooled == {"conv1_2", "conv2_2", "conv3_4"}
 
 
 def _mutated(kind: str, x: torch.Tensor, sd: dict) -> dict:
@@ -252,7 +259,8 @@ def test_dense_blocks_counted_and_model_spans_recorded():
         model(x)                               # off: nothing recorded
         with GLOBAL_TRACER.recording() as rec:
             model(x)
-    assert rec.counters == {"models.dense_blocks": 30, "ops.bias_act": 108}
+    assert rec.counters == {"models.dense_blocks": 30, "ops.bias_act": 108,
+                            "ops.bias_act_pool": 3}
     names = [s.name for s in rec.spans]
     assert names == ["models.front", "models.paf_stages",
                      "models.conf_stages"]

@@ -44,7 +44,12 @@ expressions at C = 24 ... 512 (57 ragged) on a ragged pixel count, with
 signed zeros, NaN, infinities and slopes of both signs, in bf16 and
 float32; its second store into a dense block's buffer; the wrapper's
 refusals; bf16 BODY_25 and VGG19 forwards equal with the kernel and with
-the op swapped for its plain version.
+the op swapped for its plain version. Pooled, against PyTorch's pool of
+the plain expressions at the VGG front's three shapes, odd H and W, a
+ragged C, an unaligned y and windows of every mix of NaN, infinities and
+signed zeros; one launch a call, captured in a CUDA graph; and whole
+BODY_25 and VGG19 forwards at 368x656 and batch 8 against the same
+forwards pooled by PyTorch after the unpooled kernel.
 
 The separable kernels are held to their plain versions as
 tests/test_torch_sepconv.py states: `kernel_inputs.bf16_mismatch` at most 2
@@ -920,8 +925,9 @@ def test_graph_captured_while_recording_carries_no_tracer_events(cuda):
     assert rec.counters == {"graphs.captures": 1, "engine.calls": 1,
                             "engine.replays": 1,
                             "postproc.peaks_kernel": CAPTURE_WARMUP + 1,
-                            "ops.bias_act": (CAPTURE_WARMUP + 1)
-                            * kernel_inputs.bias_act_calls(engine.model)}
+                            **{k: (CAPTURE_WARMUP + 1) * v for k, v in
+                               kernel_inputs.bias_act_calls(
+                                   engine.model).items()}}
     assert {"graphs.capture", "postproc.group", "engine.infer",
             "engine.inputs", "engine.copy_in", "engine.replay",
             "engine.outputs"} <= {s.name for s in rec.spans}
@@ -1364,8 +1370,8 @@ def test_body25_compiled_replay_equals_eager(cuda):
 
 
 def test_body25_model_spans_time_a_captured_forward(cuda):
-    """An eager forward counts 30 dense blocks and 108 conv epilogues;
-    forwards captured while
+    """An eager forward counts 30 dense blocks and 108 conv epilogues, 3
+    of them pooled; forwards captured while
     the tracer records: each replay times the front, the PAF stages and
     the heatmap stages of every forward, and they sum to no more than the
     replay."""
@@ -1375,7 +1381,8 @@ def test_body25_model_spans_time_a_captured_forward(cuda):
     images = _deploy_images(cuda, 5)
     with GLOBAL_TRACER.recording() as rec:
         engine.forward(images)
-    assert rec.counters == {"models.dense_blocks": 30, "ops.bias_act": 108}
+    assert rec.counters == {"models.dense_blocks": 30, "ops.bias_act": 108,
+                            "ops.bias_act_pool": 3}
     calls = 4
     graph = torch.cuda.CUDAGraph()
     with torch.inference_mode():
@@ -1516,4 +1523,140 @@ def test_bias_act_forward_equals_the_plain_op(cuda, monkeypatch, name,
     torch.cuda.synchronize()
     assert bias_act.launches == before + calls
     for a, b in zip(maps, plain, strict=True):
+        assert bool(a.isfinite().all()) and torch.equal(a, b)
+
+
+def _unpooled_route(op):
+    """The op as the models ran it before the epilogue pooled: the kernel
+    unpooled, then PyTorch's pool."""
+    import torch.nn.functional as F
+
+    def route(y, bias, slope, into, offset, pool=False):
+        out = op(y, bias, slope, into, offset)
+        return F.max_pool2d(out, 2, 2) if pool else out
+
+    return route
+
+
+# the VGG front's three pooled epilogues at batch 2, an odd H and W, a
+# ragged C
+_POOLED = {"conv1_2": (2, 64, 368, 656), "conv2_2": (2, 128, 184, 328),
+           "conv3_4": (2, 256, 92, 164), "odd": (3, 24, 7, 13),
+           "ragged": (2, 57, 10, 9)}
+
+
+@pytest.mark.parametrize("shape", list(_POOLED))
+@pytest.mark.parametrize("act", ["relu", "prelu"])
+@pytest.mark.parametrize("dtype", list(_EPILOGUE_DTYPES))
+def test_bias_act_pooled_kernel_equals_plain_then_pool(cuda, dtype, act,
+                                                       shape):
+    """Pooled, one launch gives `F.max_pool2d` of the plain expressions
+    bit for bit on the card (signed zeros, NaN and infinities among the
+    inputs, so the same NaN and the same zero win), (B, C, H // 2, W // 2)
+    channels-last, at the front's shapes, an odd H and W (the last row and
+    column dropped) and a ragged C (the element-wise path)."""
+    import torch.nn.functional as F
+
+    b, c, h, w = _POOLED[shape]
+    y, bias, slope = _epilogue_case(cuda, _EPILOGUE_DTYPES[dtype], c, b, h,
+                                    w, seed=2)
+    slope = slope if act == "prelu" else None
+    before = bias_act.launches
+    out = bias_act.bias_act(y, bias, slope, pool=True)
+    torch.cuda.synchronize()
+    assert bias_act.launches == before + 1
+    assert tuple(out.shape) == (b, c, h // 2, w // 2)
+    assert out.is_contiguous(memory_format=torch.channels_last)
+    ref = F.max_pool2d(bias_act.bias_act_plain(y, bias, slope), 2, 2)
+    assert bool(ref.isnan().any()) and bool(ref.isinf().any())
+    assert torch.equal(_bits(out), _bits(ref))
+
+
+@pytest.mark.parametrize("dtype", list(_EPILOGUE_DTYPES))
+def test_bias_act_pooled_kernel_on_unaligned_y_and_special_windows(cuda,
+                                                                   dtype):
+    """y one element into its storage (the element-wise path), and
+    windows of NaN, infinities and signed zeros in every position: the
+    pooled kernel's bits are PyTorch's pool's of the plain expressions."""
+    import itertools
+
+    import torch.nn.functional as F
+
+    dt = _EPILOGUE_DTYPES[dtype]
+    b, c, h, w = 2, 64, 6, 10
+    y, bias, slope = _epilogue_case(cuda, dt, c, b, h, w, seed=3)
+    store = torch.empty(y.numel() + 1, dtype=dt, device=cuda)
+    moved = store[1:].view(b, h, w, c).permute(0, 3, 1, 2)
+    moved.copy_(y)
+    assert moved.data_ptr() % 16 and moved.is_contiguous(
+        memory_format=torch.channels_last)
+    for s in (None, slope):
+        out = bias_act.bias_act(moved, bias, s, pool=True)
+        ref = F.max_pool2d(bias_act.bias_act_plain(y, bias, s), 2, 2)
+        assert torch.equal(_bits(out), _bits(ref))
+    special = (float("nan"), float("inf"), -float("inf"), 0.0, -0.0, 1.0,
+               -1.0)
+    windows = torch.tensor(list(itertools.product(special, repeat=4)))
+    for n in (2400, 2401):      # of the 7 ** 4 windows: 16-byte, ragged
+        y = windows[:n].reshape(1, n, 2, 2).to(cuda, dt).contiguous(
+            memory_format=torch.channels_last)
+        bias = torch.full((n,), -0.0, device=cuda)    # x + -0 is x
+        for s in (None, torch.ones(n, device=cuda)):
+            out = bias_act.bias_act(y, bias, s, pool=True)
+            ref = F.max_pool2d(bias_act.bias_act_plain(y, bias, s), 2, 2)
+            assert torch.equal(_bits(out), _bits(ref))
+    torch.cuda.synchronize()
+
+
+def test_bias_act_pooled_kernel_captures_in_a_graph(cuda):
+    """A pooled call allocates nothing and never synchronises: captured
+    in a CUDA graph (one launch), its replay on new inputs equals the
+    eager call."""
+    y, bias, slope = _epilogue_case(cuda, torch.bfloat16, 64, 2, 20, 30)
+    static = y.clone()
+    out = bias_act.bias_act(static, bias, slope, pool=True)   # warm-up
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    before = bias_act.launches
+    with torch.cuda.graph(graph):
+        out = bias_act.bias_act(static, bias, slope, pool=True)
+    assert bias_act.launches == before + 1
+    y2, _, _ = _epilogue_case(cuda, torch.bfloat16, 64, 2, 20, 30, seed=9)
+    static.copy_(y2)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(_bits(out), _bits(bias_act.bias_act(y2, bias, slope,
+                                                           pool=True)))
+
+
+@pytest.mark.parametrize("name,calls", [("body25", 108), ("vgg19", 80)])
+def test_pooled_forward_equals_the_unpooled_route(cuda, monkeypatch, name,
+                                                  calls):
+    """A bf16 forward at the cells' 368x656 and batch 8 pools in three of
+    its epilogues; its maps equal bit for bit those of the same forward
+    with every epilogue unpooled and PyTorch's pool after it."""
+    import dataclasses
+
+    from openpose_plus_tpu_torch.config import default_config
+    from openpose_plus_tpu_torch.engine import Engine
+    from openpose_plus_tpu_torch.utils.tracer import GLOBAL_TRACER
+
+    cfg = default_config(name)
+    cfg = cfg.replace(model=dataclasses.replace(cfg.model, hin=368,
+                                                win=656))
+    engine = Engine(cfg, seed=7, device=cuda)
+    images = torch.from_numpy(np.random.default_rng(8).integers(
+        0, 256, (8, 368, 656, 3), dtype=np.uint8)).to(cuda)
+    with GLOBAL_TRACER.recording() as rec:
+        maps = engine.forward(images)
+    torch.cuda.synchronize()
+    assert rec.counters["ops.bias_act"] == calls
+    assert rec.counters["ops.bias_act_pool"] == 3
+    monkeypatch.setattr(bias_act, "_bias_act_op",
+                        _unpooled_route(bias_act._bias_act_op))
+    before = bias_act.launches
+    unpooled = engine.forward(images)
+    torch.cuda.synchronize()
+    assert bias_act.launches == before + calls
+    for a, b in zip(maps, unpooled, strict=True):
         assert bool(a.isfinite().all()) and torch.equal(a, b)

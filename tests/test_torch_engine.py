@@ -238,8 +238,7 @@ def test_infer_spans_under_the_profiler():
     assert all(call.start <= r.start <= r.end <= call.end
                for r in events.values())
     assert rec.counters == {"engine.calls": 1, "engine.eager_calls": 1,
-                            "ops.bias_act": kernel_inputs.bias_act_calls(
-                                engine.model)}
+                            **kernel_inputs.bias_act_calls(engine.model)}
     assert {s.name for s in rec.spans} == set(names)
     assert len({s.call for s in rec.spans}) == 1
     assert rec.spans[0].call is not None and rec.device_ms() == {}

@@ -2,41 +2,43 @@
 the plain reference on the same inputs.
 
 The reference works out each sampled image's maps from the seed's weights,
-through the cell's network (`models.network`, which names its skeleton),
-twice: in float32 with TF32 off, and with what a bf16 network stores
-rounded to bf16 (`models.forward(..., bf16=True)`), and decodes both as the
-configuration states: the heatmaps upsampled and smoothed, the PAFs
-upsampled, each image grouped into people by the frozen oracle. The
-bf16-stored reference stands for what rounding alone may move. Served and
-reference people of an image are paired greedily by the parts they share,
-a part shared where both place it within one cell of the network's output
-grid. The numbers (a cell's limits file names those it compares):
+through the cell's network (`models.network`), twice: in float32 with TF32
+off, and with what a bf16 network stores rounded to bf16
+(`models.forward(..., bf16=True)`), and decodes both as the configuration
+states, by the network's decode family (`models.family`: its `read`
+gives the heat planes on the decode grid, the peaks, both sides' people
+and its own structure data). The bf16-stored reference stands for what
+rounding alone may move. Served and reference people of an image are
+paired greedily by the parts they share, a part shared where both place
+it within the family's tolerance (one cell of the network's finest output
+grid). The numbers (a cell's limits file names those it compares):
 
   peak_error_bf16_units     every served keypoint's score against the
-                            float32 heatmap of its part at its pixel (of
+                            float32 heat plane of its part at its pixel (of
                             the two rows and two columns around its
                             subpixel position, the one whose value is
                             nearest the served score): the root of the
                             summed squares of the gaps, over the same of
-                            the bf16-stored heatmap's gaps there.
+                            the bf16-stored heat plane's gaps there.
   steady_people_lost        the share of the reference's steady people
                             (those the bf16-stored reference pairs whole)
                             with which no served person shares half their
                             parts or more.
-  off_peak_share            the served keypoints farther than one output
-                            cell from every float32 peak of their part.
+  off_peak_share            the served keypoints farther than the
+                            tolerance from every float32 peak of their
+                            part.
   keypoint_miss_bf16_units  keypoints of either side that their pair does
                             not share, as a share of all, over the same
                             share of the bf16-stored reference's people.
   person_score_bf16_units   over pairs that share every part, the root of
                             the summed squared gaps of the persons' scores
-                            (peak scores and the limbs' PAF line integrals
-                            over the sampled points, over the part count,
-                            as the program scores a person), as a share of
+                            (as the family scores a person), as a share of
                             the reference's, over the same of the
                             bf16-stored reference's pairs.
-  limb_break_share          limbs of served people whose line integral over
-                            the float32 PAF fails the decode's test.
+  <family STRUCTURE>        the share of what holds served people together
+                            (their parts' links or tags) that the family's
+                            own structure data of the float32 reference
+                            breaks (`structure_breaks`).
   steady_people_broken      steady people no served person serves whole.
 
 Exact numbers: the letterbox of every served input against
@@ -55,8 +57,8 @@ import dataclasses
 import numpy as np
 import torch
 
-from reference import decode as rdecode
-from reference import models, oracle
+from reference import models
+from reference.families import Readings as Reference
 
 
 def invariant_breaks(ans: dict, min_parts: int) -> int:
@@ -114,18 +116,6 @@ def served_people(ans: dict) -> tuple[np.ndarray, np.ndarray]:
     return xy, ans["score"][rows].astype(np.float64)
 
 
-def reference_people(humans: list, skeleton: oracle.Skeleton
-                     ) -> tuple[np.ndarray, np.ndarray]:
-    """The same of the oracle's people, each scored as the program scores
-    a person: its summed score over its part count."""
-    xy = np.full((len(humans), skeleton.n_parts, 2), np.nan)
-    for i, hu in enumerate(humans):
-        for part, (x, y, _) in hu.parts.items():
-            xy[i, part] = (x, y)
-    return xy, np.array([hu.score / hu.n_parts for hu in humans],
-                        dtype=np.float64)
-
-
 def pair(a: np.ndarray, b: np.ndarray, extent: tuple, tol: float
          ) -> tuple[list, np.ndarray]:
     """People of one image paired greedily by the parts they share (a part
@@ -166,7 +156,7 @@ class Agreement:
             tol: float) -> None:
         """One image: `side` and `ref` as served_people gives them,
         `steady` the indices of the reference's steady people."""
-        (a, sa), (b, sb) = side, ref
+        (a, sa), (b, sb) = side[:2], ref[:2]
         na, nb = ~np.isnan(a[..., 0]), ~np.isnan(b[..., 0])
         pairs, counts = pair(a, b, extent, tol)
         self.keypoints += int(na.sum() + nb.sum())
@@ -201,12 +191,12 @@ def units(value: float, unit: float) -> float:
 
 
 def off_peak(xy: np.ndarray, peaks, extent: tuple, tol: float,
-             skeleton: oracle.Skeleton) -> tuple[int, int]:
+             n_parts: int) -> tuple[int, int]:
     """(keypoints of people `xy` (P, parts, 2), those farther than `tol`
     from every reference peak of their part)."""
     h, w = extent
     n = far = 0
-    for part in range(skeleton.n_parts):
+    for part in range(n_parts):
         pts = xy[:, part]
         pts = pts[~np.isnan(pts[:, 0])] * (w, h) - 0.5
         n += len(pts)
@@ -221,84 +211,19 @@ def off_peak(xy: np.ndarray, peaks, extent: tuple, tol: float,
     return n, far
 
 
-def limb_breaks(xy: np.ndarray, paf: np.ndarray, postproc: dict,
-                skeleton: oracle.Skeleton) -> tuple[int, int]:
-    """(limbs of people `xy` (P, parts, 2) with both parts present, those
-    whose line integral over the reference's upsampled PAF (H, W, PAF
-    channels) at the parts' pixels fails the decode's test for a
-    connection)."""
-    h, w, _ = paf.shape
-    f32 = np.float32
-    n_samples = postproc["paf_n_samples"]
-    need = int(np.ceil(postproc["paf_inlier_ratio"] * n_samples))
-    fracs = np.linspace(0.0, 1.0, n_samples).astype(f32)
-    n = bad = 0
-    for limb, (ia, ib) in enumerate(skeleton.limbs):
-        cx, cy = skeleton.paf_channels[limb]
-        ok = ~np.isnan(xy[:, ia, 0]) & ~np.isnan(xy[:, ib, 0])
-        if not ok.any():
-            continue
-        pa = np.round(xy[ok, ia] * (w, h) - 0.5).astype(f32)
-        pb = np.round(xy[ok, ib] * (w, h) - 0.5).astype(f32)
-        pa = np.clip(pa, 0, (w - 1, h - 1))
-        pb = np.clip(pb, 0, (w - 1, h - 1))
-        d = pb - pa
-        dist = np.maximum(np.hypot(d[:, 0], d[:, 1]).astype(f32), f32(1e-4))
-        u = d / dist[:, None]
-        sx = np.round(pa[:, :1] + fracs * d[:, :1]).astype(np.int64)
-        sy = np.round(pa[:, 1:] + fracs * d[:, 1:]).astype(np.int64)
-        dots = paf[sy, sx, cx] * u[:, :1] + paf[sy, sx, cy] * u[:, 1:]
-        inliers = np.sum(dots > f32(postproc["paf_sample_threshold"]), -1)
-        score = dots.mean(-1) + np.minimum(0.5 * h / dist - 1.0, 0.0)
-        n += int(ok.sum())
-        bad += int(np.sum((inliers < need) | (score <= 0)))
-    return n, bad
-
-
-@dataclasses.dataclass
-class Reference:
-    """The reference's readings of a sample, image by image: the smoothed
-    heatmaps in float32 and bf16-stored, the upsampled float32 PAF, the
-    float32 peaks, and both sides' people (as served_people gives them);
-    the network's skeleton."""
-
-    maps: list
-    maps16: list
-    paf: list
-    peaks: list
-    people: list
-    people16: list
-    extent: tuple
-    skeleton: oracle.Skeleton
-
-
 def reference(cell_config: dict, sd: dict, planes: np.ndarray,
               postproc: dict, device: torch.device, block: int = 8
               ) -> Reference:
     """The reference's readings of planes (uint8, hin x win), worked out
-    `block` images at a time."""
+    `block` images at a time by the network's decode family."""
     model = cell_config["model"]
-    f = postproc["upsample_factor"]
-    skel = oracle.load_skeleton(models.network(model["name"]).SKELETON)
-    ref = Reference([], [], [], [], [], [], (), skel)
+    net = models.network(model["name"])
+    fam = models.family(net)
+    skel = fam.skeleton(net)
+    ref = Reference(skeleton=skel, family=fam)
     for i in range(0, len(planes), block):
         x = torch.from_numpy(planes[i:i + block]).to(device)
-        conf, paf = models.forward(model["name"], sd, x, model["n_stages"])
-        people, smoothed = rdecode.decode(conf, paf, postproc, skel)
-        paf_up = rdecode.resample(paf, f, 0.0).cpu().numpy()
-        del conf, paf
-        conf, paf = models.forward(model["name"], sd, x, model["n_stages"],
-                                   bf16=True)
-        people16, smoothed16 = rdecode.decode(conf, paf, postproc, skel)
-        del conf, paf
-        ref.maps += list(smoothed)
-        ref.maps16 += list(smoothed16)
-        ref.paf += list(paf_up)
-        ref.peaks += [oracle.find_peaks(m, skel, postproc["peak_threshold"],
-                                        None) for m in smoothed]
-        ref.people += [reference_people(p, skel) for p in people]
-        ref.people16 += [reference_people(p, skel) for p in people16]
-        ref.extent = smoothed.shape[1:3]
+        ref.extend(fam.read(model, sd, x, postproc, skel))
     return ref
 
 
@@ -306,16 +231,15 @@ def numbers(answers: list, ref: Reference, postproc: dict,
             repeat_mismatch: int, layout_mismatch: int) -> dict:
     """The numbers of a sample: answers[i] (host arrays of one image)
     against the reference's readings of its input."""
-    tol = float(postproc["upsample_factor"])          # one output cell
-    extent, skel = ref.extent, ref.skeleton
-    no_people = (np.full((0, skel.n_parts, 2), np.nan), np.zeros(0))
+    extent, tol, n_parts = ref.extent, ref.tol, ref.n_parts
+    no_people = (np.full((0, n_parts, 2), np.nan), np.zeros(0))
     breaks = 0
     rows = []
     program, bf16 = Agreement(), Agreement()
     counts = np.zeros(4, dtype=np.int64)
     for i, ans in enumerate(answers):
         breaks += invariant_breaks(ans, postproc["min_parts_per_human"])
-        wrong = part_count_breaks(ans, skel.n_parts)
+        wrong = part_count_breaks(ans, n_parts)
         breaks += wrong
         if not wrong:
             rows += keypoint_rows(ans, ref.maps[i], ref.maps16[i])
@@ -327,8 +251,9 @@ def numbers(answers: list, ref: Reference, postproc: dict,
                   == (~np.isnan(r[0][j, :, 0])).sum()]
         program.add(served, r, steady, extent, tol)
         bf16.add(r16, r, [], extent, tol)
-        counts += (*off_peak(served[0], ref.peaks[i], extent, tol, skel),
-                   *limb_breaks(served[0], ref.paf[i], postproc, skel))
+        counts += (*off_peak(served[0], ref.peaks[i], extent, tol, n_parts),
+                   *ref.family.structure_breaks(served[0], ref.structure[i],
+                                                postproc))
     k = np.array(rows, dtype=np.float64).reshape(-1, 3)
     served, refv, ref16 = k.T
     err2 = float(np.sum((served - refv) ** 2))
@@ -341,7 +266,7 @@ def numbers(answers: list, ref: Reference, postproc: dict,
             "steady_people_lost": units(program.lost, program.steady),
             "steady_people_broken": units(program.broken, program.steady),
             "off_peak_share": units(counts[1], counts[0]),
-            "limb_break_share": units(counts[3], counts[2]),
+            ref.family.STRUCTURE: units(counts[3], counts[2]),
             "invariant_breaks": breaks, "repeat_mismatch": repeat_mismatch,
             "layout_mismatch": layout_mismatch,
             "keypoints": len(k),

@@ -17,19 +17,19 @@ F32_FLOPS = 67e12
 HBM_BYTES = 3.35e12
 
 
-def cnn_flops(arch: str, shapes: dict, batch: int, hin: int, win: int,
-              n_stages: int) -> float:
-    """FLOPs of the network's convolutions on a (batch, hin, win) input,
-    2 a multiply-add, every tap of a padded window counted: the reference
-    run on shapes alone (meta tensors) under torch's FLOP counter."""
+def cnn_flops(model: dict, shapes: dict, batch: int) -> float:
+    """FLOPs of the convolutions of the configuration's network (its model
+    section `model`) on a (batch, hin, win) input, 2 a multiply-add, every
+    tap of a padded window counted: the reference run on shapes alone
+    (meta tensors) under torch's FLOP counter."""
     from torch.utils.flop_counter import FlopCounterMode
 
     sd = {n: torch.empty(s, device="meta") for n, s in shapes.items()}
-    images = torch.empty((batch, hin, win, 3), dtype=torch.uint8,
-                         device="meta")
+    images = torch.empty((batch, model["hin"], model["win"], 3),
+                         dtype=torch.uint8, device="meta")
     counter = FlopCounterMode(display=False)
     with counter:
-        models.forward(arch, sd, images, n_stages)
+        models.forward(model, sd, images)
     return float(counter.get_total_flops())
 
 

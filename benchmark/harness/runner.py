@@ -11,7 +11,8 @@ from typing import Optional
 
 import torch
 
-from harness import check, cost, device_time, drivers, profile, weights
+from harness import (check, cost, device_time, drivers, families, profile,
+                     weights)
 
 
 @dataclasses.dataclass
@@ -50,17 +51,11 @@ class Run:
                                     self.device)
 
     def decode_device_ms(self) -> Optional[float]:
-        from openpose_plus_tpu_torch.postproc import decode_maps
-
-        conf, paf = self.engine.forward(self.driver.model_batch())
-        cfg = self.engine.config.postproc
-        return device_time.graph_ms(lambda: decode_maps(conf, paf, cfg),
-                                    self.device)
+        decode = families.of(self.model).decode_call(self)
+        return device_time.graph_ms(decode, self.device)
 
     def flops_per_image(self) -> float:
-        m = self.model
-        return cost.cnn_flops(m["name"], self.shapes, 1, m["hin"], m["win"],
-                              m["n_stages"])
+        return cost.cnn_flops(self.model, self.shapes, 1)
 
 
 def postproc(cell) -> dict:
@@ -117,16 +112,13 @@ def run(cell, seed: int, seconds: float, trace: bool, t0: float,
                     for k, v in get_model(cfg.model).state_dict().items()}
     w = cell.config["weights"]
     r.mark("imports", t0)
-    sd = weights.make(r.shapes, seed, dev, w["bias_std"], r.model["name"],
-                      r.model["n_stages"])
+    sd = weights.make(r.shapes, seed, dev, w["bias_std"], r.model)
     r.mark("weights", t0)
     r.driver = drivers.DRIVERS[cell.traffic["driver"]](r)
     first = r.driver.setup()
     r.mark("inputs", t0)
     heads = time.perf_counter()
-    weights.scale_heads(sd, r.model["name"], r.model["n_stages"],
-                        torch.from_numpy(first).to(dev), w["conf_max"],
-                        w["paf_max"])
+    weights.scale_heads(sd, r.model, torch.from_numpy(first).to(dev), w)
     _sync(dev)
     reference_s = time.perf_counter() - heads
     if dev.type == "cuda":            # the reference's forward sets no peak

@@ -5,10 +5,11 @@ per-layer readers:
                   program's tracer, after WARM_S of warm-up, without the
                   profiler: the Recording (spans and counters)
   decode_stages   device ms of each traced stage of the cell's decode: the
-                  program's decode on the forward's maps of one of the
-                  cell's inputs, CALLS decodes captured in one CUDA graph
-                  while the tracer records, the median of REPLAYS replays
-                  after a first one, per decode
+                  program's decode (its family's `decode_call`) on the
+                  forward's maps of one of the cell's inputs, CALLS
+                  decodes captured in one CUDA graph while the tracer
+                  records, the median of REPLAYS replays after a first
+                  one, per decode
 
 Each is computed once and kept on the run. Each is None where the program
 has no recorder (a port whose tracer cannot record); the stages also off
@@ -22,6 +23,7 @@ from typing import Optional
 
 import torch
 
+from harness import families
 from harness.device_time import CALLS, REPLAYS
 
 SLICE_S = 1.0
@@ -73,17 +75,14 @@ def _decode_stages(run) -> Optional[dict]:
     tracer = _tracer()
     if tracer is None or run.device.type != "cuda":
         return None
-    from openpose_plus_tpu_torch.postproc import decode_maps
-
-    conf, paf = run.engine.forward(run.driver.model_batch())
-    cfg = run.engine.config.postproc
+    decode = families.of(run.model).decode_call(run)
     with torch.inference_mode():
-        decode_maps(conf, paf, cfg)
+        decode()
         torch.cuda.synchronize(run.device)
         graph = torch.cuda.CUDAGraph()
         with tracer.recording() as rec, torch.cuda.graph(graph):
             for _ in range(CALLS):
-                decode_maps(conf, paf, cfg)
+                decode()
     per: dict = {}
     for _ in range(REPLAYS):
         graph.replay()

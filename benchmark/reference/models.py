@@ -5,19 +5,28 @@ makes from the seed and hands to both sides), with TF32 off.
 Each network is a file of its own, `reference/networks/<model name>.py`,
 found by the configuration's `model.name`. It gives
 
-    forward(x, sd, n_stages, r) -> (conf, paf)   NCHW float32, `r` the
-                                  rounding of what the network stores
-    heads(n_stages)        the module prefixes of the last heatmap and the
-                           last PAF prediction (the heads `weights` scales)
-    predictions(n_stages)  the module prefixes of every prediction conv
+    FAMILY                 the name of its decode family,
+                           `reference/families/<name>.py` (no default),
+                           which reads its maps, scales its heads and
+                           groups people
+    forward(x, sd, model, r) -> tuple of maps, NCHW float32, as its family
+                           reads them; `model` the configuration's model
+                           section, `r` the rounding of what the network
+                           stores
+    heads(model)           the module prefixes of the prediction convs
+                           whose outputs its family's head rule scales
+    predictions(model)     the module prefixes of every prediction conv
                            (their biases start at zero)
-    SKELETON               the name of its skeleton,
+    SKELETON               the name of the skeleton file its family reads,
                            `reference/skeletons/<name>.json`
     OTHER_STD              optional: the standard deviation of parameters
                            that are neither conv kernels nor biases (a
                            PReLU slope); without it they take the biases'
+    CPU_CUT                optional: model keys, beside the input size,
+                           that a CPU test may cut to a value the network
+                           accepts
 
-and builds on the pieces here: `conv`, `sep`, `branch`, `stages`.
+and builds on the pieces here: `conv`, `sep`, `branch`.
 
 Every conv pads as TensorFlow's SAME (an odd total puts the extra row or
 column at the end), adds its bias, then ReLU; the predictions have no
@@ -33,6 +42,7 @@ bf16 storage alone moves a given network's maps.
 from __future__ import annotations
 
 import contextlib
+import importlib
 import importlib.util
 import os
 import types
@@ -113,29 +123,6 @@ def branch(x: torch.Tensor, sd: dict, name: str, r) -> torch.Tensor:
                 relu=False)
 
 
-def stages(feature: torch.Tensor, sd: dict, n_stages: int, r
-           ) -> tuple[torch.Tensor, torch.Tensor]:
-    x = feature
-    for s in range(1, n_stages + 1):
-        if s > 1:
-            x = torch.cat([feature, r(conf), r(paf)], dim=1)
-        conf = branch(x, sd, f"stages.stage{s}_conf", r)
-        paf = branch(x, sd, f"stages.stage{s}_paf", r)
-    return conf, paf
-
-
-def stage_heads(n_stages: int) -> tuple[str, str]:
-    """The (conf, paf) prediction prefixes of stage `n_stages` of
-    `stages`."""
-    return (f"stages.stage{n_stages}_conf.Conv_0",
-            f"stages.stage{n_stages}_paf.Conv_0")
-
-
-def stage_predictions(n_stages: int) -> list[str]:
-    """Every prediction prefix of `stages`."""
-    return [p for s in range(1, n_stages + 1) for p in stage_heads(s)]
-
-
 def network(name: str) -> types.ModuleType:
     """The network file `reference/networks/<name>.py`, loaded."""
     path = os.path.join(NETWORK_DIR, f"{name}.py")
@@ -149,14 +136,25 @@ def network(name: str) -> types.ModuleType:
     return module
 
 
+def family(net: types.ModuleType) -> types.ModuleType:
+    """The decode family `reference/families/<net.FAMILY>.py` of a loaded
+    network file."""
+    name = getattr(net, "FAMILY", None)
+    if name is None:
+        raise AttributeError(f"{net.__file__} names no FAMILY")
+    return importlib.import_module(f"reference.families.{name}")
+
+
 @torch.no_grad()
-def forward(arch: str, sd: dict, images: torch.Tensor, n_stages: int,
-            bf16: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
-    """uint8 (B, H, W, 3) -> the network `arch`'s last (conf, paf), (B,
-    H/8, W/8, heatmaps / PAF channels) float32, on the images' device;
-    `bf16` rounds what a bf16 network stores (module docstring)."""
+def forward(model: dict, sd: dict, images: torch.Tensor, bf16: bool = False,
+            r=None) -> tuple:
+    """uint8 (B, H, W, 3) -> the maps of the network `model["name"]` (its
+    family's outputs, each (B, h, w, channels) float32) on the images'
+    device; `bf16` rounds what a bf16 network stores (module docstring),
+    `r`, where given, rounds it another way."""
     x = images.permute(0, 3, 1, 2).float() / 255.0 - 0.5
+    if r is None:
+        r = _bf16 if bf16 else _keep
     with no_tf32():
-        conf, paf = network(arch).forward(x, sd, n_stages,
-                                          _bf16 if bf16 else _keep)
-    return conf.permute(0, 2, 3, 1), paf.permute(0, 2, 3, 1)
+        maps = network(model["name"]).forward(x, sd, model, r)
+    return tuple(m.permute(0, 2, 3, 1) for m in maps)

@@ -17,6 +17,7 @@ import torch.nn.functional as F
 
 from reference import models
 
+FAMILY = "paf"
 SKELETON = "body25"
 OTHER_STD = 0.25                 # the PReLU slopes, drawn about zero
 N_PAF, N_CONF, N_BLOCKS = 4, 2, 5
@@ -49,14 +50,15 @@ def stage(x, sd: dict, name: str, r):
                        sd[f"{name}.Mconv7.bias"], relu=False)
 
 
-def _check(n_stages: int) -> None:
+def _check(model: dict) -> None:
+    n_stages = model["n_stages"]
     if n_stages != N_PAF + N_CONF:
         raise ValueError(f"BODY_25 has {N_PAF} PAF and {N_CONF} heatmap "
                          f"stages, not {n_stages}")
 
 
-def forward(x, sd: dict, n_stages: int, r):
-    _check(n_stages)
+def forward(x, sd: dict, model: dict, r):
+    _check(model)
     for prefix, n, pool in FRONT:
         for i in range(1, n + 1):
             x = models.conv(x, sd[f"{prefix}_{i}.weight"],
@@ -77,13 +79,13 @@ def forward(x, sd: dict, n_stages: int, r):
     return conf, paf
 
 
-def heads(n_stages: int) -> tuple[str, str]:
-    _check(n_stages)
+def heads(model: dict) -> tuple[str, str]:
+    _check(model)
     return (f"stages.stage{N_CONF - 1}_L1.Mconv7",
             f"stages.stage{N_PAF - 1}_L2.Mconv7")
 
 
-def predictions(n_stages: int) -> list[str]:
-    _check(n_stages)
+def predictions(model: dict) -> list[str]:
+    _check(model)
     return ([f"stages.stage{s}_L2.Mconv7" for s in range(N_PAF)]
             + [f"stages.stage{s}_L1.Mconv7" for s in range(N_CONF)])

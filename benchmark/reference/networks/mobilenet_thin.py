@@ -11,12 +11,15 @@ import torch
 import torch.nn.functional as F
 
 from reference import models
+from reference.families import paf
 
+FAMILY = "paf"
 SKELETON = "coco18"
+CPU_CUT = {"n_stages": 2}         # it runs with any stage count
 STRIDES = {"dw2": 2, "dw4": 2}
 
 
-def forward(x, sd: dict, n_stages: int, r):
+def forward(x, sd: dict, model: dict, r):
     x = models.conv(x, sd["conv1.weight"], sd["conv1.bias"], r, stride=2)
     feat_s4 = None
     for i in range(1, 10):
@@ -24,8 +27,8 @@ def forward(x, sd: dict, n_stages: int, r):
         if i == 3:
             feat_s4 = x
     feature = torch.cat([F.max_pool2d(feat_s4, 2, 2), x], dim=1)
-    return models.stages(feature, sd, n_stages, r)
+    return paf.stages(feature, sd, model["n_stages"], r)
 
 
-heads = models.stage_heads
-predictions = models.stage_predictions
+heads = paf.stage_heads
+predictions = paf.stage_predictions

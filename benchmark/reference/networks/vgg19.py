@@ -8,13 +8,16 @@ from __future__ import annotations
 import torch.nn.functional as F
 
 from reference import models
+from reference.families import paf
 
+FAMILY = "paf"
 SKELETON = "coco18"
+CPU_CUT = {"n_stages": 2}         # it runs with any stage count
 BLOCKS = (("conv1", 2, True), ("conv2", 2, True), ("conv3", 4, True),
           ("conv4", 2, False))
 
 
-def forward(x, sd: dict, n_stages: int, r):
+def forward(x, sd: dict, model: dict, r):
     for prefix, n, pool in BLOCKS:
         for i in range(1, n + 1):
             x = models.conv(x, sd[f"{prefix}_{i}.weight"],
@@ -23,8 +26,8 @@ def forward(x, sd: dict, n_stages: int, r):
             x = F.max_pool2d(x, 2, 2)
     for name in ("conv4_3_cpm", "conv4_4_cpm"):
         x = models.conv(x, sd[f"{name}.weight"], sd[f"{name}.bias"], r)
-    return models.stages(x, sd, n_stages, r)
+    return paf.stages(x, sd, model["n_stages"], r)
 
 
-heads = models.stage_heads
-predictions = models.stage_predictions
+heads = paf.stage_heads
+predictions = paf.stage_predictions

@@ -2,8 +2,10 @@
 and decides inside itself whether there is one.
 
 `tiny_root` copies the benchmark's data files into a temporary checkout
-with every cell cut to a size a CPU test holds (96x112 inputs, two
-stages, batches of two, a handful of inputs) and limits for that size.
+with every cell cut to a size a CPU test holds (96x112 inputs, batches of
+two, a handful of inputs; what else its network file names as a CPU cut,
+`CPU_CUT`: two stages of VGG19's and MobileNet-thin's six, none of
+BODY_25's, which takes no other count) and limits for that size.
 There sound runs on seeds 5-8 read 0.59-1.0 bf16 units at the keypoints
 (the int8 control 2.4-19), lose 0-0.08 of the reference's steady people
 (a person of each image left out: 0.11-0.27) and serve 0-0.04 of their
@@ -25,7 +27,9 @@ ROOT = os.path.dirname(BENCH)
 sys.path[:0] = [p for p in (BENCH, ROOT) if p not in sys.path]
 torch.set_num_threads(2)
 
-TINY_MODEL = {"hin": 96, "win": 112, "n_stages": 2}
+from reference import models  # noqa: E402
+
+TINY_MODEL = {"hin": 96, "win": 112}
 TINY_TRAFFIC = {"height": 120, "width": 160, "batches": 3,
                 "check_batches": 2, "frames": 3}
 TINY_LIMITS = {"peak_error_bf16_units": 2.0, "steady_people_lost": 0.1,
@@ -51,6 +55,8 @@ def make_tiny_root(path: str) -> tuple[str, str]:
         with open(os.path.join(ROOT, c["file"])) as f:
             cfg = json.load(f)
         cfg["model"].update(TINY_MODEL)
+        cfg["model"].update(getattr(models.network(cfg["model"]["name"]),
+                                    "CPU_CUT", {}))
         with open(os.path.join(path, c["file"]), "w") as f:
             json.dump(cfg, f)
     for name in os.listdir(os.path.join(bdir, "traffic")):

@@ -23,6 +23,7 @@ from reference import models, oracle
 
 ARCH, WORKLOAD, N_STAGES = "body25", "body25.batch_bs8", 6
 HIN, WIN = 96, 112
+MODEL = {"name": ARCH, "hin": HIN, "win": WIN, "n_stages": N_STAGES}
 # 2 x the convs' multiply-adds at 368 x 656, every tap counted: the VGG
 # front to conv4_1 116,524,744,704; conv4_2 and the CPM convs
 # 28,922,609,664; the PAF stages 98,421,075,968; the heatmap stages
@@ -55,18 +56,17 @@ def test_forward_matches_program_float32():
     from openpose_plus_tpu_torch.engine import Engine
 
     sd = weights.make(_shapes(HIN, WIN), BIG_SEED, torch.device("cpu"),
-                      0.05, ARCH, N_STAGES)
+                      0.05, MODEL)
     rng = np.random.default_rng(BIG_SEED)
     images = np.stack([scenes.render(rng, HIN, WIN, (2, 4))
                        for _ in range(2)])
-    weights.scale_heads(sd, ARCH, N_STAGES, torch.from_numpy(images[:1]),
-                        0.7, 5.0)
+    weights.scale_heads(sd, MODEL, torch.from_numpy(images[:1]),
+                        {"conf_max": 0.7, "paf_max": 5.0})
     cfg = default_config(ARCH)
     cfg = cfg.replace(model=dataclasses.replace(
         cfg.model, hin=HIN, win=WIN, compute_dtype="float32"))
     conf, paf = Engine(cfg, params=sd, device="cpu").forward(images)
-    rconf, rpaf = models.forward(ARCH, sd, torch.from_numpy(images),
-                                 N_STAGES)
+    rconf, rpaf = models.forward(MODEL, sd, torch.from_numpy(images))
     assert conf.shape == (2, HIN // 8, WIN // 8, 26)
     assert paf.shape == (2, HIN // 8, WIN // 8, 52)
     for got, want in ((conf, rconf), (paf, rpaf)):
@@ -77,10 +77,9 @@ def test_forward_matches_program_float32():
 
 def test_flops_are_pinned():
     shapes = _shapes(368, 656)
-    assert cost.cnn_flops(ARCH, shapes, 1, 368, 656, N_STAGES) \
-        == FLOPS_368X656
-    assert cost.cnn_flops(ARCH, shapes, 8, 368, 656, N_STAGES) \
-        == 8 * FLOPS_368X656
+    full = dict(MODEL, hin=368, win=656)
+    assert cost.cnn_flops(full, shapes, 1) == FLOPS_368X656
+    assert cost.cnn_flops(full, shapes, 8) == 8 * FLOPS_368X656
 
 
 def test_network_names_its_skeleton_and_heads():
@@ -90,26 +89,25 @@ def test_network_names_its_skeleton_and_heads():
     assert sorted(c for pair in skel.paf_channels for c in pair) \
         == list(range(52))
     shapes = _shapes(HIN, WIN)
-    assert {f"{p}.bias" for p in net.predictions(N_STAGES)} <= set(shapes)
-    assert set(net.heads(N_STAGES)) <= set(net.predictions(N_STAGES))
+    assert {f"{p}.bias" for p in net.predictions(MODEL)} <= set(shapes)
+    assert set(net.heads(MODEL)) <= set(net.predictions(MODEL))
     assert any(n.endswith(".slope") for n in shapes)
     with pytest.raises(ValueError, match="stages"):
-        net.heads(2)
+        net.heads(dict(MODEL, n_stages=2))
 
 
 def _body25_root(path: str) -> tuple[str, str]:
-    """The benchmark cut to the CPU's size, BODY_25 at HIN x WIN with its
-    six stages."""
+    """The benchmark cut to the CPU's size (BODY_25 at HIN x WIN with its
+    six stages), with the cut cell's limits."""
     root, bdir = make_tiny_root(path)
     with open(os.path.join(root, "BENCHMARK.json")) as f:
         bench = json.load(f)
     cfile = {c["name"]: c["file"] for c in bench["configs"]}[
         "body25-368x656"]
     with open(os.path.join(root, cfile)) as f:
-        config = json.load(f)
-    config["model"].update(hin=HIN, win=WIN, n_stages=N_STAGES)
-    with open(os.path.join(root, cfile), "w") as f:
-        json.dump(config, f)
+        model = json.load(f)["model"]
+    assert (model["hin"], model["win"], model["n_stages"]) == (
+        HIN, WIN, N_STAGES)
     with open(os.path.join(bdir, "limits", f"{WORKLOAD}.json"), "w") as f:
         json.dump({k: {"limit": v} for k, v in CUT_LIMITS.items()}, f)
     return root, bdir

@@ -22,7 +22,7 @@ POSTPROC = {"max_peaks": 16, "max_humans": 32, "peak_threshold": 0.05,
 
 def _served_back(ref: check.Reference, i: int, rows: int = 32) -> dict:
     """The float32 reference's people of image i as an answer."""
-    xy, score = ref.people[i]
+    xy, score = ref.people[i][:2]
     h, w = ref.extent
     ans = {"coords": np.zeros((rows, 18, 2), np.float32),
            "part_scores": np.zeros((rows, 18), np.float32),

@@ -43,8 +43,9 @@ def test_vgg19_served_call_flops_by_hand():
         hand += _conv(h, w, 512, out, 1)
         hand += 5 * (_conv(h, w, 185, 128, 7) + 4 * _conv(h, w, 128, 128, 7)
                      + _conv(h, w, 128, 128, 1) + _conv(h, w, 128, out, 1))
-    got = cost.cnn_flops("vgg19", _shapes("vgg19", hin=368, win=656),
-                         1, 368, 656, 6)
+    got = cost.cnn_flops({"name": "vgg19", "hin": 368, "win": 656,
+                          "n_stages": 6},
+                         _shapes("vgg19", hin=368, win=656), 1)
     assert got == hand
     assert 484e9 < got < 486e9           # the port's bench: 484.81 GF
 
@@ -87,7 +88,7 @@ class _Run:
             self.cell = type("C", (), {"config": json.load(f)})()
 
     def flops_per_image(self):
-        return cost.cnn_flops("mobilenet_thin", self.shapes, 1, 368, 432, 6)
+        return cost.cnn_flops(self.model, self.shapes, 1)
 
 
 def test_roofline_and_mfu_readers():

@@ -25,6 +25,7 @@ import torch.nn.functional as F
 
 from reference import models
 
+FAMILY = "paf"
 SKELETON = "toy5"
 OTHER_STD = 0.25
 
@@ -44,23 +45,24 @@ def predict(x, sd, name):
                        relu=False)
 
 
-def forward(x, sd, n_stages, r):
+def forward(x, sd, model, r):
     for i in (1, 2, 3):
         x = conv_prelu(x, sd, f"stem{i}", r, stride=2)
     feature, paf = x, None
-    for s in range(1, n_stages + 1):
+    for s in range(1, model["n_stages"] + 1):
         inp = feature if paf is None else torch.cat([feature, r(paf)], 1)
         paf = predict(conv_prelu(inp, sd, f"paf{s}", r), sd, f"paf{s}.pred")
     mid = conv_prelu(torch.cat([feature, r(paf)], 1), sd, "conf1", r)
     return predict(mid, sd, "conf1.pred"), paf
 
 
-def heads(n_stages):
-    return "conf1.pred", f"paf{n_stages}.pred"
+def heads(model):
+    return "conf1.pred", f"paf{model['n_stages']}.pred"
 
 
-def predictions(n_stages):
-    return ["conf1.pred"] + [f"paf{s}.pred" for s in range(1, n_stages + 1)]
+def predictions(model):
+    return ["conf1.pred"] + [f"paf{s}.pred"
+                             for s in range(1, model["n_stages"] + 1)]
 '''
 
 TOY_SKELETON = {"name": "toy5", "source": "a chain of five parts",
@@ -134,12 +136,12 @@ assert {m["name"] for m in cell.end_to_end} == {"images_per_s", "setup_s"}
 m, w, pp = cell.config["model"], cell.config["weights"], cell.config["postproc"]
 net = models.network(m["name"])
 
-sd = weights.make(shapes, SEED, cpu, w["bias_std"], m["name"], m["n_stages"])
+sd = weights.make(shapes, SEED, cpu, w["bias_std"], m)
 gen = torch.Generator(device=cpu)
 gen.manual_seed(SEED)
 raw = torch.randn(sum(int(np.prod(s)) for s in shapes.values()),
                   generator=gen).split([int(np.prod(s)) for s in shapes.values()])
-zero = {p + ".bias" for p in net.predictions(m["n_stages"])}
+zero = {p + ".bias" for p in net.predictions(m)}
 for (name, shape), r in zip(shapes.items(), raw):
     if name.endswith(".act.weight"):
         std = net.OTHER_STD                      # a PReLU slope
@@ -151,17 +153,14 @@ for (name, shape), r in zip(shapes.items(), raw):
     assert torch.equal(sd[name], (r * std).view(shape)), name
 
 planes = np.stack(scenes.render_many(SEED, 6, m["hin"], m["win"], (2, 5)))
-gains = weights.scale_heads(sd, m["name"], m["n_stages"],
-                            torch.from_numpy(planes[:1]), w["conf_max"],
-                            w["paf_max"])
-conf, paf = models.forward(m["name"], sd, torch.from_numpy(planes[:1]),
-                           m["n_stages"])
+gains = weights.scale_heads(sd, m, torch.from_numpy(planes[:1]), w)
+conf, paf = models.forward(m, sd, torch.from_numpy(planes[:1]))
 peaks = [float(conf.abs().max()), float(paf.abs().max())]
 assert conf.shape[-1] == 6 and paf.shape[-1] == 8, (conf.shape, paf.shape)
 assert abs(peaks[0] - w["conf_max"]) < 1e-5 * w["conf_max"], peaks
 assert abs(peaks[1] - w["paf_max"]) < 1e-5 * w["paf_max"], peaks
 
-flops = cost.cnn_flops(m["name"], shapes, 1, m["hin"], m["win"], m["n_stages"])
+flops = cost.cnn_flops(m, shapes, 1)
 assert flops == int(sys.argv[3]), (flops, sys.argv[3])
 
 ref = check.reference(cell.config, sd, planes, pp, cpu)
@@ -171,7 +170,7 @@ assert people >= 6, people
 
 
 def served_back(i, n_parts=5, rows=32):
-    xy, score = ref.people[i]
+    xy, score = ref.people[i][:2]
     h, w_ = ref.extent
     ans = {"coords": np.zeros((rows, n_parts, 2), np.float32),
            "part_scores": np.zeros((rows, n_parts), np.float32),

@@ -51,6 +51,14 @@ PINNED = {
 }
 
 
+PEAKS = {"conf_max": 0.7, "paf_max": 5.0}
+
+
+def _model(arch: str) -> dict:
+    """The model section of a network at HIN x WIN with two stages."""
+    return {"name": arch, "hin": HIN, "win": WIN, "n_stages": 2}
+
+
 def _shapes(arch: str, **model) -> dict:
     from openpose_plus_tpu_torch.config import default_config
     from openpose_plus_tpu_torch.models import get_model
@@ -65,7 +73,8 @@ def _seeded(arch: str, seed: int):
     """(shapes, weights from the seed, two scenes) at HIN x WIN."""
     shapes = _shapes(arch, hin=HIN, win=WIN, n_stages=2,
                      compute_dtype="float32")
-    sd = weights.make(shapes, seed, torch.device("cpu"), 0.05, arch, 2)
+    sd = weights.make(shapes, seed, torch.device("cpu"), 0.05,
+                      _model(arch))
     rng = np.random.default_rng(seed)
     images = np.stack([scenes.render(rng, HIN, WIN, (2, 5))
                        for _ in range(2)])
@@ -79,7 +88,8 @@ def _setup(arch: str, seed: int):
     cfg = cfg.replace(model=dataclasses.replace(
         cfg.model, hin=HIN, win=WIN, n_stages=2, compute_dtype="float32"))
     _, sd, images = _seeded(arch, seed)
-    weights.scale_heads(sd, arch, 2, torch.from_numpy(images[:1]), 0.7, 5.0)
+    weights.scale_heads(sd, _model(arch), torch.from_numpy(images[:1]),
+                        PEAKS)
     return cfg, sd, images
 
 
@@ -95,14 +105,14 @@ def test_readings_are_pinned(arch):
     pin = PINNED[arch]
     shapes, sd, images = _seeded(arch, BIG_SEED)
     assert _digest(sd[n] for n in shapes) == pin["state_dict"]
-    gains = weights.scale_heads(sd, arch, 2, torch.from_numpy(images[:1]),
-                                0.7, 5.0)
+    gains = weights.scale_heads(sd, _model(arch),
+                                torch.from_numpy(images[:1]), PEAKS)
     assert gains == pin["gains"]
     assert _digest(sd[n] for n in shapes) == pin["scaled"]
     x = torch.from_numpy(images)
-    conf, paf = models.forward(arch, sd, x, 2)
+    conf, paf = models.forward(_model(arch), sd, x)
     assert _digest([conf, paf]) == pin["maps"]
-    assert _digest(models.forward(arch, sd, x, 2, bf16=True)) == \
+    assert _digest(models.forward(_model(arch), sd, x, bf16=True)) == \
         pin["maps_bf16"]
     skel = oracle.load_skeleton(models.network(arch).SKELETON)
     people, _ = rdecode.decode(conf, paf, POSTPROC, skel)
@@ -115,8 +125,7 @@ def test_readings_are_pinned(arch):
     with open(os.path.join(BENCH, "configs", f"{pin['config']}.json")) as f:
         m = json.load(f)["model"]
     full = _shapes(arch, **{k: m[k] for k in ("hin", "win", "n_stages")})
-    assert cost.cnn_flops(arch, full, 1, m["hin"], m["win"],
-                          m["n_stages"]) == pin["flops"]
+    assert cost.cnn_flops(m, full, 1) == pin["flops"]
 
 
 @pytest.mark.parametrize("arch", ["mobilenet_thin", "vgg19"])
@@ -125,7 +134,8 @@ def test_forward_matches_program_float32(arch):
 
     cfg, sd, images = _setup(arch, BIG_SEED)
     conf, paf = Engine(cfg, params=sd, device="cpu").forward(images)
-    rconf, rpaf = models.forward(arch, sd, torch.from_numpy(images), 2)
+    rconf, rpaf = models.forward(_model(arch), sd,
+                                 torch.from_numpy(images))
     for got, want in ((conf, rconf), (paf, rpaf)):
         scale = float(want.abs().max())
         assert scale > 0.1
@@ -139,8 +149,8 @@ def test_decode_matches_program_decoder(fidelity):
 
     pp = PostprocConfig().fidelity() if fidelity else PostprocConfig()
     _, sd, images = _setup("mobilenet_thin", 7)
-    conf, paf = models.forward("mobilenet_thin", sd,
-                               torch.from_numpy(images), 2)
+    conf, paf = models.forward(_model("mobilenet_thin"), sd,
+                               torch.from_numpy(images))
     hb = decode_maps(conf, paf, pp)
     people, smoothed = rdecode.decode(conf, paf, dataclasses.asdict(pp),
                                       oracle.load_skeleton("coco18"))
@@ -178,5 +188,5 @@ def test_letterbox_matches_program_loader():
 
 def test_unknown_network_names_the_file_it_looked_for():
     with pytest.raises(FileNotFoundError, match=r"networks/no_such_net\.py"):
-        models.forward("no_such_net", {}, torch.zeros((1, 8, 8, 3),
-                                                      dtype=torch.uint8), 1)
+        models.forward({"name": "no_such_net"}, {},
+                       torch.zeros((1, 8, 8, 3), dtype=torch.uint8))

@@ -31,9 +31,10 @@ def test_weights_follow_the_seed():
               "stages.stage1_paf.Conv_0.weight": (2, 4, 1, 1),
               "stages.stage1_paf.Conv_0.bias": (2,)}
     cpu = torch.device("cpu")
-    one = weights.make(shapes, BIG_SEED, cpu, 0.05, "vgg19", 1)
-    two = weights.make(shapes, BIG_SEED, cpu, 0.05, "vgg19", 1)
-    other = weights.make(shapes, 3, cpu, 0.05, "vgg19", 1)
+    model = {"name": "vgg19", "n_stages": 1}
+    one = weights.make(shapes, BIG_SEED, cpu, 0.05, model)
+    two = weights.make(shapes, BIG_SEED, cpu, 0.05, model)
+    other = weights.make(shapes, 3, cpu, 0.05, model)
     assert all(torch.equal(one[k], two[k]) for k in shapes)
     assert not torch.equal(one["a.weight"], other["a.weight"])
     assert not one[f"{head}.bias"].any() and one["a.bias"].any()
